@@ -1,0 +1,148 @@
+"""Build and load the port's CUDA kernels.
+
+Every `*.cu` file under `adam_dehaze_tpu_torch/csrc/` is compiled by `nvcc`
+for Hopper (`sm_90a`) into ONE shared library with a plain C interface,
+loaded with `ctypes`. The library goes to `build/kernels/<hash>/` at the
+repository root (listed in .gitignore), keyed by a hash of the sources and
+the flags, so a rebuilt source never loads a stale binary and an unchanged
+one builds once per checkout. A plain C interface keeps the build to a few
+seconds: no PyTorch header is compiled.
+
+Each C entry point takes its pointers and the CUDA stream as `void*`, enqueues
+its kernel on that stream (PyTorch's current stream) and returns
+`cudaGetLastError()`; `check()` raises on anything but 0. A failed build
+raises with the compiler's own message. Nothing here falls back to plain
+PyTorch.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parents[2]          # adam_dehaze_tpu_torch/
+CSRC = _PKG / "csrc"
+BUILD_ROOT = _PKG.parent / "build" / "kernels"
+LIB_NAME = "libadam_dehaze_kernels.so"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+F = ctypes.c_float
+
+# C signatures of every entry point: (argtypes); restype is int, a
+# cudaError_t unless noted.
+_SIGNATURES = {
+    # x, g, mean_p, max_p, w, out, B, H, W, C, is_bf16, stream
+    "cbam_gate": (P, P, P, P, P, P, I, I, I, I, I, P),
+    # x, w, shift, residual, out, N, H, W, Cin, Cout, relu, is_bf16, stream
+    "conv3x3_bn_act": (P, P, P, P, P, I, I, I, I, I, I, I, P),
+    # h, w, shift, x_in, out, alpha, N, H, W, Cin, Cout, is_bf16, stream
+    "conv3x3_sigmoid_blend": (P, P, P, P, P, F, I, I, I, I, I, I, P),
+    # Cin, Cout, is_bf16; returns shared-memory bytes per block, or -1
+    "conv3x3_smem_bytes": (I, I, I),
+}
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels of adam_dehaze_tpu_torch "
+                       "need the CUDA toolkit to build")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in _sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> tuple:
+    """Compile the library if this source hash has not been built yet.
+
+    Returns (library path, build seconds, compiler log). The build seconds
+    are 0.0 when an earlier build of the same sources was found."""
+    out_dir = BUILD_ROOT / _source_hash()
+    lib = out_dir / LIB_NAME
+    log_path = out_dir / "nvcc.log"
+    if lib.exists():
+        return lib, 0.0, log_path.read_text() if log_path.exists() else ""
+    nvcc = _nvcc()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    log_path.write_text(proc.stdout + proc.stderr)
+    os.replace(tmp, lib)
+    return lib, seconds, proc.stdout + proc.stderr
+
+
+@functools.lru_cache(maxsize=1)
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use (one per process)."""
+    path, _, _ = build()
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.cuda_error_string.argtypes = [ctypes.c_int]
+    lib.cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if err != 0:
+        text = library().cuda_error_string(err).decode()
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError_t {err} ({text})")
+
+
+def stream_ptr(device) -> int:
+    """The raw handle of PyTorch's current CUDA stream on `device`."""
+    import torch
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(cond: bool, name: str, what: str) -> None:
+    """Raise ValueError for an input a kernel does not take."""
+    if not cond:
+        raise ValueError(f"{name}: {what}")
+
+
+def require_cuda_inputs(name: str, *tensors) -> None:
+    """Every tensor on one CUDA device, none needing a gradient: the kernels
+    are forward-only (their backward kernels come with training)."""
+    import torch
+    dev = tensors[0].device
+    for t in tensors:
+        require(t.device == dev, name, f"tensors on {dev} and {t.device}")
+    require(dev.type == "cuda", name, f"expects CUDA or CPU tensors, got {dev}")
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(f"{name} has no backward kernel yet; call it under "
+                           "torch.no_grad() or torch.inference_mode()")

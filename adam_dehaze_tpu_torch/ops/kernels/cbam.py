@@ -1,0 +1,84 @@
+"""K2: the fused CBAM gate of AttentionBlock.
+
+Counterpart of adam_dehaze_tpu/ops/pallas/cbam.py: `channel_spatial_gate`
+computes
+
+    out = (x * g) * sigmoid(conv7x7([mean_c, max_c](x * g)))   zero pad 3
+
+for x (B, H, W, C) NHWC, the channel gate g (B, C) and the stencil
+w (7, 7, 2, 1) in the JAX layout (HWIO). As on the TPU, the (mean, max) maps
+of the gated tensor are reduced by plain tensor code in f32; the kernel
+(csrc/cbam_gate.cu, replacing the TPU kernel `_kernel_cgate`) then reads x
+once, applies both gates, and writes once. The JAX wrapper gave way to XLA
+when VMEM was too small; that limit was the TPU's and has no counterpart
+here. Memory bound: see the source note in csrc/cbam_gate.cu.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from adam_dehaze_tpu_torch.ops.kernels import _build
+
+_HALO = 3
+
+
+def channel_spatial_gate_reference(x: torch.Tensor, g: torch.Tensor,
+                                   w: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version: the JAX package's
+    `channel_spatial_gate_reference` (gate, stats and stencil in x.dtype)."""
+    gated = x * g.to(x.dtype)[:, None, None, :]
+    stats = torch.stack([gated.mean(dim=-1), gated.amax(dim=-1)], dim=1)
+    gate = F.conv2d(stats, w.to(x.dtype).permute(3, 2, 0, 1), padding=_HALO)
+    return gated * torch.sigmoid(gate).permute(0, 2, 3, 1)
+
+
+def padded_stats(x: torch.Tensor, g: torch.Tensor):
+    """The f32 (mean, max) maps of x * g over channels, zero-padded by the
+    stencil's halo on every side: (B, H+6, W+6) each."""
+    gated = x.float() * g.float()[:, None, None, :]
+    pad = (_HALO, _HALO, _HALO, _HALO)
+    return (F.pad(gated.mean(dim=-1), pad).contiguous(),
+            F.pad(gated.amax(dim=-1), pad).contiguous())
+
+
+def launch_cbam_gate(x, g, mean_p, max_p, w, out) -> None:
+    """Enqueue the kernel on prepared inputs (see `channel_spatial_gate`)."""
+    b, h, wd, c = x.shape
+    err = _build.library().cbam_gate(
+        x.data_ptr(), g.data_ptr(), mean_p.data_ptr(), max_p.data_ptr(),
+        w.data_ptr(), out.data_ptr(), b, h, wd, c,
+        int(x.dtype == torch.bfloat16), _build.stream_ptr(x.device))
+    _build.check(err, "cbam_gate")
+    channel_spatial_gate.launches += 1
+
+
+def channel_spatial_gate(x: torch.Tensor, g: torch.Tensor,
+                         w: torch.Tensor) -> torch.Tensor:
+    """Both CBAM gates in one pass. x: (B, H, W, C) NHWC; g: (B, C);
+    w: (7, 7, 2, 1). A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel, which takes float32 or bfloat16 x, contiguous, with
+    C a multiple of 8."""
+    if x.device.type == "cpu":
+        return channel_spatial_gate_reference(x, g, w)
+    name = "channel_spatial_gate"
+    _build.require_cuda_inputs(name, x, g, w)
+    _build.require(x.dim() == 4, name, f"x must be (B, H, W, C), got {tuple(x.shape)}")
+    b, _, _, c = x.shape
+    _build.require(x.dtype in (torch.float32, torch.bfloat16), name,
+                   f"x dtype {x.dtype} not float32/bfloat16")
+    _build.require(x.is_contiguous(), name, "x must be contiguous NHWC")
+    _build.require(x.data_ptr() % 16 == 0, name, "x must be 16-byte aligned")
+    _build.require(c % 8 == 0, name, f"C={c} is not a multiple of 8")
+    _build.require(tuple(g.shape) == (b, c), name,
+                   f"g must be {(b, c)}, got {tuple(g.shape)}")
+    _build.require(tuple(w.shape) == (7, 7, 2, 1), name,
+                   f"w must be (7, 7, 2, 1), got {tuple(w.shape)}")
+    mean_p, max_p = padded_stats(x, g)
+    out = torch.empty_like(x)
+    launch_cbam_gate(x, g.float().contiguous(), mean_p, max_p,
+                     w.float().contiguous(), out)
+    return out
+
+
+channel_spatial_gate.launches = 0

@@ -1,0 +1,245 @@
+"""Weights from the JAX package into the port.
+
+`load_flax_variables(module, variables)` fills a port module from the JAX
+package's `{"params", "batch_stats"}` tree (nested dicts of arrays): a
+block, a branch, the classifier, or a whole router (subtrees `classifier` and
+`models_{low,medium,high}`). It inverts the layout conversions of
+adam_dehaze_tpu/training/checkpoint.py (convert_torch_conv,
+convert_torch_linear, convert_torch_convtranspose) along the same
+block tables (_block_assigns, _branch_layout, load_torch_resnet,
+load_torch_classifier). Because the port registers its submodules under
+the upstream reference's torch names, `module.state_dict()` fed back
+through the JAX side's `load_torch_joint` gives the original tree.
+
+orbax checkpoints, which only JAX reads, are not read here.
+"""
+from __future__ import annotations
+
+from typing import Callable, List, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from adam_dehaze_tpu_torch.models.branches import (
+    HighIntensityDehazeModel,
+    LightweightDehazeModel,
+    MediumIntensityDehazeModel,
+)
+from adam_dehaze_tpu_torch.models.classifier import FogIntensityClassifier
+from adam_dehaze_tpu_torch.models.routing import (
+    INTENSITY_ORDER,
+    HardRouter,
+    SoftRouter,
+)
+from adam_dehaze_tpu_torch.nn.blocks import (
+    AttentionBlock,
+    ConvBlock,
+    ResidualBlock,
+    UpBlock,
+)
+
+# (torch key, collection, flax path, transform or None)
+Assign = Tuple[str, str, tuple, Optional[Callable]]
+
+
+def _conv(k):
+    """flax HWIO -> torch OIHW."""
+    return np.transpose(k, (3, 2, 0, 1))
+
+
+def _linear(k):
+    """flax (in, out) -> torch (out, in)."""
+    return np.transpose(k)
+
+
+def _dense_as_1x1(k):
+    """flax Dense (in, out) -> torch 1x1 Conv2d (out, in, 1, 1)."""
+    return np.transpose(k)[:, :, None, None]
+
+
+def _convtranspose(k):
+    """flax ConvTranspose (kH, kW, in, out), spatially flipped -> torch
+    ConvTranspose2d (in, out, kH, kW)."""
+    return np.transpose(k[::-1, ::-1], (2, 3, 0, 1))
+
+
+def _bn(tp: str, fp: tuple, out: List[Assign]) -> None:
+    out += [(f"{tp}.weight", "params", fp + ("scale",), None),
+            (f"{tp}.bias", "params", fp + ("bias",), None),
+            (f"{tp}.running_mean", "batch_stats", fp + ("mean",), None),
+            (f"{tp}.running_var", "batch_stats", fp + ("var",), None)]
+
+
+def _block(kind: str, tp: str, fp: tuple, keys, out: List[Assign]) -> None:
+    """One reference block at torch prefix `tp` ("" for a lone block) and
+    flax path `fp` (kinds as in the JAX package's _block_assigns)."""
+    def k(name):
+        return f"{tp}.{name}" if tp else name
+
+    if kind == "CB":
+        out.append((k("block.0.weight"), "params", fp + ("Conv_0", "kernel"), _conv))
+        if k("block.0.bias") in keys:
+            out.append((k("block.0.bias"), "params", fp + ("Conv_0", "bias"), None))
+        if k("block.1.weight") in keys:
+            _bn(k("block.1"), fp + ("BatchNorm_0",), out)
+    elif kind == "RES":
+        _block("CB", k("conv1"), fp + ("ConvBlock_0",), keys, out)
+        _block("CB", k("conv2"), fp + ("ConvBlock_1",), keys, out)
+    elif kind == "ATT":
+        out += [(k("fc.0.weight"), "params", fp + ("Dense_0", "kernel"), _dense_as_1x1),
+                (k("fc.2.weight"), "params", fp + ("Dense_1", "kernel"), _dense_as_1x1),
+                (k("conv_spatial.weight"), "params", fp + ("spatial_conv",), _conv)]
+    elif kind == "UP":
+        out += [(k("0.weight"), "params", fp + ("ConvTranspose_0", "kernel"),
+                 _convtranspose),
+                (k("0.bias"), "params", fp + ("ConvTranspose_0", "bias"), None)]
+        _bn(k("1"), fp + ("BatchNorm_0",), out)
+    elif kind == "CONV":
+        out.append((k("weight"), "params", fp + ("kernel",), _conv))
+        if k("bias") in keys:
+            out.append((k("bias"), "params", fp + ("bias",), None))
+    else:
+        raise ValueError(f"Unknown block kind {kind}")
+
+
+_BLOCK_KINDS = {ConvBlock: "CB", ResidualBlock: "RES", AttentionBlock: "ATT",
+                UpBlock: "UP"}
+
+
+def _branch_table(model: nn.Module) -> list:
+    """(block kind, torch prefix, flax name) per block, in the JAX
+    package's _branch_layout order."""
+    if isinstance(model, LightweightDehazeModel):
+        t = [("CB", "init_conv", "ConvBlock_0")]
+        t += [("RES", f"residual_blocks.{i}", f"ResidualBlock_{i}")
+              for i in range(model.n_blocks)]
+        return t + [("CB", "output_conv.0", "ConvBlock_1"),
+                    ("CONV", "output_conv.1", "Conv_0")]
+    if isinstance(model, MediumIntensityDehazeModel):
+        return [
+            ("CB", "init_conv", "ConvBlock_0"),
+            ("CB", "encoder.0.0", "ConvBlock_1"),
+            ("RES", "encoder.0.1", "ResidualBlock_0"),
+            ("RES", "encoder.0.2", "ResidualBlock_1"),
+            ("CB", "encoder.1.0", "ConvBlock_2"),
+            ("RES", "encoder.1.1", "ResidualBlock_2"),
+            ("RES", "encoder.1.2", "ResidualBlock_3"),
+            ("RES", "bottleneck.0", "ResidualBlock_4"),
+            ("RES", "bottleneck.1", "ResidualBlock_5"),
+            ("UP", "decoder.0", "UpBlock_0"),
+            ("RES", "decoder.0.3", "ResidualBlock_6"),
+            ("UP", "decoder.1", "UpBlock_1"),
+            ("RES", "decoder.1.3", "ResidualBlock_7"),
+            ("CB", "output_conv.0", "ConvBlock_3"),
+            ("CB", "output_conv.1", "ConvBlock_4"),
+            ("CONV", "output_conv.2", "Conv_0"),
+        ]
+    if isinstance(model, HighIntensityDehazeModel):
+        return [
+            ("CB", "detail_branch.0", "ConvBlock_0"),
+            ("CB", "detail_branch.1", "ConvBlock_1"),
+            ("CONV", "detail_branch.2", "Conv_0"),
+            ("CB", "init_conv", "ConvBlock_2"),
+            ("CB", "encoder.0.0", "ConvBlock_3"),
+            ("RES", "encoder.0.1", "ResidualBlock_0"),
+            ("RES", "encoder.0.2", "ResidualBlock_1"),
+            ("ATT", "encoder.0.3", "AttentionBlock_0"),
+            ("CB", "encoder.1.0", "ConvBlock_4"),
+            ("RES", "encoder.1.1", "ResidualBlock_2"),
+            ("RES", "encoder.1.2", "ResidualBlock_3"),
+            ("ATT", "encoder.1.3", "AttentionBlock_1"),
+            ("RES", "bottleneck.0", "ResidualBlock_4"),
+            ("ATT", "bottleneck.1", "AttentionBlock_2"),
+            ("RES", "bottleneck.2", "ResidualBlock_5"),
+            ("ATT", "bottleneck.3", "AttentionBlock_3"),
+            ("UP", "decoder.0", "UpBlock_0"),
+            ("RES", "decoder.0.3", "ResidualBlock_6"),
+            ("ATT", "decoder.0.4", "AttentionBlock_4"),
+            ("UP", "decoder.1", "UpBlock_1"),
+            ("RES", "decoder.1.3", "ResidualBlock_7"),
+            ("ATT", "decoder.1.4", "AttentionBlock_5"),
+            ("CB", "output_conv.0", "ConvBlock_5"),
+            ("CB", "output_conv.1", "ConvBlock_6"),
+            ("CONV", "output_conv.2", "Conv_1"),
+        ]
+    raise TypeError(f"no weight layout for {type(model).__name__}")
+
+
+def _assigns(module: nn.Module, variables) -> List[Assign]:
+    keys = set(module.state_dict())
+    out: List[Assign] = []
+    if isinstance(module, FogIntensityClassifier):
+        bb = next(k for k in variables["params"] if k.startswith("ResNet"))
+        resnet = module.backbone
+        out.append(("backbone.conv1.weight", "params", (bb, "Conv_0", "kernel"), _conv))
+        _bn("backbone.bn1", (bb, "BatchNorm_0"), out)
+        bottleneck = module.model_name == "resnet50"
+        block_name = "Bottleneck" if bottleneck else "BasicBlock"
+        n_convs = 3 if bottleneck else 2
+        idx = 0
+        for li, n_blocks in enumerate(resnet.stage_sizes, start=1):
+            for b in range(n_blocks):
+                tp, fp = f"backbone.layer{li}.{b}", (bb, f"{block_name}_{idx}")
+                for ci in range(n_convs):
+                    out.append((f"{tp}.conv{ci + 1}.weight", "params",
+                                fp + (f"Conv_{ci}", "kernel"), _conv))
+                    _bn(f"{tp}.bn{ci + 1}", fp + (f"BatchNorm_{ci}",), out)
+                if f"{tp}.downsample.0.weight" in keys:
+                    out.append((f"{tp}.downsample.0.weight", "params",
+                                fp + (f"Conv_{n_convs}", "kernel"), _conv))
+                    _bn(f"{tp}.downsample.1", fp + (f"BatchNorm_{n_convs}",), out)
+                idx += 1
+        for ti, fi in ((1, 0), (4, 1)):
+            out += [(f"classifier.{ti}.weight", "params", (f"Dense_{fi}", "kernel"),
+                     _linear),
+                    (f"classifier.{ti}.bias", "params", (f"Dense_{fi}", "bias"), None)]
+        return out
+    if isinstance(module, (SoftRouter, HardRouter)):
+        out = []
+        subs = [("classifier", "classifier", module.classifier)]
+        subs += [(f"models.{lvl}", f"models_{lvl}", module.models[lvl])
+                 for lvl in INTENSITY_ORDER if lvl in module.models]
+        for tprefix, fname, sub in subs:
+            if sub is None:
+                continue
+            subvars = {c: variables[c][fname] for c in ("params", "batch_stats")
+                       if fname in variables.get(c, {})}
+            out += [(f"{tprefix}.{k}", c, (fname,) + p, tf)
+                    for k, c, p, tf in _assigns(sub, subvars)]
+        return out
+    if type(module) in _BLOCK_KINDS:
+        _block(_BLOCK_KINDS[type(module)], "", (), keys, out)
+        return out
+    for kind, tp, fname in _branch_table(module):
+        _block(kind, tp, (fname,), keys, out)
+    if isinstance(module, LightweightDehazeModel):
+        out.append(("skip_alpha", "params", ("skip_alpha",), None))
+    return out
+
+
+@torch.no_grad()
+def load_flax_variables(module: nn.Module, variables) -> nn.Module:
+    """Fill `module` in place from a JAX `{"params", "batch_stats"}` tree.
+    Raises on a shape mismatch and on any parameter or buffer left unset
+    (BN's num_batches_tracked aside)."""
+    sd = module.state_dict()
+    done = set()
+    for key, coll, path, tf in _assigns(module, variables):
+        node = variables[coll]
+        for p in path:
+            node = node[p]
+        value = np.asarray(node, dtype=np.float32)
+        if tf is not None:
+            value = tf(value)
+        target = sd[key]
+        if tuple(target.shape) != value.shape:
+            raise ValueError(f"Shape mismatch at {key} <- {'/'.join(path)}: "
+                             f"{tuple(target.shape)} vs {value.shape}")
+        target.copy_(torch.from_numpy(np.array(value, order="C")))
+        done.add(key)
+    missing = [k for k in sd if k not in done and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise ValueError(f"not filled from the flax tree: {missing[:8]}"
+                         f"{' ...' if len(missing) > 8 else ''}")
+    return module

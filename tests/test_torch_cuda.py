@@ -1,0 +1,202 @@
+"""Kernels K1, K2 and K5 of the PyTorch port against their plain versions
+on a CUDA card (marker `cuda`; every test skips without a card).
+
+This file imports neither JAX nor the JAX package, so that it also runs on
+a machine that has only PyTorch:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py -q
+
+(--noconftest keeps tests/conftest.py, which configures JAX, out.)
+Tolerances: fp32 kernel vs fp32 plain at 1e-4 with TF32 off (sums in
+another order); bf16 kernel vs fp32 plain at 3e-2, the bf16 bound of the
+JAX tail-chain tests. The blend has one rounding per element: 1e-6 in fp32.
+K1's tensor-core body is also held against the bf16 plain version, which
+rounds at the same points, at K1_BF16_ATOL (see there).
+"""
+import copy
+
+import numpy as np
+import pytest
+import torch
+
+from adam_dehaze_tpu_torch.ops.kernels.blend import blend3, blend3_reference
+from adam_dehaze_tpu_torch.ops.kernels.cbam import (
+    channel_spatial_gate,
+    channel_spatial_gate_reference,
+)
+from adam_dehaze_tpu_torch.ops.kernels import _build
+from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
+    fold_lightweight,
+    layer_smem_bytes,
+    lightweight_chain,
+    lightweight_chain_reference,
+)
+
+pytestmark = pytest.mark.cuda
+
+FP32_ATOL = 1e-4
+BF16_ATOL = 3e-2
+# bf16 K1 vs bf16 plain, alpha 1: both sum each conv in f32 over the same
+# bf16 values and round at the same points, so they differ only where the
+# two sum orders put a value on either side of a bf16 rounding boundary.
+K1_BF16_ATOL = 4e-3
+
+
+@pytest.fixture
+def cuda_device():
+    """A CUDA device, or a skip: decided when the test runs, never at
+    import (every xdist worker must collect the same tests)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the port's kernels run only on the card")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _seeded(module, seed):
+    from adam_dehaze_tpu_torch.nn.blocks import init_params_
+    gen = torch.Generator().manual_seed(seed)
+    init_params_(module, gen)
+    with torch.no_grad():
+        for m in module.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.copy_(torch.randn(m.num_features, generator=gen) * 0.1)
+                m.running_var.copy_(torch.rand(m.num_features, generator=gen) + 0.5)
+    return module.eval()
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, FP32_ATOL),
+                                        (torch.bfloat16, BF16_ATOL)])
+@pytest.mark.parametrize("c,n_blocks", [(32, 3), (8, 1), (48, 2)])
+def test_k1_kernel_matches_plain(cuda_device, dtype, atol, c, n_blocks):
+    """Odd sizes exercise the tile edges; c=48 takes two output chunks."""
+    from adam_dehaze_tpu_torch.models.branches import LightweightDehazeModel
+    low = _seeded(LightweightDehazeModel(c, n_blocks), 1)
+    x = torch.rand(2, 37, 70, 3, generator=torch.Generator().manual_seed(5))
+    want = lightweight_chain_reference(x, fold_lightweight(low, torch.float32))
+    chain = fold_lightweight(low.to(cuda_device), dtype)
+    before = lightweight_chain.launches
+    with torch.inference_mode():
+        got = lightweight_chain(x.to(cuda_device), chain)
+    torch.cuda.synchronize()
+    assert lightweight_chain.launches - before == 2 * n_blocks + 3
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("c,n_blocks", [(32, 3), (48, 2)])
+def test_k1_tensor_core_body_matches_bf16_plain(cuda_device, c, n_blocks):
+    """The bf16 c -> c layers run the tensor-core body. Against the bf16
+    plain version with alpha 1 (the conv stack not scaled down by the skip
+    blend) a dropped tap, K-chunk or residual add shows; c=48 takes a
+    16-channel second output chunk."""
+    from adam_dehaze_tpu_torch.models.branches import LightweightDehazeModel
+    low = _seeded(LightweightDehazeModel(c, n_blocks), 4).to(cuda_device)
+    chain = fold_lightweight(low, torch.bfloat16)._replace(alpha=1.0)
+    x = torch.rand(2, 37, 70, 3, generator=torch.Generator().manual_seed(8))
+    x = x.to(cuda_device)
+    with torch.inference_mode():
+        want = lightweight_chain_reference(x, chain)
+        got = lightweight_chain(x, chain)
+    torch.testing.assert_close(got, want, rtol=0, atol=K1_BF16_ATOL)
+
+
+def test_k1_shared_memory_mirror_matches_library(cuda_device):
+    """The selector's count of shared memory per layer is the kernel
+    library's own, for both bodies and every width up to 264."""
+    lib = _build.library()
+    for cin in range(1, 265):
+        for cout in sorted({3, 16, 32, cin}):
+            for bf16 in (0, 1):
+                assert (lib.conv3x3_smem_bytes(cin, cout, bf16)
+                        == layer_smem_bytes(cin, cout, bool(bf16))), (cin, cout, bf16)
+
+
+def test_k1_takes_a_strided_input(cuda_device):
+    """A non-contiguous image batch (a transposed view) gives the same
+    contiguous result as its contiguous copy."""
+    from adam_dehaze_tpu_torch.models.branches import LightweightDehazeModel
+    low = _seeded(LightweightDehazeModel(32, 1), 3).to(cuda_device)
+    chain = fold_lightweight(low, torch.bfloat16)
+    x = torch.rand(2, 24, 40, 3, device=cuda_device)
+    view = x.transpose(1, 2).contiguous().transpose(1, 2)
+    assert not view.is_contiguous()
+    with torch.inference_mode():
+        want = lightweight_chain(x, chain)
+        got = lightweight_chain(view, chain)
+    assert got.is_contiguous()
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, FP32_ATOL),
+                                        (torch.bfloat16, BF16_ATOL)])
+@pytest.mark.parametrize("shape", [(2, 13, 24, 96), (1, 5, 300, 8)])
+def test_k2_kernel_matches_plain(cuda_device, dtype, atol, shape):
+    gen = torch.Generator().manual_seed(6)
+    x = torch.rand(shape, generator=gen)
+    g = torch.rand(shape[0], shape[3], generator=gen)
+    w = torch.randn(7, 7, 2, 1, generator=gen) * 0.1
+    want = channel_spatial_gate_reference(x, g, w)
+    before = channel_spatial_gate.launches
+    with torch.inference_mode():
+        got = channel_spatial_gate(x.to(cuda_device, dtype), g.to(cuda_device),
+                                   w.to(cuda_device))
+    torch.cuda.synchronize()
+    assert channel_spatial_gate.launches - before == 1
+    torch.testing.assert_close(got.float().cpu(), want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-6),
+                                        (torch.bfloat16, BF16_ATOL)])
+def test_k5_kernel_matches_plain(cuda_device, dtype, atol):
+    gen = torch.Generator().manual_seed(7)
+    ys = [torch.rand(3, 17, 19, 3, generator=gen) for _ in range(3)]
+    w = torch.softmax(torch.randn(3, 3, generator=gen), dim=1)
+    want = blend3_reference(w, *ys)
+    before = blend3.launches
+    got = blend3(w.to(cuda_device), *[y.to(cuda_device, dtype) for y in ys])
+    torch.cuda.synchronize()
+    assert blend3.launches - before == 1
+    torch.testing.assert_close(got.float().cpu(), want, rtol=0, atol=atol)
+
+
+def test_kernels_refuse_what_they_do_not_take(cuda_device):
+    """On a CUDA tensor a wrapper launches its kernel or raises; it never
+    gives way to the plain version."""
+    x = torch.rand(1, 4, 4, 12, device=cuda_device)   # C not a multiple of 8
+    with pytest.raises(ValueError):
+        channel_spatial_gate(x, torch.rand(1, 12, device=cuda_device),
+                             torch.rand(7, 7, 2, 1, device=cuda_device))
+    y = torch.rand(1, 4, 4, 3, device=cuda_device, dtype=torch.float16)
+    with pytest.raises(ValueError):
+        blend3(torch.rand(1, 3, device=cuda_device), y, y, y)
+    wq = torch.rand(1, 3, device=cuda_device, requires_grad=True)
+    z = torch.rand(1, 4, 4, 3, device=cuda_device)
+    with pytest.raises(RuntimeError):
+        blend3(wq, z, z, z)
+
+
+def test_small_slice_on_card_matches_cpu(cuda_device):
+    """The serving slice at small widths: forced labels over every class,
+    fp32, on the card (kernels) and on the CPU (plain versions)."""
+    from adam_dehaze_tpu_torch.config import load_config
+    from adam_dehaze_tpu_torch.models.branches import create_branch_models
+    from adam_dehaze_tpu_torch.models.classifier import create_classifier
+    from adam_dehaze_tpu_torch.models.routing import create_router
+    from adam_dehaze_tpu_torch.serving import AdaptiveDehazer
+
+    cfg = load_config(overrides={"cuda": {"compute_dtype": "float32"}})
+    for level, ch in (("low", 8), ("medium", 8), ("high", 16)):
+        cfg["dehazing"][level]["channels"] = ch
+    router = _seeded(create_router(create_branch_models(cfg),
+                                   create_classifier(cfg), cfg), 2)
+    x = np.random.default_rng(3).random((5, 32, 32, 3), dtype=np.float32)
+    labels = np.arange(5) % 3
+    outs = []
+    for dev in ("cpu", cuda_device):
+        d = AdaptiveDehazer(copy.deepcopy(router), None, cfg, device=dev)
+        with torch.inference_mode():
+            y, _ = d.engine(torch.from_numpy(x).to(dev), intensity=labels)
+        outs.append(y.cpu())
+        soft = d(x)
+        assert np.isfinite(soft).all()
+    torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=1e-4)
