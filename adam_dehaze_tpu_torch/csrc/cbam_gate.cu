@@ -1,7 +1,11 @@
-// K2: the fused CBAM gate of AttentionBlock, for Hopper (sm_90a).
+// K2 and K2': the fused CBAM gate of AttentionBlock, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel adam_dehaze_tpu/ops/pallas/cbam.py:_kernel_cgate
-// (launched by channel_spatial_gate_pallas). It computes
+// K2 (entry point cbam_gate) replaces the TPU kernel
+// adam_dehaze_tpu/ops/pallas/cbam.py:_kernel_cgate (launched by
+// channel_spatial_gate_pallas); K2' (entry point spatial_gate) replaces
+// cbam.py:_kernel (launched by spatial_gate_pallas), which is K2 with the
+// channel gate fixed at 1: the same device code compiled without the read
+// of g, so that no tensor of ones exists. K2 computes
 //
 //     out = (x * g) * sigmoid(conv7x7([mean_c, max_c](x * g)))   zero pad 3
 //
@@ -32,7 +36,8 @@ constexpr int kHalo = 3;
 constexpr int kTileH = 4;
 constexpr int kThreads = 256;
 
-template <typename T>
+// kChannelGate = false is K2': g is never read.
+template <typename T, bool kChannelGate>
 __global__ void __launch_bounds__(kThreads)
 cbam_gate_kernel(const T* __restrict__ x, const float* __restrict__ g,
                  const float* __restrict__ mean_p, const float* __restrict__ max_p,
@@ -80,7 +85,7 @@ cbam_gate_kernel(const T* __restrict__ x, const float* __restrict__ g,
 
   // The tile's rows are one contiguous range of x: rows*W*C elements.
   const size_t base = (static_cast<size_t>(b) * H + row0) * W * C;
-  const float* gb = g + static_cast<size_t>(b) * C;
+  const float* gb = kChannelGate ? g + static_cast<size_t>(b) * C : nullptr;
   const int n_vec = rows * W * (C / 8);
   for (int v = tid; v < n_vec; v += kThreads) {
     const int e = v * 8;
@@ -89,17 +94,22 @@ cbam_gate_kernel(const T* __restrict__ x, const float* __restrict__ g,
     const float gate = s_gate[pix];
     float vals[8];
     adam::Vec8<T>::load(x + base + e, vals);
-    const float4 g0 = __ldg(reinterpret_cast<const float4*>(gb + ch));
-    const float4 g1 = __ldg(reinterpret_cast<const float4*>(gb + ch + 4));
-    vals[0] *= g0.x * gate; vals[1] *= g0.y * gate;
-    vals[2] *= g0.z * gate; vals[3] *= g0.w * gate;
-    vals[4] *= g1.x * gate; vals[5] *= g1.y * gate;
-    vals[6] *= g1.z * gate; vals[7] *= g1.w * gate;
+    if constexpr (kChannelGate) {
+      const float4 g0 = __ldg(reinterpret_cast<const float4*>(gb + ch));
+      const float4 g1 = __ldg(reinterpret_cast<const float4*>(gb + ch + 4));
+      vals[0] *= g0.x * gate; vals[1] *= g0.y * gate;
+      vals[2] *= g0.z * gate; vals[3] *= g0.w * gate;
+      vals[4] *= g1.x * gate; vals[5] *= g1.y * gate;
+      vals[6] *= g1.z * gate; vals[7] *= g1.w * gate;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 8; ++k) vals[k] *= gate;
+    }
     adam::Vec8<T>::store(out + base + e, vals);
   }
 }
 
-template <typename T>
+template <typename T, bool kChannelGate>
 int launch(const void* x, const void* g, const void* mean_p, const void* max_p,
            const void* w, void* out, int B, int H, int W, int C, cudaStream_t stream) {
   const size_t smem =
@@ -107,10 +117,10 @@ int launch(const void* x, const void* g, const void* mean_p, const void* max_p,
        static_cast<size_t>(kTileH) * W) * sizeof(float);
   if (C % 8 != 0 || smem > adam::kMaxDynamicSmem - 98 * sizeof(float))
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = adam::allow_dynamic_smem(cbam_gate_kernel<T>, smem);
+  cudaError_t err = adam::allow_dynamic_smem(cbam_gate_kernel<T, kChannelGate>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((H + kTileH - 1) / kTileH, B);
-  cbam_gate_kernel<T><<<grid, kThreads, smem, stream>>>(
+  cbam_gate_kernel<T, kChannelGate><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(x), static_cast<const float*>(g),
       static_cast<const float*>(mean_p), static_cast<const float*>(max_p),
       static_cast<const float*>(w), static_cast<T*>(out), H, W, C);
@@ -124,6 +134,17 @@ extern "C" int cbam_gate(const void* x, const void* g, const void* mean_p,
                          int W, int C, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
-    return launch<__nv_bfloat16>(x, g, mean_p, max_p, w, out, B, H, W, C, s);
-  return launch<float>(x, g, mean_p, max_p, w, out, B, H, W, C, s);
+    return launch<__nv_bfloat16, true>(x, g, mean_p, max_p, w, out, B, H, W, C, s);
+  return launch<float, true>(x, g, mean_p, max_p, w, out, B, H, W, C, s);
+}
+
+// K2': out = x * sigmoid(conv7x7([mean_c, max_c](x))), the maps of x itself
+// zero-padded by 3, f32, as for cbam_gate.
+extern "C" int spatial_gate(const void* x, const void* mean_p, const void* max_p,
+                            const void* w, void* out, int B, int H, int W, int C,
+                            int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16)
+    return launch<__nv_bfloat16, false>(x, nullptr, mean_p, max_p, w, out, B, H, W, C, s);
+  return launch<float, false>(x, nullptr, mean_p, max_p, w, out, B, H, W, C, s);
 }

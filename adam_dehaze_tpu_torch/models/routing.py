@@ -11,8 +11,9 @@ Counterparts of adam_dehaze_tpu/models/routing.py:
 - `BinnedAdaptiveEngine`: classify, bin images by class on the host, pad
   each bin to planned bucket sizes, run one branch per bucket, scatter back.
   A bucket step is `index_select` -> branch -> `index_copy_` into a
-  preallocated output. run_stream, run_queued and the device-binned engines
-  come in later work.
+  preallocated output; `set_chunk_costs` feeds the planner measured
+  costs. run_stream, run_queued and the device-binned engines come in later
+  work.
 
 Routers take and return NHWC images and keep the branch modules under
 `models.{low,medium,high}` and the classifier under `classifier`.
@@ -214,6 +215,21 @@ class BinnedAdaptiveEngine:
                 free[t] -= m
                 free[c] += m
         return labels_eff
+
+    def set_chunk_costs(self, dispatch_overhead_ms,
+                        branch_row_ms: Sequence[float]) -> None:
+        """Feed measured serving costs into the chunk planner: one more
+        bucket costs `dispatch_overhead_ms` (one figure, or one per class:
+        on the GPU a branch call's fixed cost is the host's enqueue of its
+        launches, which differs tenfold between the branches); a padded row
+        of class c costs `branch_row_ms[c]`. plan_chunks then trades them
+        in row units (overhead_ms / row_ms) per class, e.g. from the
+        serving autotune table's times per 16 images."""
+        if isinstance(dispatch_overhead_ms, (int, float)):
+            dispatch_overhead_ms = [dispatch_overhead_ms] * len(branch_row_ms)
+        self.program_overhead_rows = [
+            float(d) / max(float(r), 1e-6)
+            for d, r in zip(dispatch_overhead_ms, branch_row_ms, strict=True)]
 
     def _dispatch(self, x: torch.Tensor, intensity: np.ndarray) -> torch.Tensor:
         """Run the binned branch buckets for one batch (labels on host)."""

@@ -7,13 +7,29 @@ wrapper (`wrapper.launches`, one per kernel launch).
 """
 
 
-def reset_launch_counts() -> None:
-    """Set the launch counters of K1 (low-branch chain), K2 (CBAM gate) and
-    K5 (three-way blend) to 0."""
+def launch_counters() -> dict:
+    """Every kernel wrapper that counts its launches, by kernel name: K1
+    (low-branch chain), K2 and K2' (CBAM gates), K3 and K4 (tail chains)
+    and K5 (three-way blend)."""
     from adam_dehaze_tpu_torch.ops.kernels.blend import blend3
-    from adam_dehaze_tpu_torch.ops.kernels.cbam import channel_spatial_gate
+    from adam_dehaze_tpu_torch.ops.kernels.cbam import (
+        channel_spatial_gate,
+        spatial_gate,
+    )
     from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
         lightweight_chain,
     )
-    for fn in (lightweight_chain, channel_spatial_gate, blend3):
+    from adam_dehaze_tpu_torch.ops.kernels.tail_chain import (
+        high_tail_chain,
+        medium_tail_chain,
+    )
+    return {"lightweight_chain": lightweight_chain,
+            "cbam_gate": channel_spatial_gate, "spatial_gate": spatial_gate,
+            "medium_tail_chain": medium_tail_chain,
+            "high_tail_chain": high_tail_chain, "blend3": blend3}
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel's launch counter to 0."""
+    for fn in launch_counters().values():
         fn.launches = 0

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
 Every `*.cu` file under `adam_dehaze_tpu_torch/csrc/` is compiled by `nvcc`
-for Hopper (`sm_90a`) into ONE shared library with a plain C interface,
+for Hopper (`sm_90a`), one `nvcc` per source and all started together, and
+the objects are linked into ONE shared library with a plain C interface,
 loaded with `ctypes`. The library goes to `build/kernels/<hash>/` at the
 repository root (listed in .gitignore), keyed by a hash of the sources and
 the flags, so a rebuilt source never loads a stale binary and an unchanged
@@ -31,7 +32,7 @@ BUILD_ROOT = _PKG.parent / "build" / "kernels"
 LIB_NAME = "libadam_dehaze_kernels.so"
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 P = ctypes.c_void_p
 I = ctypes.c_int
@@ -48,6 +49,20 @@ _SIGNATURES = {
     "conv3x3_sigmoid_blend": (P, P, P, P, P, F, I, I, I, I, I, I, P),
     # Cin, Cout, is_bf16; returns shared-memory bytes per block, or -1
     "conv3x3_smem_bytes": (I, I, I),
+    # x, mean_p, max_p, w, out, B, H, W, C, is_bf16, stream
+    "spatial_gate": (P, P, P, P, P, I, I, I, I, I, P),
+    # in0, w0, c0, in1, w1, c1, shift, residual, out, N, H, W, Cout, ksize,
+    # relu, is_bf16, stream
+    "tail_conv": (P, P, I, P, P, I, P, P, P, I, I, I, I, I, I, I, P),
+    # h, w, cin, bias, image, guidance, gc, guidance_w, guidance_b, out_f32, N, H, W,
+    # is_bf16, stream
+    "tail_conv_final": (P, P, I, P, P, P, I, P, F, P, I, I, I, I, P),
+    # x, partial, N, P, C, slabs, is_bf16, stream
+    "tail_channel_stats": (P, P, I, I, I, I, I, P),
+    # partial, w0, w1, gate, N, slabs, P, C, hidden, stream
+    "tail_channel_gate": (P, P, P, P, I, I, I, I, I, P),
+    # x, gate, z, mean_p, max_p, N, H, W, C, is_bf16, stream
+    "tail_gated_stats": (P, P, P, P, P, I, I, I, I, I, P),
 }
 
 
@@ -86,19 +101,41 @@ def build() -> tuple:
         return lib, 0.0, log_path.read_text() if log_path.exists() else ""
     nvcc = _nvcc()
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
+    tag = f"{os.getpid()}.tmp"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    # One nvcc per source, all started together; then one link.
+    jobs = []
+    for src in _sources():
+        if src.suffix != ".cu":
+            continue
+        obj = out_dir / f".{src.stem}.{tag}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log = []
+    failed = None
+    for cmd, _, proc in jobs:
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0 and failed is None:
+            failed = (proc.returncode, cmd, out)
+    tmp = out_dir / f".{LIB_NAME}.{tag}"
+    if failed is None:
+        cmd = [nvcc, "-shared", "-arch=sm_90a", "-o", str(tmp), *[str(obj) for _, obj, _ in jobs]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed = (proc.returncode, cmd, log[-1])
+    for _, obj, _ in jobs:
+        obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
-    log_path.write_text(proc.stdout + proc.stderr)
+    if failed is not None:
+        code, cmd, out = failed
+        raise RuntimeError(f"nvcc failed ({code}):\n{' '.join(cmd)}\n{out}")
+    text = "".join(log)
+    log_path.write_text(text)
     os.replace(tmp, lib)
-    return lib, seconds, proc.stdout + proc.stderr
+    return lib, seconds, text
 
 
 @functools.lru_cache(maxsize=1)

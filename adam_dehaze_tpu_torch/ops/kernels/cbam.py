@@ -1,4 +1,4 @@
-"""K2: the fused CBAM gate of AttentionBlock.
+"""K2 and K2': the fused CBAM gate of AttentionBlock.
 
 Counterpart of adam_dehaze_tpu/ops/pallas/cbam.py: `channel_spatial_gate`
 computes
@@ -12,8 +12,19 @@ of the gated tensor are reduced by plain tensor code in f32; the kernel
 once, applies both gates, and writes once. The JAX wrapper gave way to XLA
 when VMEM was too small; that limit was the TPU's and has no counterpart
 here. Memory bound: see the source note in csrc/cbam_gate.cu.
+
+`spatial_gate` (K2', replacing the TPU kernel `_kernel` of
+`spatial_gate_pallas`) is the same with the channel gate fixed at 1:
+
+    out = x * sigmoid(conv7x7([mean_c, max_c](x)))
+
+through its own entry point of the C library, which never reads a gate. The
+high branch's tail chain (ops/kernels/tail_chain.py) launches it for its
+spatial step through `launch_spatial_gate`.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -33,10 +44,21 @@ def channel_spatial_gate_reference(x: torch.Tensor, g: torch.Tensor,
     return gated * torch.sigmoid(gate).permute(0, 2, 3, 1)
 
 
-def padded_stats(x: torch.Tensor, g: torch.Tensor):
-    """The f32 (mean, max) maps of x * g over channels, zero-padded by the
-    stencil's halo on every side: (B, H+6, W+6) each."""
-    gated = x.float() * g.float()[:, None, None, :]
+def spatial_gate_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K2': the JAX package's
+    `spatial_gate_reference` (stats and stencil in x.dtype)."""
+    stats = torch.stack([x.mean(dim=-1), x.amax(dim=-1)], dim=1)
+    gate = F.conv2d(stats, w.to(x.dtype).permute(3, 2, 0, 1), padding=_HALO)
+    return x * torch.sigmoid(gate).permute(0, 2, 3, 1)
+
+
+def padded_stats(x: torch.Tensor, g: Optional[torch.Tensor] = None):
+    """The f32 (mean, max) maps of x * g (of x when g is None) over
+    channels, zero-padded by the stencil's halo on every side:
+    (B, H+6, W+6) each."""
+    gated = x.float()
+    if g is not None:
+        gated = gated * g.float()[:, None, None, :]
     pad = (_HALO, _HALO, _HALO, _HALO)
     return (F.pad(gated.mean(dim=-1), pad).contiguous(),
             F.pad(gated.amax(dim=-1), pad).contiguous())
@@ -53,6 +75,48 @@ def launch_cbam_gate(x, g, mean_p, max_p, w, out) -> None:
     channel_spatial_gate.launches += 1
 
 
+def launch_spatial_gate(x, mean_p, max_p, w, out) -> None:
+    """Enqueue K2' on prepared inputs: x (B, H, W, C) contiguous, the f32
+    maps of x padded by 3, w (7, 7, 2) f32 contiguous, out like x."""
+    b, h, wd, c = x.shape
+    err = _build.library().spatial_gate(
+        x.data_ptr(), mean_p.data_ptr(), max_p.data_ptr(), w.data_ptr(),
+        out.data_ptr(), b, h, wd, c, int(x.dtype == torch.bfloat16),
+        _build.stream_ptr(x.device))
+    _build.check(err, "spatial_gate")
+    spatial_gate.launches += 1
+
+
+def _require_gate_input(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
+    _build.require(x.dim() == 4, name, f"x must be (B, H, W, C), got {tuple(x.shape)}")
+    _build.require(x.dtype in (torch.float32, torch.bfloat16), name,
+                   f"x dtype {x.dtype} not float32/bfloat16")
+    _build.require(x.is_contiguous(), name, "x must be contiguous NHWC")
+    _build.require(x.data_ptr() % 16 == 0, name, "x must be 16-byte aligned")
+    _build.require(x.shape[3] % 8 == 0, name,
+                   f"C={x.shape[3]} is not a multiple of 8")
+    _build.require(tuple(w.shape) == (7, 7, 2, 1), name,
+                   f"w must be (7, 7, 2, 1), got {tuple(w.shape)}")
+
+
+def spatial_gate(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The spatial CBAM gate alone. x: (B, H, W, C) NHWC; w: (7, 7, 2, 1).
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel, which takes what `channel_spatial_gate` takes."""
+    if x.device.type == "cpu":
+        return spatial_gate_reference(x, w)
+    name = "spatial_gate"
+    _build.require_cuda_inputs(name, x, w)
+    _require_gate_input(name, x, w)
+    mean_p, max_p = padded_stats(x)
+    out = torch.empty_like(x)
+    launch_spatial_gate(x, mean_p, max_p, w.float().contiguous(), out)
+    return out
+
+
+spatial_gate.launches = 0
+
+
 def channel_spatial_gate(x: torch.Tensor, g: torch.Tensor,
                          w: torch.Tensor) -> torch.Tensor:
     """Both CBAM gates in one pass. x: (B, H, W, C) NHWC; g: (B, C);
@@ -63,17 +127,10 @@ def channel_spatial_gate(x: torch.Tensor, g: torch.Tensor,
         return channel_spatial_gate_reference(x, g, w)
     name = "channel_spatial_gate"
     _build.require_cuda_inputs(name, x, g, w)
-    _build.require(x.dim() == 4, name, f"x must be (B, H, W, C), got {tuple(x.shape)}")
+    _require_gate_input(name, x, w)
     b, _, _, c = x.shape
-    _build.require(x.dtype in (torch.float32, torch.bfloat16), name,
-                   f"x dtype {x.dtype} not float32/bfloat16")
-    _build.require(x.is_contiguous(), name, "x must be contiguous NHWC")
-    _build.require(x.data_ptr() % 16 == 0, name, "x must be 16-byte aligned")
-    _build.require(c % 8 == 0, name, f"C={c} is not a multiple of 8")
     _build.require(tuple(g.shape) == (b, c), name,
                    f"g must be {(b, c)}, got {tuple(g.shape)}")
-    _build.require(tuple(w.shape) == (7, 7, 2, 1), name,
-                   f"w must be (7, 7, 2, 1), got {tuple(w.shape)}")
     mean_p, max_p = padded_stats(x, g)
     out = torch.empty_like(x)
     launch_cbam_gate(x, g.float().contiguous(), mean_p, max_p,

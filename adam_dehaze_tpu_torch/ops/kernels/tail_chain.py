@@ -1,0 +1,427 @@
+"""K3 and K4: the decoder tails of the medium and the high branch as
+hand-written kernels.
+
+Counterparts of adam_dehaze_tpu/ops/pallas/tail_chain.py
+(`make_medium_tail_chain` and `make_high_tail_chain`, whose kernels
+`_medium_tail_kernel` and `_tail_kernel` run everything after the d1 concat
+as one program per image). What they compute carries over: the UpBlock's
+ConvTranspose as four sub-pixel phase convs with BN folded, the residual
+block, for the high branch the CBAM attention block, the two head convs on
+`[d2, f0]` without the concat, the output conv with tanh, the high
+branch's guidance head, and the residual blend with the input image and
+the clip; activations between stages in the compute dtype, f32 sums. Their
+TPU layout (space-to-depth packing, zero ring, 8-aligned strides,
+matmul-first rolls, 0/1-selection matmuls, 128-lane padding) does not: here
+every stage is one launch (csrc/tail_chain.cu, whose source note says what
+bounds it), and tensors are plain NHWC.
+
+`fold_medium_tail` / `fold_high_tail` build the folded weights once from a
+port branch; `medium_tail_chain` / `high_tail_chain` run them: on CPU
+tensors through the plain versions (`*_reference`), on CUDA tensors through
+the kernels. K4's spatial step is kernel K2' (`cbam.launch_spatial_gate`,
+counted there).
+"""
+from __future__ import annotations
+
+from typing import List, NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from adam_dehaze_tpu_torch.ops import fold
+from adam_dehaze_tpu_torch.ops.kernels import _build
+from adam_dehaze_tpu_torch.ops.kernels.cbam import launch_spatial_gate
+
+Layer = Tuple[torch.Tensor, torch.Tensor]   # (weight HWIO compute dtype, shift f32)
+
+# Slabs of the per-image channel reduction's first stage.
+_MAX_SLABS = 64
+_SLAB_MIN_PIXELS = 64
+
+
+class MediumTailWeights(NamedTuple):
+    """Folded layers of a tail's conv trunk (the whole medium tail).
+    Weights are in the compute dtype, shifts f32."""
+    up: torch.Tensor          # (4 phases, 4 taps, 4c, c), phase a*2+b, tap u*2+v
+    up_shift: torch.Tensor    # (c,)
+    res_a: Layer              # (3, 3, c, c)
+    res_b: Layer
+    head1_d2: torch.Tensor    # (3, 3, c, c): the half of the head conv on d2
+    head1_f0: torch.Tensor    # (3, 3, c, c): the half on f0
+    head1_shift: torch.Tensor
+    head2: Layer              # (3, 3, c, c/2)
+    out: Layer                # (3, 3, c/2, 3), bias as the shift
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.up.dtype
+
+    @property
+    def channels(self) -> int:
+        return self.up.shape[3]
+
+
+class HighTailWeights(NamedTuple):
+    """The high tail: the conv trunk, the attention block's MLP (f32, as in
+    the TPU kernel) and 7x7 stencil (values rounded to the compute dtype,
+    held f32), and the guidance head."""
+    trunk: MediumTailWeights
+    attn_fc0: torch.Tensor      # (hidden, c) f32
+    attn_fc1: torch.Tensor      # (c, hidden) f32
+    attn_stencil: torch.Tensor  # (7, 7, 2) f32
+    guidance1: Layer               # (3, 3, 3, 16)
+    guidance2: Layer               # (3, 3, 16, 16)
+    guidance_out_w: torch.Tensor   # (16,) f32
+    guidance_out_b: float
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.trunk.dtype
+
+    @property
+    def channels(self) -> int:
+        return self.trunk.channels
+
+
+def tail_supported(channels: int, height: int, width: int,
+                   dtype: torch.dtype) -> bool:
+    """Shapes the tail kernels take, decided up front: float32 or bfloat16,
+    a width that is a multiple of 16 (so that c/2 moves in 16-byte
+    vectors), and an image whose sides are multiples of 4, so that the
+    decoder's stages are exact halves and the canonical forward's resize
+    steps never run."""
+    return (dtype in (torch.float32, torch.bfloat16) and channels >= 16
+            and channels % 16 == 0 and height % 4 == 0 and width % 4 == 0
+            and height >= 4 and width >= 4)
+
+
+def _hwio(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """OIHW -> a fresh contiguous HWIO tensor in `dtype`."""
+    return w.detach().permute(2, 3, 1, 0).to(
+        dtype, memory_format=torch.contiguous_format, copy=True)
+
+
+def _shift(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().float().clone()
+
+
+@torch.no_grad()
+def fold_medium_tail(model, dtype: torch.dtype) -> MediumTailWeights:
+    """Fold the tail of a MediumIntensityDehazeModel (or the conv trunk of
+    a HighIntensityDehazeModel: both name it `decoder[1]`, `output_conv`)
+    in f32 from the module's parameters, cast the weights to `dtype`."""
+    c = model.base_channels
+    up = model.decoder[1]
+    phases, t_up = fold.fold_upblock_phases(up)      # (2, 2, 2, 2, 4c, c)
+
+    def layer(block) -> Layer:
+        w, t = fold.fold_convblock(block)
+        return _hwio(w, dtype), _shift(t)
+
+    res = up[3]
+    wa, wb, t1 = fold.fold_head_split(model.output_conv[0], c)
+    out_conv = model.output_conv[2]
+    return MediumTailWeights(
+        up=phases.detach().reshape(4, 4, 4 * c, c).to(dtype).contiguous(),
+        up_shift=_shift(t_up),
+        res_a=layer(res.conv1), res_b=layer(res.conv2),
+        head1_d2=_hwio(wa, dtype), head1_f0=_hwio(wb, dtype),
+        head1_shift=_shift(t1),
+        head2=layer(model.output_conv[1]),
+        out=(_hwio(out_conv.weight.float(), dtype), _shift(out_conv.bias)))
+
+
+@torch.no_grad()
+def fold_high_tail(model, dtype: torch.dtype) -> HighTailWeights:
+    """Fold the tail of a HighIntensityDehazeModel: the trunk, the last
+    AttentionBlock (`decoder[1][4]`) and the guidance head
+    (`detail_branch`)."""
+    attn = model.decoder[1][4]
+    guidance = model.detail_branch
+
+    def layer(block) -> Layer:
+        w, t = fold.fold_convblock(block)
+        return _hwio(w, dtype), _shift(t)
+
+    stencil = attn.conv_spatial.weight.detach()[0].permute(1, 2, 0)   # (7, 7, 2)
+    return HighTailWeights(
+        trunk=fold_medium_tail(model, dtype),
+        attn_fc0=attn.fc[0].weight.detach()[:, :, 0, 0].float().contiguous().clone(),
+        attn_fc1=attn.fc[2].weight.detach()[:, :, 0, 0].float().contiguous().clone(),
+        attn_stencil=stencil.to(dtype).float().contiguous(),
+        guidance1=layer(guidance[0]), guidance2=layer(guidance[1]),
+        guidance_out_w=guidance[2].weight.detach().float().reshape(-1).clone(),
+        guidance_out_b=float(guidance[2].bias.detach().float()))
+
+
+# ---------------------------------------------------------------------------
+# Plain versions.
+# ---------------------------------------------------------------------------
+
+def _conv_ref(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """3x3 conv, pad 1, summed in f32 over values held in the compute
+    dtype. h NCHW, w HWIO."""
+    return F.conv2d(h.float(), w.float().permute(3, 2, 0, 1), padding=1)
+
+
+def subpixel_up_reference(x: torch.Tensor, phases: torch.Tensor) -> torch.Tensor:
+    """ConvTranspose2d(4, stride 2, pad 1) without bias from its sub-pixel
+    phases (fold.fold_upblock_phases, reshaped (4, 4, Cin, Cout)): x NCHW
+    (N, Cin, H, W) -> f32 (N, Cout, 2H, 2W)."""
+    n, _, h, w = x.shape
+    cout = phases.shape[3]
+    xp = F.pad(x.float(), (1, 1, 1, 1))
+    out = x.new_empty((n, cout, 2 * h, 2 * w), dtype=torch.float32)
+    for a in (0, 1):
+        for b in (0, 1):
+            k = phases[a * 2 + b].float().reshape(2, 2, -1, cout).permute(3, 2, 0, 1)
+            out[:, :, a::2, b::2] = F.conv2d(xp[:, :, a:a + h + 1, b:b + w + 1], k)
+    return out
+
+
+def _sh(t: torch.Tensor) -> torch.Tensor:
+    return t[None, :, None, None]
+
+
+def _trunk_front_reference(d1, wt: MediumTailWeights):
+    dt = wt.dtype
+    d2 = torch.relu(subpixel_up_reference(d1, wt.up) + _sh(wt.up_shift)).to(dt)
+    y = torch.relu(_conv_ref(d2, wt.res_a[0]) + _sh(wt.res_a[1])).to(dt)
+    return torch.relu(_conv_ref(y, wt.res_b[0]) + _sh(wt.res_b[1]) + d2.float()).to(dt)
+
+
+def _trunk_heads_reference(d2, f0, wt: MediumTailWeights):
+    """tanh(output_conv([d2, f0])) in f32."""
+    dt = wt.dtype
+    h = torch.relu(_conv_ref(d2, wt.head1_d2) + _conv_ref(f0, wt.head1_f0)
+                   + _sh(wt.head1_shift)).to(dt)
+    h = torch.relu(_conv_ref(h, wt.head2[0]) + _sh(wt.head2[1])).to(dt)
+    return torch.tanh(_conv_ref(h, wt.out[0]) + _sh(wt.out[1]))
+
+
+def _nchw(t: torch.Tensor, dt: torch.dtype) -> torch.Tensor:
+    return t.to(dt).permute(0, 3, 1, 2)
+
+
+def medium_tail_chain_reference(d1, f0, x, wt: MediumTailWeights) -> torch.Tensor:
+    """Plain PyTorch version of K3, with the kernels' rounding points:
+    inputs, weights and the activations between stages in the compute
+    dtype, every conv summed in f32 and its epilogue applied in f32 before
+    one rounding. d1 (N, H/2, W/2, 4c), f0 (N, H, W, c), x (N, H, W, 3)
+    -> (N, H, W, 3) f32."""
+    dt = wt.dtype
+    d2 = _trunk_front_reference(_nchw(d1, dt), wt)
+    res = _trunk_heads_reference(d2, _nchw(f0, dt), wt)
+    out = torch.clamp(_nchw(x, dt).float() + res, 0.0, 1.0)
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
+def attention_reference(d2: torch.Tensor, wt: HighTailWeights) -> torch.Tensor:
+    """K4's attention block on d2 NCHW in the compute dtype: the channel
+    gate from f32 statistics and the f32 MLP; the gated activation rounded
+    to the compute dtype; its (mean, max) maps over channels taken from the
+    unrounded products and kept f32; the 7x7 stencil and the spatial gate
+    in f32, one rounding at the end."""
+    dt = wt.dtype
+    xf = d2.float()
+
+    def mlp(v):
+        return F.linear(torch.relu(F.linear(v, wt.attn_fc0)), wt.attn_fc1)
+
+    g = torch.sigmoid(mlp(xf.mean(dim=(2, 3))) + mlp(xf.amax(dim=(2, 3))))
+    zf = xf * g[:, :, None, None]
+    stats = torch.stack([zf.mean(dim=1), zf.amax(dim=1)], dim=1)
+    k = wt.attn_stencil.permute(2, 0, 1)[None]            # (1, 2, 7, 7)
+    gate = torch.sigmoid(F.conv2d(stats, k, padding=3))
+    return (zf.to(dt).float() * gate).to(dt)
+
+
+def high_tail_chain_reference(d1, f0, x, wt: HighTailWeights) -> torch.Tensor:
+    """Plain PyTorch version of K4 (see `medium_tail_chain_reference` for
+    the rounding points and `attention_reference` for the attention
+    block's)."""
+    dt = wt.dtype
+    xin = _nchw(x, dt)
+    d2 = attention_reference(_trunk_front_reference(_nchw(d1, dt), wt.trunk), wt)
+    res = _trunk_heads_reference(d2, _nchw(f0, dt), wt.trunk)
+    g = torch.relu(_conv_ref(xin, wt.guidance1[0]) + _sh(wt.guidance1[1])).to(dt)
+    g = torch.relu(_conv_ref(g, wt.guidance2[0]) + _sh(wt.guidance2[1])).to(dt)
+    guidance = torch.sigmoid(
+        torch.einsum("nchw,c->nhw", g.float(), wt.guidance_out_w) + wt.guidance_out_b)
+    out = torch.clamp(xin.float() + res * guidance[:, None], 0.0, 1.0)
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
+# ---------------------------------------------------------------------------
+# The kernels.
+# ---------------------------------------------------------------------------
+
+class _Launcher:
+    """The tail's launches on one device and stream; every launch adds one
+    to `counter.launches`."""
+
+    def __init__(self, counter, device, bf16: bool):
+        self.lib = _build.library()
+        self.stream = _build.stream_ptr(device)
+        self.bf16 = int(bf16)
+        self.counter = counter
+
+    def done(self, err: int, name: str) -> None:
+        _build.check(err, name)
+        self.counter.launches += 1
+
+    def conv(self, src, w, shift, dst, *, ksize=3, residual=None, src2=None,
+             w2=None) -> None:
+        n, h, wd, cin = src.shape
+        self.done(self.lib.tail_conv(
+            src.data_ptr(), w.data_ptr(), cin,
+            src2.data_ptr() if src2 is not None else None,
+            w2.data_ptr() if w2 is not None else None,
+            src2.shape[3] if src2 is not None else 0,
+            shift.data_ptr(),
+            residual.data_ptr() if residual is not None else None,
+            dst.data_ptr(), n, h, wd, w.shape[-1], ksize, 1, self.bf16,
+            self.stream), "tail_conv")
+
+    def final(self, h, layer, image, out, guidance=None, guidance_w=None,
+              guidance_b=0.0) -> None:
+        n, hh, wd, cin = h.shape
+        w, bias = layer
+        self.done(self.lib.tail_conv_final(
+            h.data_ptr(), w.data_ptr(), cin, bias.data_ptr(), image.data_ptr(),
+            guidance.data_ptr() if guidance is not None else None,
+            guidance.shape[3] if guidance is not None else 0,
+            guidance_w.data_ptr() if guidance_w is not None else None,
+            guidance_b, out.data_ptr(), n, hh, wd, self.bf16, self.stream),
+            "tail_conv_final")
+
+
+def weight_tensors(weights) -> List[torch.Tensor]:
+    """Every tensor of a (nested) tuple of folded weights."""
+    if isinstance(weights, torch.Tensor):
+        return [weights]
+    if isinstance(weights, tuple):
+        return [t for item in weights for t in weight_tensors(item)]
+    return []
+
+
+def _require_tail_inputs(name, d1, f0, x, wt) -> Tuple[int, int, int, int]:
+    tensors = weight_tensors(wt)
+    _build.require_cuda_inputs(name, d1, f0, x, *tensors)
+    c = wt.channels
+    _build.require(x.dim() == 4 and x.shape[3] == 3, name,
+                   f"x must be (N, H, W, 3), got {tuple(x.shape)}")
+    n, h, wd, _ = x.shape
+    _build.require(tail_supported(c, h, wd, wt.dtype), name,
+                   f"width {c} at {h}x{wd} in {wt.dtype} is not supported")
+    _build.require(tuple(d1.shape) == (n, h // 2, wd // 2, 4 * c), name,
+                   f"d1 must be {(n, h // 2, wd // 2, 4 * c)}, got {tuple(d1.shape)}")
+    _build.require(tuple(f0.shape) == (n, h, wd, c), name,
+                   f"f0 must be {(n, h, wd, c)}, got {tuple(f0.shape)}")
+    for t in tensors:
+        _build.require(t.is_contiguous(), name, "weights must be contiguous")
+    return n, h, wd, c
+
+
+def _trunk_front(run: _Launcher, d1, wt: MediumTailWeights, d2, tmp) -> None:
+    """UpBlock and ResidualBlock: d1 -> d2 (tmp is scratch of d2's shape)."""
+    run.conv(d1, wt.up, wt.up_shift, d2, ksize=2)
+    run.conv(d2, wt.res_a[0], wt.res_a[1], tmp)
+    run.conv(tmp, wt.res_b[0], wt.res_b[1], d2, residual=d2)   # in place
+
+
+def _trunk_heads(run: _Launcher, d2, f0, wt: MediumTailWeights, tmp):
+    """The two head convs; returns the (N, H, W, c/2) activation."""
+    run.conv(d2, wt.head1_d2, wt.head1_shift, tmp, src2=f0, w2=wt.head1_f0)
+    n, h, wd, c = d2.shape
+    h2 = torch.empty((n, h, wd, c // 2), dtype=d2.dtype, device=d2.device)
+    run.conv(tmp, wt.head2[0], wt.head2[1], h2)
+    return h2
+
+
+def medium_tail_chain(d1: torch.Tensor, f0: torch.Tensor, x: torch.Tensor,
+                      weights: MediumTailWeights) -> torch.Tensor:
+    """The medium branch after the d1 concat. d1 (N, H/2, W/2, 4c) is
+    cat([decoder[0] output, e1]), f0 (N, H, W, c) the stem features, x
+    (N, H, W, 3) the input image, all NHWC; returns (N, H, W, 3) f32. CPU
+    tensors take the plain version; CUDA tensors launch the kernels (6
+    launches) or raise."""
+    if x.device.type == "cpu":
+        return medium_tail_chain_reference(d1, f0, x, weights)
+    name = "medium_tail_chain"
+    n, h, wd, c = _require_tail_inputs(name, d1, f0, x, weights)
+    dt = weights.dtype
+    run = _Launcher(medium_tail_chain, x.device, dt == torch.bfloat16)
+    d1, f0, xin = (t.to(dt).contiguous() for t in (d1, f0, x))
+    d2 = torch.empty((n, h, wd, c), dtype=dt, device=x.device)
+    tmp = torch.empty_like(d2)
+    out = torch.empty((n, h, wd, 3), dtype=torch.float32, device=x.device)
+    _trunk_front(run, d1, weights, d2, tmp)
+    h2 = _trunk_heads(run, d2, f0, weights, tmp)
+    run.final(h2, weights.out, xin, out)
+    return out
+
+
+medium_tail_chain.launches = 0
+
+
+def _attention(run: _Launcher, d2, wt: HighTailWeights, tmp, out) -> None:
+    """The attention block: d2 -> out (tmp holds the channel-gated
+    activation). Three launches counted here, the spatial step on K2'."""
+    n, h, wd, c = d2.shape
+    pixels = h * wd
+    slabs = max(1, min(_MAX_SLABS, pixels // _SLAB_MIN_PIXELS))
+    dev = d2.device
+    partial = torch.empty((n, slabs, 2, c), dtype=torch.float32, device=dev)
+    gate = torch.empty((n, c), dtype=torch.float32, device=dev)
+    mean_p = torch.empty((n, h + 6, wd + 6), dtype=torch.float32, device=dev)
+    max_p = torch.empty_like(mean_p)
+    run.done(run.lib.tail_channel_stats(
+        d2.data_ptr(), partial.data_ptr(), n, pixels, c, slabs, run.bf16,
+        run.stream), "tail_channel_stats")
+    run.done(run.lib.tail_channel_gate(
+        partial.data_ptr(), wt.attn_fc0.data_ptr(), wt.attn_fc1.data_ptr(),
+        gate.data_ptr(), n, slabs, pixels, c, wt.attn_fc0.shape[0],
+        run.stream), "tail_channel_gate")
+    run.done(run.lib.tail_gated_stats(
+        d2.data_ptr(), gate.data_ptr(), tmp.data_ptr(), mean_p.data_ptr(),
+        max_p.data_ptr(), n, h, wd, c, run.bf16, run.stream), "tail_gated_stats")
+    launch_spatial_gate(tmp, mean_p, max_p, wt.attn_stencil, out)
+
+
+def high_tail_chain(d1: torch.Tensor, f0: torch.Tensor, x: torch.Tensor,
+                    weights: HighTailWeights) -> torch.Tensor:
+    """The high branch after the d1 concat; arguments as
+    `medium_tail_chain`. CUDA tensors launch the kernels: 11 launches
+    counted here and one of K2' (`spatial_gate.launches`)."""
+    if x.device.type == "cpu":
+        return high_tail_chain_reference(d1, f0, x, weights)
+    name = "high_tail_chain"
+    n, h, wd, c = _require_tail_inputs(name, d1, f0, x, weights)
+    dt = weights.dtype
+    run = _Launcher(high_tail_chain, x.device, dt == torch.bfloat16)
+    d1, f0, xin = (t.to(dt).contiguous() for t in (d1, f0, x))
+    dev = x.device
+    d2 = torch.empty((n, h, wd, c), dtype=dt, device=dev)
+    tmp = torch.empty_like(d2)
+    gated = torch.empty_like(d2)
+    out = torch.empty((n, h, wd, 3), dtype=torch.float32, device=dev)
+    trunk = weights.trunk
+    _trunk_front(run, d1, trunk, d2, tmp)
+    _attention(run, d2, weights, tmp, gated)
+    h2 = _trunk_heads(run, gated, f0, trunk, tmp)
+    gc = weights.guidance1[0].shape[3]
+    g1 = torch.empty((n, h, wd, gc), dtype=dt, device=dev)
+    g2 = torch.empty_like(g1)
+    run.conv(xin, weights.guidance1[0], weights.guidance1[1], g1)
+    run.conv(g1, weights.guidance2[0], weights.guidance2[1], g2)
+    run.final(h2, trunk.out, xin, out, guidance=g2, guidance_w=weights.guidance_out_w,
+              guidance_b=weights.guidance_out_b)
+    return out
+
+
+high_tail_chain.launches = 0
+
+# Kernel launches per call on a CUDA tensor (K4's twelfth is K2').
+MEDIUM_TAIL_LAUNCHES = 6
+HIGH_TAIL_LAUNCHES = 11

@@ -14,6 +14,14 @@ function takes the module and the compute dtype:
   a copy whose convolution and linear weights are cast to the compute
   dtype. BatchNorm parameters and statistics stay float32.
 
+`make_medium_tail_apply` and `make_high_tail_apply` (counterparts of
+`make_medium_s2d_apply(..., tail_chain=True)` and
+`make_high_s2d_apply(..., tail_chain=True)`) run a branch's prefix
+(`init_conv`, `encoder`, `bottleneck`, `decoder[0]`, the concat with e1) on
+the serving copy's canonical modules and everything after it on kernel K3
+or K4, folded once. The serving autotune (serving_autotune.py) offers them
+as the `tail_chain` candidates; the default dispatch does not use them.
+
 `make_router_serving_apply` builds one serving copy of a whole router from
 the same applies; soft routing calls it and the hard-routing engine takes
 its classifier and branches, so both paths share one fold and one cast.
@@ -29,10 +37,21 @@ from typing import Callable, Optional
 import torch
 from torch import nn
 
-from adam_dehaze_tpu_torch.models.branches import LightweightDehazeModel
+from adam_dehaze_tpu_torch.models.branches import (
+    HighIntensityDehazeModel,
+    LightweightDehazeModel,
+    MediumIntensityDehazeModel,
+)
 from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
     LightweightChainWeights,
     lightweight_chain,
+)
+from adam_dehaze_tpu_torch.ops.kernels.tail_chain import (
+    fold_high_tail,
+    fold_medium_tail,
+    high_tail_chain,
+    medium_tail_chain,
+    tail_supported,
 )
 
 _CAST = (nn.Conv2d, nn.ConvTranspose2d, nn.Linear)
@@ -59,6 +78,64 @@ def cast_for_serving(module: nn.Module, dtype: torch.dtype) -> nn.Module:
         if isinstance(sub, _CAST):
             sub.to(dtype)
     return m
+
+
+# kind -> (the branch's class, the kernel's wrapper, its fold).
+_TAILS = {
+    "medium": (MediumIntensityDehazeModel, medium_tail_chain, fold_medium_tail),
+    "high": (HighIntensityDehazeModel, high_tail_chain, fold_high_tail),
+}
+
+
+class TailChainApply(nn.Module):
+    """A medium or high branch (`kind`) with its tail on kernel K3 or K4:
+    the prefix is the serving copy's canonical modules (K2 inside the high
+    branch's AttentionBlocks), the tail the kernel on weights folded once
+    from the float32 parameters. x (N, H, W, 3) float -> (N, H, W, 3)
+    float32. Raises on a size the tail does not take (the canonical forward
+    resizes there; the tail has no such step)."""
+
+    def __init__(self, model: nn.Module, dtype: torch.dtype, kind: str):
+        super().__init__()
+        cls, self.tail, fold_tail = _TAILS[kind]
+        if not isinstance(model, cls):
+            raise TypeError(f"expected a {cls.__name__}, got {type(model).__name__}")
+        self.weights = fold_tail(model, dtype)
+        self.dtype = dtype
+        self.base_channels = model.base_channels
+        copy_ = cast_for_serving(model, dtype)
+        self.init_conv = copy_.init_conv
+        self.encoder = copy_.encoder
+        self.bottleneck = copy_.bottleneck
+        self.up0 = copy_.decoder[0]
+
+    def forward(self, x):
+        _, h, w, _ = x.shape
+        if not tail_supported(self.base_channels, h, w, self.dtype):
+            raise ValueError(
+                f"the tail chain does not take width {self.base_channels} at "
+                f"{h}x{w} in {self.dtype}: see tail_supported")
+        xin = x.to(self.dtype).permute(0, 3, 1, 2)
+        f0 = self.init_conv(xin)
+        e1 = self.encoder[0](f0)
+        d1 = self.up0(self.bottleneck(self.encoder[1](e1)))
+        d1 = torch.cat([d1, e1], dim=1)
+        # NCHW in channels_last memory: the NHWC views are free.
+        return self.tail(d1.permute(0, 2, 3, 1), f0.permute(0, 2, 3, 1),
+                         x.float(), self.weights)
+
+
+def make_medium_tail_apply(model: nn.Module, dtype: torch.dtype = torch.bfloat16
+                           ) -> nn.Module:
+    """The medium branch with everything after the d1 concat on kernel K3."""
+    return TailChainApply(model, dtype, "medium")
+
+
+def make_high_tail_apply(model: nn.Module, dtype: torch.dtype = torch.bfloat16
+                         ) -> nn.Module:
+    """The high branch with everything after the d1 concat on kernel K4
+    (its spatial step on K2')."""
+    return TailChainApply(model, dtype, "high")
 
 
 def _chain_apply(model: nn.Module, dtype: torch.dtype) -> Optional[nn.Module]:

@@ -6,6 +6,14 @@ Counterpart of adam_dehaze_tpu/serving.py:
     out = dehazer(images_nhwc_float01)            # soft routing
     out, intensity = dehazer.route_hard(images)   # binned hard routing
 
+    dehazer = AdaptiveDehazer(router, variables, config, device="cuda",
+                              autotune=True, autotune_cache="exp/tune.json")
+    dehazer.autotune_report    # per branch: the winner, the ms table, cached
+
+With `autotune=True` every branch's apply is the winner of a timing run on
+the serving device at (16, img_size, img_size, 3) (serving_autotune.py),
+read from `autotune_cache` when that file already holds it.
+
 Images go in and come out as numpy NHWC float32 in [0, 1]. Everything runs
 in eval mode, under torch.inference_mode, in the config's
 `cuda.compute_dtype`. `from_experiment` needs orbax checkpoints, which
@@ -13,7 +21,7 @@ only JAX reads, and waits for a checkpoint format the port can read.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -24,6 +32,7 @@ from adam_dehaze_tpu_torch.models.routing import (
     BinnedAdaptiveEngine,
 )
 from adam_dehaze_tpu_torch.ops.serving_apply import make_router_serving_apply
+from adam_dehaze_tpu_torch.serving_autotune import load_or_tune
 from adam_dehaze_tpu_torch.training.checkpoint import load_flax_variables
 
 
@@ -33,9 +42,21 @@ class AdaptiveDehazer:
     "batch_stats"} tree to load into it, or None to serve the router's own
     weights. The router is moved to `device` in place; one serving copy of
     it (weights cast, the low branch folded for K1) backs both the soft
-    call and the hard-routing engine."""
+    call and the hard-routing engine. autotune: replace that copy's
+    branches by the timed winners of serving_autotune.load_or_tune
+    (`autotune_report[level]` holds each report; `autotune_cache` is the
+    JSON file that keeps the winners between processes), and feed the
+    winners' times to the engine's chunk planner."""
 
-    def __init__(self, router, variables, config, device="cuda"):
+    # What one more bucket of each branch costs, in ms: the part of a branch
+    # call that does not grow with its rows (the host's enqueue of its
+    # launches). Measured by chip_smoke.py (its [dispatch] lines) on an
+    # NVIDIA H100 80GB HBM3 at 700 W: bf16, 256^2, the default dispatch's
+    # applies, which are also the tuner's winners there.
+    DISPATCH_MS = {"low": 0.22, "medium": 1.23, "high": 2.26}
+
+    def __init__(self, router, variables, config, device="cuda",
+                 autotune: bool = False, autotune_cache: Optional[str] = None):
         if variables is not None:
             load_flax_variables(router, variables)
         self.device = torch.device(device)
@@ -44,6 +65,34 @@ class AdaptiveDehazer:
         self.dtype = compute_dtype(config)
         self._serving = make_router_serving_apply(self.router, self.dtype)
         self._engine: Optional[BinnedAdaptiveEngine] = None
+        self.autotune_report: Dict[str, dict] = {}
+        if autotune:
+            self._serving.models.update(self._branch_applies(autotune_cache))
+
+    def _branch_applies(self, cache_path: Optional[str]) -> Dict[str, torch.nn.Module]:
+        """The tuned serving apply of every branch, by level; fills
+        `autotune_report`."""
+        img = self.config["dataset"]["img_size"]
+        applies = {}
+        for level in INTENSITY_ORDER:
+            applies[level], self.autotune_report[level] = load_or_tune(
+                self.router.models[level], self.dtype, (16, img, img, 3),
+                cache_path=cache_path)
+        return applies
+
+    def _chunk_costs(self) -> Optional[Tuple[list, list]]:
+        """(ms per bucket, ms per row) of each branch: DISPATCH_MS, and the
+        winner's time per 16 images in the autotune table less one
+        dispatch; None without the tables."""
+        dispatch_ms, row_ms = [], []
+        for level in INTENSITY_ORDER:
+            report = self.autotune_report.get(level) or {}
+            ms16 = (report.get("table") or {}).get(report.get("best"))
+            if not ms16:
+                return None
+            dispatch_ms.append(self.DISPATCH_MS[level])
+            row_ms.append(max(float(ms16) - self.DISPATCH_MS[level], 1e-6) / 16.0)
+        return dispatch_ms, row_ms
 
     def _to_device(self, images) -> torch.Tensor:
         return torch.as_tensor(np.asarray(images, np.float32)).to(self.device)
@@ -55,6 +104,9 @@ class AdaptiveDehazer:
             self._engine = BinnedAdaptiveEngine(
                 self._serving.classifier,
                 [self._serving.models[lvl] for lvl in INTENSITY_ORDER])
+            costs = self._chunk_costs()
+            if costs is not None:
+                self._engine.set_chunk_costs(*costs)
         return self._engine
 
     @torch.inference_mode()

@@ -9,26 +9,45 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Build: compiles the CUDA kernels from csrc/ (build/kernels/, on first
    use) and prints the build time and the compiler's register report.
 3. Kernel vs plain on the card, at the main path's shapes: K1 (low-branch
-   chain), K2 (CBAM gate, at each AttentionBlock shape of the high branch)
-   and K5 (soft blend). fp32 against the fp32 plain version at 1e-4 with
-   TF32 off; bf16 against the fp32 plain version at 3e-2. K1's bf16
-   tensor-core body is also held against the bf16 plain version, which
-   rounds at the same points, with alpha 1, at c=32 and c=48 (K1_BF16_ATOL).
-   Prints errors and times (CUDA events) of kernel and plain version.
-4. Slice: the full-width default router (resnet18, low c=32, medium c=64,
-   high c=96) with seeded random weights behind an AdaptiveDehazer in
-   bf16, 16 images at 256^2: route_hard, the engine with forced labels
-   cycling 0, 1, 2 (so every branch runs), and soft routing. Outputs must
-   be finite and in [0, 1], and the launch counters must show that the
-   runs went through K1, K2 (6 launches per high-branch call) and K5.
-   Prints the warm ms/image of route_hard and soft.
-5. Slice vs plain: the same weights run a forced-label batch on the CPU in
-   fp32 (the plain versions) and on the card in fp32 (the kernels).
-6. Prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
+   chain), K2 (CBAM gate, at each AttentionBlock shape of the high branch),
+   K5 (soft blend), K2' (spatial gate, at the high tail's shape), K3 and K4
+   (the medium and high tail chains). fp32 against the fp32 plain version
+   at 1e-4 with TF32 off; bf16 against the fp32 plain version at 3e-2. The
+   bf16 tensor-core bodies are also held against the bf16 plain versions,
+   which round at the same points: K1 with alpha 1 at c=32 and c=48
+   (K1_BF16_ATOL), K3 and K4 at TAIL_BF16_ATOL. Prints errors, times (CUDA
+   events) of kernel and plain version, and each kernel's bound: the larger
+   of its bytes over the card's memory rate and its operations over the
+   card's peak rate, counted from this run's shapes.
+4. Slice, default dispatch: the full-width default router (resnet18, low
+   c=32, medium c=64, high c=96) with seeded random weights behind an
+   AdaptiveDehazer in bf16, 16 images at 256^2: route_hard, the engine with
+   forced labels cycling 0, 1, 2 (so every branch runs), and soft routing.
+   Outputs must be finite and in [0, 1], and the launch counters, set to 0
+   just before, must show that the runs went through K1, K2 (6 launches per
+   high-branch call) and K5. Prints the warm ms/image of route_hard and
+   soft, and what one more bucket of each branch costs the engine (the
+   intercept of the branch apply's time over its rows), beside the
+   constants the chunk planner is fed under autotune
+   (AdaptiveDehazer.DISPATCH_MS).
+5. Slice, tail-chain dispatch: a dehazer with autotune=True and a fresh
+   cache file times every candidate of the three branches at
+   (16, 256, 256, 3) and prints the tables (no candidate may fail); then a
+   dehazer whose cache names chain / tail_chain / tail_chain runs the same
+   three calls. The counters, set to 0 just before, must show K3 and K4
+   launched once per medium and high bucket (6 and 11 launches), K2' once
+   and K2 5 times per high bucket; the outputs must agree with phase 4's
+   within 3e-2. Prints the warm ms/image beside phase 4's.
+6. Slice vs plain: the same weights run a forced-label batch on the CPU in
+   fp32 (the plain versions) and on the card in fp32 (the kernels), under
+   the default and under the tail-chain dispatch.
+7. Prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 """
 import copy
 import json
+import os
 import subprocess
+import tempfile
 import time
 
 import numpy as np
@@ -36,25 +55,46 @@ import torch
 
 from adam_dehaze_tpu_torch.config import load_config
 from adam_dehaze_tpu_torch.models.branches import (
+    HighIntensityDehazeModel,
     LightweightDehazeModel,
+    MediumIntensityDehazeModel,
     create_branch_models,
 )
 from adam_dehaze_tpu_torch.models.classifier import create_classifier
 from adam_dehaze_tpu_torch.models.routing import create_router, plan_chunks
 from adam_dehaze_tpu_torch.nn.blocks import init_params_
-from adam_dehaze_tpu_torch.ops.kernels import _build, reset_launch_counts
+from adam_dehaze_tpu_torch.ops.kernels import (
+    _build,
+    launch_counters,
+    reset_launch_counts,
+)
 from adam_dehaze_tpu_torch.ops.kernels.blend import blend3, blend3_reference
 from adam_dehaze_tpu_torch.ops.kernels.cbam import (
     channel_spatial_gate,
     channel_spatial_gate_reference,
     launch_cbam_gate,
+    launch_spatial_gate,
     padded_stats,
+    spatial_gate,
+    spatial_gate_reference,
 )
 from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
     fold_lightweight,
     lightweight_chain,
     lightweight_chain_reference,
 )
+from adam_dehaze_tpu_torch.ops.kernels.tail_chain import (
+    HIGH_TAIL_LAUNCHES,
+    MEDIUM_TAIL_LAUNCHES,
+    fold_high_tail,
+    fold_medium_tail,
+    high_tail_chain,
+    high_tail_chain_reference,
+    medium_tail_chain,
+    medium_tail_chain_reference,
+    weight_tensors,
+)
+from adam_dehaze_tpu_torch.ops.serving_apply import cast_for_serving
 from adam_dehaze_tpu_torch.serving import AdaptiveDehazer
 
 SEED = 0
@@ -65,6 +105,16 @@ BF16_ATOL = 3e-2      # bf16 kernel vs fp32 plain: the JAX tail-chain bound
 # bf16 values and round at the same points; they differ only where the two
 # sum orders put a value on either side of a bf16 rounding boundary.
 K1_BF16_ATOL = 4e-3
+# bf16 K3/K4 vs their bf16 plain versions: the same argument. The output is
+# clip(x + tanh(.) [* guidance]), so a flipped bf16 rounding upstream (one
+# part in 256 of an activation) reaches it at a few 1e-3; a dropped tap,
+# phase, input half or residual add moves it by 5e-2 or more (PERF.md).
+TAIL_BF16_ATOL = 1e-2
+# Published peaks of one H100 SXM at its full power limit: device memory
+# rate, dense bf16 tensor-core rate, f32 rate outside the tensor cores.
+PEAK_BYTES_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
 # fp32 slice, card vs CPU: some 40 layers of fp32 sums taken in another
 # order on each side (cuDNN and the hand-written kernels vs the CPU's
 # convolutions), each rounding at ~1e-7 relative, amplified by the random
@@ -74,14 +124,24 @@ SLICE_ATOL = 1e-3
 # AB4 at 128^2 x 192, AB1-3 at 64^2 x 384, AB5 at 256^2 x 96.
 K2_SHAPES = {(BATCH, 128, 128, 192): 2, (BATCH, 64, 64, 384): 3,
              (BATCH, 256, 256, 96): 1}
+# name -> (route, source, the TPU kernel it replaces).
 KERNELS = {
     "lightweight_chain": ("cuda", "adam_dehaze_tpu_torch/csrc/lightweight_chain.cu",
-                          "adam_dehaze_tpu/ops/pallas/s2d_chain.py:107", lightweight_chain),
+                          "adam_dehaze_tpu/ops/pallas/s2d_chain.py:107"),
     "cbam_gate": ("cuda", "adam_dehaze_tpu_torch/csrc/cbam_gate.cu",
-                  "adam_dehaze_tpu/ops/pallas/cbam.py:71", channel_spatial_gate),
+                  "adam_dehaze_tpu/ops/pallas/cbam.py:71"),
     "blend3": ("triton", "adam_dehaze_tpu_torch/ops/kernels/blend.py",
-               "adam_dehaze_tpu/ops/pallas/blend.py:22", blend3),
+               "adam_dehaze_tpu/ops/pallas/blend.py:22"),
+    "spatial_gate": ("cuda", "adam_dehaze_tpu_torch/csrc/cbam_gate.cu",
+                     "adam_dehaze_tpu/ops/pallas/cbam.py:53"),
+    "medium_tail_chain": ("cuda", "adam_dehaze_tpu_torch/csrc/tail_chain.cu",
+                          "adam_dehaze_tpu/ops/pallas/tail_chain.py:349"),
+    "high_tail_chain": ("cuda", "adam_dehaze_tpu_torch/csrc/tail_chain.cu",
+                        "adam_dehaze_tpu/ops/pallas/tail_chain.py:184"),
 }
+# Kernels each path must launch at least once.
+DEFAULT_PATH_KERNELS = ("lightweight_chain", "cbam_gate", "blend3")
+TAIL_PATH_KERNELS = tuple(KERNELS)
 
 
 def log(msg):
@@ -110,6 +170,38 @@ def cuda_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def bound(flops, nbytes, peak_flops):
+    """The least time the card could take, in ms, and what sets it: the
+    bytes moved once over the memory rate, or the operations over the peak
+    rate of their type."""
+    by_bytes = nbytes / PEAK_BYTES_S * 1e3
+    by_ops = flops / peak_flops * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops),
+                bound_by="bytes" if by_bytes >= by_ops else "operations",
+                bytes=int(nbytes), flops=int(flops))
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def conv_flops(pixels, taps, cin, cout):
+    return 2 * pixels * taps * cin * cout
+
+
+def tail_flops(n, h, w, c, high):
+    """Operations of one tail call from its shapes: the convolutions, and
+    for the high tail the attention block's passes and the guidance head."""
+    px = n * h * w
+    flops = (conv_flops(px, 4, 4 * c, c) + 2 * conv_flops(px, 9, c, c)
+             + conv_flops(px, 9, 2 * c, c) + conv_flops(px, 9, c, c // 2)
+             + conv_flops(px, 9, c // 2, 3))
+    if high:
+        flops += conv_flops(px, 9, 3, 16) + conv_flops(px, 9, 16, 16) + 2 * px * 16
+        flops += 6 * px * c + conv_flops(px, 49, 2, 1)
+    return flops
 
 
 def perturb_bn_(module, gen):
@@ -177,14 +269,20 @@ def phase_kernels(dev, gen):
         f"c=48 err {tight[48]:.3e} (bound {K1_BF16_ATOL})")
     check(max(tight.values()) <= K1_BF16_ATOL,
           "K1's tensor-core body disagrees with the bf16 plain version")
+    px = x.numel() // 3
+    k1_flops = sum(conv_flops(px, 9, w.shape[2], w.shape[3]) for w, _ in cbf.layers)
     results["lightweight_chain"] = dict(
         max_abs_err=max(tight.values()), max_abs_err_bf16_vs_fp32=ebf,
-        max_abs_err_fp32=e32, ms=ms, plain_ms=plain, shape=list(x.shape))
+        max_abs_err_fp32=e32, ms=ms, plain_ms=plain, library_ms=None,
+        shape=list(x.shape),
+        **bound(k1_flops, 2 * nbytes(x) + nbytes(*weight_tensors(cbf.layers)),
+                PEAK_BF16_FLOPS))
     del x, ref
 
     # K2 at every AttentionBlock shape; ms per high-branch call = the sum
     # over its six blocks.
     tot = dict(ms=0.0, plain_ms=0.0, kernel_only_ms=0.0)
+    k2_bytes = k2_flops = 0
     errs, errs32, shapes = [], [], []
     for shape, calls in K2_SHAPES.items():
         x = torch.rand(shape, generator=gen).to(dev)
@@ -214,12 +312,17 @@ def phase_kernels(dev, gen):
         tot["ms"] += calls * ms
         tot["plain_ms"] += calls * plain
         tot["kernel_only_ms"] += calls * kernel_only
+        # x read and the result written once, the gate and the stencil read;
+        # per element two multiplies and the (mean, max) reduction.
+        k2_bytes += calls * (2 * nbytes(xb) + nbytes(g, wb))
+        k2_flops += calls * (4 * xb.numel() + conv_flops(xb.numel() // shape[3], 49, 2, 1))
         del x, ref, out, mean_p, max_p, xb
     log(f"[K2 cbam_gate] per high-branch call (6 blocks): wrapper {tot['ms']:.3f} ms, "
         f"plain {tot['plain_ms']:.3f} ms")
     results["cbam_gate"] = dict(max_abs_err=max(errs), max_abs_err_fp32=max(errs32),
                                 shapes=shapes, per="high-branch call (6 blocks)",
-                                **tot)
+                                library_ms=None,
+                                **bound(k2_flops, k2_bytes, PEAK_F32_FLOPS), **tot)
 
     # K5 at (16, 256, 256, 3).
     ys = [torch.rand(BATCH, SIZE, SIZE, 3, generator=gen).to(dev) for _ in range(3)]
@@ -235,7 +338,108 @@ def phase_kernels(dev, gen):
         f"fp32 kernel {ms:.3f} ms, plain {plain:.3f} ms")
     check(e32 <= FP32_ATOL and ebf <= BF16_ATOL, "K5 disagrees with its plain version")
     results["blend3"] = dict(max_abs_err=e32, max_abs_err_bf16=ebf, ms=ms,
-                             plain_ms=plain, shape=list(ys[0].shape))
+                             plain_ms=plain, library_ms=None, shape=list(ys[0].shape),
+                             **bound(5 * ys[0].numel(), 4 * nbytes(ys[0]) + nbytes(wts),
+                                     PEAK_F32_FLOPS))
+    del ys, ybf, ref
+
+    # K2' at the high tail's shape, where K4 launches it.
+    shape = (BATCH, SIZE, SIZE, 96)
+    x = torch.rand(shape, generator=gen).to(dev)
+    w = (torch.randn(7, 7, 2, 1, generator=gen) * 0.1).to(dev)
+    xb, wb = x.bfloat16(), w.bfloat16().float()
+    with torch.inference_mode():
+        ref = spatial_gate_reference(x, w)
+        e32 = max_err(spatial_gate(x, w), ref)
+        ebf = max_err(spatial_gate(xb, wb), spatial_gate_reference(x, wb))
+        ms = cuda_ms(lambda: spatial_gate(xb, wb))
+        plain = cuda_ms(lambda: spatial_gate_reference(xb, wb))
+        mean_p, max_p = padded_stats(xb)
+        out = torch.empty_like(xb)
+        wf = wb.reshape(7, 7, 2).contiguous()
+        kernel_only = cuda_ms(lambda: launch_spatial_gate(xb, mean_p, max_p, wf, out))
+    log(f"[K2' spatial_gate] {shape}: fp32 err {e32:.3e}, bf16 err {ebf:.3e}; bf16 "
+        f"wrapper {ms:.3f} ms (kernel alone {kernel_only:.3f} ms, "
+        f"{2 * nbytes(xb) / (kernel_only * 1e-3) / 1e9:.0f} GB/s of x read+write), "
+        f"plain {plain:.3f} ms")
+    check(e32 <= FP32_ATOL and ebf <= BF16_ATOL, "K2' disagrees with its plain version")
+    results["spatial_gate"] = dict(
+        max_abs_err=ebf, max_abs_err_fp32=e32, ms=ms, plain_ms=plain,
+        kernel_only_ms=kernel_only, library_ms=None, shape=list(shape),
+        **bound(3 * xb.numel() + conv_flops(xb.numel() // 96, 49, 2, 1),
+                2 * nbytes(xb) + nbytes(wb), PEAK_F32_FLOPS))
+    del x, xb, ref, out, mean_p, max_p
+
+    results.update(phase_tail_kernels(dev, gen))
+    return results
+
+
+def canonical_tail(model, high):
+    """The tail as the canonical forward runs it on a serving copy: cuDNN
+    convs, eval BN, elementwise passes. NHWC in, NHWC f32 out."""
+    def run(d1, f0, x):
+        xin = x.to(d1.dtype).permute(0, 3, 1, 2)
+        d2 = model.decoder[1](d1.permute(0, 3, 1, 2))
+        res = torch.tanh(model.output_conv(torch.cat([d2, f0.permute(0, 3, 1, 2)], dim=1)))
+        if high:
+            res = res * model.detail_branch(xin)
+        return torch.clamp(xin + res, 0.0, 1.0).permute(0, 2, 3, 1).float()
+    return run
+
+
+def phase_tail_kernels(dev, gen):
+    """K3 and K4 alone at the main path's shapes: d1 (16, 128, 128, 4c) and
+    f0 (16, 256, 256, c) drawn non-negative like the real decoder state."""
+    results = {}
+    for name, label, cls, c, fold_fn, tail, reference, n_launch in (
+            ("medium_tail_chain", "K3", MediumIntensityDehazeModel, 64, fold_medium_tail,
+             medium_tail_chain, medium_tail_chain_reference, MEDIUM_TAIL_LAUNCHES),
+            ("high_tail_chain", "K4", HighIntensityDehazeModel, 96, fold_high_tail,
+             high_tail_chain, high_tail_chain_reference, HIGH_TAIL_LAUNCHES)):
+        high = name == "high_tail_chain"
+        model = perturb_bn_(init_params_(cls(c), gen), gen).eval().to(dev)
+        d1 = torch.relu(torch.randn(BATCH, SIZE // 2, SIZE // 2, 4 * c, generator=gen)).to(dev)
+        f0 = torch.relu(torch.randn(BATCH, SIZE, SIZE, c, generator=gen)).to(dev)
+        x = torch.rand(BATCH, SIZE, SIZE, 3, generator=gen).to(dev)
+        w32, wbf = fold_fn(model, torch.float32), fold_fn(model, torch.bfloat16)
+        d1b, f0b = d1.bfloat16(), f0.bfloat16()
+        serving = cast_for_serving(model, torch.bfloat16)
+        canonical = canonical_tail(serving, high)
+        with torch.inference_mode():
+            ref = reference(d1, f0, x, w32)
+            e32 = max_err(tail(d1, f0, x, w32), ref)
+            before = tail.launches, spatial_gate.launches
+            got = tail(d1b, f0b, x, wbf)
+            launched = tail.launches - before[0], spatial_gate.launches - before[1]
+            ebf = max_err(got, ref)
+            tight = max_err(got, reference(d1b, f0b, x, wbf))
+            ecan = max_err(got, canonical(d1b, f0b, x))
+            ms = cuda_ms(lambda: tail(d1b, f0b, x, wbf), iters=10)
+            ms32 = cuda_ms(lambda: tail(d1, f0, x, w32), iters=3, warmup=1)
+            plain = cuda_ms(lambda: reference(d1b, f0b, x, wbf), iters=5, warmup=1)
+            can_ms = cuda_ms(lambda: canonical(d1b, f0b, x), iters=10)
+        flops = tail_flops(BATCH, SIZE, SIZE, c, high)
+        moved = nbytes(d1b, f0b, x, got) + nbytes(*weight_tensors(wbf))
+        bd = bound(flops, moved, PEAK_BF16_FLOPS)
+        log(f"[{label} {name}] d1 {tuple(d1.shape)}, f0 {tuple(f0.shape)}, c={c}: fp32 err "
+            f"{e32:.3e}, bf16 vs fp32 plain {ebf:.3e}, bf16 vs bf16 plain {tight:.3e} "
+            f"(bound {TAIL_BF16_ATOL}), bf16 vs the canonical bf16 tail {ecan:.3e}; "
+            f"launches per call {launched[0]} (+{launched[1]} of K2'); bf16 kernel "
+            f"{ms:.3f} ms ({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s), fp32 kernel "
+            f"{ms32:.3f} ms, plain {plain:.3f} ms, canonical tail (cuDNN, bf16) "
+            f"{can_ms:.3f} ms; bound {bd['bound_ms']:.3f} ms by {bd['bound_by']} "
+            f"({flops / 1e9:.1f} GFLOP, {moved / 1e6:.0f} MB)")
+        check(e32 <= FP32_ATOL and ebf <= BF16_ATOL,
+              f"{label} disagrees with its plain version")
+        check(tight <= TAIL_BF16_ATOL,
+              f"{label}'s bf16 kernels disagree with the bf16 plain version")
+        check(launched == (n_launch, int(high)), f"{label} launches per call {launched}")
+        results[name] = dict(
+            max_abs_err=tight, max_abs_err_bf16_vs_fp32=ebf, max_abs_err_fp32=e32,
+            ms=ms, fp32_ms=ms32, plain_ms=plain, canonical_ms=can_ms, library_ms=None,
+            launches_per_call=launched[0], shape=list(d1.shape), **bd)
+        del d1, f0, x, d1b, f0b, ref, got
+        torch.cuda.empty_cache()
     return results
 
 
@@ -251,50 +455,12 @@ def check_images(y, n, what):
 
 
 def counts():
-    return {k: v[3].launches for k, v in KERNELS.items()}
+    return {k: fn.launches for k, fn in launch_counters().items()}
 
 
-def delta(before):
-    now = counts()
-    return {k: now[k] - before[k] for k in now}
-
-
-def phase_slice(router, dev, rng):
-    cfg = load_config()   # bf16, the default compute dtype
-    d = AdaptiveDehazer(copy.deepcopy(router), None, cfg, device=dev)
-    x = rng.random((BATCH, SIZE, SIZE, 3), dtype=np.float32)
-    labels = np.arange(BATCH) % 3
-    eng = d.engine
-    per_class = [len(plan_chunks(int((labels == c).sum()), eng.buckets,
-                                 eng.program_overhead_rows[c])) for c in range(3)]
-
-    reset_launch_counts()
-    out, intensity = d.route_hard(x)
-    torch.cuda.synchronize()
-    hard = counts()
-    before = counts()
-    with torch.inference_mode():
-        forced, _ = eng(torch.from_numpy(x).to(dev), intensity=labels)
-        forced = forced.cpu().numpy()
-    forced_d = delta(before)
-    before = counts()
-    soft = d(x)
-    soft_d = delta(before)
-    main = counts()
-
-    log(f"[slice] route_hard intensities {np.bincount(intensity, minlength=3).tolist()}; "
-        f"launches: route_hard {hard}, forced labels {forced_d}, soft {soft_d}")
-    check_images(out, BATCH, "route_hard")
-    check_images(forced, BATCH, "forced-label engine")
-    check_images(soft, BATCH, "soft")
-    check(forced_d["lightweight_chain"] == 9 * per_class[0],
-          f"forced run: K1 launches {forced_d} vs {per_class[0]} low buckets")
-    check(forced_d["cbam_gate"] == 6 * per_class[2],
-          f"forced run: K2 launches {forced_d} vs {per_class[2]} high buckets")
-    check(soft_d == {"lightweight_chain": 9, "cbam_gate": 6, "blend3": 1},
-          f"soft run launches {soft_d}")
-    check(all(v > 0 for v in main.values()), f"a kernel never ran: {main}")
-
+def time_slice(d, x, tag):
+    """Warm ms/image of route_hard and soft, host clock around a
+    synchronize, 3 runs each."""
     def run_hard():
         d.route_hard(x)
         torch.cuda.synchronize()
@@ -303,34 +469,203 @@ def phase_slice(router, dev, rng):
         d(x)
         torch.cuda.synchronize()
 
+    means = {}
     for name, fn in (("route_hard", run_hard), ("soft", run_soft)):
         fn()
         times = []
-        for _ in range(5):
+        for _ in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             times.append((time.perf_counter() - t0) * 1e3 / BATCH)
-        log(f"[slice] {name}: {np.mean(times):.3f} ms/image warm (min "
-            f"{min(times):.3f}, max {max(times):.3f}; 5 runs of {BATCH} images at "
+        means[name] = float(np.mean(times))
+        log(f"[{tag}] {name}: {means[name]:.3f} ms/image warm (min "
+            f"{min(times):.3f}, max {max(times):.3f}; 3 runs of {BATCH} images at "
             f"{SIZE}^2, bf16, numpy in and out)")
-    return main
+    return means
 
 
-def phase_vs_plain(router, dev, rng):
+def dispatch_cost_ms(d, dev, gen):
+    """What one more bucket costs the engine: the part of a branch call
+    that does not grow with its rows. Every branch apply is timed warm at
+    every bucket size (host clock around a synchronize, the least of 5
+    runs); the intercept of the least-squares line through (rows, ms) is
+    that branch's fixed cost, printed beside the constant the chunk planner
+    is fed for it under autotune. Returns {level: intercept}."""
+    eng = d.engine
+    x = torch.rand(max(eng.buckets), SIZE, SIZE, 3, generator=gen).to(dev)
+    fixed = {}
+    for level, apply in zip(("low", "medium", "high"), eng.branch_applies):
+        ms = []
+        for b in eng.buckets:
+            times = []
+            for _ in range(6):   # the first run warms this size
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.inference_mode():
+                    apply(x[:b])
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms.append(min(times[1:]))
+        slope, fixed[level] = np.polyfit(np.asarray(eng.buckets, float), ms, 1)
+        log(f"[dispatch] {level}: ms at {list(eng.buckets)} rows "
+            f"{[round(v, 3) for v in ms]}: {slope:.4f} ms/row, fixed {fixed[level]:.4f} ms "
+            f"({fixed[level] / slope:.2f} rows; default dispatch, bf16, {SIZE}^2); the "
+            f"chunk planner is fed AdaptiveDehazer.DISPATCH_MS = "
+            f"{AdaptiveDehazer.DISPATCH_MS[level]}")
+    return {k: float(v) for k, v in fixed.items()}
+
+
+def drive(d, x, labels, dev):
+    """The three calls of a path, the counters read around each: returns
+    the outputs and the launches of (route_hard, forced labels, soft)."""
+    reset_launch_counts()
+    out, intensity = d.route_hard(x)
+    torch.cuda.synchronize()
+    hard = counts()
+    before = counts()
+    with torch.inference_mode():
+        forced, _ = d.engine(torch.from_numpy(x).to(dev), intensity=labels)
+        forced = forced.cpu().numpy()
+    forced_d = delta(before)
+    before = counts()
+    soft = d(x)
+    soft_d = delta(before)
+    return (out, forced, soft), intensity, (hard, forced_d, soft_d), counts()
+
+
+def delta(before):
+    now = counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+def buckets_per_class(eng, labels):
+    return [len(plan_chunks(int((labels == c).sum()), eng.buckets,
+                            eng.program_overhead_rows[c])) for c in range(3)]
+
+
+def nonzero(d):
+    return {k: v for k, v in d.items() if v}
+
+
+def phase_slice(router, dev, x, labels, gen):
+    """The default dispatch (autotune off)."""
+    cfg = load_config()   # bf16, the default compute dtype
+    d = AdaptiveDehazer(copy.deepcopy(router), None, cfg, device=dev)
+    per_class = buckets_per_class(d.engine, labels)
+    outs, intensity, (hard, forced_d, soft_d), main = drive(d, x, labels, dev)
+
+    log(f"[slice] route_hard intensities {np.bincount(intensity, minlength=3).tolist()}; "
+        f"launches: route_hard {nonzero(hard)}, forced labels {nonzero(forced_d)}, "
+        f"soft {nonzero(soft_d)}")
+    for y, what in zip(outs, ("route_hard", "forced-label engine", "soft")):
+        check_images(y, BATCH, what)
+    check(nonzero(forced_d) == {"lightweight_chain": 9 * per_class[0],
+                                "cbam_gate": 6 * per_class[2]},
+          f"forced run: launches {forced_d} vs buckets {per_class}")
+    check(nonzero(soft_d) == {"lightweight_chain": 9, "cbam_gate": 6, "blend3": 1},
+          f"soft run launches {soft_d}")
+    check(all(main[k] > 0 for k in DEFAULT_PATH_KERNELS), f"a kernel never ran: {main}")
+    return main, outs, time_slice(d, x, "slice"), dispatch_cost_ms(d, dev, gen)
+
+
+FORCED = {"LightweightDehazeModel": "chain", "MediumIntensityDehazeModel": "tail_chain",
+          "HighIntensityDehazeModel": "tail_chain"}
+
+
+def tune_then_force(router, cfg, dev, tmp, tag):
+    """A dehazer with autotune on and a fresh cache times every candidate
+    and prints the tables; returns the path of a copy of that cache whose
+    winners are set to chain / tail_chain / tail_chain, and the tables."""
+    fresh = os.path.join(tmp, f"autotune_{tag}.json")
+    d = AdaptiveDehazer(copy.deepcopy(router), None, cfg, device=dev, autotune=True,
+                        autotune_cache=fresh)
+    tables = {}
+    for level, report in d.autotune_report.items():
+        log(f"[autotune {tag}] {level}: best {report['best']}, ms per 16 images "
+            f"{json.dumps(report['table'])}")
+        check(report["cached"] is False, f"{level}: a fresh cache gave a hit")
+        check(all(v is not None for v in report["table"].values()),
+              f"{level}: a candidate failed: {report['table']}")
+        tables[level] = dict(best=report["best"], **report["table"])
+    with open(fresh) as f:
+        cache = json.load(f)
+    check(len(cache) == 3, f"the cache holds {len(cache)} entries, not 3")
+    for key, entry in cache.items():
+        entry["best"] = FORCED[key.split(":")[3]]
+        check(entry["best"] in entry["table"], f"{key}: {entry['best']} was not offered")
+    forced = os.path.join(tmp, f"autotune_{tag}_forced.json")
+    with open(forced, "w") as f:
+        json.dump(cache, f)
+    del d
+    torch.cuda.empty_cache()
+    return forced, tables
+
+
+def phase_tail_slice(router, dev, x, labels, canonical_outs, tmp):
+    """The tail-chain dispatch: tune, then serve from a cache that names the
+    kernel candidates."""
+    cfg = load_config()
+    forced_cache, tables = tune_then_force(router, cfg, dev, tmp, "bf16")
+    d = AdaptiveDehazer(copy.deepcopy(router), None, cfg, device=dev, autotune=True,
+                        autotune_cache=forced_cache)
+    check(all(r["cached"] is True for r in d.autotune_report.values()),
+          f"the second dehazer did not read the cache: {d.autotune_report}")
+    check({lvl: r["best"] for lvl, r in d.autotune_report.items()}
+          == {"low": "chain", "medium": "tail_chain", "high": "tail_chain"},
+          f"forced dispatch: {d.autotune_report}")
+    per_class = buckets_per_class(d.engine, labels)
+    outs, intensity, (hard, forced_d, soft_d), main = drive(d, x, labels, dev)
+    log(f"[tail slice] chunk overhead rows {[round(v, 3) for v in d.engine.program_overhead_rows]}, "
+        f"buckets per class {per_class}; route_hard intensities "
+        f"{np.bincount(intensity, minlength=3).tolist()}; launches: route_hard "
+        f"{nonzero(hard)}, forced labels {nonzero(forced_d)}, soft {nonzero(soft_d)}")
+    for y, ref, what in zip(outs, canonical_outs,
+                            ("route_hard", "forced-label engine", "soft")):
+        check_images(y, BATCH, f"tail-chain {what}")
+        err = float(np.abs(y - ref).max())
+        log(f"[tail slice] {what}: max abs diff to the default dispatch {err:.3e} "
+            f"(bound {BF16_ATOL})")
+        check(err <= BF16_ATOL, f"tail-chain {what} disagrees with the default dispatch")
+    check(nonzero(forced_d) == {
+        "lightweight_chain": 9 * per_class[0],
+        "medium_tail_chain": MEDIUM_TAIL_LAUNCHES * per_class[1],
+        "high_tail_chain": HIGH_TAIL_LAUNCHES * per_class[2],
+        "spatial_gate": per_class[2], "cbam_gate": 5 * per_class[2]},
+        f"forced run: launches {forced_d} vs buckets {per_class}")
+    check(nonzero(soft_d) == {
+        "lightweight_chain": 9, "medium_tail_chain": MEDIUM_TAIL_LAUNCHES,
+        "high_tail_chain": HIGH_TAIL_LAUNCHES, "spatial_gate": 1, "cbam_gate": 5,
+        "blend3": 1}, f"soft run launches {soft_d}")
+    check(all(main[k] > 0 for k in TAIL_PATH_KERNELS), f"a kernel never ran: {main}")
+    return main, tables, time_slice(d, x, "tail slice")
+
+
+def phase_vs_plain(router, dev, rng, tmp):
     cfg = load_config(overrides={"cuda": {"compute_dtype": "float32"}})
     x = rng.random((3, SIZE, SIZE, 3), dtype=np.float32)
     labels = np.array([0, 1, 2])
-    outs = []
-    for device in ("cpu", dev):
-        d = AdaptiveDehazer(copy.deepcopy(router), None, cfg, device=device)
+    forced_cache, _ = tune_then_force(router, cfg, dev, tmp, "fp32")
+    outs = {}
+    for tag, device, kwargs in (
+            ("CPU", "cpu", {}), ("card, default dispatch", dev, {}),
+            ("card, tail-chain dispatch", dev,
+             dict(autotune=True, autotune_cache=forced_cache))):
+        d = AdaptiveDehazer(copy.deepcopy(router), None, cfg, device=device, **kwargs)
+        before = counts()
         with torch.inference_mode():
             y, _ = d.engine(torch.from_numpy(x).to(device), intensity=labels)
-        outs.append(y.cpu())
-    err = max_err(outs[0], outs[1])
-    log(f"[slice vs plain] fp32, labels {labels.tolist()}, {SIZE}^2: max abs err "
-        f"card vs CPU {err:.3e} (bound {SLICE_ATOL})")
-    check(err <= SLICE_ATOL, "the card's slice disagrees with the plain path")
+        outs[tag] = y.cpu()
+        if kwargs:
+            ran = delta(before)
+            check(ran["medium_tail_chain"] == MEDIUM_TAIL_LAUNCHES
+                  and ran["high_tail_chain"] == HIGH_TAIL_LAUNCHES,
+                  f"the fp32 tail-chain dispatch launched {ran}")
+    for tag in list(outs)[1:]:
+        err = max_err(outs["CPU"], outs[tag])
+        log(f"[slice vs plain] fp32, labels {labels.tolist()}, {SIZE}^2, {tag}: max abs "
+            f"err vs CPU {err:.3e} (bound {SLICE_ATOL})")
+        check(err <= SLICE_ATOL, f"the card's slice ({tag}) disagrees with the plain path")
 
 
 def main():
@@ -341,13 +676,24 @@ def main():
     kernels = phase_kernels(dev, gen)
     router = make_router(load_config(), gen)
     rng = np.random.default_rng(SEED)
-    launches = phase_slice(router, dev, rng)
-    phase_vs_plain(router, dev, rng)
+    x = rng.random((BATCH, SIZE, SIZE, 3), dtype=np.float32)
+    labels = np.arange(BATCH) % 3
+    with tempfile.TemporaryDirectory() as tmp:
+        default, outs, default_ms, dispatch = phase_slice(router, dev, x, labels, gen)
+        tail, tables, tail_ms = phase_tail_slice(router, dev, x, labels, outs, tmp)
+        phase_vs_plain(router, dev, rng, tmp)
+    for name in ("route_hard", "soft"):
+        log(f"[slices] {name}: default dispatch {default_ms[name]:.3f} ms/image, "
+            f"tail-chain dispatch {tail_ms[name]:.3f} ms/image")
 
     line = {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
-         "launches": launches[name], **kernels[name]}
-        for name, (route, source, replaces, _) in KERNELS.items()]}
+         "launches": default[name] + tail[name],
+         "launches_by_path": {"default": default[name], "tail_chain": tail[name]},
+         **kernels[name]}
+        for name, (route, source, replaces) in KERNELS.items()],
+        "autotune_ms_per_16_images": tables, "dispatch_ms": dispatch,
+        "slice_ms_per_image": {"default": default_ms, "tail_chain": tail_ms}}
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-"""Kernels K1, K2 and K5 of the PyTorch port against their plain versions
+"""Kernels K1, K2, K2', K3, K4 and K5 of the PyTorch port against their plain versions
 on a CUDA card (marker `cuda`; every test skips without a card).
 
 This file imports neither JAX nor the JAX package, so that it also runs on
@@ -11,7 +11,8 @@ Tolerances: fp32 kernel vs fp32 plain at 1e-4 with TF32 off (sums in
 another order); bf16 kernel vs fp32 plain at 3e-2, the bf16 bound of the
 JAX tail-chain tests. The blend has one rounding per element: 1e-6 in fp32.
 K1's tensor-core body is also held against the bf16 plain version, which
-rounds at the same points, at K1_BF16_ATOL (see there).
+rounds at the same points, at K1_BF16_ATOL (see there), and so are the tail
+chains K3 and K4 at TAIL_BF16_ATOL.
 """
 import copy
 
@@ -23,6 +24,18 @@ from adam_dehaze_tpu_torch.ops.kernels.blend import blend3, blend3_reference
 from adam_dehaze_tpu_torch.ops.kernels.cbam import (
     channel_spatial_gate,
     channel_spatial_gate_reference,
+    spatial_gate,
+    spatial_gate_reference,
+)
+from adam_dehaze_tpu_torch.ops.kernels.tail_chain import (
+    HIGH_TAIL_LAUNCHES,
+    MEDIUM_TAIL_LAUNCHES,
+    fold_high_tail,
+    fold_medium_tail,
+    high_tail_chain,
+    high_tail_chain_reference,
+    medium_tail_chain,
+    medium_tail_chain_reference,
 )
 from adam_dehaze_tpu_torch.ops.kernels import _build
 from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
@@ -40,6 +53,10 @@ BF16_ATOL = 3e-2
 # bf16 values and round at the same points, so they differ only where the
 # two sum orders put a value on either side of a bf16 rounding boundary.
 K1_BF16_ATOL = 4e-3
+# bf16 K3/K4 vs their bf16 plain versions: the same argument; the output is
+# x + tanh(.) [* guidance], clipped, so a flipped bf16 rounding upstream
+# (one part in 256 of an activation) reaches it at a few 1e-3.
+TAIL_BF16_ATOL = 1e-2
 
 
 @pytest.fixture
@@ -143,6 +160,136 @@ def test_k2_kernel_matches_plain(cuda_device, dtype, atol, shape):
     torch.cuda.synchronize()
     assert channel_spatial_gate.launches - before == 1
     torch.testing.assert_close(got.float().cpu(), want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, FP32_ATOL),
+                                        (torch.bfloat16, BF16_ATOL)])
+@pytest.mark.parametrize("shape", [(2, 13, 24, 96), (1, 5, 300, 8)])
+def test_k2prime_kernel_matches_plain(cuda_device, dtype, atol, shape):
+    gen = torch.Generator().manual_seed(9)
+    x = torch.rand(shape, generator=gen)
+    w = torch.randn(7, 7, 2, 1, generator=gen) * 0.1
+    want = spatial_gate_reference(x, w)
+    before = spatial_gate.launches
+    with torch.inference_mode():
+        got = spatial_gate(x.to(cuda_device, dtype), w.to(cuda_device))
+    torch.cuda.synchronize()
+    assert spatial_gate.launches - before == 1
+    torch.testing.assert_close(got.float().cpu(), want, rtol=0, atol=atol)
+
+
+def _tail_case(kind, c, seed, size=(36, 72)):
+    """A seeded branch of width c, tail inputs drawn non-negative like the
+    real decoder state, and the tail's functions."""
+    from adam_dehaze_tpu_torch.models.branches import (
+        HighIntensityDehazeModel,
+        MediumIntensityDehazeModel,
+    )
+    if kind == "medium":
+        model = _seeded(MediumIntensityDehazeModel(c), seed)
+        fns = (fold_medium_tail, medium_tail_chain, medium_tail_chain_reference,
+               MEDIUM_TAIL_LAUNCHES)
+    else:
+        model = _seeded(HighIntensityDehazeModel(c), seed)
+        fns = (fold_high_tail, high_tail_chain, high_tail_chain_reference,
+               HIGH_TAIL_LAUNCHES)
+    gen = torch.Generator().manual_seed(seed + 1)
+    h, w = size
+    d1 = torch.relu(torch.randn(2, h // 2, w // 2, 4 * c, generator=gen))
+    f0 = torch.relu(torch.randn(2, h, w, c, generator=gen))
+    x = torch.rand(2, h, w, 3, generator=gen)
+    return model, (d1, f0, x), fns
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, FP32_ATOL),
+                                        (torch.bfloat16, BF16_ATOL)])
+@pytest.mark.parametrize("kind,c", [("medium", 64), ("medium", 16), ("high", 96),
+                                    ("high", 16), ("high", 48)])
+def test_tail_kernels_match_fp32_plain(cuda_device, dtype, atol, kind, c):
+    """Sizes that are no multiple of the 8x16 tile exercise its edges;
+    c=16 takes the FMA body for the c/2-wide layers in bf16 too, c=48 and
+    96 a 16-channel last input chunk or output chunk."""
+    model, inputs, (fold_fn, tail, reference, n_launch) = _tail_case(kind, c, 11)
+    want = reference(*inputs, fold_fn(model, torch.float32))
+    weights = fold_fn(model.to(cuda_device), dtype)
+    before = tail.launches, spatial_gate.launches
+    with torch.inference_mode():
+        got = tail(*[t.to(cuda_device) for t in inputs], weights)
+    torch.cuda.synchronize()
+    assert tail.launches - before[0] == n_launch
+    assert spatial_gate.launches - before[1] == (1 if kind == "high" else 0)
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("kind,c", [("medium", 64), ("high", 96), ("high", 48)])
+def test_tail_kernels_match_bf16_plain(cuda_device, kind, c):
+    """bf16 kernels against the bf16 plain version, which rounds at the
+    same points: a dropped tap, phase, input half or residual add shows
+    here, where the 3e-2 bound against the fp32 plain version is blind."""
+    model, inputs, (fold_fn, tail, reference, _) = _tail_case(kind, c, 13)
+    weights = fold_fn(model.to(cuda_device), torch.bfloat16)
+    inputs = [t.to(cuda_device) for t in inputs]
+    with torch.inference_mode():
+        want = reference(*inputs, weights)
+        got = tail(*inputs, weights)
+    torch.testing.assert_close(got, want, rtol=0, atol=TAIL_BF16_ATOL)
+
+
+def test_tail_kernels_are_reproducible(cuda_device):
+    """The channel reduction is two-stage, without atomics: two runs give
+    the same bits."""
+    model, inputs, (fold_fn, tail, _, _) = _tail_case("high", 32, 17)
+    weights = fold_fn(model.to(cuda_device), torch.float32)
+    inputs = [t.to(cuda_device) for t in inputs]
+    with torch.inference_mode():
+        a, b = tail(*inputs, weights), tail(*inputs, weights)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_tail_kernels_refuse_what_they_do_not_take(cuda_device):
+    from adam_dehaze_tpu_torch.ops.serving_apply import make_medium_tail_apply
+    model, (d1, f0, x), (fold_fn, tail, _, _) = _tail_case("medium", 16, 19)
+    weights = fold_fn(model.to(cuda_device), torch.float32)
+    d1, f0, x = (t.to(cuda_device) for t in (d1, f0, x))
+    with pytest.raises(ValueError):
+        tail(d1[:, :, :-1], f0, x, weights)                  # d1 not half of x
+    with pytest.raises(ValueError):
+        tail(d1, f0[..., :8], x, weights)                    # f0 of another width
+    apply = make_medium_tail_apply(model, torch.float32)
+    with pytest.raises(ValueError):
+        apply(torch.rand(1, 30, 32, 3, device=cuda_device))  # 30 is no multiple of 4
+
+
+@pytest.mark.parametrize("level", ["medium", "high"])
+def test_tail_apply_matches_canonical_on_card(cuda_device, level):
+    """The tail applies against the canonical forward of the same serving
+    dtype, fp32, on the card."""
+    from adam_dehaze_tpu_torch.ops.serving_apply import (
+        cast_for_serving,
+        make_high_tail_apply,
+        make_medium_tail_apply,
+    )
+    model, (_, _, x), _ = _tail_case(level, 32, 23, size=(40, 64))
+    model = model.to(cuda_device)
+    make = make_medium_tail_apply if level == "medium" else make_high_tail_apply
+    x = x.to(cuda_device)
+    with torch.inference_mode():
+        want = cast_for_serving(model, torch.float32)(x)
+        got = make(model, torch.float32)(x)
+    torch.testing.assert_close(got, want, rtol=0, atol=FP32_ATOL)
+
+
+def test_autotune_on_card_offers_and_times_the_kernels(cuda_device, tmp_path):
+    from adam_dehaze_tpu_torch.serving_autotune import candidate_builders, load_or_tune
+    cache = str(tmp_path / "tune.json")
+    for level, want in (("medium", "tail_chain"), ("high", "tail_chain")):
+        model, _, _ = _tail_case(level, 16, 29)
+        model = model.to(cuda_device)
+        assert set(candidate_builders(model, torch.bfloat16)) == {"canonical", want}
+        _, report = load_or_tune(model, torch.bfloat16, (2, 32, 32, 3), cache_path=cache)
+        assert all(report["table"][k] is not None for k in ("canonical", want)), report
+        _, again = load_or_tune(model, torch.bfloat16, (2, 32, 32, 3), cache_path=cache)
+        assert again["cached"] is True and again["best"] == report["best"]
 
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-6),

@@ -35,7 +35,7 @@ def test_port_imports_no_jax_flax_or_triton():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.strip().split(" ", 1)
-    assert int(count) >= 15, proc.stdout
+    assert int(count) >= 21, proc.stdout
     assert bad == "[]", bad
 
 
@@ -52,6 +52,17 @@ def test_chip_smoke_fails_without_cuda():
             assert not json.loads(line).get("ok")
         except (ValueError, AttributeError):
             pass
+
+
+def test_chip_mutation_check_fails_without_cuda():
+    """The mutation check of the tail chains' bf16 bound builds and runs
+    kernels: without a card it exits non-zero and reports nothing."""
+    env = _clean_env()
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, "chip_mutation_check.py"], cwd=REPO,
+                          capture_output=True, text=True, env=env, timeout=300)
+    assert proc.returncode != 0
+    assert "caught" not in proc.stdout
 
 
 def test_chip_smoke_fails_alone(tmp_path):

@@ -10,9 +10,6 @@ engine with forced labels that cover every class (so a near-tie in the
 random classifier's argmax cannot decide the test), the capacity spill
 plan, soft routing, and the bucket rules.
 """
-import types
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,53 +17,14 @@ import torch
 
 from adam_dehaze_tpu.models import routing as JR
 from adam_dehaze_tpu_torch.models import routing as PR
-from torch_port_util import ATOL, images
+from torch_port_util import ATOL, dehazer_pair, images
 
 N_IMAGES = 6
 
 
-def _configs():
-    from adam_dehaze_tpu.config import default_config
-    from adam_dehaze_tpu_torch.config import load_config
-    jcfg = default_config()
-    pcfg = load_config(overrides={"cuda": {"compute_dtype": "float32"}})
-    for cfg in (jcfg, pcfg):
-        for level, ch, blocks in (("low", 8, 2), ("medium", 8, 6), ("high", 16, 9)):
-            cfg["dehazing"][level].update(channels=ch, blocks=blocks)
-        cfg["dataset"]["img_size"] = 32
-    jcfg["tpu"].update(compute_dtype="float32", use_pallas=False)
-    return jcfg, pcfg
-
-
 @pytest.fixture(scope="module")
 def dehazers():
-    from adam_dehaze_tpu.models.branches import create_branch_models
-    from adam_dehaze_tpu.models.classifier import create_classifier
-    from adam_dehaze_tpu.serving import AdaptiveDehazer as JDehazer
-    from adam_dehaze_tpu_torch.models.branches import (
-        create_branch_models as p_branches,
-    )
-    from adam_dehaze_tpu_torch.models.classifier import (
-        create_classifier as p_classifier,
-    )
-    from adam_dehaze_tpu_torch.serving import AdaptiveDehazer
-
-    jcfg, pcfg = _configs()
-    jr = JR.create_router(create_branch_models(jcfg), create_classifier(jcfg), jcfg)
-    vs = jr.init({"params": jax.random.PRNGKey(0),
-                  "dropout": jax.random.PRNGKey(1)},
-                 jnp.asarray(images((1, 32, 32, 3))))
-    vs = jax.tree_util.tree_map(np.asarray, dict(vs))
-    rng = np.random.default_rng(11)
-    vs["batch_stats"] = jax.tree_util.tree_map(
-        lambda a: (a + rng.uniform(0, 0.3, a.shape)).astype(np.float32),
-        vs["batch_stats"])
-    state = types.SimpleNamespace(params=vs["params"],
-                                  batch_stats=vs["batch_stats"])
-    jd = JDehazer(jr, state, jcfg)
-    pr = PR.create_router(p_branches(pcfg), p_classifier(pcfg), pcfg)
-    pd = AdaptiveDehazer(pr, vs, pcfg, device="cpu")
-    return jd, pd
+    return dehazer_pair()
 
 
 def test_route_hard_matches_jax(dehazers):
