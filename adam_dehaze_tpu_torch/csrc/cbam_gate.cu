@@ -97,10 +97,9 @@ cbam_gate_kernel(const T* __restrict__ x, const float* __restrict__ g,
     if constexpr (kChannelGate) {
       const float4 g0 = __ldg(reinterpret_cast<const float4*>(gb + ch));
       const float4 g1 = __ldg(reinterpret_cast<const float4*>(gb + ch + 4));
-      vals[0] *= g0.x * gate; vals[1] *= g0.y * gate;
-      vals[2] *= g0.z * gate; vals[3] *= g0.w * gate;
-      vals[4] *= g1.x * gate; vals[5] *= g1.y * gate;
-      vals[6] *= g1.z * gate; vals[7] *= g1.w * gate;
+      const float gk[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) vals[k] *= gk[k] * gate;
     } else {
 #pragma unroll
       for (int k = 0; k < 8; ++k) vals[k] *= gate;

@@ -9,8 +9,9 @@ wrapper (`wrapper.launches`, one per kernel launch).
 
 def launch_counters() -> dict:
     """Every kernel wrapper that counts its launches, by kernel name: K1
-    (low-branch chain), K2 and K2' (CBAM gates), K3 and K4 (tail chains)
-    and K5 (three-way blend)."""
+    (low-branch chain), K2 and K2' (CBAM gates), K3 and K4 (tail chains),
+    K5 (three-way blend), K6 (res/attention segment chain) and the
+    operation probes."""
     from adam_dehaze_tpu_torch.ops.kernels.blend import blend3
     from adam_dehaze_tpu_torch.ops.kernels.cbam import (
         channel_spatial_gate,
@@ -19,14 +20,17 @@ def launch_counters() -> dict:
     from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
         lightweight_chain,
     )
+    from adam_dehaze_tpu_torch.ops.kernels.res_chain import res_attn_chain
     from adam_dehaze_tpu_torch.ops.kernels.tail_chain import (
         high_tail_chain,
         medium_tail_chain,
     )
+    from adam_dehaze_tpu_torch.tools.probe_ops import probe_op
     return {"lightweight_chain": lightweight_chain,
             "cbam_gate": channel_spatial_gate, "spatial_gate": spatial_gate,
             "medium_tail_chain": medium_tail_chain,
-            "high_tail_chain": high_tail_chain, "blend3": blend3}
+            "high_tail_chain": high_tail_chain, "blend3": blend3,
+            "res_attn_chain": res_attn_chain, "probe_ops": probe_op}
 
 
 def reset_launch_counts() -> None:

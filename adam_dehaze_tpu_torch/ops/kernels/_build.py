@@ -4,9 +4,9 @@ Every `*.cu` file under `adam_dehaze_tpu_torch/csrc/` is compiled by `nvcc`
 for Hopper (`sm_90a`), one `nvcc` per source and all started together, and
 the objects are linked into ONE shared library with a plain C interface,
 loaded with `ctypes`. The library goes to `build/kernels/<hash>/` at the
-repository root (listed in .gitignore), keyed by a hash of the sources and
-the flags, so a rebuilt source never loads a stale binary and an unchanged
-one builds once per checkout. A plain C interface keeps the build to a few
+repository root (listed in .gitignore), keyed by a hash of the sources, the
+headers they share (`*.cuh`) and the flags, so a rebuilt source never loads
+a stale binary and an unchanged one builds once per checkout. A plain C interface keeps the build to a few
 seconds: no PyTorch header is compiled.
 
 Each C entry point takes its pointers and the CUDA stream as `void*`, enqueues
@@ -63,6 +63,12 @@ _SIGNATURES = {
     "tail_channel_gate": (P, P, P, P, I, I, I, I, I, P),
     # x, gate, z, mean_p, max_p, N, H, W, C, is_bf16, stream
     "tail_gated_stats": (P, P, P, P, P, I, I, I, I, I, P),
+    # in, w, shift, residual, out, N, H, W, C, is_bf16, stream
+    "res_chain_conv": (P, P, P, P, P, I, I, I, I, I, P),
+    # x, gate, mean_p, max_p, N, H, W, C, is_bf16, stream
+    "res_chain_gated_maps": (P, P, P, P, I, I, I, I, I, P),
+    # which, x, w, wrep, out, flat, stream
+    "probe_op": (I, P, P, P, P, I, P),
 }
 
 

@@ -13,7 +13,8 @@ the clip; activations between stages in the compute dtype, f32 sums. Their
 TPU layout (space-to-depth packing, zero ring, 8-aligned strides,
 matmul-first rolls, 0/1-selection matmuls, 128-lane padding) does not: here
 every stage is one launch (csrc/tail_chain.cu, whose source note says what
-bounds it), and tensors are plain NHWC.
+bounds it; the conv kernel is csrc/conv_tile.cuh, shared with K6), and
+tensors are plain NHWC.
 
 `fold_medium_tail` / `fold_high_tail` build the folded weights once from a
 port branch; `medium_tail_chain` / `high_tail_chain` run them: on CPU

@@ -14,13 +14,19 @@ function takes the module and the compute dtype:
   a copy whose convolution and linear weights are cast to the compute
   dtype. BatchNorm parameters and statistics stay float32.
 
-`make_medium_tail_apply` and `make_high_tail_apply` (counterparts of
-`make_medium_s2d_apply(..., tail_chain=True)` and
-`make_high_s2d_apply(..., tail_chain=True)`) run a branch's prefix
-(`init_conv`, `encoder`, `bottleneck`, `decoder[0]`, the concat with e1) on
-the serving copy's canonical modules and everything after it on kernel K3
-or K4, folded once. The serving autotune (serving_autotune.py) offers them
-as the `tail_chain` candidates; the default dispatch does not use them.
+`BranchChainApply` runs a medium or high branch with parts of it on the
+chain kernels, folded once, and the rest on the serving copy's canonical
+modules: any of the same-shape segments `e1`, `e2b`, `d1` on kernel K6
+(ops/kernels/res_chain.py), and everything after the d1 concat on kernel K3
+or K4. Its makers are the counterparts of the JAX package's applies:
+`make_medium_tail_apply` and `make_high_tail_apply`
+(`make_medium_s2d_apply(..., tail_chain=True)`,
+`make_high_s2d_apply(..., tail_chain=True)`), `make_medium_chain_apply`
+(`make_medium_chain_apply`: all three segments on K6) and
+`make_high_chain_apply` (`make_high_s2d_apply(..., res_chain=...,
+tail_chain=...)`). The serving autotune (serving_autotune.py) offers them as
+the `tail_chain`, `chain_hybrid`, `res_chain_e2b` and `res_e2b_tail_chain`
+candidates; the default dispatch does not use them.
 
 `make_router_serving_apply` builds one serving copy of a whole router from
 the same applies; soft routing calls it and the hard-routing engine takes
@@ -45,6 +51,13 @@ from adam_dehaze_tpu_torch.models.branches import (
 from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
     LightweightChainWeights,
     lightweight_chain,
+)
+from adam_dehaze_tpu_torch.ops.kernels.res_chain import (
+    SEGMENTS,
+    fold_res_attn_chain,
+    res_attn_chain,
+    res_chain_supported,
+    segment_blocks,
 )
 from adam_dehaze_tpu_torch.ops.kernels.tail_chain import (
     fold_high_tail,
@@ -80,62 +93,138 @@ def cast_for_serving(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     return m
 
 
-# kind -> (the branch's class, the kernel's wrapper, its fold).
+# kind -> (the branch's class, the tail kernel's wrapper, its fold).
 _TAILS = {
     "medium": (MediumIntensityDehazeModel, medium_tail_chain, fold_medium_tail),
     "high": (HighIntensityDehazeModel, high_tail_chain, fold_high_tail),
 }
+# Channels (in units of the base width) and downscale of each segment.
+_SEGMENT_SHAPES = {"e1": (2, 2), "e2b": (4, 4), "d1": (2, 2)}
 
 
-class TailChainApply(nn.Module):
-    """A medium or high branch (`kind`) with its tail on kernel K3 or K4:
-    the prefix is the serving copy's canonical modules (K2 inside the high
-    branch's AttentionBlocks), the tail the kernel on weights folded once
-    from the float32 parameters. x (N, H, W, 3) float -> (N, H, W, 3)
-    float32. Raises on a size the tail does not take (the canonical forward
-    resizes there; the tail has no such step)."""
+def chain_apply_supported(base_channels: int, height: int, width: int,
+                          dtype: torch.dtype, segments=(), tail: bool = False) -> bool:
+    """Whether `BranchChainApply` takes a branch of this width at this image
+    size: sides that are multiples of 4 (the decoder's stages are then exact
+    halves and the canonical forward's resize steps never run), and every
+    chosen kernel takes its shape."""
+    if height % 4 or width % 4 or height < 4 or width < 4:
+        return False
+    if tail and not tail_supported(base_channels, height, width, dtype):
+        return False
+    return all(res_chain_supported(mult * base_channels, height // down, width // down,
+                                   dtype)
+               for mult, down in (_SEGMENT_SHAPES[s] for s in segments))
 
-    def __init__(self, model: nn.Module, dtype: torch.dtype, kind: str):
+
+class _ResChainSegment(nn.Module):
+    """A segment's blocks on kernel K6, folded once. NCHW (channels_last
+    memory) in and out, like the blocks it stands for."""
+
+    def __init__(self, blocks, dtype: torch.dtype):
         super().__init__()
-        cls, self.tail, fold_tail = _TAILS[kind]
+        self.weights = fold_res_attn_chain(blocks, dtype)
+
+    def forward(self, v):
+        # A no-op for the branches' channels_last activations: the NHWC
+        # view is free.
+        v = v.contiguous(memory_format=torch.channels_last)
+        return res_attn_chain(v.permute(0, 2, 3, 1), self.weights).permute(0, 3, 1, 2)
+
+
+class BranchChainApply(nn.Module):
+    """A medium or high branch (`kind`) with the segments named in
+    `segments` (drawn from "e1", "e2b", "d1") on kernel K6 and, with `tail`,
+    everything after the d1 concat on kernel K3 or K4; all else is the
+    serving copy's canonical modules (K2 inside the high branch's
+    AttentionBlocks that stay canonical). Kernel weights are folded once
+    from the float32 parameters. x (N, H, W, 3) float -> (N, H, W, 3)
+    float32. Raises on a shape a chosen kernel does not take, and on a size
+    the canonical forward would resize (`chain_apply_supported`)."""
+
+    def __init__(self, model: nn.Module, dtype: torch.dtype, kind: str,
+                 segments=(), tail: bool = False):
+        super().__init__()
+        cls, tail_fn, fold_tail = _TAILS[kind]
         if not isinstance(model, cls):
             raise TypeError(f"expected a {cls.__name__}, got {type(model).__name__}")
-        self.weights = fold_tail(model, dtype)
+        unknown = set(segments) - set(SEGMENTS)
+        if unknown:
+            raise ValueError(f"unknown segments {sorted(unknown)}: drawn from {SEGMENTS}")
+        self.segments = tuple(s for s in SEGMENTS if s in set(segments))
         self.dtype = dtype
         self.base_channels = model.base_channels
         copy_ = cast_for_serving(model, dtype)
         self.init_conv = copy_.init_conv
-        self.encoder = copy_.encoder
-        self.bottleneck = copy_.bottleneck
-        self.up0 = copy_.decoder[0]
+        self.down1, self.down2 = copy_.encoder[0][0], copy_.encoder[1][0]
+        self.up0 = nn.Sequential(*list(copy_.decoder[0])[:3])   # convT, BN, ReLU
+        for seg in SEGMENTS:
+            body = (_ResChainSegment(segment_blocks(model, seg), dtype)
+                    if seg in self.segments
+                    else nn.Sequential(*segment_blocks(copy_, seg)))
+            setattr(self, seg, body)
+        self.tail = tail_fn if tail else None
+        if tail:
+            self.tail_weights = fold_tail(model, dtype)
+        else:
+            self.up1 = copy_.decoder[1]
+            self.output_conv = copy_.output_conv
+            self.detail_branch = copy_.detail_branch if kind == "high" else None
 
     def forward(self, x):
         _, h, w, _ = x.shape
-        if not tail_supported(self.base_channels, h, w, self.dtype):
+        if not chain_apply_supported(self.base_channels, h, w, self.dtype,
+                                     self.segments, self.tail is not None):
             raise ValueError(
-                f"the tail chain does not take width {self.base_channels} at "
-                f"{h}x{w} in {self.dtype}: see tail_supported")
+                f"the chain apply (segments {self.segments}, tail "
+                f"{self.tail is not None}) does not take width {self.base_channels} "
+                f"at {h}x{w} in {self.dtype}: see chain_apply_supported, "
+                f"tail_supported and res_chain_supported")
         xin = x.to(self.dtype).permute(0, 3, 1, 2)
         f0 = self.init_conv(xin)
-        e1 = self.encoder[0](f0)
-        d1 = self.up0(self.bottleneck(self.encoder[1](e1)))
+        e1 = self.e1(self.down1(f0))
+        d1 = self.d1(self.up0(self.e2b(self.down2(e1))))
         d1 = torch.cat([d1, e1], dim=1)
-        # NCHW in channels_last memory: the NHWC views are free.
-        return self.tail(d1.permute(0, 2, 3, 1), f0.permute(0, 2, 3, 1),
-                         x.float(), self.weights)
+        if self.tail is not None:
+            # NCHW in channels_last memory: the NHWC views are free.
+            return self.tail(d1.permute(0, 2, 3, 1), f0.permute(0, 2, 3, 1),
+                             x.float(), self.tail_weights)
+        res = torch.tanh(self.output_conv(torch.cat([self.up1(d1), f0], dim=1)))
+        if self.detail_branch is not None:
+            res = res * self.detail_branch(xin)
+        return torch.clamp(xin + res, 0.0, 1.0).permute(0, 2, 3, 1).float().contiguous()
 
 
 def make_medium_tail_apply(model: nn.Module, dtype: torch.dtype = torch.bfloat16
                            ) -> nn.Module:
     """The medium branch with everything after the d1 concat on kernel K3."""
-    return TailChainApply(model, dtype, "medium")
+    return BranchChainApply(model, dtype, "medium", tail=True)
 
 
 def make_high_tail_apply(model: nn.Module, dtype: torch.dtype = torch.bfloat16
                          ) -> nn.Module:
     """The high branch with everything after the d1 concat on kernel K4
     (its spatial step on K2')."""
-    return TailChainApply(model, dtype, "high")
+    return BranchChainApply(model, dtype, "high", tail=True)
+
+
+def make_medium_chain_apply(model: nn.Module, dtype: torch.dtype = torch.bfloat16
+                            ) -> nn.Module:
+    """The medium branch with its three residual segments on kernel K6 and
+    everything else canonical."""
+    return BranchChainApply(model, dtype, "medium", segments=SEGMENTS)
+
+
+def make_high_chain_apply(model: nn.Module, dtype: torch.dtype = torch.bfloat16,
+                          res_chain=("e2b",), tail_chain: bool = False) -> nn.Module:
+    """The high branch with the segments in `res_chain` (True: all three;
+    None or False: none; else a collection drawn from "e1", "e2b", "d1") on
+    kernel K6 and, with `tail_chain`, everything after the d1 concat on K4.
+    The JAX package's space-to-depth prefix is not carried."""
+    if res_chain is True:
+        res_chain = SEGMENTS
+    return BranchChainApply(model, dtype, "high", segments=tuple(res_chain or ()),
+                            tail=tail_chain)
 
 
 def _chain_apply(model: nn.Module, dtype: torch.dtype) -> Optional[nn.Module]:

@@ -12,7 +12,10 @@ Counterpart of adam_dehaze_tpu/serving.py:
 
 With `autotune=True` every branch's apply is the winner of a timing run on
 the serving device at (16, img_size, img_size, 3) (serving_autotune.py),
-read from `autotune_cache` when that file already holds it.
+read from `autotune_cache` when that file already holds it. On a CUDA device
+the run times `canonical` and `chain` for the low branch, `canonical`,
+`tail_chain` and `chain_hybrid` for the medium one, and `canonical`,
+`tail_chain`, `res_chain_e2b` and `res_e2b_tail_chain` for the high one.
 
 Images go in and come out as numpy NHWC float32 in [0, 1]. Everything runs
 in eval mode, under torch.inference_mode, in the config's

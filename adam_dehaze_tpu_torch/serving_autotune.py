@@ -23,21 +23,27 @@ Candidates, all held to the canonical forward by the tests:
 - `chain` for the low branch: kernel K1 on weights folded once;
 - `tail_chain` for the medium and the high branch: the prefix canonical,
   everything after the d1 concat on kernel K3 or K4 (the JAX package's
-  `s2d_tail_chain`; its space-to-depth prefix is not ported).
+  `s2d_tail_chain`; its space-to-depth prefix is not ported);
+- `chain_hybrid` for the medium branch: its three residual segments (after
+  each down conv and the first up conv) on kernel K6, all else canonical;
+- `res_chain_e2b` for the high branch: the 4c-wide encoder and bottleneck
+  segment on K6; and `res_e2b_tail_chain`: that and the tail on K4 (the JAX
+  package's `s2d_res_chain_e2b` and `s2d_res_e2b_tail_chain`).
 
 The kernel candidates are offered only for a model on a CUDA device (their
 plain versions are a correctness tool, not a serving path) and only at a
-width, dtype and sample size the kernel takes: that is decided up front,
-by `chain_supported` and `tail_supported`. A kernel candidate that is
-offered and then fails to build, to launch or to run raises out of the
-tuner: the port never gives way to `canonical` behind a broken kernel. The
-cache key holds the device, the torch version, the model class, the width,
-the dtype and the sample shape; a cache hit skips all timing.
+width, dtype and sample size the kernels take: that is decided up front,
+by `chain_supported` and `chain_apply_supported` (`tail_supported`,
+`res_chain_supported`). A kernel candidate that is offered and then fails
+to build, to launch or to run raises out of the tuner: the port never gives
+way to `canonical` behind a broken kernel. The cache key holds the device,
+the torch version, the model class, the width, the dtype and the sample
+shape; a cache hit skips all timing.
 
 On the NVIDIA H100 80GB HBM3 `canonical` (cuDNN) wins the medium and the
 high branch and `chain` the low one (PERF.md), which is the dispatch
 `make_router_serving_apply` builds without tuning: there the tuner is the
-harness that holds K3 and K4 beside cuDNN, not a faster way to serve.
+harness that holds K3, K4 and K6 beside cuDNN, not a faster way to serve.
 """
 from __future__ import annotations
 
@@ -55,7 +61,16 @@ from adam_dehaze_tpu_torch.models.branches import (
 )
 from adam_dehaze_tpu_torch.ops import serving_apply
 from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import chain_supported
-from adam_dehaze_tpu_torch.ops.kernels.tail_chain import tail_supported
+
+
+# branch kind -> candidate -> (segments on kernel K6, the tail on K3 or K4).
+_CHAIN_CANDIDATES = {
+    "medium": {"tail_chain": ((), True),
+               "chain_hybrid": (serving_apply.SEGMENTS, False)},
+    "high": {"tail_chain": ((), True),
+             "res_chain_e2b": (("e2b",), False),
+             "res_e2b_tail_chain": (("e2b",), True)},
+}
 
 
 def _device_of(model) -> torch.device:
@@ -81,11 +96,12 @@ def candidate_builders(model, dtype: torch.dtype,
             cands["chain"] = lambda: serving_apply.LightweightChainApply(
                 model.serving_chain(dtype))
     elif isinstance(model, (MediumIntensityDehazeModel, HighIntensityDehazeModel)):
-        if tail_supported(model.base_channels, h, w, dtype):
-            make = (serving_apply.make_high_tail_apply
-                    if isinstance(model, HighIntensityDehazeModel)
-                    else serving_apply.make_medium_tail_apply)
-            cands["tail_chain"] = lambda: make(model, dtype)
+        kind = "high" if isinstance(model, HighIntensityDehazeModel) else "medium"
+        for name, (segments, tail) in _CHAIN_CANDIDATES[kind].items():
+            if serving_apply.chain_apply_supported(model.base_channels, h, w, dtype,
+                                                   segments, tail):
+                cands[name] = (lambda s=segments, t=tail: serving_apply.BranchChainApply(
+                    model, dtype, kind, segments=s, tail=t))
     return cands
 
 

@@ -7,8 +7,11 @@ Profiles, each over 3 warm calls at the sizes of chip_smoke.py (16 images at
 256^2, bf16, the same seeded weights and inputs):
 
 - the tail chains K3 and K4 alone, so that each stage's kernel shows;
-- route_hard and soft routing under the default dispatch and under the
-  forced chain / tail_chain / tail_chain dispatch.
+- the segment chain K6 alone at the high branch's 64^2 x 384 segment and at
+  the medium branch's 128^2 x 128 one;
+- route_hard and soft routing under the default dispatch, under the forced
+  chain / tail_chain / tail_chain dispatch and under the forced chain /
+  chain_hybrid / res_e2b_tail_chain dispatch.
 
 For each it prints the device-busy time per call (kernels and memcpys,
 summed once each), the host wall time per call, and the largest device
@@ -75,14 +78,28 @@ def main():
             profiled(name, lambda: tail(d1, f0, x, weights))
         del d1, f0, x
 
+    for name in ("high e2b", "medium e1"):
+        c, down, kinds = cs.RES_SEGMENTS[name]
+        blocks = torch.nn.Sequential(*[cs.ResidualBlock(c) if k == "res"
+                                       else cs.AttentionBlock(c) for k in kinds])
+        blocks = cs.perturb_bn_(cs.init_params_(blocks, gen), gen).eval().to(dev)
+        side = cs.SIZE // down
+        x = torch.relu(torch.randn(cs.BATCH, side, side, c, generator=gen)).to(dev).bfloat16()
+        weights = cs.fold_res_attn_chain(blocks, torch.bfloat16)
+        with torch.inference_mode():
+            profiled(f"K6 res_attn_chain, {name}", lambda: cs.res_attn_chain(x, weights))
+        del x
+
     router = cs.make_router(load_config(), gen)
     x = np.random.default_rng(cs.SEED).random((cs.BATCH, cs.SIZE, cs.SIZE, 3),
                                               dtype=np.float32)
     cfg = load_config()
     with tempfile.TemporaryDirectory() as tmp:
-        forced_cache, _ = cs.tune_then_force(router, cfg, dev, tmp, "bf16")
+        (tail_cache, res_cache), _ = cs.tune_then_force(
+            router, cfg, dev, tmp, "bf16", (cs.TAIL_FORCED, cs.RES_FORCED))
         for tag, kwargs in (("default", {}),
-                            ("tail_chain", dict(autotune=True, autotune_cache=forced_cache))):
+                            ("tail_chain", dict(autotune=True, autotune_cache=tail_cache)),
+                            ("res_chain", dict(autotune=True, autotune_cache=res_cache))):
             d = AdaptiveDehazer(copy.deepcopy(router), None, cfg, device=dev, **kwargs)
             _, intensity = d.route_hard(x)
             cs.log(f"[profile {tag}] route_hard intensities "

@@ -11,14 +11,19 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. Kernel vs plain on the card, at the main path's shapes: K1 (low-branch
    chain), K2 (CBAM gate, at each AttentionBlock shape of the high branch),
    K5 (soft blend), K2' (spatial gate, at the high tail's shape), K3 and K4
-   (the medium and high tail chains). fp32 against the fp32 plain version
-   at 1e-4 with TF32 off; bf16 against the fp32 plain version at 3e-2. The
-   bf16 tensor-core bodies are also held against the bf16 plain versions,
-   which round at the same points: K1 with alpha 1 at c=32 and c=48
-   (K1_BF16_ATOL), K3 and K4 at TAIL_BF16_ATOL. Prints errors, times (CUDA
-   events) of kernel and plain version, and each kernel's bound: the larger
-   of its bytes over the card's memory rate and its operations over the
-   card's peak rate, counted from this run's shapes.
+   (the medium and high tail chains), K6 (the res/attention segment chain,
+   at the six segments of the medium and the high branch) and the ten
+   operation probes. fp32 against the fp32 plain version at 1e-4 with TF32
+   off; bf16 against the fp32 plain version at 3e-2. The bf16 tensor-core
+   bodies are also held against the bf16 plain versions, which round at the
+   same points: K1 with alpha 1 at c=32 and c=48 (K1_BF16_ATOL), K3 and K4
+   at TAIL_BF16_ATOL, K6 at RES_BF16_RTOL. K6's errors are in units of the
+   plain result's largest magnitude (its segments end in a ReLU or a gate,
+   not in a clip to [0, 1]). Prints errors, times (CUDA events) of kernel
+   and plain version, for K3, K4 and K6 the time of the same stage on the
+   serving copy's canonical modules (cuDNN), and each kernel's bound: the
+   larger of its bytes over the card's memory rate and its operations over
+   the card's peak rate, counted from this run's shapes.
 4. Slice, default dispatch: the full-width default router (resnet18, low
    c=32, medium c=64, high c=96) with seeded random weights behind an
    AdaptiveDehazer in bf16, 16 images at 256^2: route_hard, the engine with
@@ -30,18 +35,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    intercept of the branch apply's time over its rows), beside the
    constants the chunk planner is fed under autotune
    (AdaptiveDehazer.DISPATCH_MS).
-5. Slice, tail-chain dispatch: a dehazer with autotune=True and a fresh
-   cache file times every candidate of the three branches at
-   (16, 256, 256, 3) and prints the tables (no candidate may fail); then a
-   dehazer whose cache names chain / tail_chain / tail_chain runs the same
-   three calls. The counters, set to 0 just before, must show K3 and K4
-   launched once per medium and high bucket (6 and 11 launches), K2' once
-   and K2 5 times per high bucket; the outputs must agree with phase 4's
-   within 3e-2. Prints the warm ms/image beside phase 4's.
-6. Slice vs plain: the same weights run a forced-label batch on the CPU in
+5. Tune: a dehazer with autotune=True and a fresh cache file times every
+   candidate of the three branches at (16, 256, 256, 3) and prints the
+   tables (no candidate may fail). The two forced paths below share this
+   one tuning run (each used to tune for itself).
+6. Slice, tail-chain dispatch: a dehazer whose cache names chain /
+   tail_chain / tail_chain runs the same three calls. The counters, set to
+   0 just before, must show K3 and K4 launched once per medium and high
+   bucket (6 and 11 launches), K2' once and K2 5 times per high bucket; the
+   outputs must agree with phase 4's within 3e-2. Prints the warm ms/image
+   beside phase 4's.
+7. Slice, res-chain dispatch: the same under chain / chain_hybrid /
+   res_e2b_tail_chain: K6 must show 14 launches per medium bucket and 17
+   per high bucket, K4 11 and K2' 1 per high bucket, K2 5 (3 inside K6, 2
+   in the AttentionBlocks that stay canonical).
+8. The probe tool's own entry point (run_probes): every pattern must PASS,
+   ten launches.
+9. Slice vs plain: the same weights run a forced-label batch on the CPU in
    fp32 (the plain versions) and on the card in fp32 (the kernels), under
-   the default and under the tail-chain dispatch.
-7. Prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
+   the default, the tail-chain and the res-chain dispatch.
+10. Prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 """
 import copy
 import json
@@ -61,8 +74,16 @@ from adam_dehaze_tpu_torch.models.branches import (
     create_branch_models,
 )
 from adam_dehaze_tpu_torch.models.classifier import create_classifier
-from adam_dehaze_tpu_torch.models.routing import create_router, plan_chunks
-from adam_dehaze_tpu_torch.nn.blocks import init_params_
+from adam_dehaze_tpu_torch.models.routing import (
+    INTENSITY_ORDER,
+    create_router,
+    plan_chunks,
+)
+from adam_dehaze_tpu_torch.nn.blocks import (
+    AttentionBlock,
+    ResidualBlock,
+    init_params_,
+)
 from adam_dehaze_tpu_torch.ops.kernels import (
     _build,
     launch_counters,
@@ -83,6 +104,13 @@ from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
     lightweight_chain,
     lightweight_chain_reference,
 )
+from adam_dehaze_tpu_torch.ops.kernels.res_chain import (
+    SEGMENTS,
+    fold_res_attn_chain,
+    launches_of,
+    res_attn_chain,
+    res_attn_chain_reference,
+)
 from adam_dehaze_tpu_torch.ops.kernels.tail_chain import (
     HIGH_TAIL_LAUNCHES,
     MEDIUM_TAIL_LAUNCHES,
@@ -96,6 +124,7 @@ from adam_dehaze_tpu_torch.ops.kernels.tail_chain import (
 )
 from adam_dehaze_tpu_torch.ops.serving_apply import cast_for_serving
 from adam_dehaze_tpu_torch.serving import AdaptiveDehazer
+from adam_dehaze_tpu_torch.tools import probe_ops
 
 SEED = 0
 BATCH, SIZE = 16, 256
@@ -110,6 +139,15 @@ K1_BF16_ATOL = 4e-3
 # part in 256 of an activation) reaches it at a few 1e-3; a dropped tap,
 # phase, input half or residual add moves it by 5e-2 or more (PERF.md).
 TAIL_BF16_ATOL = 1e-2
+# bf16 K6 vs its bf16 plain version, in units of the plain result's largest
+# magnitude: the same argument again, but a segment ends in a ReLU or a gate
+# and its activations are not confined to [0, 1], so the bound is relative.
+# A flipped rounding is one bf16 step, 2^-8 of the value it hits, and up to
+# eight convs carry it on: on an NVIDIA H100 80GB HBM3 the six segments read
+# 4.3e-3 to 6.5e-3, and a dropped tap, chunk, skip add or gate 0.38 or more.
+# The bound does not see the activation rounded before the spatial gate
+# (9.8e-3 against 7.8e-3 unchanged; chip_mutation_check.py, PERF.md).
+RES_BF16_RTOL = 2e-2
 # Published peaks of one H100 SXM at its full power limit: device memory
 # rate, dense bf16 tensor-core rate, f32 rate outside the tensor cores.
 PEAK_BYTES_S = 3.35e12
@@ -138,10 +176,59 @@ KERNELS = {
                           "adam_dehaze_tpu/ops/pallas/tail_chain.py:349"),
     "high_tail_chain": ("cuda", "adam_dehaze_tpu_torch/csrc/tail_chain.cu",
                         "adam_dehaze_tpu/ops/pallas/tail_chain.py:184"),
+    "res_attn_chain": ("cuda", "adam_dehaze_tpu_torch/csrc/res_chain.cu",
+                       "adam_dehaze_tpu/ops/pallas/res_chain.py:89"),
+    "probe_ops": ("cuda", "adam_dehaze_tpu_torch/csrc/probe_ops.cu",
+                  "tools/probe_mosaic_ops.py:29"),
 }
+# The main-path segments of K6 at 256^2: name -> (channels, downscale, kinds).
+RES_SEGMENTS = {
+    "high e1": (192, 2, ("res", "res", "attn")),
+    "high e2b": (384, 4, ("res", "res", "attn", "res", "attn", "res", "attn")),
+    "high d1": (192, 2, ("res", "attn")),
+    "medium e1": (128, 2, ("res", "res")),
+    "medium e2b": (256, 4, ("res", "res", "res", "res")),
+    "medium d1": (128, 2, ("res",)),
+}
+
+
+def _k6_launches(level, segments):
+    """(on K6, on K2) per bucket of a branch with these segments on K6."""
+    per = [launches_of(RES_SEGMENTS[f"{level} {seg}"][2]) for seg in segments]
+    return sum(a for a, _ in per), sum(b for _, b in per)
+
+
+# Kernel launches per bucket of every serving candidate: (level, name) ->
+# {kernel: launches}. K2 counts the AttentionBlocks that stay canonical and
+# the gates' pass of every attention block on K6.
+BUCKET_LAUNCHES = {
+    ("low", "canonical"): {"lightweight_chain": 9},
+    ("low", "chain"): {"lightweight_chain": 9},
+    ("medium", "canonical"): {},
+    ("medium", "tail_chain"): {"medium_tail_chain": MEDIUM_TAIL_LAUNCHES},
+    ("medium", "chain_hybrid"): {"res_attn_chain": _k6_launches("medium", SEGMENTS)[0]},
+    ("high", "canonical"): {"cbam_gate": 6},
+    ("high", "tail_chain"): {"high_tail_chain": HIGH_TAIL_LAUNCHES, "spatial_gate": 1,
+                             "cbam_gate": 5},
+    ("high", "res_chain_e2b"): {
+        "res_attn_chain": _k6_launches("high", ("e2b",))[0],
+        "cbam_gate": 3 + _k6_launches("high", ("e2b",))[1]},
+    ("high", "res_e2b_tail_chain"): {
+        "res_attn_chain": _k6_launches("high", ("e2b",))[0],
+        "high_tail_chain": HIGH_TAIL_LAUNCHES, "spatial_gate": 1,
+        "cbam_gate": 2 + _k6_launches("high", ("e2b",))[1]},
+}
+CLASS_OF = {"LightweightDehazeModel": "low", "MediumIntensityDehazeModel": "medium",
+            "HighIntensityDehazeModel": "high"}
+# The forced dispatches: level -> candidate.
+TAIL_FORCED = {"low": "chain", "medium": "tail_chain", "high": "tail_chain"}
+RES_FORCED = {"low": "chain", "medium": "chain_hybrid", "high": "res_e2b_tail_chain"}
 # Kernels each path must launch at least once.
 DEFAULT_PATH_KERNELS = ("lightweight_chain", "cbam_gate", "blend3")
-TAIL_PATH_KERNELS = tuple(KERNELS)
+TAIL_PATH_KERNELS = ("lightweight_chain", "cbam_gate", "blend3", "spatial_gate",
+                     "medium_tail_chain", "high_tail_chain")
+RES_PATH_KERNELS = ("lightweight_chain", "cbam_gate", "blend3", "spatial_gate",
+                    "high_tail_chain", "res_attn_chain")
 
 
 def log(msg):
@@ -371,6 +458,8 @@ def phase_kernels(dev, gen):
     del x, xb, ref, out, mean_p, max_p
 
     results.update(phase_tail_kernels(dev, gen))
+    results["res_attn_chain"] = phase_res_chain_kernels(dev, gen)
+    results["probe_ops"] = phase_probe_kernels(dev)
     return results
 
 
@@ -443,6 +532,114 @@ def phase_tail_kernels(dev, gen):
     return results
 
 
+def scaled_err(a, ref):
+    """Max abs difference in units of the reference's largest magnitude (at
+    least 1)."""
+    return max_err(a, ref) / max(1.0, float(ref.float().abs().max()))
+
+
+def phase_res_chain_kernels(dev, gen):
+    """K6 alone at the six main-path segments, batch 16, inputs drawn
+    non-negative like the activation after a ConvBlock. Returns the sums
+    over the six segments and each segment's readings."""
+    segments = {}
+    for name, (c, down, kinds) in RES_SEGMENTS.items():
+        blocks = torch.nn.Sequential(*[ResidualBlock(c) if k == "res" else AttentionBlock(c)
+                                       for k in kinds])
+        blocks = perturb_bn_(init_params_(blocks, gen), gen).eval().to(dev)
+        side = SIZE // down
+        x = torch.relu(torch.randn(BATCH, side, side, c, generator=gen)).to(dev)
+        xb = x.bfloat16()
+        w32 = fold_res_attn_chain(blocks, torch.float32)
+        wbf = fold_res_attn_chain(blocks, torch.bfloat16)
+        serving = cast_for_serving(blocks, torch.bfloat16)
+
+        def canonical(v, serving=serving):
+            return serving(v.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+        with torch.inference_mode():
+            ref = res_attn_chain_reference(x, w32)
+            e32 = scaled_err(res_attn_chain(x, w32), ref)
+            before = res_attn_chain.launches, channel_spatial_gate.launches
+            got = res_attn_chain(xb, wbf)
+            launched = (res_attn_chain.launches - before[0],
+                        channel_spatial_gate.launches - before[1])
+            ebf = scaled_err(got, ref)
+            tight = scaled_err(got, res_attn_chain_reference(xb, wbf))
+            ecan = scaled_err(got, canonical(xb))
+            ms = cuda_ms(lambda: res_attn_chain(xb, wbf), iters=5, warmup=1)
+            ms32 = cuda_ms(lambda: res_attn_chain(x, w32), iters=2, warmup=1)
+            plain = cuda_ms(lambda: res_attn_chain_reference(xb, wbf), iters=2, warmup=1)
+            can_ms = cuda_ms(lambda: canonical(xb), iters=5, warmup=1)
+        px = BATCH * side * side
+        n_res = sum(k == "res" for k in kinds)
+        n_attn = len(kinds) - n_res
+        flops = (2 * n_res * conv_flops(px, 9, c, c)
+                 + n_attn * (6 * px * c + conv_flops(px, 49, 2, 1)))
+        moved = 2 * nbytes(xb) + nbytes(*weight_tensors(wbf))
+        bd = bound(flops, moved, PEAK_BF16_FLOPS)
+        scale = float(ref.abs().max())
+        log(f"[K6 res_attn_chain] {name} {tuple(x.shape)} {list(kinds)}: errors in units of "
+            f"max|plain| = {scale:.2f}: fp32 {e32:.3e}, bf16 vs fp32 plain {ebf:.3e}, bf16 vs "
+            f"bf16 plain {tight:.3e} (bound {RES_BF16_RTOL}), bf16 vs the canonical bf16 "
+            f"blocks {ecan:.3e}; launches per call {launched[0]} (+{launched[1]} of K2); "
+            f"bf16 kernel {ms:.3f} ms ({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s), fp32 kernel "
+            f"{ms32:.3f} ms, plain {plain:.3f} ms, canonical blocks (cuDNN + K2, bf16) "
+            f"{can_ms:.3f} ms; bound {bd['bound_ms']:.3f} ms by {bd['bound_by']} "
+            f"({flops / 1e9:.1f} GFLOP, {moved / 1e6:.0f} MB)")
+        check(e32 <= FP32_ATOL and ebf <= BF16_ATOL,
+              f"K6 disagrees with its plain version at {name}")
+        check(tight <= RES_BF16_RTOL,
+              f"K6's bf16 kernels disagree with the bf16 plain version at {name}")
+        check(launched == launches_of(kinds), f"K6 launches per call at {name}: {launched}")
+        segments[name] = dict(
+            max_abs_err=tight, max_abs_err_bf16_vs_fp32=ebf, max_abs_err_fp32=e32,
+            err_unit=scale, ms=ms, fp32_ms=ms32, plain_ms=plain, canonical_ms=can_ms,
+            launches_per_call=launched[0], shape=list(x.shape), kinds=list(kinds), **bd)
+        del x, xb, ref, got, blocks, serving
+        torch.cuda.empty_cache()
+    total = {k: sum(seg[k] for seg in segments.values())
+             for k in ("ms", "fp32_ms", "plain_ms", "canonical_ms", "bound_ms", "bytes", "flops")}
+    for level in ("medium", "high"):
+        own = [seg for name, seg in segments.items() if name.startswith(level)]
+        log(f"[K6 res_attn_chain] the {level} branch's three segments: bf16 kernel "
+            f"{sum(s['ms'] for s in own):.3f} ms, canonical blocks "
+            f"{sum(s['canonical_ms'] for s in own):.3f} ms, bound "
+            f"{sum(s['bound_ms'] for s in own):.3f} ms")
+    return dict(max_abs_err=max(seg["max_abs_err"] for seg in segments.values()),
+                max_abs_err_fp32=max(seg["max_abs_err_fp32"] for seg in segments.values()),
+                err_unit="max|plain| of each segment",
+                per="one call of each of the six main-path segments",
+                bound_by=segments["high e2b"]["bound_by"], library_ms=None,
+                segments=segments, **total)
+
+
+def phase_probe_kernels(dev):
+    """Each probe's wrapper on the card against its plain expression, and
+    their times; sums over the ten patterns."""
+    x, w, wrep = probe_ops.probe_inputs(dev, SEED)
+    worst, ms, plain, moved, flops = 0.0, 0.0, 0.0, 0, 0
+    for name in probe_ops.PROBES:
+        got = probe_ops.probe_op(name, x, w, wrep)
+        want = probe_ops.probe_reference(name, x, w, wrep)
+        err = scaled_err(got, want)
+        check(got.shape == want.shape and err <= probe_ops.PROBE_RTOL,
+              f"probe {name} disagrees with its plain expression: {err:.3e}")
+        worst = max(worst, err)
+        ms += cuda_ms(lambda: probe_ops.probe_op(name, x, w, wrep))
+        plain += cuda_ms(lambda: probe_ops.probe_reference(name, x, w, wrep))
+        moved += nbytes(x, got) + (nbytes(w) if "K384" in name else 0) + (
+            nbytes(wrep) if "N384" in name else 0)
+        flops += 2 * x.numel() + 2 * got.numel() * (384 if "dot" in name else 1)
+    bd = bound(flops, moved, PEAK_F32_FLOPS)
+    log(f"[probes] ten patterns on x {tuple(x.shape)} bf16: worst err {worst:.3e} of the "
+        f"result's largest magnitude (bound {probe_ops.PROBE_RTOL}); kernels {ms:.3f} ms, "
+        f"plain {plain:.3f} ms; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+    return dict(max_abs_err=worst, err_unit="max|plain| of each pattern", ms=ms,
+                plain_ms=plain, library_ms=None, per="the ten patterns, one launch each",
+                shape=list(x.shape), **bd)
+
+
 def make_router(cfg, gen):
     router = create_router(create_branch_models(cfg), create_classifier(cfg), cfg)
     return perturb_bn_(init_params_(router, gen), gen)
@@ -495,7 +692,7 @@ def dispatch_cost_ms(d, dev, gen):
     eng = d.engine
     x = torch.rand(max(eng.buckets), SIZE, SIZE, 3, generator=gen).to(dev)
     fixed = {}
-    for level, apply in zip(("low", "medium", "high"), eng.branch_applies):
+    for level, apply in zip(INTENSITY_ORDER, eng.branch_applies):
         ms = []
         for b in eng.buckets:
             times = []
@@ -569,14 +766,11 @@ def phase_slice(router, dev, x, labels, gen):
     return main, outs, time_slice(d, x, "slice"), dispatch_cost_ms(d, dev, gen)
 
 
-FORCED = {"LightweightDehazeModel": "chain", "MediumIntensityDehazeModel": "tail_chain",
-          "HighIntensityDehazeModel": "tail_chain"}
-
-
-def tune_then_force(router, cfg, dev, tmp, tag):
+def tune_then_force(router, cfg, dev, tmp, tag, dispatches):
     """A dehazer with autotune on and a fresh cache times every candidate
-    and prints the tables; returns the path of a copy of that cache whose
-    winners are set to chain / tail_chain / tail_chain, and the tables."""
+    and prints the tables; returns, for each forced dispatch (level ->
+    candidate), the path of a copy of that cache whose winners are set to
+    it, and the tables."""
     fresh = os.path.join(tmp, f"autotune_{tag}.json")
     d = AdaptiveDehazer(copy.deepcopy(router), None, cfg, device=dev, autotune=True,
                         autotune_cache=fresh)
@@ -587,80 +781,103 @@ def tune_then_force(router, cfg, dev, tmp, tag):
         check(report["cached"] is False, f"{level}: a fresh cache gave a hit")
         check(all(v is not None for v in report["table"].values()),
               f"{level}: a candidate failed: {report['table']}")
+        offered = {name for lvl, name in BUCKET_LAUNCHES if lvl == level}
+        check(set(report["table"]) == offered,
+              f"{level}: candidates {sorted(report['table'])}, expected {sorted(offered)}")
         tables[level] = dict(best=report["best"], **report["table"])
     with open(fresh) as f:
         cache = json.load(f)
     check(len(cache) == 3, f"the cache holds {len(cache)} entries, not 3")
-    for key, entry in cache.items():
-        entry["best"] = FORCED[key.split(":")[3]]
-        check(entry["best"] in entry["table"], f"{key}: {entry['best']} was not offered")
-    forced = os.path.join(tmp, f"autotune_{tag}_forced.json")
-    with open(forced, "w") as f:
-        json.dump(cache, f)
+    paths = []
+    for i, forced in enumerate(dispatches):
+        for key, entry in cache.items():
+            entry["best"] = forced[CLASS_OF[key.split(":")[3]]]
+            check(entry["best"] in entry["table"], f"{key}: {entry['best']} was not offered")
+        paths.append(os.path.join(tmp, f"autotune_{tag}_forced{i}.json"))
+        with open(paths[-1], "w") as f:
+            json.dump(cache, f)
     del d
     torch.cuda.empty_cache()
-    return forced, tables
+    return paths, tables
 
 
-def phase_tail_slice(router, dev, x, labels, canonical_outs, tmp):
-    """The tail-chain dispatch: tune, then serve from a cache that names the
-    kernel candidates."""
+def expected_launches(forced, per_class, soft):
+    """The counters a run under the forced dispatch must show: per bucket
+    of each class (`per_class`), plus the blend on the soft call."""
+    want = {"blend3": 1} if soft else {}
+    for level, buckets in zip(INTENSITY_ORDER, per_class):
+        for kernel, n in BUCKET_LAUNCHES[(level, forced[level])].items():
+            want[kernel] = want.get(kernel, 0) + n * buckets
+    return nonzero(want)
+
+
+def phase_forced_slice(router, dev, x, labels, canonical_outs, forced_cache, forced, tag,
+                       path_kernels):
+    """A forced dispatch: serve from a cache that names the kernel
+    candidates `forced`, and hold the outputs against the default dispatch's
+    and the counters against the candidates' launches per bucket."""
     cfg = load_config()
-    forced_cache, tables = tune_then_force(router, cfg, dev, tmp, "bf16")
     d = AdaptiveDehazer(copy.deepcopy(router), None, cfg, device=dev, autotune=True,
                         autotune_cache=forced_cache)
     check(all(r["cached"] is True for r in d.autotune_report.values()),
-          f"the second dehazer did not read the cache: {d.autotune_report}")
-    check({lvl: r["best"] for lvl, r in d.autotune_report.items()}
-          == {"low": "chain", "medium": "tail_chain", "high": "tail_chain"},
+          f"the {tag} dehazer did not read the cache: {d.autotune_report}")
+    check({lvl: r["best"] for lvl, r in d.autotune_report.items()} == forced,
           f"forced dispatch: {d.autotune_report}")
     per_class = buckets_per_class(d.engine, labels)
     outs, intensity, (hard, forced_d, soft_d), main = drive(d, x, labels, dev)
-    log(f"[tail slice] chunk overhead rows {[round(v, 3) for v in d.engine.program_overhead_rows]}, "
+    log(f"[{tag}] dispatch {forced}; chunk overhead rows "
+        f"{[round(v, 3) for v in d.engine.program_overhead_rows]}, "
         f"buckets per class {per_class}; route_hard intensities "
         f"{np.bincount(intensity, minlength=3).tolist()}; launches: route_hard "
         f"{nonzero(hard)}, forced labels {nonzero(forced_d)}, soft {nonzero(soft_d)}")
     for y, ref, what in zip(outs, canonical_outs,
                             ("route_hard", "forced-label engine", "soft")):
-        check_images(y, BATCH, f"tail-chain {what}")
+        check_images(y, BATCH, f"{tag} {what}")
         err = float(np.abs(y - ref).max())
-        log(f"[tail slice] {what}: max abs diff to the default dispatch {err:.3e} "
+        log(f"[{tag}] {what}: max abs diff to the default dispatch {err:.3e} "
             f"(bound {BF16_ATOL})")
-        check(err <= BF16_ATOL, f"tail-chain {what} disagrees with the default dispatch")
-    check(nonzero(forced_d) == {
-        "lightweight_chain": 9 * per_class[0],
-        "medium_tail_chain": MEDIUM_TAIL_LAUNCHES * per_class[1],
-        "high_tail_chain": HIGH_TAIL_LAUNCHES * per_class[2],
-        "spatial_gate": per_class[2], "cbam_gate": 5 * per_class[2]},
-        f"forced run: launches {forced_d} vs buckets {per_class}")
-    check(nonzero(soft_d) == {
-        "lightweight_chain": 9, "medium_tail_chain": MEDIUM_TAIL_LAUNCHES,
-        "high_tail_chain": HIGH_TAIL_LAUNCHES, "spatial_gate": 1, "cbam_gate": 5,
-        "blend3": 1}, f"soft run launches {soft_d}")
-    check(all(main[k] > 0 for k in TAIL_PATH_KERNELS), f"a kernel never ran: {main}")
-    return main, tables, time_slice(d, x, "tail slice")
+        check(err <= BF16_ATOL, f"{tag} {what} disagrees with the default dispatch")
+    check(nonzero(forced_d) == expected_launches(forced, per_class, soft=False),
+          f"{tag}, forced run: launches {forced_d} vs buckets {per_class}")
+    check(nonzero(soft_d) == expected_launches(forced, (1, 1, 1), soft=True),
+          f"{tag}, soft run launches {soft_d}")
+    check(all(main[k] > 0 for k in path_kernels), f"{tag}: a kernel never ran: {main}")
+    return main, time_slice(d, x, tag)
+
+
+def phase_probe_tool(dev):
+    """The probe tool as its user runs it: every pattern must pass. Returns
+    the launch counters of that run."""
+    reset_launch_counts()
+    failed = probe_ops.run_probes(dev, SEED, log=lambda line: log(f"[probe tool] {line}"))
+    torch.cuda.synchronize()
+    check(not failed, f"probes failed: {failed}")
+    main = counts()
+    check(main["probe_ops"] == len(probe_ops.PROBES), f"the probe tool launched {main}")
+    return main
 
 
 def phase_vs_plain(router, dev, rng, tmp):
     cfg = load_config(overrides={"cuda": {"compute_dtype": "float32"}})
     x = rng.random((3, SIZE, SIZE, 3), dtype=np.float32)
     labels = np.array([0, 1, 2])
-    forced_cache, _ = tune_then_force(router, cfg, dev, tmp, "fp32")
+    (tail_cache, res_cache), _ = tune_then_force(router, cfg, dev, tmp, "fp32",
+                                                 (TAIL_FORCED, RES_FORCED))
     outs = {}
-    for tag, device, kwargs in (
-            ("CPU", "cpu", {}), ("card, default dispatch", dev, {}),
-            ("card, tail-chain dispatch", dev,
-             dict(autotune=True, autotune_cache=forced_cache))):
+    for tag, device, cache, forced in (
+            ("CPU", "cpu", None, None), ("card, default dispatch", dev, None, None),
+            ("card, tail-chain dispatch", dev, tail_cache, TAIL_FORCED),
+            ("card, res-chain dispatch", dev, res_cache, RES_FORCED)):
+        kwargs = dict(autotune=True, autotune_cache=cache) if cache else {}
         d = AdaptiveDehazer(copy.deepcopy(router), None, cfg, device=device, **kwargs)
         before = counts()
         with torch.inference_mode():
             y, _ = d.engine(torch.from_numpy(x).to(device), intensity=labels)
         outs[tag] = y.cpu()
-        if kwargs:
-            ran = delta(before)
-            check(ran["medium_tail_chain"] == MEDIUM_TAIL_LAUNCHES
-                  and ran["high_tail_chain"] == HIGH_TAIL_LAUNCHES,
-                  f"the fp32 tail-chain dispatch launched {ran}")
+        if forced:
+            ran = nonzero(delta(before))
+            check(ran == expected_launches(forced, (1, 1, 1), soft=False),
+                  f"the fp32 {tag} launched {ran}")
     for tag in list(outs)[1:]:
         err = max_err(outs["CPU"], outs[tag])
         log(f"[slice vs plain] fp32, labels {labels.tolist()}, {SIZE}^2, {tag}: max abs "
@@ -680,20 +897,31 @@ def main():
     labels = np.arange(BATCH) % 3
     with tempfile.TemporaryDirectory() as tmp:
         default, outs, default_ms, dispatch = phase_slice(router, dev, x, labels, gen)
-        tail, tables, tail_ms = phase_tail_slice(router, dev, x, labels, outs, tmp)
+        (tail_cache, res_cache), tables = tune_then_force(
+            router, load_config(), dev, tmp, "bf16", (TAIL_FORCED, RES_FORCED))
+        tail, tail_ms = phase_forced_slice(router, dev, x, labels, outs, tail_cache,
+                                           TAIL_FORCED, "tail slice", TAIL_PATH_KERNELS)
+        res, res_ms = phase_forced_slice(router, dev, x, labels, outs, res_cache,
+                                         RES_FORCED, "res slice", RES_PATH_KERNELS)
+        probes = phase_probe_tool(dev)
         phase_vs_plain(router, dev, rng, tmp)
     for name in ("route_hard", "soft"):
         log(f"[slices] {name}: default dispatch {default_ms[name]:.3f} ms/image, "
-            f"tail-chain dispatch {tail_ms[name]:.3f} ms/image")
+            f"tail-chain dispatch {tail_ms[name]:.3f} ms/image, res-chain dispatch "
+            f"{res_ms[name]:.3f} ms/image")
 
+    paths = {"default": default, "tail_chain": tail, "res_chain": res, "probe_tool": probes}
     line = {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
-         "launches": default[name] + tail[name],
-         "launches_by_path": {"default": default[name], "tail_chain": tail[name]},
+         "launches": sum(path[name] for path in paths.values()),
+         "launches_by_path": {tag: path[name] for tag, path in paths.items()},
          **kernels[name]}
         for name, (route, source, replaces) in KERNELS.items()],
         "autotune_ms_per_16_images": tables, "dispatch_ms": dispatch,
-        "slice_ms_per_image": {"default": default_ms, "tail_chain": tail_ms}}
+        "slice_ms_per_image": {"default": default_ms, "tail_chain": tail_ms,
+                               "res_chain": res_ms}}
+    check(all(k["launches"] > 0 for k in line["kernels"]),
+          f"a kernel was launched no time on any path: {line['kernels']}")
     print(json.dumps(line), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

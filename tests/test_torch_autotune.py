@@ -3,7 +3,9 @@ AdaptiveDehazer, on the CPU.
 
 On the CPU only `canonical` is offered (the kernel candidates are serving
 paths of a CUDA device), which is enough for the whole cycle: tune, pick,
-cache, reuse; the cases of tests/test_serving_autotune.py. The autotuned
+cache, reuse; the cases of tests/test_serving_autotune.py. Which kernel
+candidates a CUDA device would be offered is read with `_device_of`
+patched. The autotuned
 dehazer is held against the JAX package's AdaptiveDehazer on the same
 variables at ATOL 1e-4 (fp32 vs fp32), and `set_chunk_costs` against the
 JAX engine's.
@@ -100,9 +102,10 @@ def test_autotune_raises_on_a_candidate_that_fails(low_model, where):
 
 
 @pytest.mark.parametrize("kind,shape,dtype,want", [
-    ("medium", SHAPE, F32, ["canonical", "tail_chain"]),
-    ("high", SHAPE, torch.bfloat16, ["canonical", "tail_chain"]),
-    ("high", None, F32, ["canonical", "tail_chain"]),
+    ("medium", SHAPE, F32, ["canonical", "tail_chain", "chain_hybrid"]),
+    ("high", SHAPE, torch.bfloat16,
+     ["canonical", "tail_chain", "res_chain_e2b", "res_e2b_tail_chain"]),
+    ("high", None, F32, ["canonical", "tail_chain", "res_chain_e2b", "res_e2b_tail_chain"]),
     ("medium", (2, 30, 32, 3), F32, ["canonical"]),      # the forward resizes
     ("high", SHAPE, torch.float16, ["canonical"]),
     ("low", SHAPE, F32, ["canonical", "chain"])])
@@ -115,6 +118,55 @@ def test_kernel_candidates_are_decided_up_front(monkeypatch, kind, shape, dtype,
     assert list(candidate_builders(port, dtype, shape)) == want
     narrow = PB.LightweightDehazeModel(12, 2)    # K1 wants a multiple of 8
     assert list(candidate_builders(narrow, dtype, shape)) == ["canonical"]
+
+
+@pytest.mark.parametrize("cls,c,shape,want", [
+    # The tail wants c >= 16; the e2b segment is 4c = 32 wide.
+    (PB.HighIntensityDehazeModel, 8, SHAPE, ["canonical", "res_chain_e2b"]),
+    # 4c = 16 is the narrowest segment K6 takes.
+    (PB.HighIntensityDehazeModel, 4, SHAPE, ["canonical", "res_chain_e2b"]),
+    (PB.HighIntensityDehazeModel, 2, SHAPE, ["canonical"]),
+    # chain_hybrid needs all three segments: 2c = 16 at the least.
+    (PB.MediumIntensityDehazeModel, 8, SHAPE, ["canonical", "chain_hybrid"]),
+    (PB.MediumIntensityDehazeModel, 4, SHAPE, ["canonical"]),
+    (PB.MediumIntensityDehazeModel, 12, SHAPE, ["canonical"]),     # 24 is no multiple of 16
+    (PB.HighIntensityDehazeModel, 16, (2, 32, 34, 3), ["canonical"])])
+def test_res_chain_candidates_follow_the_shape_selectors(monkeypatch, cls, c, shape, want):
+    """`chain_hybrid`, `res_chain_e2b` and `res_e2b_tail_chain` are offered
+    exactly where `res_chain_supported` takes every segment they put on K6
+    and, for the last, `tail_supported` takes the tail."""
+    from adam_dehaze_tpu_torch import serving_autotune
+    monkeypatch.setattr(serving_autotune, "_device_of", lambda m: torch.device("cuda"))
+    assert list(candidate_builders(cls(c), F32, shape)) == want
+
+
+def test_cached_res_e2b_tail_chain_winner_is_rebuilt(monkeypatch, tmp_path):
+    """A cache that names `res_e2b_tail_chain` gives that apply back without
+    timing: the e2b segment on K6 and the tail on K4 (their plain versions
+    here, since the tensors lie on the CPU)."""
+    import types
+
+    from adam_dehaze_tpu_torch import serving_autotune
+    from adam_dehaze_tpu_torch.ops.serving_apply import BranchChainApply
+    jmodel, vs, port = _port_model("high")
+    monkeypatch.setattr(serving_autotune, "_device_of",
+                        lambda m: types.SimpleNamespace(type="cuda"))
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda device=None: "Some GPU")
+    key = _cache_key(port, F32, SHAPE)
+    assert key.startswith("cuda:Some_GPU:")
+    cache = str(tmp_path / "autotune.json")
+    table = {"canonical": 2.0, "tail_chain": 3.0, "res_chain_e2b": 1.5,
+             "res_e2b_tail_chain": 1.0}
+    with open(cache, "w") as f:
+        json.dump({key: {"best": "res_e2b_tail_chain", "table": table}}, f)
+    fn, hit = load_cached(port, F32, SHAPE, cache)
+    assert hit == {"best": "res_e2b_tail_chain", "table": table, "cached": True}
+    assert isinstance(fn, BranchChainApply)
+    assert fn.segments == ("e2b",) and fn.tail is not None
+    x = images(SHAPE, seed=3)
+    want = np.asarray(jmodel.apply(vs, jnp.asarray(x), train=False))
+    with torch.inference_mode():
+        np.testing.assert_allclose(fn(torch.from_numpy(x)).numpy(), want, atol=ATOL)
 
 
 def test_autotune_raises_when_no_candidate_runs(low_model):

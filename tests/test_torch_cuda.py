@@ -1,5 +1,5 @@
-"""Kernels K1, K2, K2', K3, K4 and K5 of the PyTorch port against their plain versions
-on a CUDA card (marker `cuda`; every test skips without a card).
+"""Kernels K1 to K6 and K2' of the PyTorch port and its operation probes
+against their plain versions on a CUDA card (marker `cuda`; every test skips without a card).
 
 This file imports neither JAX nor the JAX package, so that it also runs on
 a machine that has only PyTorch:
@@ -12,7 +12,9 @@ another order); bf16 kernel vs fp32 plain at 3e-2, the bf16 bound of the
 JAX tail-chain tests. The blend has one rounding per element: 1e-6 in fp32.
 K1's tensor-core body is also held against the bf16 plain version, which
 rounds at the same points, at K1_BF16_ATOL (see there), and so are the tail
-chains K3 and K4 at TAIL_BF16_ATOL.
+chains K3 and K4 at TAIL_BF16_ATOL and the segment chain K6 at RES_BF16_RTOL.
+K6's errors are in units of the plain result's largest magnitude: a segment
+ends in a ReLU or a gate, not in a clip to [0, 1].
 """
 import copy
 
@@ -26,6 +28,12 @@ from adam_dehaze_tpu_torch.ops.kernels.cbam import (
     channel_spatial_gate_reference,
     spatial_gate,
     spatial_gate_reference,
+)
+from adam_dehaze_tpu_torch.ops.kernels.res_chain import (
+    fold_res_attn_chain,
+    launches_of,
+    res_attn_chain,
+    res_attn_chain_reference,
 )
 from adam_dehaze_tpu_torch.ops.kernels.tail_chain import (
     HIGH_TAIL_LAUNCHES,
@@ -57,6 +65,11 @@ K1_BF16_ATOL = 4e-3
 # x + tanh(.) [* guidance], clipped, so a flipped bf16 rounding upstream
 # (one part in 256 of an activation) reaches it at a few 1e-3.
 TAIL_BF16_ATOL = 1e-2
+# bf16 K6 vs its bf16 plain version, in units of the plain result's largest
+# magnitude: a flipped rounding is one bf16 step, 2^-8 of the value it
+# hits, and the convs after it carry it on (4.3e-3 to 6.5e-3 on the main
+# path's segments on an NVIDIA H100 80GB HBM3; chip_smoke.py has more).
+RES_BF16_RTOL = 2e-2
 
 
 @pytest.fixture
@@ -279,15 +292,127 @@ def test_tail_apply_matches_canonical_on_card(cuda_device, level):
     torch.testing.assert_close(got, want, rtol=0, atol=FP32_ATOL)
 
 
+def _res_case(kinds, c, shape, seed):
+    """Seeded blocks of width c and an input drawn non-negative like the
+    activation after a ConvBlock."""
+    from adam_dehaze_tpu_torch.nn.blocks import AttentionBlock, ResidualBlock
+    blocks = _seeded(torch.nn.Sequential(
+        *[ResidualBlock(c) if k == "res" else AttentionBlock(c) for k in kinds]), seed)
+    gen = torch.Generator().manual_seed(seed + 1)
+    return blocks, torch.relu(torch.randn(*shape, c, generator=gen))
+
+
+def _scaled_err(got, want):
+    return float((got.float() - want.float()).abs().max()) / max(
+        1.0, float(want.float().abs().max()))
+
+
+RES_CASES = {
+    # Odd sides exercise the tile edges; c=48 a 16-channel last chunk.
+    "c48_13x21": (("res", "attn", "res"), 48, (2, 13, 21)),
+    "c128_9x40": (("res", "res", "attn", "res", "attn"), 128, (1, 9, 40)),
+    # The high branch's e2b segment at its main-path shape, two images.
+    "high_e2b": (("res", "res", "attn", "res", "attn", "res", "attn"), 384, (2, 64, 64)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", sorted(RES_CASES))
+def test_k6_kernels_match_plain(cuda_device, dtype, case):
+    """fp32 against the fp32 plain version; bf16 against it too, and
+    against the bf16 plain version, which rounds at the same points."""
+    kinds, c, shape = RES_CASES[case]
+    blocks, x = _res_case(kinds, c, shape, 31)
+    blocks, x = blocks.to(cuda_device), x.to(cuda_device)
+    weights = fold_res_attn_chain(blocks, dtype)
+    before = res_attn_chain.launches, channel_spatial_gate.launches
+    with torch.inference_mode():
+        want = res_attn_chain_reference(x, fold_res_attn_chain(blocks, torch.float32))
+        kept = x.clone()
+        got = res_attn_chain(x, weights)
+        torch.cuda.synchronize()
+        assert (res_attn_chain.launches - before[0],
+                channel_spatial_gate.launches - before[1]) == launches_of(kinds)
+        torch.testing.assert_close(x, kept, rtol=0, atol=0)     # x is only read
+        assert got.dtype == dtype and got.shape == x.shape
+        assert _scaled_err(got, want) <= (FP32_ATOL if dtype == torch.float32 else BF16_ATOL)
+        if dtype == torch.bfloat16:
+            assert _scaled_err(got, res_attn_chain_reference(x, weights)) <= RES_BF16_RTOL
+            # A bf16 input is used where it lies, and still only read.
+            xb = x.bfloat16()
+            kept = xb.clone()
+            again = res_attn_chain(xb, weights)
+            torch.testing.assert_close(xb, kept, rtol=0, atol=0)
+            torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+def test_k6_kernels_are_reproducible(cuda_device):
+    """No atomics anywhere in the chain: two runs give the same bits."""
+    kinds, c, shape = RES_CASES["c128_9x40"]
+    blocks, x = _res_case(kinds, c, shape, 37)
+    weights = fold_res_attn_chain(blocks.to(cuda_device), torch.bfloat16)
+    x = x.to(cuda_device)
+    with torch.inference_mode():
+        a, b = res_attn_chain(x, weights), res_attn_chain(x, weights)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_k6_refuses_what_it_does_not_take(cuda_device):
+    blocks, x = _res_case(("res", "attn"), 32, (1, 8, 8), 41)
+    weights = fold_res_attn_chain(blocks.to(cuda_device), torch.float32)
+    x = x.to(cuda_device)
+    with pytest.raises(ValueError):
+        res_attn_chain(x[..., :16], weights)                  # another width
+    with pytest.raises(ValueError):
+        res_attn_chain(x, weights._replace(kinds=("attn", "res")))
+    narrow, x24 = _res_case(("res",), 24, (1, 8, 8), 43)     # 24 is no multiple of 16
+    with pytest.raises(ValueError):
+        res_attn_chain(x24.to(cuda_device),
+                       fold_res_attn_chain(narrow.to(cuda_device), torch.float32))
+
+
+@pytest.mark.parametrize("level,kwargs", [
+    ("medium", dict(segments=("e1", "e2b", "d1"))),
+    ("high", dict(segments=("e1", "e2b", "d1"))),
+    ("high", dict(segments=("e2b",), tail=True))],
+    ids=["chain_hybrid", "high_all", "res_e2b_tail_chain"])
+def test_chain_apply_matches_canonical_on_card(cuda_device, level, kwargs):
+    """The chain applies against the canonical forward of the same serving
+    dtype, fp32, on the card."""
+    from adam_dehaze_tpu_torch.ops.serving_apply import BranchChainApply, cast_for_serving
+    model, (_, _, x), _ = _tail_case(level, 32, 47, size=(40, 64))
+    model, x = model.to(cuda_device), x.to(cuda_device)
+    before = res_attn_chain.launches
+    with torch.inference_mode():
+        want = cast_for_serving(model, torch.float32)(x)
+        got = BranchChainApply(model, torch.float32, level, **kwargs)(x)
+    assert res_attn_chain.launches > before
+    torch.testing.assert_close(got, want, rtol=0, atol=FP32_ATOL)
+
+
+def test_probes_on_card(cuda_device):
+    from adam_dehaze_tpu_torch.tools import probe_ops
+    before = probe_ops.probe_op.launches
+    lines = []
+    assert probe_ops.run_probes(cuda_device, log=lines.append) == [], lines
+    assert probe_ops.probe_op.launches - before == len(probe_ops.PROBES) == 10
+    x, w, wrep = probe_ops.probe_inputs(cuda_device)
+    with pytest.raises(ValueError):
+        probe_ops.probe_op("A_row_reduce_384", x.float(), w, wrep)    # not bf16
+    with pytest.raises(ValueError):
+        probe_ops.probe_op("B_dot_1row_K384", x, wrep, w)             # weights swapped
+
+
 def test_autotune_on_card_offers_and_times_the_kernels(cuda_device, tmp_path):
     from adam_dehaze_tpu_torch.serving_autotune import candidate_builders, load_or_tune
     cache = str(tmp_path / "tune.json")
-    for level, want in (("medium", "tail_chain"), ("high", "tail_chain")):
+    for level, want in (("medium", {"tail_chain", "chain_hybrid"}),
+                        ("high", {"tail_chain", "res_chain_e2b", "res_e2b_tail_chain"})):
         model, _, _ = _tail_case(level, 16, 29)
         model = model.to(cuda_device)
-        assert set(candidate_builders(model, torch.bfloat16)) == {"canonical", want}
+        assert set(candidate_builders(model, torch.bfloat16)) == {"canonical"} | want
         _, report = load_or_tune(model, torch.bfloat16, (2, 32, 32, 3), cache_path=cache)
-        assert all(report["table"][k] is not None for k in ("canonical", want)), report
+        assert all(report["table"][k] is not None for k in {"canonical"} | want), report
         _, again = load_or_tune(model, torch.bfloat16, (2, 32, 32, 3), cache_path=cache)
         assert again["cached"] is True and again["best"] == report["best"]
 

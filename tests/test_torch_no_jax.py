@@ -35,7 +35,7 @@ def test_port_imports_no_jax_flax_or_triton():
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
     count, bad = proc.stdout.strip().split(" ", 1)
-    assert int(count) >= 21, proc.stdout
+    assert int(count) >= 24, proc.stdout
     assert bad == "[]", bad
 
 
@@ -55,7 +55,7 @@ def test_chip_smoke_fails_without_cuda():
 
 
 def test_chip_mutation_check_fails_without_cuda():
-    """The mutation check of the tail chains' bf16 bound builds and runs
+    """The mutation check of the chain kernels' bf16 bounds builds and runs
     kernels: without a card it exits non-zero and reports nothing."""
     env = _clean_env()
     env["CUDA_VISIBLE_DEVICES"] = ""
@@ -63,6 +63,17 @@ def test_chip_mutation_check_fails_without_cuda():
                           capture_output=True, text=True, env=env, timeout=300)
     assert proc.returncode != 0
     assert "caught" not in proc.stdout
+
+
+def test_probe_tool_fails_without_cuda():
+    """The operation probes launch kernels: without a card the tool exits
+    non-zero and reports no pattern."""
+    env = _clean_env()
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    proc = subprocess.run([sys.executable, "-m", "adam_dehaze_tpu_torch.tools.probe_ops"],
+                          cwd=REPO, capture_output=True, text=True, env=env, timeout=300)
+    assert proc.returncode != 0
+    assert "PASS" not in proc.stdout and "cuda" in proc.stderr.lower()
 
 
 def test_chip_smoke_fails_alone(tmp_path):

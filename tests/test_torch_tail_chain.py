@@ -36,7 +36,7 @@ from adam_dehaze_tpu_torch.ops.kernels.tail_chain import (
     tail_supported,
 )
 from adam_dehaze_tpu_torch.ops.serving_apply import (
-    TailChainApply,
+    BranchChainApply,
     make_high_tail_apply,
     make_medium_tail_apply,
 )
@@ -244,7 +244,7 @@ def test_tail_apply_matches_jax_and_canonical(branch):
     x = images((BATCH, SIZE, SIZE, 3), seed=7)
     want = np.asarray(jmodel.apply(vs, jnp.asarray(x), train=False))
     apply = _KINDS[kind][5](port, torch.float32)
-    assert isinstance(apply, TailChainApply)
+    assert isinstance(apply, BranchChainApply) and apply.segments == ()
     with torch.inference_mode():
         got = apply(torch.from_numpy(x))
         canonical = port(torch.from_numpy(x))
