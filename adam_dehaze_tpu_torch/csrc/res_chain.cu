@@ -24,9 +24,11 @@
 // 50 MB L2, between them. Keeping it on chip across layers (a cluster of
 // blocks per image, or halo recompute) is later work.
 //
-// Design. The convs are the tile kernel of conv_tile.cuh, shared with the
-// tail chains (input channels in chunks of 32, so 384 -> 384 fits a block;
-// wmma for bf16; the skip add in the epilogue, in place). An attention block
+// Design. The convs are conv_tile.cu, shared with the tail chains and
+// launched per layer by the Python wrapper through ops/kernels/conv_tile.py
+// (bf16: wgmma on 16x16 positions by 128 or 96 output channels a block,
+// input channels in stages of 16 through an asynchronous ring, so 384 ->
+// 384 fits a block; the skip add in the epilogue, in place). An attention block
 // is four launches: the two-stage channel reduction and the MLP are the
 // tail chains' (tail_channel_stats, tail_channel_gate in tail_chain.cu); the
 // kernel below writes the padded f32 (mean, max) maps of b * g without
@@ -35,7 +37,7 @@
 #include <cmath>
 #include <cstdint>
 
-#include "conv_tile.cuh"
+#include "common.cuh"
 
 namespace {
 
@@ -94,23 +96,6 @@ gated_maps_kernel(const T* __restrict__ x, const float* __restrict__ gate,
 }
 
 }  // namespace
-
-// One conv of a res block: out = relu(conv3x3(in; w) + shift [+ residual]),
-// in and out (N, H, W, C) NHWC, w (3, 3, C, C). residual may equal out: each
-// element is read, then written, by one thread.
-extern "C" int res_chain_conv(const void* in, const void* w, const void* shift,
-                              const void* residual, void* out, int N, int H, int W, int C,
-                              int is_bf16, void* stream) {
-  if (C < 8 || C % 8 != 0 || N < 1 || H < 1 || W < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  ConvArgs a = {};
-  a.in[0] = in; a.w[0] = w; a.c[0] = C;
-  a.shift = static_cast<const float*>(shift);
-  a.residual = residual;
-  a.out = out;
-  a.H = H; a.W = W; a.Cout = C; a.ksize = 3; a.relu = 1;
-  return launch_conv(a, N, is_bf16, static_cast<cudaStream_t>(stream));
-}
 
 // The padded f32 maps (N, H+6, W+6) of x * gate over channels; gate (N, C) f32.
 extern "C" int res_chain_gated_maps(const void* x, const void* gate, void* mean_p, void* max_p,

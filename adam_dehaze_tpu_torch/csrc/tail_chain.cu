@@ -25,12 +25,15 @@
 // activations between stages make a round trip through device memory in
 // the compute dtype. Fusing stages with halo recompute is later work.
 //
-// Design. One conv kernel serves every convolution of the tails: the tile
-// kernel of conv_tile.cuh (input channels in chunks of 32, so the first head
-// conv reads f0 beside d2 as more chunks and the concat is never written;
-// the transposed conv as four sub-pixel phases; wmma for bf16, FMAs
-// otherwise; the last layer's tanh, guidance, blend and clip as its
-// epilogue). K6 (res_chain.cu) is built from the same header.
+// Design. One conv kernel serves every convolution of the tails:
+// conv_tile.cu, whose note says how it is built (bf16: wgmma on 16x16
+// positions by up to 128 output channels a block, input channels in stages
+// of 16 through an asynchronous ring, so the first head conv reads f0
+// beside d2 as more stages and the concat is never written; the transposed
+// conv as four sub-pixel phases; FMAs for fp32 and the 3-channel layers;
+// the last layer's tanh, guidance, blend and clip as its epilogue, launched
+// from here). The Python wrapper launches it per layer through
+// ops/kernels/conv_tile.py; K6 runs the same kernel.
 // K4's attention block is four more kernels: a two-stage (deterministic)
 // per-image channel reduction, the two-layer MLP with its sigmoid, a pass
 // that writes the channel-gated activation (rounded to the compute dtype,
@@ -41,6 +44,7 @@
 #include <cmath>
 #include <cstdint>
 
+#include "common.cuh"
 #include "conv_tile.cuh"
 
 namespace {
@@ -176,29 +180,6 @@ gated_stats_kernel(const T* __restrict__ x, const float* __restrict__ gate, T* _
 
 }  // namespace
 
-// One convolution of a tail: out = act(conv(in0; w0) [+ conv(in1; w1)] +
-// shift [+ residual]). ksize 3: 3x3 taps, pad 1, out (N, H, W, Cout).
-// ksize 2: the four sub-pixel phases of ConvTranspose(4, stride 2, pad 1),
-// weights (4, 4, c0, Cout) [phase, tap], out (N, 2H, 2W, Cout). in1 may be
-// null. residual may equal out: each element is read, then written, by one
-// thread. Channel counts must be multiples of 8 except a single input of
-// any width through the scalar path.
-extern "C" int tail_conv(const void* in0, const void* w0, int c0, const void* in1,
-                         const void* w1, int c1, const void* shift, const void* residual,
-                         void* out, int N, int H, int W, int Cout, int ksize, int relu,
-                         int is_bf16, void* stream) {
-  if ((ksize != 2 && ksize != 3) || c0 < 1 || Cout < 1 || (in1 != nullptr && c1 < 1))
-    return static_cast<int>(cudaErrorInvalidValue);
-  ConvArgs a = {};
-  a.in[0] = in0; a.w[0] = w0; a.c[0] = c0;
-  a.in[1] = in1; a.w[1] = w1; a.c[1] = in1 != nullptr ? c1 : 0;
-  a.shift = static_cast<const float*>(shift);
-  a.residual = residual;
-  a.out = out;
-  a.H = H; a.W = W; a.Cout = Cout; a.ksize = ksize; a.relu = relu;
-  return launch_conv(a, N, is_bf16, static_cast<cudaStream_t>(stream));
-}
-
 // The last layer: out_f32 = clip(image + tanh(conv3x3(h; w) + bias) * gd, 0, 1),
 // gd = sigmoid(guidance . guidance_w + guidance_b) per pixel, or 1 when guidance is null.
 extern "C" int tail_conv_final(const void* h, const void* w, int cin, const void* bias,
@@ -207,7 +188,7 @@ extern "C" int tail_conv_final(const void* h, const void* w, int cin, const void
                                int H, int W, int is_bf16, void* stream) {
   if (cin < 1 || (guidance != nullptr && gc < 1))
     return static_cast<int>(cudaErrorInvalidValue);
-  ConvArgs a = {};
+  adam::ConvArgs a = {};
   a.in[0] = h; a.w[0] = w; a.c[0] = cin;
   a.shift = static_cast<const float*>(bias);
   a.H = H; a.W = W; a.Cout = 3; a.ksize = 3;
@@ -217,9 +198,7 @@ extern "C" int tail_conv_final(const void* h, const void* w, int cin, const void
   a.guidance_b = guidance_b;
   a.gc = gc;
   a.out_f32 = static_cast<float*>(out_f32);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) return launch_fma<__nv_bfloat16, true>(a, N, s);
-  return launch_fma<float, true>(a, N, s);
+  return adam::launch_conv_final(a, N, is_bf16, static_cast<cudaStream_t>(stream));
 }
 
 // Stage 1 of the channel reduction of x (N, P, C): partial (N, slabs, 2, C).

@@ -51,9 +51,11 @@ _SIGNATURES = {
     "conv3x3_smem_bytes": (I, I, I),
     # x, mean_p, max_p, w, out, B, H, W, C, is_bf16, stream
     "spatial_gate": (P, P, P, P, P, I, I, I, I, I, P),
-    # in0, w0, c0, in1, w1, c1, shift, residual, out, N, H, W, Cout, ksize,
-    # relu, is_bf16, stream
-    "tail_conv": (P, P, I, P, P, I, P, P, P, I, I, I, I, I, I, I, P),
+    # in0, w0, packed0, c0, in1, w1, packed1, c1, shift, residual, out, N, H, W,
+    # Cout, ksize, relu, is_bf16, stream
+    "conv_tile": (P, P, P, I, P, P, P, I, P, P, P, I, I, I, I, I, I, I, P),
+    # c0, c1, Cout, ksize, is_bf16; returns shared-memory bytes per block
+    "conv_tile_smem_bytes": (I, I, I, I, I),
     # h, w, cin, bias, image, guidance, gc, guidance_w, guidance_b, out_f32, N, H, W,
     # is_bf16, stream
     "tail_conv_final": (P, P, I, P, P, P, I, P, F, P, I, I, I, I, P),
@@ -63,8 +65,6 @@ _SIGNATURES = {
     "tail_channel_gate": (P, P, P, P, I, I, I, I, I, P),
     # x, gate, z, mean_p, max_p, N, H, W, C, is_bf16, stream
     "tail_gated_stats": (P, P, P, P, P, I, I, I, I, I, P),
-    # in, w, shift, residual, out, N, H, W, C, is_bf16, stream
-    "res_chain_conv": (P, P, P, P, P, I, I, I, I, I, P),
     # x, gate, mean_p, max_p, N, H, W, C, is_bf16, stream
     "res_chain_gated_maps": (P, P, P, P, I, I, I, I, I, P),
     # which, x, w, wrep, out, flat, stream

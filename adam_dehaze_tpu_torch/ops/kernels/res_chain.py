@@ -33,7 +33,7 @@ tensor through the kernels. An attention block's last pass is kernel K2
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,11 +43,15 @@ from adam_dehaze_tpu_torch.nn.blocks import AttentionBlock, ResidualBlock
 from adam_dehaze_tpu_torch.ops import fold
 from adam_dehaze_tpu_torch.ops.kernels import _build
 from adam_dehaze_tpu_torch.ops.kernels.cbam import launch_cbam_gate
+from adam_dehaze_tpu_torch.ops.kernels.conv_tile import (
+    _conv_ref,
+    conv_tile,
+    packed_for_kernel,
+)
 from adam_dehaze_tpu_torch.ops.kernels.tail_chain import (
     _MAX_SLABS,
     _SLAB_MIN_PIXELS,
     Layer,
-    _conv_ref,
     _hwio,
     _sh,
     _shift,
@@ -77,11 +81,13 @@ class AttnWeights(NamedTuple):
 
 class ResChainWeights(NamedTuple):
     """Folded layers of a segment: two convs per `res` (weights HWIO in the
-    compute dtype, shifts f32), one AttnWeights per `attn`, and the layer
-    kinds in order."""
+    compute dtype, shifts f32), one AttnWeights per `attn`, the layer kinds
+    in order, and per conv `pack_conv_weights` of its weights for the wgmma
+    conv body (None where the conv runs the FMA body)."""
     convs: Tuple[Layer, ...]
     attns: Tuple[AttnWeights, ...]
     kinds: Tuple[str, ...]
+    packed: Tuple[Optional[torch.Tensor], ...]
 
     @property
     def dtype(self) -> torch.dtype:
@@ -158,7 +164,8 @@ def fold_res_attn_chain(blocks: Sequence[nn.Module], dtype: torch.dtype
               | {a.fc1.shape[0] for a in attns})
     if len(widths) != 1:
         raise ValueError(f"a segment has one width, got blocks of {sorted(widths)}")
-    return ResChainWeights(tuple(convs), tuple(attns), tuple(kinds))
+    return ResChainWeights(tuple(convs), tuple(attns), tuple(kinds),
+                           tuple(packed_for_kernel(w) for w, _ in convs))
 
 
 # ---------------------------------------------------------------------------
@@ -224,11 +231,9 @@ def res_attn_chain(x: torch.Tensor, weights: ResChainWeights) -> torch.Tensor:
         res_attn_chain.launches += 1
 
     def conv(src, layer, dst, residual=None) -> None:
-        w, shift = layer
-        done(lib.res_chain_conv(
-            src.data_ptr(), w.data_ptr(), shift.data_ptr(),
-            residual.data_ptr() if residual is not None else None,
-            dst.data_ptr(), n, h, wd, c, bf16, stream), "res_chain_conv")
+        (w, shift), packed = layer
+        conv_tile(src, w, shift, residual=residual, out=dst, packed=packed)
+        res_attn_chain.launches += 1
 
     _build.require(weights.kinds[0] == "res", name, "a segment starts with a res block")
     # The caller's x is only read: the first res block writes into `b`, which
@@ -243,7 +248,7 @@ def res_attn_chain(x: torch.Tensor, weights: ResChainWeights) -> torch.Tensor:
         gate = torch.empty((n, c), dtype=torch.float32, device=dev)
         mean_p = torch.empty((n, h + 6, wd + 6), dtype=torch.float32, device=dev)
         max_p = torch.empty_like(mean_p)
-    convs, attns = iter(weights.convs), iter(weights.attns)
+    convs, attns = iter(zip(weights.convs, weights.packed)), iter(weights.attns)
     for kind in weights.kinds:
         if kind == "res":
             conv(src, next(convs), a)

@@ -13,7 +13,8 @@ the clip; activations between stages in the compute dtype, f32 sums. Their
 TPU layout (space-to-depth packing, zero ring, 8-aligned strides,
 matmul-first rolls, 0/1-selection matmuls, 128-lane padding) does not: here
 every stage is one launch (csrc/tail_chain.cu, whose source note says what
-bounds it; the conv kernel is csrc/conv_tile.cuh, shared with K6), and
+bounds it; the conv kernel is csrc/conv_tile.cu through
+`conv_tile`, shared with K6), and
 tensors are plain NHWC.
 
 `fold_medium_tail` / `fold_high_tail` build the folded weights once from a
@@ -24,7 +25,7 @@ counted there).
 """
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,12 +33,29 @@ import torch.nn.functional as F
 from adam_dehaze_tpu_torch.ops import fold
 from adam_dehaze_tpu_torch.ops.kernels import _build
 from adam_dehaze_tpu_torch.ops.kernels.cbam import launch_spatial_gate
+from adam_dehaze_tpu_torch.ops.kernels.conv_tile import (
+    _conv_ref,
+    conv_tile,
+    packed_for_kernel,
+    subpixel_up_reference,
+)
 
 Layer = Tuple[torch.Tensor, torch.Tensor]   # (weight HWIO compute dtype, shift f32)
 
 # Slabs of the per-image channel reduction's first stage.
 _MAX_SLABS = 64
 _SLAB_MIN_PIXELS = 64
+
+
+class TrunkPacked(NamedTuple):
+    """`pack_conv_weights` of the trunk's conv weights, which the wgmma conv
+    body reads; None where a layer runs the FMA body."""
+    up: Optional[torch.Tensor]
+    res_a: Optional[torch.Tensor]
+    res_b: Optional[torch.Tensor]
+    head1_d2: Optional[torch.Tensor]
+    head1_f0: Optional[torch.Tensor]
+    head2: Optional[torch.Tensor]
 
 
 class MediumTailWeights(NamedTuple):
@@ -52,6 +70,7 @@ class MediumTailWeights(NamedTuple):
     head1_shift: torch.Tensor
     head2: Layer              # (3, 3, c, c/2)
     out: Layer                # (3, 3, c/2, 3), bias as the shift
+    packed: TrunkPacked
 
     @property
     def dtype(self) -> torch.dtype:
@@ -74,6 +93,7 @@ class HighTailWeights(NamedTuple):
     guidance2: Layer               # (3, 3, 16, 16)
     guidance_out_w: torch.Tensor   # (16,) f32
     guidance_out_b: float
+    guidance2_packed: Optional[torch.Tensor]
 
     @property
     def dtype(self) -> torch.dtype:
@@ -122,14 +142,16 @@ def fold_medium_tail(model, dtype: torch.dtype) -> MediumTailWeights:
     res = up[3]
     wa, wb, t1 = fold.fold_head_split(model.output_conv[0], c)
     out_conv = model.output_conv[2]
+    up_w = phases.detach().reshape(4, 4, 4 * c, c).to(dtype).contiguous()
+    res_a, res_b, head2 = layer(res.conv1), layer(res.conv2), layer(model.output_conv[1])
+    head1_d2, head1_f0 = _hwio(wa, dtype), _hwio(wb, dtype)
     return MediumTailWeights(
-        up=phases.detach().reshape(4, 4, 4 * c, c).to(dtype).contiguous(),
-        up_shift=_shift(t_up),
-        res_a=layer(res.conv1), res_b=layer(res.conv2),
-        head1_d2=_hwio(wa, dtype), head1_f0=_hwio(wb, dtype),
-        head1_shift=_shift(t1),
-        head2=layer(model.output_conv[1]),
-        out=(_hwio(out_conv.weight.float(), dtype), _shift(out_conv.bias)))
+        up=up_w, up_shift=_shift(t_up), res_a=res_a, res_b=res_b,
+        head1_d2=head1_d2, head1_f0=head1_f0, head1_shift=_shift(t1), head2=head2,
+        out=(_hwio(out_conv.weight.float(), dtype), _shift(out_conv.bias)),
+        packed=TrunkPacked(
+            packed_for_kernel(up_w, 2),
+            *(packed_for_kernel(w) for w in (res_a[0], res_b[0], head1_d2, head1_f0, head2[0]))))
 
 
 @torch.no_grad()
@@ -145,40 +167,21 @@ def fold_high_tail(model, dtype: torch.dtype) -> HighTailWeights:
         return _hwio(w, dtype), _shift(t)
 
     stencil = attn.conv_spatial.weight.detach()[0].permute(1, 2, 0)   # (7, 7, 2)
-    return HighTailWeights(
-        trunk=fold_medium_tail(model, dtype),
+    attn_kwargs = dict(
         attn_fc0=attn.fc[0].weight.detach()[:, :, 0, 0].float().contiguous().clone(),
         attn_fc1=attn.fc[2].weight.detach()[:, :, 0, 0].float().contiguous().clone(),
-        attn_stencil=stencil.to(dtype).float().contiguous(),
-        guidance1=layer(guidance[0]), guidance2=layer(guidance[1]),
+        attn_stencil=stencil.to(dtype).float().contiguous())
+    guidance2 = layer(guidance[1])
+    return HighTailWeights(
+        trunk=fold_medium_tail(model, dtype), guidance1=layer(guidance[0]),
+        guidance2=guidance2, guidance2_packed=packed_for_kernel(guidance2[0]),
         guidance_out_w=guidance[2].weight.detach().float().reshape(-1).clone(),
-        guidance_out_b=float(guidance[2].bias.detach().float()))
+        guidance_out_b=float(guidance[2].bias.detach().float()), **attn_kwargs)
 
 
 # ---------------------------------------------------------------------------
 # Plain versions.
 # ---------------------------------------------------------------------------
-
-def _conv_ref(h: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """3x3 conv, pad 1, summed in f32 over values held in the compute
-    dtype. h NCHW, w HWIO."""
-    return F.conv2d(h.float(), w.float().permute(3, 2, 0, 1), padding=1)
-
-
-def subpixel_up_reference(x: torch.Tensor, phases: torch.Tensor) -> torch.Tensor:
-    """ConvTranspose2d(4, stride 2, pad 1) without bias from its sub-pixel
-    phases (fold.fold_upblock_phases, reshaped (4, 4, Cin, Cout)): x NCHW
-    (N, Cin, H, W) -> f32 (N, Cout, 2H, 2W)."""
-    n, _, h, w = x.shape
-    cout = phases.shape[3]
-    xp = F.pad(x.float(), (1, 1, 1, 1))
-    out = x.new_empty((n, cout, 2 * h, 2 * w), dtype=torch.float32)
-    for a in (0, 1):
-        for b in (0, 1):
-            k = phases[a * 2 + b].float().reshape(2, 2, -1, cout).permute(3, 2, 0, 1)
-            out[:, :, a::2, b::2] = F.conv2d(xp[:, :, a:a + h + 1, b:b + w + 1], k)
-    return out
-
 
 def _sh(t: torch.Tensor) -> torch.Tensor:
     return t[None, :, None, None]
@@ -272,17 +275,10 @@ class _Launcher:
         self.counter.launches += 1
 
     def conv(self, src, w, shift, dst, *, ksize=3, residual=None, src2=None,
-             w2=None) -> None:
-        n, h, wd, cin = src.shape
-        self.done(self.lib.tail_conv(
-            src.data_ptr(), w.data_ptr(), cin,
-            src2.data_ptr() if src2 is not None else None,
-            w2.data_ptr() if w2 is not None else None,
-            src2.shape[3] if src2 is not None else 0,
-            shift.data_ptr(),
-            residual.data_ptr() if residual is not None else None,
-            dst.data_ptr(), n, h, wd, w.shape[-1], ksize, 1, self.bf16,
-            self.stream), "tail_conv")
+             w2=None, packed=None, packed2=None) -> None:
+        conv_tile(src, w, shift, ksize=ksize, residual=residual, x2=src2, w2=w2, out=dst,
+                  packed=packed, packed2=packed2)
+        self.counter.launches += 1
 
     def final(self, h, layer, image, out, guidance=None, guidance_w=None,
               guidance_b=0.0) -> None:
@@ -326,17 +322,19 @@ def _require_tail_inputs(name, d1, f0, x, wt) -> Tuple[int, int, int, int]:
 
 def _trunk_front(run: _Launcher, d1, wt: MediumTailWeights, d2, tmp) -> None:
     """UpBlock and ResidualBlock: d1 -> d2 (tmp is scratch of d2's shape)."""
-    run.conv(d1, wt.up, wt.up_shift, d2, ksize=2)
-    run.conv(d2, wt.res_a[0], wt.res_a[1], tmp)
-    run.conv(tmp, wt.res_b[0], wt.res_b[1], d2, residual=d2)   # in place
+    run.conv(d1, wt.up, wt.up_shift, d2, ksize=2, packed=wt.packed.up)
+    run.conv(d2, wt.res_a[0], wt.res_a[1], tmp, packed=wt.packed.res_a)
+    run.conv(tmp, wt.res_b[0], wt.res_b[1], d2, residual=d2,      # in place
+             packed=wt.packed.res_b)
 
 
 def _trunk_heads(run: _Launcher, d2, f0, wt: MediumTailWeights, tmp):
     """The two head convs; returns the (N, H, W, c/2) activation."""
-    run.conv(d2, wt.head1_d2, wt.head1_shift, tmp, src2=f0, w2=wt.head1_f0)
+    run.conv(d2, wt.head1_d2, wt.head1_shift, tmp, src2=f0, w2=wt.head1_f0,
+             packed=wt.packed.head1_d2, packed2=wt.packed.head1_f0)
     n, h, wd, c = d2.shape
     h2 = torch.empty((n, h, wd, c // 2), dtype=d2.dtype, device=d2.device)
-    run.conv(tmp, wt.head2[0], wt.head2[1], h2)
+    run.conv(tmp, wt.head2[0], wt.head2[1], h2, packed=wt.packed.head2)
     return h2
 
 
@@ -415,7 +413,8 @@ def high_tail_chain(d1: torch.Tensor, f0: torch.Tensor, x: torch.Tensor,
     g1 = torch.empty((n, h, wd, gc), dtype=dt, device=dev)
     g2 = torch.empty_like(g1)
     run.conv(xin, weights.guidance1[0], weights.guidance1[1], g1)
-    run.conv(g1, weights.guidance2[0], weights.guidance2[1], g2)
+    run.conv(g1, weights.guidance2[0], weights.guidance2[1], g2,
+             packed=weights.guidance2_packed)
     run.final(h2, trunk.out, xin, out, guidance=g2, guidance_w=weights.guidance_out_w,
               guidance_b=weights.guidance_out_b)
     return out

@@ -61,29 +61,29 @@ K6_KINDS = ("res", "res", "attn", "res", "attn")
 
 # name -> (file, text to find, replacement). Every occurrence is replaced.
 MUTATIONS = {
-    "last tap dropped (tensor-core body)": (
-        "conv_tile.cuh",
-        "          const __nv_bfloat16* arow = s_in + ((row + ky) * g.tw + kx) * kMmaStride;",
-        "          if (ky == a.ksize - 1 && kx == a.ksize - 1) continue;\n"
-        "          const __nv_bfloat16* arow = s_in + ((row + ky) * g.tw + kx) * kMmaStride;"),
+    "last tap dropped (wgmma body)": (
+        "conv_tile.cu", "    for (int tap = 0; tap < kTaps; ++tap) {",
+        "    for (int tap = 0; tap < kTaps - 1; ++tap) {"),
     "sub-pixel phase (1, 1) dropped": (
-        "conv_tile.cuh",
-        "  g.nco = min(kCoChunk, a.Cout - g.co0);",
-        "  g.nco = min(kCoChunk, a.Cout - g.co0);\n"
-        "  if (k == 2 && g.phase == 3) g.phase = 2;"),
+        "conv_tile.cu", "  const int phase = KS == 3 ? 0 : bx % 4;",
+        "  const int phase = KS == 3 ? 0 : (bx % 4 == 3 ? 2 : bx % 4);"),
     "f0 half of the first head conv dropped": (
-        "conv_tile.cuh", "for (int s = 0; s < 2; ++s) {", "for (int s = 0; s < 1; ++s) {"),
-    "residual (skip) add dropped (tensor-core body)": (
-        "conv_tile.cuh",
-        "    if (residual != nullptr) v += __bfloat162float(residual[o]);", ""),
-    "last 16-channel K-step of a chunk dropped": (
-        "conv_tile.cuh", "for (int k16 = 0; k16 < kc; k16 += 16) {",
-        "for (int k16 = 0; k16 < kc - 16 + (kc == 16 ? 16 : 0); k16 += 16) {"),
-    "last 32-channel chunk of a wide input dropped": (
-        "conv_tile.cuh", "for (int c0 = 0; c0 < C; c0 += kKc) {",
-        "for (int c0 = 0; c0 < (C > 2 * kKc ? C - kKc : C); c0 += kKc) {"),
+        "conv_tile.cu", "  const int n_stages = n0 + a.c[1] / kWgKc;",
+        "  const int n_stages = n0;"),
+    "residual (skip) add dropped (wgmma body)": (
+        "conv_tile.cu", "          v0 += r.x;\n          v1 += r.y;\n", ""),
+    "last 16-channel stage of a walk dropped": (
+        "conv_tile.cu", "  for (int it = 0; it < n_stages; ++it) {",
+        "  for (int it = 0; it < n_stages - (n_stages > 1); ++it) {"),
+    "last 32 channels of a wide first input dropped": (
+        "conv_tile.cu", "  const int n0 = a.c[0] / kWgKc;",
+        "  const int n0 = a.c[0] / kWgKc - (a.c[0] > 64 ? 2 : 0);"),
+    "a ring slot read before its tile has landed (cp.async wait removed)": (
+        "conv_tile.cu",
+        "    cp_async_wait<kWgStages - 3>();   // stage `it` has landed (this thread's part)\n",
+        ""),
     "guidance fixed at 1": (
-        "conv_tile.cuh", "      gd = 1.f / (1.f + expf(-d));", "      gd = 1.f;"),
+        "conv_tile.cu", "      gd = 1.f / (1.f + expf(-d));", "      gd = 1.f;"),
     "channel gate dropped (K4's gated pass)": (
         "tail_chain.cu", "        v[k] *= s_g[c + k];", ""),
     "channel gate dropped (K6's maps pass)": (

@@ -10,9 +10,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    use) and prints the build time and the compiler's register report.
 3. Kernel vs plain on the card, at the main path's shapes: K1 (low-branch
    chain), K2 (CBAM gate, at each AttentionBlock shape of the high branch),
-   K5 (soft blend), K2' (spatial gate, at the high tail's shape), K3 and K4
-   (the medium and high tail chains), K6 (the res/attention segment chain,
-   at the six segments of the medium and the high branch) and the ten
+   K5 (soft blend), K2' (spatial gate, at the high tail's shape), the
+   conv-layer table (every distinct conv layer that K3, K4 and K6 launch,
+   through `conv_tile` alone: body taken, plan, error, time, TFLOP/s, bound,
+   and one cuDNN call on the same tensors as the yardstick), K3 and K4 (the
+   medium and high tail chains), K6 (the res/attention segment chain, at
+   the six segments of the medium and the high branch) and the ten
    operation probes. fp32 against the fp32 plain version at 1e-4 with TF32
    off; bf16 against the fp32 plain version at 3e-2. The bf16 tensor-core
    bodies are also held against the bf16 plain versions, which round at the
@@ -98,6 +101,12 @@ from adam_dehaze_tpu_torch.ops.kernels.cbam import (
     padded_stats,
     spatial_gate,
     spatial_gate_reference,
+)
+from adam_dehaze_tpu_torch.ops.kernels.conv_tile import (
+    conv_tile,
+    conv_tile_plan,
+    conv_tile_reference,
+    pack_conv_weights,
 )
 from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
     fold_lightweight,
@@ -192,6 +201,31 @@ RES_SEGMENTS = {
 }
 
 
+# The distinct conv layers that K3, K4 and K6 launch on the forced paths, at
+# batch 16: name -> (side of the input, c0, c1, cout, ksize). ksize 2 is the
+# transposed conv (the output is twice the side).
+CONV_LAYERS = {
+    "K6 128^2 128->128": (128, 128, 0, 128, 3),
+    "K6 64^2 256->256": (64, 256, 0, 256, 3),
+    "K6 128^2 192->192": (128, 192, 0, 192, 3),
+    "K6 64^2 384->384": (64, 384, 0, 384, 3),
+    "K4 up 128^2 384->96": (128, 384, 0, 96, 2),
+    "K4 256^2 96->96": (256, 96, 0, 96, 3),
+    "K4 256^2 [96+96]->96": (256, 96, 96, 96, 3),
+    "K4 256^2 96->48": (256, 96, 0, 48, 3),
+    "K4 256^2 16->16": (256, 16, 0, 16, 3),
+    "K3 up 128^2 256->64": (128, 256, 0, 64, 2),
+    "K3 256^2 64->64": (256, 64, 0, 64, 3),
+    "K3 256^2 [64+64]->64": (256, 64, 64, 64, 3),
+    "K3 256^2 64->32": (256, 64, 0, 32, 3),
+}
+# One conv layer in bf16 against its plain version, which rounds once at
+# the same point, in units of the plain result's largest magnitude: one
+# bf16 step (2^-8 of the value) where the two sum orders straddle a rounding
+# boundary.
+CONV_BF16_RTOL = 2 ** -7
+
+
 def _k6_launches(level, segments):
     """(on K6, on K2) per bucket of a branch with these segments on K6."""
     per = [launches_of(RES_SEGMENTS[f"{level} {seg}"][2]) for seg in segments]
@@ -272,6 +306,17 @@ def bound(flops, nbytes, peak_flops):
 
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def weights_nbytes(weights):
+    """Bytes of a chain's folded weights as a launch reads them: each conv's
+    weights once (the packed copies hold the same values again)."""
+    if hasattr(weights, "trunk"):
+        weights = weights._replace(trunk=weights.trunk._replace(packed=()),
+                                   guidance2_packed=None)
+    else:
+        weights = weights._replace(packed=())
+    return nbytes(*weight_tensors(weights))
 
 
 def conv_flops(pixels, taps, cin, cout):
@@ -457,10 +502,91 @@ def phase_kernels(dev, gen):
                 2 * nbytes(xb) + nbytes(wb), PEAK_F32_FLOPS))
     del x, xb, ref, out, mean_p, max_p
 
+    # Its own generator: the draws of the other phases, and with them the
+    # router's weights and where it routes the batch, stay as they were.
+    conv_layers = phase_conv_layers(dev, torch.Generator().manual_seed(SEED + 1))
     results.update(phase_tail_kernels(dev, gen))
     results["res_attn_chain"] = phase_res_chain_kernels(dev, gen)
     results["probe_ops"] = phase_probe_kernels(dev)
-    return results
+    return results, conv_layers
+
+
+def phase_conv_layers(dev, gen):
+    """The conv-layer table: every distinct layer of CONV_LAYERS through
+    `conv_tile` alone, bf16, batch 16: the body it took and its plan, its
+    error against `conv_tile_reference`, its time, rate and bound, and as
+    the yardstick one cuDNN call on the same tensors (`F.conv2d`, bf16,
+    channels_last; for a two-input layer on their concat, made beforehand;
+    `F.conv_transpose2d` for the up layers), without the shift and the ReLU.
+    The port never calls those on this path."""
+    rows = {}
+    for name, (side, c0, c1, cout, ksize) in CONV_LAYERS.items():
+        cin = c0 + c1
+        taps = ksize * ksize
+        x = torch.relu(torch.randn(BATCH, side, side, cin, generator=gen)).to(dev).bfloat16()
+        shift = (torch.randn(cout, generator=gen) * 0.1).to(dev)
+        if ksize == 3:
+            oihw = torch.randn(cout, cin, 3, 3, generator=gen) * (9 * cin) ** -0.5
+            oihw = oihw.to(dev).bfloat16()
+            w = oihw.permute(2, 3, 1, 0).contiguous()
+            lib_w = oihw.contiguous(memory_format=torch.channels_last)
+
+            def library(x=x, lib_w=lib_w):
+                return torch.nn.functional.conv2d(x.permute(0, 3, 1, 2), lib_w, padding=1)
+        else:
+            iohw = torch.randn(cin, cout, 4, 4, generator=gen) * (4 * cin) ** -0.5
+            iohw = iohw.to(dev).bfloat16()
+            # The sub-pixel phases of ops/fold.py:fold_upblock_phases.
+            w = torch.stack([iohw[:, :, 3 - a - 2 * u, 3 - b - 2 * v]
+                             for a in (0, 1) for b in (0, 1)
+                             for u in (0, 1) for v in (0, 1)]).reshape(4, 4, cin, cout)
+            w = w.contiguous()
+
+            def library(x=x, iohw=iohw):
+                return torch.nn.functional.conv_transpose2d(
+                    x.permute(0, 3, 1, 2), iohw, stride=2, padding=1)
+        kwargs = dict(ksize=ksize)
+        first = x
+        if c1:
+            first = x[..., :c0].contiguous()
+            kwargs.update(x2=x[..., c0:].contiguous(), w2=w[:, :, c0:].contiguous())
+            w = w[:, :, :c0].contiguous()
+        packed = dict(packed=pack_conv_weights(w, ksize))
+        if c1:
+            packed.update(packed2=pack_conv_weights(kwargs["w2"], ksize))
+        plan = conv_tile_plan(c0, c1, cout, ksize, torch.bfloat16)
+        with torch.inference_mode():
+            want = conv_tile_reference(first, w, shift, **kwargs)
+            out = torch.empty_like(want)
+            got = conv_tile(first, w, shift, out=out, **kwargs, **packed)
+            torch.cuda.synchronize()
+            err = scaled_err(got, want)
+            lib_out = torch.relu(library().float() + shift[None, :, None, None])
+            lib_err = scaled_err(lib_out.permute(0, 2, 3, 1), want)
+            ms = cuda_ms(lambda: conv_tile(first, w, shift, out=out, **kwargs, **packed))
+            lib_ms = cuda_ms(library)
+        flops = conv_flops(BATCH * side * side, taps * (4 if ksize == 2 else 1), cin, cout)
+        moved = nbytes(x, w, shift, got) + (nbytes(kwargs["w2"]) if c1 else 0)
+        bd = bound(flops, moved, PEAK_BF16_FLOPS)
+        log(f"[conv {name}] body {plan.body}, {plan.cout_chunk} output channels by "
+            f"{plan.tile[0]}x{plan.tile[1]} positions a block, {plan.kc} input channels a "
+            f"stage, {plan.stages} slots, {plan.smem_bytes} B of shared memory: err "
+            f"{err:.3e} of max|plain| (bound {CONV_BF16_RTOL:.3e}), the library call against "
+            f"plain {lib_err:.3e}; kernel {ms:.3f} ms ({flops / (ms * 1e-3) / 1e12:.1f} "
+            f"TFLOP/s), bound {bd['bound_ms']:.3f} ms by {bd['bound_by']} "
+            f"({flops / 1e9:.1f} GFLOP, {moved / 1e6:.0f} MB), library {lib_ms:.3f} ms "
+            f"({flops / (lib_ms * 1e-3) / 1e12:.1f} TFLOP/s)")
+        check(plan.body == "wgmma" and plan.smem_bytes <= 232448,
+              f"conv layer {name} does not take the wgmma body: {plan}")
+        check(err <= CONV_BF16_RTOL, f"conv layer {name} disagrees with its plain version")
+        check(lib_err <= BF16_ATOL, f"conv layer {name}: the library call computes another function")
+        rows[name] = dict(body=plan.body, cout_chunk=plan.cout_chunk, tile=list(plan.tile),
+                          kc=plan.kc, stages=plan.stages, smem_bytes=plan.smem_bytes,
+                          max_abs_err=err, ms=ms, tflops=flops / (ms * 1e-3) / 1e12,
+                          library_ms=lib_ms, **bd)
+        del x, first, want, got, out, lib_out, kwargs
+        torch.cuda.empty_cache()
+    return rows
 
 
 def canonical_tail(model, high):
@@ -508,7 +634,7 @@ def phase_tail_kernels(dev, gen):
             plain = cuda_ms(lambda: reference(d1b, f0b, x, wbf), iters=5, warmup=1)
             can_ms = cuda_ms(lambda: canonical(d1b, f0b, x), iters=10)
         flops = tail_flops(BATCH, SIZE, SIZE, c, high)
-        moved = nbytes(d1b, f0b, x, got) + nbytes(*weight_tensors(wbf))
+        moved = nbytes(d1b, f0b, x, got) + weights_nbytes(wbf)
         bd = bound(flops, moved, PEAK_BF16_FLOPS)
         log(f"[{label} {name}] d1 {tuple(d1.shape)}, f0 {tuple(f0.shape)}, c={c}: fp32 err "
             f"{e32:.3e}, bf16 vs fp32 plain {ebf:.3e}, bf16 vs bf16 plain {tight:.3e} "
@@ -576,7 +702,7 @@ def phase_res_chain_kernels(dev, gen):
         n_attn = len(kinds) - n_res
         flops = (2 * n_res * conv_flops(px, 9, c, c)
                  + n_attn * (6 * px * c + conv_flops(px, 49, 2, 1)))
-        moved = 2 * nbytes(xb) + nbytes(*weight_tensors(wbf))
+        moved = 2 * nbytes(xb) + weights_nbytes(wbf)
         bd = bound(flops, moved, PEAK_BF16_FLOPS)
         scale = float(ref.abs().max())
         log(f"[K6 res_attn_chain] {name} {tuple(x.shape)} {list(kinds)}: errors in units of "
@@ -890,7 +1016,7 @@ def main():
     dev = torch.device("cuda")
     phase_build()
     gen = torch.Generator().manual_seed(SEED)
-    kernels = phase_kernels(dev, gen)
+    kernels, conv_layers = phase_kernels(dev, gen)
     router = make_router(load_config(), gen)
     rng = np.random.default_rng(SEED)
     x = rng.random((BATCH, SIZE, SIZE, 3), dtype=np.float32)
@@ -917,7 +1043,7 @@ def main():
          "launches_by_path": {tag: path[name] for tag, path in paths.items()},
          **kernels[name]}
         for name, (route, source, replaces) in KERNELS.items()],
-        "autotune_ms_per_16_images": tables, "dispatch_ms": dispatch,
+        "conv_layers": conv_layers, "autotune_ms_per_16_images": tables, "dispatch_ms": dispatch,
         "slice_ms_per_image": {"default": default_ms, "tail_chain": tail_ms,
                                "res_chain": res_ms}}
     check(all(k["launches"] > 0 for k in line["kernels"]),

@@ -14,7 +14,9 @@ K1's tensor-core body is also held against the bf16 plain version, which
 rounds at the same points, at K1_BF16_ATOL (see there), and so are the tail
 chains K3 and K4 at TAIL_BF16_ATOL and the segment chain K6 at RES_BF16_RTOL.
 K6's errors are in units of the plain result's largest magnitude: a segment
-ends in a ReLU or a gate, not in a clip to [0, 1].
+ends in a ReLU or a gate, not in a clip to [0, 1]. The conv layer those
+three share (`conv_tile`) is held against its plain version alone: one
+rounding on both sides, so one bf16 step at most.
 """
 import copy
 
@@ -28,6 +30,13 @@ from adam_dehaze_tpu_torch.ops.kernels.cbam import (
     channel_spatial_gate_reference,
     spatial_gate,
     spatial_gate_reference,
+)
+from adam_dehaze_tpu_torch.ops.kernels.conv_tile import (
+    WGMMA_COUT_CHUNKS,
+    conv_tile,
+    conv_tile_plan,
+    conv_tile_reference,
+    pack_conv_weights,
 )
 from adam_dehaze_tpu_torch.ops.kernels.res_chain import (
     fold_res_attn_chain,
@@ -189,6 +198,133 @@ def test_k2prime_kernel_matches_plain(cuda_device, dtype, atol, shape):
     torch.cuda.synchronize()
     assert spatial_gate.launches - before == 1
     torch.testing.assert_close(got.float().cpu(), want, rtol=0, atol=atol)
+
+
+def _conv_case(sides, c0, c1, cout, ksize, dtype, seed, residual):
+    """Seeded inputs of one conv layer, drawn non-negative like an
+    activation after a ReLU; weights scaled so that the sums stay O(1)."""
+    gen = torch.Generator().manual_seed(seed)
+    n, h, w = sides
+    taps = (3, 3) if ksize == 3 else (4, 4)
+    scale = (9 * (c0 + c1)) ** -0.5
+
+    def draw(*shape):
+        return torch.randn(*shape, generator=gen)
+
+    case = dict(x=torch.relu(draw(n, h, w, c0)).to(dtype),
+                w=(draw(*taps, c0, cout) * scale).to(dtype), shift=draw(cout) * 0.1)
+    if c1:
+        case.update(x2=torch.relu(draw(n, h, w, c1)).to(dtype),
+                    w2=(draw(*taps, c1, cout) * scale).to(dtype))
+    if residual:
+        up = 1 if ksize == 3 else 2
+        case["residual"] = torch.relu(draw(n, up * h, up * w, cout)).to(dtype)
+    return case
+
+
+# (sides, c0, c1, cout, ksize, residual): ragged sides around the 16x16
+# tile, batch 1, every output-channel chunk the plan can choose (and two
+# or three of them in one launch), 16-channel stages that end a width (48,
+# 16), two inputs, the sub-pixel phases, the skip add.
+CONV_CASES = {
+    "n128_13x21": ((2, 13, 21), 128, 0, 128, 3, True),
+    "n96x2_9x40": ((1, 9, 40), 192, 0, 192, 3, True),
+    "n128x3_1x300": ((1, 1, 300), 384, 0, 384, 3, False),
+    "n64_two_inputs": ((2, 13, 21), 64, 64, 64, 3, False),
+    "n96_two_inputs": ((1, 9, 40), 96, 96, 96, 3, False),
+    "n48_c48": ((2, 13, 21), 48, 0, 48, 3, True),
+    "n32_c64": ((1, 9, 40), 64, 0, 32, 3, False),
+    "n16_c16": ((1, 1, 300), 16, 0, 16, 3, False),
+    "n16x5_c80": ((1, 9, 40), 48, 32, 80, 3, False),
+    "up_n96_c384": ((1, 9, 40), 384, 0, 96, 2, False),
+    "up_n64_c256": ((2, 13, 21), 256, 0, 64, 2, False),
+    "up_n48_1x300": ((1, 1, 300), 192, 0, 48, 2, False),
+    "up_n128": ((1, 5, 7), 64, 0, 128, 2, False),
+    "fma_c24": ((2, 13, 21), 24, 0, 24, 3, True),
+    "fma_c3": ((1, 9, 40), 3, 0, 16, 3, False),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
+@pytest.mark.parametrize("case", sorted(CONV_CASES))
+def test_conv_tile_matches_reference(cuda_device, dtype, case):
+    """One conv layer against its plain version. In bf16 both sum in f32
+    over the same bf16 values and round once: they differ by one bf16 step
+    (2^-8 of the value) where the sum orders straddle a rounding boundary,
+    and by the f32 reordering (1e-3 absolute bounds it) near zero."""
+    sides, c0, c1, cout, ksize, residual = CONV_CASES[case]
+    args = _conv_case(sides, c0, c1, cout, ksize, dtype, 53, residual)
+    shift = args.pop("shift")
+    w = args.pop("w")
+    x = args.pop("x")
+    want = conv_tile_reference(x, w, shift, ksize=ksize, **args)
+    on_card = {k: v.to(cuda_device) for k, v in args.items()}
+    got = conv_tile(x.to(cuda_device), w.to(cuda_device), shift.to(cuda_device), ksize=ksize,
+                    **on_card)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.cpu().float(), want.float(), rtol=2 ** -7, atol=1e-3)
+    else:
+        torch.testing.assert_close(got.cpu(), want, rtol=0, atol=FP32_ATOL)
+    if conv_tile_plan(c0, c1, cout, ksize, dtype).body == "wgmma":
+        # Weights packed once by the caller give the same bits.
+        packs = dict(packed=pack_conv_weights(w, ksize).to(cuda_device))
+        if c1:
+            packs["packed2"] = pack_conv_weights(args["w2"], ksize).to(cuda_device)
+        again = conv_tile(x.to(cuda_device), w.to(cuda_device), shift.to(cuda_device),
+                          ksize=ksize, **on_card, **packs)
+        torch.testing.assert_close(again, got, rtol=0, atol=0)
+        with pytest.raises(ValueError):
+            conv_tile(x.to(cuda_device), w.to(cuda_device), shift.to(cuda_device),
+                      ksize=ksize, **on_card, packed=packs["packed"].flatten())
+    if residual:
+        # The skip add in place: residual is out.
+        out = on_card["residual"].clone()
+        on_card["residual"] = out
+        again = conv_tile(x.to(cuda_device), w.to(cuda_device), shift.to(cuda_device),
+                          ksize=ksize, out=out, **on_card)
+        assert again is out
+        torch.testing.assert_close(again, got, rtol=0, atol=0)
+
+
+def test_conv_tile_without_relu_and_reproducible(cuda_device):
+    args = _conv_case((2, 13, 21), 48, 0, 96, 3, torch.bfloat16, 59, False)
+    args = {k: v.to(cuda_device) for k, v in args.items()}
+    want = conv_tile_reference(relu=False, **args)
+    a, b = conv_tile(relu=False, **args), conv_tile(relu=False, **args)
+    assert float(a.min()) < 0
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    torch.testing.assert_close(a.float(), want.float(), rtol=2 ** -7, atol=1e-3)
+
+
+def test_conv_tile_plan_mirrors_library(cuda_device):
+    """The Python plan's shared memory is the kernel library's own, for both
+    bodies, both tap counts and every width that chooses another chunk."""
+    lib = _build.library()
+    widths = sorted({3, 8, 24, *WGMMA_COUT_CHUNKS, 80, 144, 160, 192, 256, 320, 384})
+    for c0 in widths:
+        for c1 in (0, 16, 24):
+            for cout in widths:
+                for ksize in (2, 3):
+                    for dtype in (torch.float32, torch.bfloat16):
+                        plan = conv_tile_plan(c0, c1, cout, ksize, dtype)
+                        assert lib.conv_tile_smem_bytes(
+                            c0, c1, cout, ksize, int(dtype == torch.bfloat16)
+                        ) == plan.smem_bytes, (c0, c1, cout, ksize, dtype)
+
+
+def test_conv_tile_refuses_what_it_does_not_take(cuda_device):
+    args = _conv_case((1, 8, 8), 16, 0, 16, 3, torch.bfloat16, 61, False)
+    args = {k: v.to(cuda_device) for k, v in args.items()}
+    with pytest.raises(ValueError):
+        conv_tile(**{**args, "w": args["w"][..., :8].contiguous()})     # shift of another width
+    with pytest.raises(ValueError):
+        conv_tile(**{**args, "x": args["x"].half(), "w": args["w"].half()})
+    with pytest.raises(ValueError):
+        conv_tile(x2=args["x"], **args)                                 # x2 without w2
+    with pytest.raises(ValueError):
+        conv_tile(**{**args, "x": args["x"].transpose(1, 2)})           # not contiguous
 
 
 def _tail_case(kind, c, seed, size=(36, 72)):
