@@ -1,5 +1,4 @@
-// K1: the eval-mode low branch (LightweightDehazeModel) for Hopper (sm_90a),
-// as one fused 3x3-convolution launch per layer.
+// K1: the eval-mode low branch (LightweightDehazeModel) for Hopper (sm_90a).
 //
 // Replaces the TPU kernel adam_dehaze_tpu/ops/pallas/s2d_chain.py:
 // _lightweight_kernel (launched by _run_chain, built by
@@ -11,38 +10,72 @@
 //     h = relu(conv(h) + tm)                          ConvBlock c -> c
 //     out = (1 - alpha) * x + alpha * sigmoid(conv(h) + bias)   c -> 3
 //
-// What bounds it on an H100: the TPU kernel keeps a whole image resident in
-// VMEM between layers; that cannot work here (one 256x256x32 bf16 activation
-// is 4 MiB against 227 KB of shared memory per block). So each layer is one
-// launch, and each inter-layer activation makes a round trip through device
-// memory in the compute dtype, as the TPU kernel stores them (bf16 or f32).
-// At batch 16 and 256^2 an activation is 64 MiB, beyond the 50 MB L2; the
-// c -> c layers carry 2*9*c*c FLOP per pixel, 19 GFLOP per c=32 layer.
+// with weights and the activations between layers in the compute dtype and
+// every sum, shift, skip add, ReLU, sigmoid and blend in f32, one rounding
+// per layer.
 //
-// Design: a block computes an 8x16 output tile for up to 32 output channels
-// (grid.z walks wider outputs). It stages the input tile with a 1-pixel zero
-// halo and the layer's folded weights for its channel chunk in shared
-// memory. Two bodies, chosen by dtype and shape before the launch:
-// - bf16 with Cin and Cout multiples of 16 (the c -> c layers at c=32):
-//   tensor cores through warp-level bf16 MMA (nvcuda::wmma, 16x16x16,
-//   fp32 accumulators). Each of the 8 warps owns one tile row of 16 pixels
-//   and accumulates its implicit-GEMM product over the 9 taps x Cin; the
-//   accumulators go through shared memory to the epilogue.
-// - everything else (fp32, and the 3-channel input and output layers):
-//   fp32 FMAs on the CUDA cores. Each thread owns one pixel and 8 output
-//   channels; the input tile is staged as f32 at row stride Cin+1 (so
-//   neighbouring pixels fall in different banks) and a warp shares its 8
-//   weights per input channel as two broadcast float4 loads.
-// The epilogue adds the shift, the optional residual (read from the output
-// buffer itself when the residual block updates in place) and the ReLU, or
-// the sigmoid and the alpha blend with the input image for the output
-// layer. Later PRs: several layers per launch with halo recompute, so that
-// activations stay on chip, and wgmma with TMA-fed tiles.
+// What bounds it on an H100: at c = 32 and 16 x 256^2 the branch is 139 GFLOP
+// (0.14 ms of tensor core) but one activation is 67 MB, more than the 50 MB
+// L2, so a launch per layer moves 1.3 GB (0.39 ms) and a block that restages
+// the layer's weights for every 128 positions spends most of its life
+// loading. The TPU kernel kept the image in VMEM across all nine layers; a
+// whole 256x256x32 activation (4 MiB) does not fit 227 KB of shared memory,
+// but a tile of it with the halo of two layers does.
+//
+// Design of the bf16 body (c = 16, 32, 48 or 64), "fused groups":
+//
+// - n_blocks + 1 launches instead of 2 n_blocks + 3: [3 -> c, rb1a, rb1b],
+//   one [rb_a, rb_b] per further residual block, [c -> c, c -> 3 + blend].
+//   A block is persistent (one per SM, or as many as fit), loads the group's
+//   packed weights and shifts into shared memory once and walks T x T output
+//   tiles. Per tile it stages the input with the halo the group needs
+//   ((T + 4)^2 positions), runs the group's layers from one shared-memory
+//   buffer into the other, each on a ring one position smaller (halo
+//   recompute: 1.16x the products of a c -> c pair at T = 32, the wrapped
+//   columns below included), and writes the last layer's T x T result to
+//   device memory once. Whole-chain fusion would need a 34 x 34 input for a
+//   16 x 16 output, 2.3x the products.
+// - The next tile's input is copied (cp.async) while the last layer of this
+//   one runs: the staged buffer is free by then, because a residual group
+//   reads its skip from device memory (the tile it staged a tile ago, still
+//   in L2) and not from the buffer's centre; the first group, whose skip is
+//   its own first layer's output, reads it from shared memory and prefetches
+//   only the 3-channel tile. Two barriers a tile (four in the first group).
+// - Positions of a recomputed ring that lie OUTSIDE THE IMAGE are stored as
+//   0, not as relu(shift): the next conv pads with zeros there.
+// - Every layer is wgmma (m64nNk16, f32 accumulators in registers, A and B
+//   from shared memory without swizzle). A buffer is [channel octet][flat
+//   position][8 channels] with one pitch P = T + 4 for all layers of a
+//   group, and the 64 rows of a product are 64 CONSECUTIVE flat positions
+//   (stride between 8-row groups = 128 bytes), so a tap (ky, kx) is the start
+//   offset (ky * P + kx) * 16 bytes and a ring of any size is walked without
+//   8 x 8 patches. Positions whose taps wrap into the next row (the last
+//   columns of a row) are computed and never used: 2/P of the work, less than
+//   padding a 34 x 34 ring to 40 x 40 patches (1.38x).
+// - The first layer (3 -> c) is one K = 32 product per 64 positions over
+//   rows built in shared memory from the 3-channel tile (27 taps x channels,
+//   5 zeros); the last (c -> 3) is m64n8k16 with the sigmoid and the blend on
+//   the accumulators. No layer of this body runs on FMAs.
+// - What bounds it now (PERF.md has the readings): not the products (a
+//   quarter of a group's time) nor one stream of memory, but the instruction
+//   stream: N = c is narrow, an m64n32k16 is 16 clocks of tensor core for two
+//   descriptors and an instruction in each of four warps, and a thread's
+//   epilogue handles 16 values a unit.
+//   Four warpgroups a block take the units of a layer in turn, one unit in
+//   flight each; what the epilogue needs from device memory is asked for
+//   before the products. chip_smoke.py prints the time beside the bound,
+//   chip_conv_steps.py what each part gives.
+//
+// fp32, and bf16 at the other widths (multiples of 8), keep one launch per
+// layer of the f32 FMA body: a block computes an 8x16 output tile for up to
+// 32 output channels, stages the input tile with a 1-pixel zero halo as f32
+// at row stride Cin+1 and the layer's weights, one pixel and 8 output
+// channels per thread. The body is chosen by dtype and width before any
+// launch; ops/kernels/lightweight_chain.py mirrors the rule (`chain_plan`).
 #include <cstdint>
 
-#include <mma.h>
-
 #include "common.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -167,152 +200,469 @@ int launch(const void* in, const void* w, const void* shift, const void* residua
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- bf16 tensor-core body -------------------------------------------------
-constexpr int kMmaThreads = 32 * kTileH;  // one warp per tile row
+// ---- bf16 fused groups -----------------------------------------------------
+using namespace adam::wg;
 
-__host__ __device__ inline size_t align128(size_t bytes) { return (bytes + 127) & ~size_t(127); }
+constexpr int kFirst = 0;   // 3 -> c, then the first residual block
+constexpr int kRes = 1;     // one residual block
+constexpr int kLast = 2;    // c -> c, then c -> 3 with sigmoid and blend
+constexpr int kFuWarpgroups = 4;   // a block: they take a layer's units in turn
+constexpr int kFuThreads = 128 * kFuWarpgroups;
+constexpr int kFuTiles[] = {32, 28, 24, 20, 16, 12, 8};   // output tile sides, widest first
 
-// Shared memory: input tile bf16 [(kTileH+2) * (kTileW+2)][Cin+16] (a pixel
-// stride that keeps every fragment pointer 32-byte aligned), weights bf16
-// [9 * Cin][kCoChunk], accumulators f32 [kPix][kCoChunk].
-inline size_t mma_smem_bytes(int cin) {
-  return align128(size_t((kTileH + 2) * (kTileW + 2)) * (cin + 16) * 2) +
-         align128(size_t(9) * cin * kCoChunk * 2) + size_t(kPix) * kCoChunk * 4;
+// Positions of one channel-octet plane that holds `rows` rows at pitch
+// `pitch`: the last product of a layer starts below position rows * pitch
+// and reads 64 positions from a tap offset of at most 2 * pitch + 2 (66 more
+// than the rows), rounded so that planes are 2 mod 8 positions apart (the
+// octets of a staged pixel then fall into different banks).
+__host__ __device__ constexpr int fu_plane(int rows, int pitch) {
+  return ((rows * pitch + 66 + 7) / 8) * 8 + 2;
 }
 
-__global__ void __launch_bounds__(kMmaThreads)
-conv3x3_mma_kernel(const __nv_bfloat16* __restrict__ in,
-                   const __nv_bfloat16* __restrict__ wgt,
-                   const float* __restrict__ shift, const __nv_bfloat16* residual,
-                   __nv_bfloat16* out, int H, int W, int Cin, int Cout, int relu) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const int cinp = Cin + 16;
-  __nv_bfloat16* s_in = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* s_w = reinterpret_cast<__nv_bfloat16*>(
-      smem_raw + align128(size_t((kTileH + 2) * (kTileW + 2)) * cinp * 2));
-  float* s_acc = reinterpret_cast<float*>(
-      reinterpret_cast<unsigned char*>(s_w) + align128(size_t(9) * Cin * kCoChunk * 2));
+struct FuLayout {
+  int w_bytes, shift_bytes, buf1_bytes, buf2_bytes, xs_bytes;
+  __host__ __device__ int total() const {
+    return w_bytes + shift_bytes + buf1_bytes + buf2_bytes + xs_bytes;
+  }
+};
 
-  const int tiles_x = (W + kTileW - 1) / kTileW;
-  const int tx0 = (blockIdx.x % tiles_x) * kTileW;
-  const int ty0 = (blockIdx.x / tiles_x) * kTileH;
-  const int n = blockIdx.y;
-  const int co0 = blockIdx.z * kCoChunk;
-  const int nco = min(kCoChunk, Cout - co0);
+// Shared memory of a group at width C and tile side T: the packed weights
+// and the shifts of its layers, buffer 1 (T + 4 rows: the staged input; for
+// kFirst the first layer's output), buffer 2 (T + 2 rows: the middle layer's
+// output; for kFirst first the K = 32 rows of the first layer, T + 4 rows of
+// 4 octets), and for kFirst the 3-channel f32 tile (T + 6 rows).
+__host__ __device__ inline FuLayout fu_layout(int C, int kind, int T) {
+  const int P = T + 4, oct = C / 8;
+  FuLayout L;
+  L.w_bytes = kind == kFirst ? 64 * C + 36 * C * C
+            : kind == kRes   ? 36 * C * C
+                             : 18 * C * C + 144 * C;
+  L.shift_bytes = 4 * (kind == kFirst ? 3 * C : kind == kRes ? 2 * C : C + 8);
+  L.buf1_bytes = oct * fu_plane(T + 4, P) * 16;
+  const int mid = oct * fu_plane(T + 2, P);
+  const int rows32 = kind == kFirst ? 4 * fu_plane(T + 4, P) : 0;
+  L.buf2_bytes = (mid > rows32 ? mid : rows32) * 16;
+  L.xs_bytes = kind == kFirst ? (((T + 6) * (T + 6) * 12 + 15) / 16) * 16 : 0;
+  return L;
+}
+
+inline bool fu_width(int C) { return C == 16 || C == 32 || C == 48 || C == 64; }
+
+// The widest tile whose largest group (kFirst) fits a block, or 0.
+inline int fu_tile(int C) {
+  if (!fu_width(C)) return 0;
+  for (int T : kFuTiles)
+    if (static_cast<size_t>(fu_layout(C, kFirst, T).total()) <= adam::kMaxDynamicSmem) return T;
+  return 0;
+}
+
+struct GroupArgs {
+  const float* x;            // the branch input (N, H, W, 3): kFirst convolves it, kLast blends with it
+  const __nv_bfloat16* in;   // kRes, kLast: the activation (N, H, W, C)
+  const __nv_bfloat16* w;    // the group's packed weights, layer after layer
+  const float* shift;        // the group's shifts, layer after layer (the c -> 3 bias padded to 8)
+  __nv_bfloat16* out;        // kFirst, kRes: the activation (N, H, W, C)
+  float* out_f32;            // kLast: the result (N, H, W, 3)
+  float alpha;
+  int N, H, W, T;
+};
+
+// What a layer does with its accumulators.
+constexpr int kToSmem = 0;       // shift, ReLU, zero outside the image, one rounding -> the other buffer
+constexpr int kSkipSmemOut = 1;  // shift, skip add from the centre of a staged buffer, ReLU, one rounding -> device memory
+constexpr int kSkipGlobalOut = 2;  // the same, the skip read from the group's input in device memory
+constexpr int kBlendOut = 3;     // bias, sigmoid, blend with the image -> device memory (f32, 3 channels)
+
+struct LayerIO {
+  uint32_t a_base, a_plane;    // input buffer and its plane stride (shared address space, bytes)
+  uint32_t b_base;             // the layer's packed weights (shared address space)
+  const float* shift;          // shared memory
+  int rows;                    // output rows (the pitch is P for input and output)
+  int oy, ox;                  // image coordinates of output position (0, 0)
+  unsigned char* dst;          // kToSmem: the output buffer
+  uint32_t dst_plane;
+  const unsigned char* skip;   // kSkipSmemOut: the buffer whose centre is added
+  uint32_t skip_plane;
+};
+
+// What one thread needs for its two rows of a unit before and after the
+// products. Thread (warp, lane) of a warpgroup holds rows 16 warp + lane / 4
+// (+ 8) and columns 8 j + 2 (lane % 4) (+ 1).
+template <int N, int EPI>
+struct UnitRows {
+  int q[2];                  // flat output positions
+  bool inside[2], ok[2];     // inside the image; a position this tile writes
+  size_t pix[2];             // (n, y, x) flattened, where ok
+  uint32_t skip_w[2][EPI == kSkipGlobalOut ? N / 8 : 1];
+  float image[2][2];         // kBlendOut
+};
+
+// One layer of a group over the whole tile: the warpgroups take the units of
+// 64 consecutive flat positions in turn, one unit in flight each (two in
+// flight a warpgroup, so that one's epilogue passes under the other's
+// products, was slower: PERF.md). N output channels, KSTEPS k16 steps per
+// tap, TAPS taps (9, or 1 for the first layer's ready-made rows). What the
+// epilogue needs from device memory (the skip, the image) is asked for
+// before the products, so that its latency passes under them.
+template <int N, int KSTEPS, int TAPS, int EPI>
+__device__ __forceinline__ void fu_layer(const LayerIO& io, const GroupArgs& g, int n, int P) {
   const int tid = threadIdx.x;
+  const int warp = (tid >> 5) & 3, lane = tid & 31, q8 = lane >> 2, l = lane & 3;
+  const int units = (io.rows * P + 63) >> 6;
 
-  // Stage the input tile, 8 channels (16 bytes) at a time, zero outside.
-  constexpr int kTilePix = (kTileH + 2) * (kTileW + 2);
-  const int vec_per_pix = Cin / 8;
-  for (int i = tid; i < kTilePix * vec_per_pix; i += kMmaThreads) {
-    const int p = i / vec_per_pix;
-    const int v = i - p * vec_per_pix;
-    const int yy = ty0 - 1 + p / (kTileW + 2);
-    const int xx = tx0 - 1 + p % (kTileW + 2);
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (yy >= 0 && yy < H && xx >= 0 && xx < W)
-      val = *reinterpret_cast<const uint4*>(
-          in + ((static_cast<size_t>(n) * H + yy) * W + xx) * Cin + v * 8);
-    *reinterpret_cast<uint4*>(s_in + p * cinp + v * 8) = val;
-  }
-  // Stage the chunk's weights: HWIO rows (tap * Cin + ci) of nco columns.
-  const int wvec = nco / 8;
-  for (int i = tid; i < 9 * Cin * wvec; i += kMmaThreads) {
-    const int tc = i / wvec;
-    const int v = i - tc * wvec;
-    *reinterpret_cast<uint4*>(s_w + tc * kCoChunk + v * 8) =
-        *reinterpret_cast<const uint4*>(wgt + static_cast<size_t>(tc) * Cout + co0 + v * 8);
-  }
-  __syncthreads();
-
-  const int row = tid / 32;       // this warp's tile row: 16 pixels
-  const int nfrag = nco / 16;     // 1 or 2 output fragments of 16 channels
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2];
-  wmma::fill_fragment(acc[0], 0.f);
-  wmma::fill_fragment(acc[1], 0.f);
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-  wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-  for (int ky = 0; ky < 3; ++ky) {
-    for (int kx = 0; kx < 3; ++kx) {
-      const __nv_bfloat16* arow = s_in + ((row + ky) * (kTileW + 2) + kx) * cinp;
-      const __nv_bfloat16* wtap = s_w + (ky * 3 + kx) * Cin * kCoChunk;
-      for (int kc = 0; kc < Cin; kc += 16) {
-        // A: 16 pixels x 16 input channels, pixel stride cinp.
-        wmma::load_matrix_sync(a, arow + kc, cinp);
+  // This thread's shifts: columns 8 j + 2 l (+ 1) whatever the unit.
+  float2 sh[EPI == kBlendOut ? 1 : N / 8];
+  if constexpr (EPI != kBlendOut) {
 #pragma unroll
-        for (int f = 0; f < 2; ++f) {
-          if (f < nfrag) {
-            wmma::load_matrix_sync(b, wtap + kc * kCoChunk + f * 16, kCoChunk);
-            wmma::mma_sync(acc[f], a, b, acc[f]);
+    for (int j = 0; j < N / 8; ++j)
+      sh[j] = *reinterpret_cast<const float2*>(io.shift + 8 * j + 2 * l);
+  }
+
+  auto rows_of = [&](int u, UnitRows<N, EPI>& r) {
+    const int q0 = u * 64 + warp * 16 + q8;
+    const int y0 = q0 / P, x0 = q0 - y0 * P;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      // The second row is 8 positions on: at most one row down (P > 8).
+      r.q[h] = q0 + 8 * h;
+      const bool wrap = h == 1 && x0 + 8 >= P;
+      const int y = y0 + (wrap ? 1 : 0), x = x0 + 8 * h - (wrap ? P : 0);
+      const int gy = io.oy + y, gx = io.ox + x;
+      r.inside[h] = gy >= 0 && gy < g.H && gx >= 0 && gx < g.W;
+      r.ok[h] = r.inside[h] && y < g.T && x < g.T;
+      r.pix[h] = (static_cast<size_t>(n) * g.H + gy) * g.W + gx;
+      if constexpr (EPI == kSkipGlobalOut) {
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j)
+          r.skip_w[h][j] = r.ok[h] ? *reinterpret_cast<const uint32_t*>(
+                                         g.in + r.pix[h] * N + 8 * j + 2 * l)
+                                   : 0u;
+      }
+      if constexpr (EPI == kBlendOut) {
+        // N = 8: columns 0..2 are the image's channels; lane % 4 = 0 holds 0
+        // and 1, lane % 4 = 1 holds 2 (and a padded column).
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+          r.image[h][k] = r.ok[h] && 2 * l + k < 3 ? g.x[r.pix[h] * 3 + 2 * l + k] : 0.f;
+      }
+    }
+  };
+
+  auto products = [&](int u, float (&acc)[N / 2]) {
+#pragma unroll
+    for (int tap = 0; tap < TAPS; ++tap) {
+      const uint32_t a_tap =
+          io.a_base + (u * 64 + (TAPS == 9 ? (tap / 3) * P + tap % 3 : 0)) * 16;
+#pragma unroll
+      for (int ks = 0; ks < KSTEPS; ++ks) {
+        const uint64_t da = wg_desc(a_tap + ks * 2 * io.a_plane, io.a_plane, 128);
+        const uint64_t db =
+            wg_desc(io.b_base + (tap * KSTEPS + ks) * (16 * N * 2), (N / 8) * 128, 128);
+        wgmma_bf16<N>(acc, da, db, (tap | ks) != 0);   // the first product clears acc
+      }
+    }
+    wgmma_commit();
+  };
+
+  auto epilogue = [&](const UnitRows<N, EPI>& r, float (&acc)[N / 2]) {
+#pragma unroll
+    for (int i = 0; i < N / 2; ++i) asm volatile("" : "+f"(acc[i]) :: "memory");
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if constexpr (EPI == kToSmem) {
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          float v0 = fmaxf(acc[4 * j + 2 * h] + sh[j].x, 0.f);
+          float v1 = fmaxf(acc[4 * j + 2 * h + 1] + sh[j].y, 0.f);
+          if (!r.inside[h]) v0 = v1 = 0.f;   // the next conv pads with zeros outside the image
+          *reinterpret_cast<__nv_bfloat162*>(io.dst + j * io.dst_plane + r.q[h] * 16 + l * 4) =
+              __floats2bfloat162_rn(v0, v1);
+        }
+      } else if constexpr (EPI == kSkipSmemOut || EPI == kSkipGlobalOut) {
+        const size_t base = r.pix[h] * N;
+        uint32_t word[N / 8];
+#pragma unroll
+        for (int j = 0; j < N / 8; ++j) {
+          uint32_t sw;
+          if constexpr (EPI == kSkipGlobalOut)
+            sw = r.skip_w[h][j];
+          else
+            sw = *reinterpret_cast<const uint32_t*>(io.skip + j * io.skip_plane +
+                                                    (r.q[h] + 2 * P + 2) * 16 + l * 4);
+          const float2 sk = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&sw));
+          const float v0 = fmaxf(acc[4 * j + 2 * h] + sh[j].x + sk.x, 0.f);
+          const float v1 = fmaxf(acc[4 * j + 2 * h + 1] + sh[j].y + sk.y, 0.f);
+          const __nv_bfloat162 pair = __floats2bfloat162_rn(v0, v1);
+          word[j] = *reinterpret_cast<const uint32_t*>(&pair);
+        }
+        // The four lanes of a quad hold 4 bytes each of every octet of one
+        // position: in round x lane l hands its word of octet j0 + (l ^ x) to
+        // lane l ^ x and gets that lane's word of octet j0 + l, so that each
+        // lane stores one octet as 16 bytes.
+#pragma unroll
+        for (int j0 = 0; j0 + 4 <= N / 8; j0 += 4) {
+          uint32_t o[4];
+#pragma unroll
+          for (int x = 0; x < 4; ++x) {
+            const int k = l ^ x;
+            const uint32_t mine = k == 0 ? word[j0] : k == 1 ? word[j0 + 1]
+                                : k == 2 ? word[j0 + 2] : word[j0 + 3];
+            const uint32_t got = x == 0 ? mine : __shfl_xor_sync(0xffffffffu, mine, x);
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              if (k == i) o[i] = got;
+          }
+          if (r.ok[h])
+            *reinterpret_cast<uint4*>(g.out + base + 8 * (j0 + l)) =
+                make_uint4(o[0], o[1], o[2], o[3]);
+        }
+        // Octets beyond a multiple of four (c = 48, 16): 4 bytes a lane.
+#pragma unroll
+        for (int j = (N / 8) & ~3; j < N / 8; ++j)
+          if (r.ok[h]) *reinterpret_cast<uint32_t*>(g.out + base + 8 * j + 2 * l) = word[j];
+      } else {
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+          if (r.ok[h] && 2 * l + k < 3) {
+            const float v = acc[2 * h + k] + io.shift[2 * l + k];
+            const float sg = 1.f / (1.f + expf(-v));
+            const float xin = __bfloat162float(__float2bfloat16(r.image[h][k]));
+            g.out_f32[r.pix[h] * 3 + 2 * l + k] = (1.f - g.alpha) * xin + g.alpha * sg;
           }
         }
       }
     }
-  }
-#pragma unroll
-  for (int f = 0; f < 2; ++f)
-    if (f < nfrag)
-      wmma::store_matrix_sync(s_acc + row * 16 * kCoChunk + f * 16, acc[f], kCoChunk,
-                              wmma::mem_row_major);
-  __syncthreads();
+  };
 
-  // Epilogue: consecutive threads on consecutive channels of a pixel.
-  for (int i = tid; i < kPix * nco; i += kMmaThreads) {
-    const int p = i / nco;
-    const int c = i - p * nco;
-    const int y = ty0 + p / kTileW;
-    const int x = tx0 + p % kTileW;
-    if (y >= H || x >= W) continue;
-    const size_t o = ((static_cast<size_t>(n) * H + y) * W + x) * Cout + co0 + c;
-    float v = s_acc[p * kCoChunk + c] + shift[co0 + c];
-    if (residual != nullptr) v += __bfloat162float(residual[o]);
-    if (relu) v = fmaxf(v, 0.f);
-    out[o] = __float2bfloat16(v);
+  for (int u = tid >> 7; u < units; u += kFuWarpgroups) {
+    UnitRows<N, EPI> r;
+    float acc[N / 2];
+    rows_of(u, r);
+    wgmma_fence();
+    products(u, acc);
+    wgmma_wait<0>();
+    epilogue(r, acc);
   }
 }
 
-int launch_mma(const void* in, const void* w, const void* shift, const void* residual,
-               void* out, int N, int H, int W, int Cin, int Cout, int relu,
-               cudaStream_t stream) {
-  const size_t smem = mma_smem_bytes(Cin);
+template <int C, int KIND>
+__global__ void __launch_bounds__(kFuThreads, 1)
+lightweight_group_kernel(GroupArgs g) {
+  extern __shared__ __align__(128) unsigned char fu_smem[];
+  constexpr int kOct = C / 8;
+  constexpr int kLayerBytes = 18 * C * C;    // one packed c -> c layer
+  const int T = g.T, P = T + 4;
+  const FuLayout L = fu_layout(C, KIND, T);
+  unsigned char* s_w = fu_smem;
+  float* s_shift = reinterpret_cast<float*>(fu_smem + L.w_bytes);
+  unsigned char* buf1 = fu_smem + L.w_bytes + L.shift_bytes;
+  unsigned char* buf2 = buf1 + L.buf1_bytes;
+  float* s_x = reinterpret_cast<float*>(buf2 + L.buf2_bytes);   // kFirst: the 3-channel tile
+  const uint32_t w_addr = static_cast<uint32_t>(__cvta_generic_to_shared(s_w));
+  const uint32_t b1 = static_cast<uint32_t>(__cvta_generic_to_shared(buf1));
+  const uint32_t b2 = static_cast<uint32_t>(__cvta_generic_to_shared(buf2));
+  const uint32_t x_addr = static_cast<uint32_t>(__cvta_generic_to_shared(s_x));
+  const uint32_t pl4 = fu_plane(T + 4, P) * 16;   // plane stride of a T + 4 row buffer
+  const uint32_t pl2 = fu_plane(T + 2, P) * 16;   // ... of a T + 2 row buffer
+  const int tid = threadIdx.x;
+  const int tiles_x = (g.W + T - 1) / T, tiles_y = (g.H + T - 1) / T;
+  const int total = g.N * tiles_y * tiles_x;
+
+  // Asynchronous copies of tile t's input, zero outside the image: kFirst
+  // the 3-channel f32 tile with a halo of 3 (4 bytes a copy: its rows are not
+  // 16-byte aligned), else the activation with a halo of 2 into buffer 1 (16
+  // bytes a copy). The caller commits and, before the first read, waits.
+  auto stage = [&](int t) {
+    const int n = t / (tiles_y * tiles_x);
+    const int ty0 = (t / tiles_x) % tiles_y * T, tx0 = t % tiles_x * T;
+    if constexpr (KIND == kFirst) {
+      const int xw = T + 6;
+      for (int i = tid; i < xw * xw * 3; i += kFuThreads) {
+        const int p = i / 3;
+        const int yy = ty0 - 3 + p / xw, xx = tx0 - 3 + p % xw;
+        const bool ok = yy >= 0 && yy < g.H && xx >= 0 && xx < g.W;
+        const float* src =
+            ok ? g.x + ((static_cast<size_t>(n) * g.H + yy) * g.W + xx) * 3 + (i - p * 3) : g.x;
+        cp_async4(x_addr + i * 4, src, ok ? 4 : 0);
+      }
+    } else {
+      for (int i = tid; i < P * P * kOct; i += kFuThreads) {
+        const int p = i / kOct, v = i - p * kOct;
+        const int yy = ty0 - 2 + p / P, xx = tx0 - 2 + p % P;
+        const bool ok = yy >= 0 && yy < g.H && xx >= 0 && xx < g.W;
+        const __nv_bfloat16* src =
+            ok ? g.in + ((static_cast<size_t>(n) * g.H + yy) * g.W + xx) * C + v * 8 : g.in;
+        cp_async16(b1 + v * pl4 + p * 16, src, ok ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+
+  if (blockIdx.x < total) stage(blockIdx.x);
+  // The group's weights and shifts, once per block.
+  for (int i = tid; i < L.w_bytes / 16; i += kFuThreads)
+    reinterpret_cast<uint4*>(s_w)[i] = reinterpret_cast<const uint4*>(g.w)[i];
+  for (int i = tid; i < L.shift_bytes / 4; i += kFuThreads) s_shift[i] = g.shift[i];
+
+  for (int t = blockIdx.x; t < total; t += gridDim.x) {
+    const int n = t / (tiles_y * tiles_x);
+    const int ty0 = (t / tiles_x) % tiles_y * T, tx0 = t % tiles_x * T;
+    const int next = t + gridDim.x;
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();   // this tile's input has landed; the tile before is done with both buffers
+
+    if constexpr (KIND == kFirst) {
+      // The first layer's A rows: position (y, x) of the (T + 4)^2 ring holds
+      // k = (ky * 3 + kx) * 3 + ci -> tile (y + ky, x + kx, ci), k < 27, then 5 zeros.
+      const int xw = T + 6;
+      for (int q = tid; q < (T + 4) * P; q += kFuThreads) {
+        const int y = q / P, x = q - y * P;
+        const float* tile = s_x + (y * xw + x) * 3;
+#pragma unroll
+        for (int o = 0; o < 4; ++o) {
+          __align__(16) __nv_bfloat16 vals[8];
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            constexpr int kNone = -1;
+            const int k = 8 * o + e;
+            const int off = k < 27 ? ((k / 9) * xw + (k / 3) % 3) * 3 + k % 3 : kNone;
+            vals[e] = __float2bfloat16(off != kNone ? tile[off] : 0.f);
+          }
+          *reinterpret_cast<uint4*>(buf2 + o * pl4 + q * 16) =
+              *reinterpret_cast<const uint4*>(vals);
+        }
+      }
+      fence_proxy_async();
+      __syncthreads();
+      if (next < total) stage(next);   // the 3-channel tile is free: the next one lands under the layers
+      LayerIO io = {};
+      io.a_base = b2; io.a_plane = pl4; io.b_base = w_addr; io.shift = s_shift;
+      io.rows = T + 4; io.oy = ty0 - 2; io.ox = tx0 - 2; io.dst = buf1; io.dst_plane = pl4;
+      fu_layer<C, 2, 1, kToSmem>(io, g, n, P);
+      fence_proxy_async();
+      __syncthreads();
+    }
+
+    // The middle layer: buffer 1 (T + 4 rows) -> buffer 2 (T + 2 rows).
+    constexpr int kW0 = KIND == kFirst ? 64 * C : 0;      // bytes of the first layer's weights
+    constexpr int kS0 = KIND == kFirst ? C : 0;           // its shifts
+    {
+      LayerIO io = {};
+      io.a_base = b1; io.a_plane = pl4; io.b_base = w_addr + kW0; io.shift = s_shift + kS0;
+      io.rows = T + 2; io.oy = ty0 - 1; io.ox = tx0 - 1; io.dst = buf2; io.dst_plane = pl2;
+      fu_layer<C, C / 16, 9, kToSmem>(io, g, n, P);
+    }
+    fence_proxy_async();
+    __syncthreads();
+    // Buffer 1 is free (a residual group reads its skip from device memory):
+    // the next tile's input lands under the last layer.
+    if (KIND != kFirst && next < total) stage(next);
+    // The last layer: buffer 2 -> device memory.
+    {
+      LayerIO io = {};
+      io.a_base = b2; io.a_plane = pl2; io.b_base = w_addr + kW0 + kLayerBytes;
+      io.shift = s_shift + kS0 + C;
+      io.rows = T; io.oy = ty0; io.ox = tx0; io.skip = buf1; io.skip_plane = pl4;
+      if constexpr (KIND == kLast)
+        fu_layer<8, C / 16, 9, kBlendOut>(io, g, n, P);
+      else if constexpr (KIND == kRes)
+        fu_layer<C, C / 16, 9, kSkipGlobalOut>(io, g, n, P);
+      else
+        fu_layer<C, C / 16, 9, kSkipSmemOut>(io, g, n, P);
+    }
+  }
+}
+
+template <int C, int KIND>
+int launch_group(const GroupArgs& g, cudaStream_t stream) {
+  const size_t smem = fu_layout(C, KIND, g.T).total();
   if (smem > adam::kMaxDynamicSmem) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = adam::allow_dynamic_smem(conv3x3_mma_kernel, smem);
+  auto kernel = lightweight_group_kernel<C, KIND>;
+  cudaError_t err = adam::allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles = ((H + kTileH - 1) / kTileH) * ((W + kTileW - 1) / kTileW);
-  const dim3 grid(tiles, N, (Cout + kCoChunk - 1) / kCoChunk);
-  conv3x3_mma_kernel<<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(in), static_cast<const __nv_bfloat16*>(w),
-      static_cast<const float*>(shift), static_cast<const __nv_bfloat16*>(residual),
-      static_cast<__nv_bfloat16*>(out), H, W, Cin, Cout, relu);
+  int dev = 0, sms = 0, per_sm = 0;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+      (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess ||
+      (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kFuThreads, smem)) !=
+          cudaSuccess)
+    return static_cast<int>(err);
+  if (per_sm < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = g.N * ((g.H + g.T - 1) / g.T) * ((g.W + g.T - 1) / g.T);
+  kernel<<<min(tiles, sms * per_sm), kFuThreads, smem, stream>>>(g);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The body a layer runs: tensor cores for bf16 with Cin and Cout multiples of 16.
-inline bool uses_mma(int cin, int cout, int is_bf16) {
-  return is_bf16 && cin % 16 == 0 && cout % 16 == 0;
+template <int C>
+int launch_group_c(int kind, const GroupArgs& g, cudaStream_t stream) {
+  switch (kind) {
+    case kFirst: return launch_group<C, kFirst>(g, stream);
+    case kRes: return launch_group<C, kRes>(g, stream);
+    case kLast: return launch_group<C, kLast>(g, stream);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
-// Shared memory one block of this layer's body needs, or -1 when that is
-// beyond Hopper's per-block limit (the launch then refuses the layer).
-// ops/kernels/lightweight_chain.py mirrors this rule to choose K1 by shape
-// on any device; tests/test_torch_cuda.py holds the two against each other.
-extern "C" int conv3x3_smem_bytes(int Cin, int Cout, int is_bf16) {
-  const size_t smem = uses_mma(Cin, Cout, is_bf16) ? mma_smem_bytes(Cin) : smem_bytes(Cin);
+// Shared memory one block of the per-layer FMA body needs for a layer of
+// Cin input channels, or -1 when that is beyond Hopper's per-block limit
+// (the launch then refuses the layer).
+extern "C" int conv3x3_smem_bytes(int Cin) {
+  const size_t smem = smem_bytes(Cin);
   return smem > adam::kMaxDynamicSmem ? -1 : static_cast<int>(smem);
 }
 
-// One ConvBlock or residual half: out = act(conv3x3(x) + shift [+ residual]).
-// residual may equal out (the residual block's in-place update): each
-// element is read and then written by the same thread.
+// The output tile side of the fused bf16 body at width C, or 0 when that
+// body does not serve the width. ops/kernels/lightweight_chain.py mirrors
+// this and the count below (`chain_plan`); tests/test_torch_cuda.py holds the
+// two against each other.
+extern "C" int lightweight_fused_tile(int C) { return fu_tile(C); }
+
+// Shared memory of one block of a fused group (kind 0 first, 1 residual
+// block, 2 last) at width C and tile side T.
+extern "C" int lightweight_group_smem_bytes(int C, int kind, int T) {
+  return fu_layout(C, kind, T).total();
+}
+
+// One fused group of the bf16 body. kind 0: x (N, H, W, 3) f32 -> out
+// (N, H, W, C) bf16 through 3 -> c and the first residual block; kind 1: in
+// -> out through one residual block (not in place: a tile reads its
+// neighbours' halo); kind 2: in -> out (N, H, W, 3) f32 through c -> c, c ->
+// 3, the sigmoid and the blend with x. w and shift are the group's packed
+// weights and shifts (ops/kernels/lightweight_chain.py:pack_groups). The
+// tile is lightweight_fused_tile(C).
+extern "C" int lightweight_group(int kind, const void* x, const void* in, const void* w,
+                                 const void* shift, void* out, float alpha, int N, int H,
+                                 int W, int C, void* stream) {
+  const int T = fu_tile(C);
+  if (N < 1 || H < 1 || W < 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  GroupArgs g = {};
+  g.x = static_cast<const float*>(x);
+  g.in = static_cast<const __nv_bfloat16*>(in);
+  g.w = static_cast<const __nv_bfloat16*>(w);
+  g.shift = static_cast<const float*>(shift);
+  g.out = static_cast<__nv_bfloat16*>(out);
+  g.out_f32 = static_cast<float*>(out);
+  g.alpha = alpha;
+  g.N = N; g.H = H; g.W = W; g.T = T;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 16: return launch_group_c<16>(kind, g, s);
+    case 32: return launch_group_c<32>(kind, g, s);
+    case 48: return launch_group_c<48>(kind, g, s);
+    case 64: return launch_group_c<64>(kind, g, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// One ConvBlock or residual half on the FMA body: out = act(conv3x3(x) +
+// shift [+ residual]). residual may equal out (the residual block's in-place
+// update): each element is read and then written by the same thread.
 extern "C" int conv3x3_bn_act(const void* x, const void* w, const void* shift,
                               const void* residual, void* out, int N, int H, int W,
                               int Cin, int Cout, int relu, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (uses_mma(Cin, Cout, is_bf16))
-    return launch_mma(x, w, shift, residual, out, N, H, W, Cin, Cout, relu, s);
   if (is_bf16)
     return launch<__nv_bfloat16, false>(x, w, shift, residual, out, nullptr, nullptr,
                                         0.f, N, H, W, Cin, Cout, relu, s);

@@ -76,6 +76,25 @@ class AttentionBlock(nn.Module):
             nn.Conv2d(channels, hidden, 1, bias=False), nn.ReLU(),
             nn.Conv2d(hidden, channels, 1, bias=False))
         self.conv_spatial = nn.Conv2d(2, 1, 7, padding=3, bias=False)
+        self._stencil_for = None       # what the cached stencil was made from
+        self._stencil = None
+
+    def stencil(self, dtype: torch.dtype) -> torch.Tensor:
+        """The spatial conv's weights rounded to `dtype`, as the gate kernel
+        reads them: f32, contiguous, the JAX stencil layout (7, 7, 2, 1).
+        Made once per weight (its storage, version, device) and dtype, so
+        that a serving call enqueues no conversion."""
+        w = self.conv_spatial.weight
+        if torch.is_grad_enabled() and w.requires_grad:
+            return w.to(dtype).permute(2, 3, 1, 0)      # training: differentiable
+        made_from = (dtype, w.device, w.data_ptr(),
+                     None if w.is_inference() else w._version)
+        if self._stencil_for != made_from:
+            # (1, 2, 7, 7) OIHW -> (7, 7, 2, 1).
+            self._stencil = (w.detach().to(dtype).float().permute(2, 3, 1, 0)
+                             .contiguous())
+            self._stencil_for = made_from
+        return self._stencil
 
     def forward(self, x):
         w0 = self.fc[0].weight[:, :, 0, 0]
@@ -85,11 +104,9 @@ class AttentionBlock(nn.Module):
             return F.linear(torch.relu(F.linear(v, w0)), w1)
 
         gate = torch.sigmoid(mlp(x.mean(dim=(2, 3))) + mlp(x.amax(dim=(2, 3))))
-        # (1, 2, 7, 7) OIHW -> the JAX stencil layout (7, 7, 2, 1).
-        w = self.conv_spatial.weight.to(x.dtype).permute(2, 3, 1, 0)
         # A no-op for the branches' channels_last activations.
         x = x.contiguous(memory_format=torch.channels_last)
-        y = channel_spatial_gate(x.permute(0, 2, 3, 1), gate, w)
+        y = channel_spatial_gate(x.permute(0, 2, 3, 1), gate, self.stencil(x.dtype))
         return y.permute(0, 3, 1, 2)
 
 

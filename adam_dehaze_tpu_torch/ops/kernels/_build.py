@@ -47,8 +47,14 @@ _SIGNATURES = {
     "conv3x3_bn_act": (P, P, P, P, P, I, I, I, I, I, I, I, P),
     # h, w, shift, x_in, out, alpha, N, H, W, Cin, Cout, is_bf16, stream
     "conv3x3_sigmoid_blend": (P, P, P, P, P, F, I, I, I, I, I, I, P),
-    # Cin, Cout, is_bf16; returns shared-memory bytes per block, or -1
-    "conv3x3_smem_bytes": (I, I, I),
+    # Cin; returns the FMA body's shared-memory bytes per block, or -1
+    "conv3x3_smem_bytes": (I,),
+    # C; returns the fused bf16 body's tile side, or 0
+    "lightweight_fused_tile": (I,),
+    # C, kind, T; returns shared-memory bytes per block
+    "lightweight_group_smem_bytes": (I, I, I),
+    # kind, x, in, w, shift, out, alpha, N, H, W, C, stream
+    "lightweight_group": (I, P, P, P, P, P, F, I, I, I, I, P),
     # x, mean_p, max_p, w, out, B, H, W, C, is_bf16, stream
     "spatial_gate": (P, P, P, P, P, I, I, I, I, I, P),
     # in0, w0, packed0, c0, in1, w1, packed1, c1, shift, residual, out, N, H, W,
@@ -65,8 +71,8 @@ _SIGNATURES = {
     "tail_channel_gate": (P, P, P, P, I, I, I, I, I, P),
     # x, gate, z, mean_p, max_p, N, H, W, C, is_bf16, stream
     "tail_gated_stats": (P, P, P, P, P, I, I, I, I, I, P),
-    # x, gate, mean_p, max_p, N, H, W, C, is_bf16, stream
-    "res_chain_gated_maps": (P, P, P, P, I, I, I, I, I, P),
+    # x, g (or null), mean_p, max_p, B, H, W, C, is_bf16, stream
+    "cbam_gated_maps": (P, P, P, P, I, I, I, I, I, P),
     # which, x, w, wrep, out, flat, stream
     "probe_op": (I, P, P, P, P, I, P),
 }

@@ -6,12 +6,15 @@ computes
     out = (x * g) * sigmoid(conv7x7([mean_c, max_c](x * g)))   zero pad 3
 
 for x (B, H, W, C) NHWC, the channel gate g (B, C) and the stencil
-w (7, 7, 2, 1) in the JAX layout (HWIO). As on the TPU, the (mean, max) maps
-of the gated tensor are reduced by plain tensor code in f32; the kernel
-(csrc/cbam_gate.cu, replacing the TPU kernel `_kernel_cgate`) then reads x
-once, applies both gates, and writes once. The JAX wrapper gave way to XLA
-when VMEM was too small; that limit was the TPU's and has no counterpart
-here. Memory bound: see the source note in csrc/cbam_gate.cu.
+w (7, 7, 2, 1) in the JAX layout (HWIO). On a CUDA tensor a call is two
+launches of csrc/cbam_gate.cu and no PyTorch reduction: the statistics pass
+(`gated_maps`) reads x once and writes the zero-padded f32 (mean, max) maps
+of the gated tensor, which XLA reduced on the TPU; the gate kernel
+(replacing the TPU kernel `_kernel_cgate`) then reads x once, applies both
+gates, and writes once. `padded_stats` is the plain version of the
+statistics pass. The JAX wrapper gave way to XLA when VMEM was too small;
+that limit was the TPU's and has no counterpart here. Memory bound: see the
+source note in csrc/cbam_gate.cu.
 
 `spatial_gate` (K2', replacing the TPU kernel `_kernel` of
 `spatial_gate_pallas`) is the same with the channel gate fixed at 1:
@@ -53,15 +56,33 @@ def spatial_gate_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def padded_stats(x: torch.Tensor, g: Optional[torch.Tensor] = None):
-    """The f32 (mean, max) maps of x * g (of x when g is None) over
-    channels, zero-padded by the stencil's halo on every side:
-    (B, H+6, W+6) each."""
+    """Plain PyTorch version of the statistics pass: the f32 (mean, max)
+    maps of x * g (of x when g is None) over channels, zero-padded by the
+    stencil's halo on every side: (B, H+6, W+6) each."""
     gated = x.float()
     if g is not None:
         gated = gated * g.float()[:, None, None, :]
     pad = (_HALO, _HALO, _HALO, _HALO)
     return (F.pad(gated.mean(dim=-1), pad).contiguous(),
             F.pad(gated.amax(dim=-1), pad).contiguous())
+
+
+def gated_maps(x: torch.Tensor, g: Optional[torch.Tensor] = None):
+    """The statistics pass of K2 (of K2' when g is None): what
+    `padded_stats` computes. A CPU tensor takes that plain version; a CUDA
+    tensor (contiguous NHWC, C a multiple of 8, g f32 contiguous) launches
+    the kernel, which reads x once and writes only the maps."""
+    if x.device.type == "cpu":
+        return padded_stats(x, g)
+    b, h, wd, c = x.shape
+    maps = torch.empty((2, b, h + 2 * _HALO, wd + 2 * _HALO), dtype=torch.float32,
+                       device=x.device)
+    err = _build.library().cbam_gated_maps(
+        x.data_ptr(), g.data_ptr() if g is not None else None, maps[0].data_ptr(),
+        maps[1].data_ptr(), b, h, wd, c, int(x.dtype == torch.bfloat16),
+        _build.stream_ptr(x.device))
+    _build.check(err, "cbam_gated_maps")
+    return maps[0], maps[1]
 
 
 def launch_cbam_gate(x, g, mean_p, max_p, w, out) -> None:
@@ -108,7 +129,7 @@ def spatial_gate(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     name = "spatial_gate"
     _build.require_cuda_inputs(name, x, w)
     _require_gate_input(name, x, w)
-    mean_p, max_p = padded_stats(x)
+    mean_p, max_p = gated_maps(x)
     out = torch.empty_like(x)
     launch_spatial_gate(x, mean_p, max_p, w.float().contiguous(), out)
     return out
@@ -131,10 +152,10 @@ def channel_spatial_gate(x: torch.Tensor, g: torch.Tensor,
     b, _, _, c = x.shape
     _build.require(tuple(g.shape) == (b, c), name,
                    f"g must be {(b, c)}, got {tuple(g.shape)}")
-    mean_p, max_p = padded_stats(x, g)
+    g = g.float().contiguous()
+    mean_p, max_p = gated_maps(x, g)
     out = torch.empty_like(x)
-    launch_cbam_gate(x, g.float().contiguous(), mean_p, max_p,
-                     w.float().contiguous(), out)
+    launch_cbam_gate(x, g, mean_p, max_p, w.float().contiguous(), out)
     return out
 
 

@@ -18,9 +18,22 @@ computes carries over, with its rounding points:
 AttentionBlock rounds the stencil to the compute dtype: neither is this.)
 
 Its TPU layout (flat zero-ring buffer, 8-aligned stride, matmul-first rolls,
-128-lane padding of the MLP and the maps) does not: here every conv and
-every attention pass is one launch on plain NHWC tensors (csrc/res_chain.cu,
-whose source note says what bounds it). The TPU kernel's channel max reads
+128-lane padding of the MLP and the maps) does not. What bounds a segment on
+an H100 is operations: a res block is 36 c^2 FLOP per pixel, the high
+branch's 64^2 x 384 segment 87 GFLOP per image against 3 MiB of activation.
+The TPU kernel keeps the activation of a whole image resident in VMEM across
+the segment; 3 MiB does not fit 227 KB of shared memory, so here every conv
+and every attention pass is one launch on plain NHWC tensors and the
+activation makes a round trip through device memory, mostly through the 50
+MB L2, between them (keeping it on chip across layers is later work). The
+segment has no device code of its own: the convs are `conv_tile`
+(csrc/conv_tile.cu: bf16 on wgmma, the skip add in the epilogue, in place);
+an attention block is four launches: the two-stage channel reduction and the
+MLP are the tail chains' (`tail_channel_stats`, `tail_channel_gate` in
+csrc/tail_chain.cu), K2's statistics pass (`cbam_gated_maps` in
+csrc/cbam_gate.cu) writes the padded f32 maps of b * gate without writing
+b * gate, and K2 (`cbam_gate`) computes b * gate * spatial gate in f32 with
+the unrounded stencil and rounds once. The TPU kernel's channel max reads
 its zero ring, exact only for non-negative input, so it refuses a segment
 that starts with `attn` or has no `res`; this kernel takes the true max but
 keeps both refusals, so that both packages accept the same segments.
@@ -262,9 +275,9 @@ def res_attn_chain(x: torch.Tensor, weights: ResChainWeights) -> torch.Tensor:
             done(lib.tail_channel_gate(
                 partial.data_ptr(), at.fc0.data_ptr(), at.fc1.data_ptr(), gate.data_ptr(),
                 n, slabs, pixels, c, at.fc0.shape[0], stream), "tail_channel_gate")
-            done(lib.res_chain_gated_maps(
+            done(lib.cbam_gated_maps(
                 b.data_ptr(), gate.data_ptr(), mean_p.data_ptr(), max_p.data_ptr(),
-                n, h, wd, c, bf16, stream), "res_chain_gated_maps")
+                n, h, wd, c, bf16, stream), "cbam_gated_maps")
             launch_cbam_gate(b, gate, mean_p, max_p, at.stencil, a)
             a, b = b, a
             src = b

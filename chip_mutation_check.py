@@ -4,8 +4,9 @@
     python3 chip_mutation_check.py
 
 The bf16 kernels K3 and K4 are held against their bf16 plain versions at
-TAIL_BF16_ATOL and K6 at RES_BF16_RTOL (chip_smoke.py,
-tests/test_torch_cuda.py). This script shows that the bounds see a broken
+TAIL_BF16_ATOL, K6 at RES_BF16_RTOL, K1's fused body at K1_BF16_ATOL with
+alpha 1, and K2's statistics pass against `padded_stats` at MAPS_ATOL
+(chip_smoke.py, tests/test_torch_cuda.py). This script shows that the bounds see a broken
 kernel: for each mutation it copies csrc/ to a temporary directory, breaks
 the copy by a text substitution, builds it, and measures the broken kernels
 against the same plain versions, beside the unchanged kernels and beside
@@ -17,8 +18,11 @@ with what the bounds read.
 
 Sizes: medium c=64 and high c=96 at 4 x 256^2 for the tails; for K6 the
 high branch's 64^2 x 384 segment [res, res, attn, res, attn] at batch 4,
-errors in units of the plain result's largest magnitude; seeded weights
-with perturbed BN, inputs drawn non-negative like the real activations.
+errors in units of the plain result's largest magnitude; K1 c=32 with 3
+blocks at 4 x 256^2 (tight: alpha 1 against the bf16 plain version; loose:
+the folded alpha against the fp32 plain version); the statistics pass at
+4 x 64^2 x 384 in bf16 with a channel gate; seeded weights with perturbed
+BN, inputs drawn non-negative like the real activations.
 """
 import shutil
 import subprocess
@@ -29,6 +33,7 @@ import torch
 
 from adam_dehaze_tpu_torch.models.branches import (
     HighIntensityDehazeModel,
+    LightweightDehazeModel,
     MediumIntensityDehazeModel,
 )
 from adam_dehaze_tpu_torch.nn.blocks import (
@@ -37,6 +42,12 @@ from adam_dehaze_tpu_torch.nn.blocks import (
     init_params_,
 )
 from adam_dehaze_tpu_torch.ops.kernels import _build
+from adam_dehaze_tpu_torch.ops.kernels.cbam import gated_maps, padded_stats
+from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
+    fold_lightweight,
+    lightweight_chain,
+    lightweight_chain_reference,
+)
 from adam_dehaze_tpu_torch.ops.kernels.res_chain import (
     fold_res_attn_chain,
     res_attn_chain,
@@ -56,11 +67,32 @@ BATCH, SIZE = 4, 256
 TAIL_BF16_ATOL = 1e-2     # the tight bound of K3 and K4: bf16 kernel vs bf16 plain
 RES_BF16_RTOL = 2e-2      # the tight bound of K6, in units of max|plain|
 BF16_ATOL = 3e-2          # the loose bound: bf16 kernel vs fp32 plain
-TIGHT = {"K3": TAIL_BF16_ATOL, "K4": TAIL_BF16_ATOL, "K6": RES_BF16_RTOL}
+K1_BF16_ATOL = 4e-3       # the tight bound of K1: bf16 kernel vs bf16 plain at alpha 1
+MAPS_ATOL = 1e-5          # K2's statistics pass vs padded_stats
+TIGHT = {"K1": K1_BF16_ATOL, "K3": TAIL_BF16_ATOL, "K4": TAIL_BF16_ATOL,
+         "K6": RES_BF16_RTOL, "K2 maps": MAPS_ATOL}
 K6_KINDS = ("res", "res", "attn", "res", "attn")
 
 # name -> (file, text to find, replacement). Every occurrence is replaced.
 MUTATIONS = {
+    "last tap dropped (K1's fused body)": (
+        "lightweight_chain.cu", "    for (int tap = 0; tap < TAPS; ++tap) {",
+        "    for (int tap = 0; tap < (TAPS == 9 ? 8 : 1); ++tap) {"),
+    "skip add dropped (K1's fused body)": (
+        "lightweight_chain.cu",
+        "          const float v0 = fmaxf(acc[4 * j + 2 * h] + sh[j].x + sk.x, 0.f);\n"
+        "          const float v1 = fmaxf(acc[4 * j + 2 * h + 1] + sh[j].y + sk.y, 0.f);\n",
+        "          const float v0 = fmaxf(acc[4 * j + 2 * h] + sh[j].x + 0.f * sk.x, 0.f);\n"
+        "          const float v1 = fmaxf(acc[4 * j + 2 * h + 1] + sh[j].y + 0.f * sk.y, 0.f);\n"),
+    "ring positions outside the image not stored as 0 (K1's fused body)": (
+        "lightweight_chain.cu",
+        "          if (!r.inside[h]) v0 = v1 = 0.f;   // the next conv pads with zeros outside "
+        "the image\n", ""),
+    "a group's last layer reads its middle layer's weights (K1's fused body)": (
+        "lightweight_chain.cu", " io.b_base = w_addr + kW0 + kLayerBytes;",
+        " io.b_base = w_addr + kW0;"),
+    "max map not reduced across the sub-group (K2's statistics pass)": (
+        "cbam_gate.cu", "      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));\n", ""),
     "last tap dropped (wgmma body)": (
         "conv_tile.cu", "    for (int tap = 0; tap < kTaps; ++tap) {",
         "    for (int tap = 0; tap < kTaps - 1; ++tap) {"),
@@ -86,8 +118,9 @@ MUTATIONS = {
         "conv_tile.cu", "      gd = 1.f / (1.f + expf(-d));", "      gd = 1.f;"),
     "channel gate dropped (K4's gated pass)": (
         "tail_chain.cu", "        v[k] *= s_g[c + k];", ""),
-    "channel gate dropped (K6's maps pass)": (
-        "res_chain.cu", "          const float z = vals[k] * s_g[v * 8 + k];",
+    "channel gate dropped (K2's statistics pass)": (
+        "cbam_gate.cu",
+        "          const float z = kChannelGate ? vals[k] * s_g[v * 8 + k] : vals[k];",
         "          const float z = vals[k];"),
     "channel gate dropped (K2's pass)": (
         "cbam_gate.cu", "      for (int k = 0; k < 8; ++k) vals[k] *= gk[k] * gate;",
@@ -114,6 +147,8 @@ def perturb_bn_(module, gen):
 
 
 def make_cases(dev, gen):
+    """(label, kernel, arguments, bf16 plain result, arguments of the loose
+    check or None for the same run, fp32 plain result)."""
     cases = []
     for label, cls, c, fold_fn, tail, reference in (
             ("K3", MediumIntensityDehazeModel, 64, fold_medium_tail, medium_tail_chain,
@@ -128,7 +163,7 @@ def make_cases(dev, gen):
         with torch.inference_mode():
             want32 = reference(d1, f0, x, fold_fn(model, torch.float32))
             wantbf = reference(d1.bfloat16(), f0.bfloat16(), x, wbf)
-        cases.append((label, tail, (d1.bfloat16(), f0.bfloat16(), x, wbf), wantbf, want32))
+        cases.append((label, tail, (d1.bfloat16(), f0.bfloat16(), x, wbf), wantbf, None, want32))
     blocks = torch.nn.Sequential(*[ResidualBlock(384) if k == "res" else AttentionBlock(384)
                                    for k in K6_KINDS])
     blocks = perturb_bn_(init_params_(blocks, gen), gen).eval().to(dev)
@@ -137,7 +172,21 @@ def make_cases(dev, gen):
     with torch.inference_mode():
         want32 = res_attn_chain_reference(x, fold_res_attn_chain(blocks, torch.float32))
         wantbf = res_attn_chain_reference(x.bfloat16(), wbf)
-    cases.append(("K6", res_attn_chain, (x.bfloat16(), wbf), wantbf, want32))
+    cases.append(("K6", res_attn_chain, (x.bfloat16(), wbf), wantbf, None, want32))
+    xb = x.bfloat16()
+    g = torch.rand(BATCH, 384, generator=gen).to(dev)
+    with torch.inference_mode():
+        want = torch.stack(padded_stats(xb, g))
+    cases.append(("K2 maps", lambda *a: torch.stack(gated_maps(*a)), (xb, g), want, None, want))
+    # K1 draws last, so that the other kernels' cases stay what they were.
+    low = perturb_bn_(init_params_(LightweightDehazeModel(32, 3), gen), gen).eval().to(dev)
+    x = torch.rand(BATCH, SIZE, SIZE, 3, generator=gen).to(dev)
+    chain = fold_lightweight(low, torch.bfloat16)
+    tight = chain._replace(alpha=1.0)
+    with torch.inference_mode():
+        cases.append(("K1", lightweight_chain, (x, tight),
+                      lightweight_chain_reference(x, tight), (x, chain),
+                      lightweight_chain_reference(x, fold_lightweight(low, torch.float32))))
     return cases
 
 
@@ -146,12 +195,13 @@ def measure(cases):
     `_build.library()` now gives; K6's in units of the plain result's
     largest magnitude. A non-finite output counts as inf."""
     out = {}
-    for label, tail, args, wantbf, want32 in cases:
+    for label, kernel, args, wantbf, loose_args, want32 in cases:
         with torch.inference_mode():
-            got = tail(*args)
+            got = kernel(*args)
+            got_loose = got if loose_args is None else kernel(*loose_args)
         torch.cuda.synchronize()
         errs = []
-        for want in (wantbf, want32):
+        for got, want in ((got, wantbf), (got_loose, want32)):
             e = float((got.float() - want.float()).abs().max())
             if label == "K6":
                 e /= max(1.0, float(want.float().abs().max()))
@@ -191,10 +241,12 @@ def main():
     use_sources(original)
 
     labels = [case[0] for case in cases]
-    print(f"bf16 kernels (K3 c=64 and K4 c=96 at {BATCH} x {SIZE}^2, bounds {TAIL_BF16_ATOL}; "
-          f"K6 {list(K6_KINDS)} at {BATCH} x 64^2 x 384, in units of max|plain|, bound "
-          f"{RES_BF16_RTOL}): max abs err against the bf16 plain version | against the fp32 "
-          f"plain version (bound {BF16_ATOL})")
+    print(f"bf16 kernels (K1 c=32 at {BATCH} x {SIZE}^2, alpha 1, bound {K1_BF16_ATOL}; K3 c=64 "
+          f"and K4 c=96 at {BATCH} x {SIZE}^2, bounds {TAIL_BF16_ATOL}; K6 {list(K6_KINDS)} at "
+          f"{BATCH} x 64^2 x 384, in units of max|plain|, bound {RES_BF16_RTOL}; K2's statistics "
+          f"pass at {BATCH} x 64^2 x 384 against padded_stats, bound {MAPS_ATOL}): max abs err "
+          f"against the bf16 plain version | against the fp32 plain version (bound {BF16_ATOL}; "
+          f"K1 with its folded alpha)")
     unchanged = rows[0][1]
     failed = []
     for name, errs in rows:

@@ -6,6 +6,8 @@
 Profiles, each over 3 warm calls at the sizes of chip_smoke.py (16 images at
 256^2, bf16, the same seeded weights and inputs):
 
+- the low-branch chain K1 alone, so that each fused group shows, and the
+  canonical high branch alone, so that K2's two passes show beside cuDNN;
 - the tail chains K3 and K4 alone, so that each stage's kernel shows;
 - the segment chain K6 alone at the high branch's 64^2 x 384 segment and at
   the medium branch's 128^2 x 128 one;
@@ -61,6 +63,20 @@ def main():
     dev = torch.device("cuda")
     cs.phase_build()
     gen = torch.Generator().manual_seed(cs.SEED)
+
+    # Their own generator: the draws below, and with them the router's
+    # weights and where it routes the batch, stay as they were.
+    own = torch.Generator().manual_seed(cs.SEED + 2)
+    low = cs.perturb_bn_(cs.init_params_(cs.LightweightDehazeModel(32, 3), own), own).eval()
+    chain = cs.fold_lightweight(low.to(dev), torch.bfloat16)
+    x = torch.rand(cs.BATCH, cs.SIZE, cs.SIZE, 3, generator=own).to(dev)
+    high = cs.cast_for_serving(
+        cs.perturb_bn_(cs.init_params_(cs.HighIntensityDehazeModel(96), own), own),
+        torch.bfloat16).to(dev)
+    with torch.inference_mode():
+        profiled("K1 lightweight_chain", lambda: cs.lightweight_chain(x, chain))
+        profiled("canonical high branch", lambda: high(x))
+    del x, high
 
     for name, cls, c, fold_fn, tail in (
             ("K3 medium_tail_chain", cs.MediumIntensityDehazeModel, 64,

@@ -9,8 +9,10 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. Build: compiles the CUDA kernels from csrc/ (build/kernels/, on first
    use) and prints the build time and the compiler's register report.
 3. Kernel vs plain on the card, at the main path's shapes: K1 (low-branch
-   chain), K2 (CBAM gate, at each AttentionBlock shape of the high branch),
-   K5 (soft blend), K2' (spatial gate, at the high tail's shape), the
+   chain; bf16 must take the fused wgmma body, whose plan is printed), K2
+   (CBAM gate, at each AttentionBlock shape of the high branch; its
+   statistics pass also against `padded_stats` at MAPS_ATOL, and timed
+   alone), K5 (soft blend), K2' (spatial gate, at the high tail's shape), the
    conv-layer table (every distinct conv layer that K3, K4 and K6 launch,
    through `conv_tile` alone: body taken, plan, error, time, TFLOP/s, bound,
    and one cuDNN call on the same tensors as the yardstick), K3 and K4 (the
@@ -32,8 +34,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    AdaptiveDehazer in bf16, 16 images at 256^2: route_hard, the engine with
    forced labels cycling 0, 1, 2 (so every branch runs), and soft routing.
    Outputs must be finite and in [0, 1], and the launch counters, set to 0
-   just before, must show that the runs went through K1, K2 (6 launches per
-   high-branch call) and K5. Prints the warm ms/image of route_hard and
+   just before, must show that the runs went through K1 (4 launches per
+   low bucket in bf16), K2 (6 launches per high-branch call) and K5. Prints the warm ms/image of route_hard and
    soft, and what one more bucket of each branch costs the engine (the
    intercept of the branch apply's time over its rows), beside the
    constants the chunk planner is fed under autotune
@@ -96,6 +98,7 @@ from adam_dehaze_tpu_torch.ops.kernels.blend import blend3, blend3_reference
 from adam_dehaze_tpu_torch.ops.kernels.cbam import (
     channel_spatial_gate,
     channel_spatial_gate_reference,
+    gated_maps,
     launch_cbam_gate,
     launch_spatial_gate,
     padded_stats,
@@ -109,6 +112,7 @@ from adam_dehaze_tpu_torch.ops.kernels.conv_tile import (
     pack_conv_weights,
 )
 from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
+    chain_plan,
     fold_lightweight,
     lightweight_chain,
     lightweight_chain_reference,
@@ -143,6 +147,8 @@ BF16_ATOL = 3e-2      # bf16 kernel vs fp32 plain: the JAX tail-chain bound
 # bf16 values and round at the same points; they differ only where the two
 # sum orders put a value on either side of a bf16 rounding boundary.
 K1_BF16_ATOL = 4e-3
+# K2's statistics pass vs its plain version: f32 sums in another order.
+MAPS_ATOL = 1e-5
 # bf16 K3/K4 vs their bf16 plain versions: the same argument. The output is
 # clip(x + tanh(.) [* guidance]), so a flipped bf16 rounding upstream (one
 # part in 256 of an activation) reaches it at a few 1e-3; a dropped tap,
@@ -185,7 +191,7 @@ KERNELS = {
                           "adam_dehaze_tpu/ops/pallas/tail_chain.py:349"),
     "high_tail_chain": ("cuda", "adam_dehaze_tpu_torch/csrc/tail_chain.cu",
                         "adam_dehaze_tpu/ops/pallas/tail_chain.py:184"),
-    "res_attn_chain": ("cuda", "adam_dehaze_tpu_torch/csrc/res_chain.cu",
+    "res_attn_chain": ("cuda", "adam_dehaze_tpu_torch/csrc/conv_tile.cu",
                        "adam_dehaze_tpu/ops/pallas/res_chain.py:89"),
     "probe_ops": ("cuda", "adam_dehaze_tpu_torch/csrc/probe_ops.cu",
                   "tools/probe_mosaic_ops.py:29"),
@@ -226,6 +232,11 @@ CONV_LAYERS = {
 CONV_BF16_RTOL = 2 ** -7
 
 
+# K1's launches per low bucket at the slice's width and depth, by compute
+# dtype: the fused groups in bf16 (4), one launch per layer in fp32 (9).
+K1_LAUNCHES = {dt: chain_plan(32, 3, dt).launches for dt in (torch.bfloat16, torch.float32)}
+
+
 def _k6_launches(level, segments):
     """(on K6, on K2) per bucket of a branch with these segments on K6."""
     per = [launches_of(RES_SEGMENTS[f"{level} {seg}"][2]) for seg in segments]
@@ -233,11 +244,11 @@ def _k6_launches(level, segments):
 
 
 # Kernel launches per bucket of every serving candidate: (level, name) ->
-# {kernel: launches}. K2 counts the AttentionBlocks that stay canonical and
+# {kernel: launches} (K1's by compute dtype). K2 counts the AttentionBlocks that stay canonical and
 # the gates' pass of every attention block on K6.
 BUCKET_LAUNCHES = {
-    ("low", "canonical"): {"lightweight_chain": 9},
-    ("low", "chain"): {"lightweight_chain": 9},
+    ("low", "canonical"): {"lightweight_chain": K1_LAUNCHES},
+    ("low", "chain"): {"lightweight_chain": K1_LAUNCHES},
     ("medium", "canonical"): {},
     ("medium", "tail_chain"): {"medium_tail_chain": MEDIUM_TAIL_LAUNCHES},
     ("medium", "chain_hybrid"): {"res_attn_chain": _k6_launches("medium", SEGMENTS)[0]},
@@ -385,11 +396,15 @@ def phase_kernels(dev, gen):
         ebf = max_err(lightweight_chain(x, cbf), ref)
         ms = cuda_ms(lambda: lightweight_chain(x, cbf))
         plain = cuda_ms(lambda: lightweight_chain_reference(x, cbf))
+    plan = chain_plan(32, 3, torch.bfloat16)
     log(f"[K1 lightweight_chain] {tuple(x.shape)} c=32: fp32 err {e32:.3e}, "
-        f"bf16 vs fp32 plain err {ebf:.3e}; bf16 kernel {ms:.3f} ms, plain {plain:.3f} ms")
+        f"bf16 vs fp32 plain err {ebf:.3e}; bf16 kernel {ms:.3f} ms, plain {plain:.3f} ms; "
+        f"bf16 body {plan.body}, tile {plan.tile}, launches {plan.groups}, shared memory "
+        f"{plan.smem_bytes}")
+    check(plan.body == "fused", "the bf16 low branch did not take the fused wgmma body")
     check(e32 <= FP32_ATOL and ebf <= BF16_ATOL, "K1 disagrees with its plain version")
-    # The tensor-core body (every bf16 c -> c layer) against the bf16 plain
-    # version, alpha 1 so that the conv stack is not scaled down by 0.1.
+    # The fused wgmma body (every bf16 layer) against the bf16 plain version,
+    # alpha 1 so that the conv stack is not scaled down by 0.1.
     tight = {}
     wide = perturb_bn_(init_params_(LightweightDehazeModel(48, 3), gen), gen).eval()
     for c, model in ((32, low), (48, wide)):
@@ -400,7 +415,7 @@ def phase_kernels(dev, gen):
     log(f"[K1 lightweight_chain] bf16 vs bf16 plain, alpha 1: c=32 err {tight[32]:.3e}, "
         f"c=48 err {tight[48]:.3e} (bound {K1_BF16_ATOL})")
     check(max(tight.values()) <= K1_BF16_ATOL,
-          "K1's tensor-core body disagrees with the bf16 plain version")
+          "K1's fused wgmma body disagrees with the bf16 plain version")
     px = x.numel() // 3
     k1_flops = sum(conv_flops(px, 9, w.shape[2], w.shape[3]) for w, _ in cbf.layers)
     results["lightweight_chain"] = dict(
@@ -413,9 +428,9 @@ def phase_kernels(dev, gen):
 
     # K2 at every AttentionBlock shape; ms per high-branch call = the sum
     # over its six blocks.
-    tot = dict(ms=0.0, plain_ms=0.0, kernel_only_ms=0.0)
+    tot = dict(ms=0.0, plain_ms=0.0, kernel_only_ms=0.0, maps_ms=0.0, maps_plain_ms=0.0)
     k2_bytes = k2_flops = 0
-    errs, errs32, shapes = [], [], []
+    errs, errs32, errs_maps, shapes = [], [], [], []
     for shape, calls in K2_SHAPES.items():
         x = torch.rand(shape, generator=gen).to(dev)
         g = torch.sigmoid(torch.randn(shape[0], shape[3], generator=gen)).to(dev)
@@ -428,16 +443,26 @@ def phase_kernels(dev, gen):
                           channel_spatial_gate_reference(x, g, wb))
             ms = cuda_ms(lambda: channel_spatial_gate(xb, g, wb))
             plain = cuda_ms(lambda: channel_spatial_gate_reference(xb, g, wb))
-            mean_p, max_p = padded_stats(xb, g)
+            # The statistics pass against its plain version, then alone.
+            mean_p, max_p = gated_maps(xb, g)
+            emaps = max(max_err(a, b) for a, b in zip((mean_p, max_p), padded_stats(xb, g)))
+            maps = cuda_ms(lambda: gated_maps(xb, g))
+            maps_plain = cuda_ms(lambda: padded_stats(xb, g))
             out = torch.empty_like(xb)
             wf = wb.contiguous()
             kernel_only = cuda_ms(lambda: launch_cbam_gate(xb, g, mean_p, max_p, wf, out))
         gbs = 2 * xb.numel() * 2 / (kernel_only * 1e-3) / 1e9
-        log(f"[K2 cbam_gate] {shape}: fp32 err {e32:.3e}, bf16 err {ebf:.3e}; bf16 "
-            f"wrapper {ms:.3f} ms (kernel alone {kernel_only:.3f} ms, "
+        log(f"[K2 cbam_gate] {shape}: fp32 err {e32:.3e}, bf16 err {ebf:.3e}, maps err "
+            f"{emaps:.3e}; bf16 wrapper {ms:.3f} ms (statistics pass {maps:.3f} ms, "
+            f"{nbytes(xb) / (maps * 1e-3) / 1e9:.0f} GB/s of x read; its plain version "
+            f"{maps_plain:.3f} ms; gate kernel alone {kernel_only:.3f} ms, "
             f"{gbs:.0f} GB/s of x read+write), plain {plain:.3f} ms")
         check(e32 <= FP32_ATOL and ebf <= BF16_ATOL,
               f"K2 disagrees with its plain version at {shape}")
+        check(emaps <= MAPS_ATOL, f"K2's statistics pass disagrees with padded_stats at {shape}")
+        errs_maps.append(emaps)
+        tot["maps_ms"] += calls * maps
+        tot["maps_plain_ms"] += calls * maps_plain
         errs.append(ebf)
         errs32.append(e32)
         shapes.append(list(shape))
@@ -449,9 +474,11 @@ def phase_kernels(dev, gen):
         k2_bytes += calls * (2 * nbytes(xb) + nbytes(g, wb))
         k2_flops += calls * (4 * xb.numel() + conv_flops(xb.numel() // shape[3], 49, 2, 1))
         del x, ref, out, mean_p, max_p, xb
-    log(f"[K2 cbam_gate] per high-branch call (6 blocks): wrapper {tot['ms']:.3f} ms, "
-        f"plain {tot['plain_ms']:.3f} ms")
+    log(f"[K2 cbam_gate] per high-branch call (6 blocks): wrapper {tot['ms']:.3f} ms "
+        f"(statistics pass {tot['maps_ms']:.3f} ms, gate kernel {tot['kernel_only_ms']:.3f} "
+        f"ms), plain {tot['plain_ms']:.3f} ms")
     results["cbam_gate"] = dict(max_abs_err=max(errs), max_abs_err_fp32=max(errs32),
+                                max_abs_err_maps=max(errs_maps),
                                 shapes=shapes, per="high-branch call (6 blocks)",
                                 library_ms=None,
                                 **bound(k2_flops, k2_bytes, PEAK_F32_FLOPS), **tot)
@@ -486,18 +513,24 @@ def phase_kernels(dev, gen):
         ebf = max_err(spatial_gate(xb, wb), spatial_gate_reference(x, wb))
         ms = cuda_ms(lambda: spatial_gate(xb, wb))
         plain = cuda_ms(lambda: spatial_gate_reference(xb, wb))
-        mean_p, max_p = padded_stats(xb)
+        mean_p, max_p = gated_maps(xb)
+        emaps = max(max_err(a, b) for a, b in zip((mean_p, max_p), padded_stats(xb)))
+        maps = cuda_ms(lambda: gated_maps(xb))
+        maps_plain = cuda_ms(lambda: padded_stats(xb))
         out = torch.empty_like(xb)
         wf = wb.reshape(7, 7, 2).contiguous()
         kernel_only = cuda_ms(lambda: launch_spatial_gate(xb, mean_p, max_p, wf, out))
-    log(f"[K2' spatial_gate] {shape}: fp32 err {e32:.3e}, bf16 err {ebf:.3e}; bf16 "
-        f"wrapper {ms:.3f} ms (kernel alone {kernel_only:.3f} ms, "
+    log(f"[K2' spatial_gate] {shape}: fp32 err {e32:.3e}, bf16 err {ebf:.3e}, maps err "
+        f"{emaps:.3e}; bf16 wrapper {ms:.3f} ms (statistics pass {maps:.3f} ms, its plain "
+        f"version {maps_plain:.3f} ms; gate kernel alone {kernel_only:.3f} ms, "
         f"{2 * nbytes(xb) / (kernel_only * 1e-3) / 1e9:.0f} GB/s of x read+write), "
         f"plain {plain:.3f} ms")
     check(e32 <= FP32_ATOL and ebf <= BF16_ATOL, "K2' disagrees with its plain version")
+    check(emaps <= MAPS_ATOL, "K2''s statistics pass disagrees with padded_stats")
     results["spatial_gate"] = dict(
-        max_abs_err=ebf, max_abs_err_fp32=e32, ms=ms, plain_ms=plain,
-        kernel_only_ms=kernel_only, library_ms=None, shape=list(shape),
+        max_abs_err=ebf, max_abs_err_fp32=e32, max_abs_err_maps=emaps, ms=ms, plain_ms=plain,
+        kernel_only_ms=kernel_only, maps_ms=maps, maps_plain_ms=maps_plain,
+        library_ms=None, shape=list(shape),
         **bound(3 * xb.numel() + conv_flops(xb.numel() // 96, 49, 2, 1),
                 2 * nbytes(xb) + nbytes(wb), PEAK_F32_FLOPS))
     del x, xb, ref, out, mean_p, max_p
@@ -883,10 +916,11 @@ def phase_slice(router, dev, x, labels, gen):
         f"soft {nonzero(soft_d)}")
     for y, what in zip(outs, ("route_hard", "forced-label engine", "soft")):
         check_images(y, BATCH, what)
-    check(nonzero(forced_d) == {"lightweight_chain": 9 * per_class[0],
+    k1 = K1_LAUNCHES[torch.bfloat16]
+    check(nonzero(forced_d) == {"lightweight_chain": k1 * per_class[0],
                                 "cbam_gate": 6 * per_class[2]},
           f"forced run: launches {forced_d} vs buckets {per_class}")
-    check(nonzero(soft_d) == {"lightweight_chain": 9, "cbam_gate": 6, "blend3": 1},
+    check(nonzero(soft_d) == {"lightweight_chain": k1, "cbam_gate": 6, "blend3": 1},
           f"soft run launches {soft_d}")
     check(all(main[k] > 0 for k in DEFAULT_PATH_KERNELS), f"a kernel never ran: {main}")
     return main, outs, time_slice(d, x, "slice"), dispatch_cost_ms(d, dev, gen)
@@ -927,12 +961,14 @@ def tune_then_force(router, cfg, dev, tmp, tag, dispatches):
     return paths, tables
 
 
-def expected_launches(forced, per_class, soft):
-    """The counters a run under the forced dispatch must show: per bucket
-    of each class (`per_class`), plus the blend on the soft call."""
+def expected_launches(forced, per_class, soft, dtype=torch.bfloat16):
+    """The counters a run under the forced dispatch must show in compute
+    dtype `dtype`: per bucket of each class (`per_class`), plus the blend on
+    the soft call."""
     want = {"blend3": 1} if soft else {}
     for level, buckets in zip(INTENSITY_ORDER, per_class):
         for kernel, n in BUCKET_LAUNCHES[(level, forced[level])].items():
+            n = n[dtype] if isinstance(n, dict) else n
             want[kernel] = want.get(kernel, 0) + n * buckets
     return nonzero(want)
 
@@ -1002,7 +1038,7 @@ def phase_vs_plain(router, dev, rng, tmp):
         outs[tag] = y.cpu()
         if forced:
             ran = nonzero(delta(before))
-            check(ran == expected_launches(forced, (1, 1, 1), soft=False),
+            check(ran == expected_launches(forced, (1, 1, 1), soft=False, dtype=torch.float32),
                   f"the fp32 {tag} launched {ran}")
     for tag in list(outs)[1:]:
         err = max_err(outs["CPU"], outs[tag])

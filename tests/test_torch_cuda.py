@@ -10,7 +10,7 @@ a machine that has only PyTorch:
 Tolerances: fp32 kernel vs fp32 plain at 1e-4 with TF32 off (sums in
 another order); bf16 kernel vs fp32 plain at 3e-2, the bf16 bound of the
 JAX tail-chain tests. The blend has one rounding per element: 1e-6 in fp32.
-K1's tensor-core body is also held against the bf16 plain version, which
+K1's fused tensor-core body is also held against the bf16 plain version, which
 rounds at the same points, at K1_BF16_ATOL (see there), and so are the tail
 chains K3 and K4 at TAIL_BF16_ATOL and the segment chain K6 at RES_BF16_RTOL.
 K6's errors are in units of the plain result's largest magnitude: a segment
@@ -28,6 +28,8 @@ from adam_dehaze_tpu_torch.ops.kernels.blend import blend3, blend3_reference
 from adam_dehaze_tpu_torch.ops.kernels.cbam import (
     channel_spatial_gate,
     channel_spatial_gate_reference,
+    gated_maps,
+    padded_stats,
     spatial_gate,
     spatial_gate_reference,
 )
@@ -56,7 +58,13 @@ from adam_dehaze_tpu_torch.ops.kernels.tail_chain import (
 )
 from adam_dehaze_tpu_torch.ops.kernels import _build
 from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
+    FUSED_TILES,
+    FUSED_WIDTHS,
+    GROUP_KINDS,
+    chain_plan,
     fold_lightweight,
+    fused_tile,
+    group_smem_bytes,
     layer_smem_bytes,
     lightweight_chain,
     lightweight_chain_reference,
@@ -108,7 +116,9 @@ def _seeded(module, seed):
                                         (torch.bfloat16, BF16_ATOL)])
 @pytest.mark.parametrize("c,n_blocks", [(32, 3), (8, 1), (48, 2)])
 def test_k1_kernel_matches_plain(cuda_device, dtype, atol, c, n_blocks):
-    """Odd sizes exercise the tile edges; c=48 takes two output chunks."""
+    """Odd sizes exercise the tile edges. bf16 at c=32 and c=48 runs the
+    fused groups (n_blocks + 1 launches), c=8 and fp32 one FMA launch per
+    layer."""
     from adam_dehaze_tpu_torch.models.branches import LightweightDehazeModel
     low = _seeded(LightweightDehazeModel(c, n_blocks), 1)
     x = torch.rand(2, 37, 70, 3, generator=torch.Generator().manual_seed(5))
@@ -118,20 +128,34 @@ def test_k1_kernel_matches_plain(cuda_device, dtype, atol, c, n_blocks):
     with torch.inference_mode():
         got = lightweight_chain(x.to(cuda_device), chain)
     torch.cuda.synchronize()
-    assert lightweight_chain.launches - before == 2 * n_blocks + 3
+    plan = chain_plan(c, n_blocks, dtype)
+    fused = dtype == torch.bfloat16 and c != 8
+    assert plan.body == ("fused" if fused else "layer")
+    assert plan.launches == (n_blocks + 1 if fused else 2 * n_blocks + 3)
+    assert lightweight_chain.launches - before == plan.launches
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=atol)
 
 
-@pytest.mark.parametrize("c,n_blocks", [(32, 3), (48, 2)])
-def test_k1_tensor_core_body_matches_bf16_plain(cuda_device, c, n_blocks):
-    """The bf16 c -> c layers run the tensor-core body. Against the bf16
-    plain version with alpha 1 (the conv stack not scaled down by the skip
-    blend) a dropped tap, K-chunk or residual add shows; c=48 takes a
-    16-channel second output chunk."""
+# Image sizes around the fused body's tile (side t): odd sides over several
+# tiles, exactly one tile, one position more than a tile each way (the
+# second tile row and column hold one position and a ring that lies outside
+# the image on three sides), and an image smaller than a tile.
+K1_SIDES = {"37x70": lambda t: (37, 70), "one_tile": lambda t: (t, t),
+            "tile_plus_1": lambda t: (t + 1, t + 1), "5x7": lambda t: (5, 7)}
+
+
+@pytest.mark.parametrize("sides", sorted(K1_SIDES))
+@pytest.mark.parametrize("c,n_blocks", [(32, 3), (48, 2), (16, 1), (64, 1)])
+def test_k1_tensor_core_body_matches_bf16_plain(cuda_device, c, n_blocks, sides):
+    """Every bf16 layer at these widths runs the fused wgmma body. Against
+    the bf16 plain version with alpha 1 (the conv stack not scaled down by
+    the skip blend) a dropped tap, K step, skip add or a ring position
+    outside the image that is not stored as 0 shows."""
     from adam_dehaze_tpu_torch.models.branches import LightweightDehazeModel
     low = _seeded(LightweightDehazeModel(c, n_blocks), 4).to(cuda_device)
     chain = fold_lightweight(low, torch.bfloat16)._replace(alpha=1.0)
-    x = torch.rand(2, 37, 70, 3, generator=torch.Generator().manual_seed(8))
+    h, w = K1_SIDES[sides](fused_tile(c))
+    x = torch.rand(2, h, w, 3, generator=torch.Generator().manual_seed(8))
     x = x.to(cuda_device)
     with torch.inference_mode():
         want = lightweight_chain_reference(x, chain)
@@ -139,15 +163,20 @@ def test_k1_tensor_core_body_matches_bf16_plain(cuda_device, c, n_blocks):
     torch.testing.assert_close(got, want, rtol=0, atol=K1_BF16_ATOL)
 
 
-def test_k1_shared_memory_mirror_matches_library(cuda_device):
-    """The selector's count of shared memory per layer is the kernel
-    library's own, for both bodies and every width up to 264."""
+def test_k1_plan_mirror_matches_library(cuda_device):
+    """The selector's mirror is the kernel library's own count: the FMA
+    body's shared memory per layer for every width up to 264, the fused
+    body's tile for every width, and its shared memory per group and tile."""
     lib = _build.library()
     for cin in range(1, 265):
-        for cout in sorted({3, 16, 32, cin}):
-            for bf16 in (0, 1):
-                assert (lib.conv3x3_smem_bytes(cin, cout, bf16)
-                        == layer_smem_bytes(cin, cout, bool(bf16))), (cin, cout, bf16)
+        assert lib.conv3x3_smem_bytes(cin) == layer_smem_bytes(cin), cin
+    for c in range(8, 136, 8):
+        assert lib.lightweight_fused_tile(c) == fused_tile(c), c
+    for c in FUSED_WIDTHS:
+        for kind, name in enumerate(GROUP_KINDS):
+            for tile in FUSED_TILES:
+                assert (lib.lightweight_group_smem_bytes(c, kind, tile)
+                        == group_smem_bytes(c, name, tile)), (c, name, tile)
 
 
 def test_k1_takes_a_strided_input(cuda_device):
@@ -198,6 +227,27 @@ def test_k2prime_kernel_matches_plain(cuda_device, dtype, atol, shape):
     torch.cuda.synchronize()
     assert spatial_gate.launches - before == 1
     torch.testing.assert_close(got.float().cpu(), want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("gated", [True, False], ids=["k2", "k2prime"])
+@pytest.mark.parametrize("shape", [(2, 13, 24, 96), (2, 9, 11, 192), (1, 7, 5, 384),
+                                   (1, 5, 300, 8), (2, 6, 10, 40)])
+def test_gated_maps_match_padded_stats(cuda_device, dtype, gated, shape):
+    """The statistics pass against its plain version on the same input (a
+    bf16 input is reduced in f32 on both sides): f32 sums in another order,
+    1e-5. The channel counts give sub-groups of 4, 8, 16 and 1 lanes a
+    pixel, and 5 vectors a lane at C = 40."""
+    gen = torch.Generator().manual_seed(12)
+    x = (torch.randn(shape, generator=gen)).to(cuda_device, dtype)
+    g = torch.rand(shape[0], shape[3], generator=gen).to(cuda_device) if gated else None
+    with torch.inference_mode():
+        want = padded_stats(x, g)
+        got = gated_maps(x, g)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and a.dtype == torch.float32
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
 
 
 def _conv_case(sides, c0, c1, cout, ksize, dtype, seed, residual):

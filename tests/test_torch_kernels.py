@@ -19,6 +19,7 @@ from adam_dehaze_tpu_torch.ops.kernels.cbam import (
 from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
     chain_supported,
     fold_lightweight,
+    group_smem_bytes,
     layer_smem_bytes,
     lightweight_chain,
     lightweight_chain_reference,
@@ -106,25 +107,32 @@ def test_cpu_tensors_take_plain_versions_without_launching():
     (256, 3, False)])
 def test_k1_shape_selector(c, n_blocks, ok):
     """The selector decides by width, depth and dtype up front: widths that
-    are multiples of 8 whose every layer's staged tile and weights fit in
-    shared memory (the output layer's FMA body bounds both dtypes), at
-    least one residual block."""
+    are multiples of 8 whose every launch fits in shared memory (bf16 at
+    c = 64 takes the fused groups, fp32 the per-layer FMA body; at 256 the
+    FMA body's tile and weights are beyond a block in both dtypes), at least
+    one residual block."""
     for dtype in (torch.float32, torch.bfloat16):
         assert chain_supported(c, n_blocks, dtype) is ok, dtype
 
 
-@pytest.mark.parametrize("cin,cout,bf16,want", [
-    (3, 32, True, 6336),        # FMA body: f32 tile 180 x 4 + f32 weights
-    (32, 32, False, 60624),
-    (32, 3, True, 60624),       # the output layer runs the FMA body in bf16 too
-    (32, 32, True, 52096),      # tensor-core body: bf16 tile, weights, f32 acc
-    (128, 128, True, 141952),
-    (128, 128, False, -1),      # beyond 227 KB
+@pytest.mark.parametrize("what,args,want", [
+    # The per-layer FMA body: f32 tile 180 x (cin + 1) + f32 weights of 32
+    # output channels, whatever the dtype in device memory.
+    ("layer", (3,), 6336),
+    ("layer", (32,), 60624),
+    ("layer", (120,), 225360),
+    ("layer", (128,), -1),       # beyond 227 KB
+    # The fused wgmma body (bf16): a residual group at c = 32, tile 32 (bf16
+    # buffers of 36 and 34 rows at pitch 36, two packed layers), and the
+    # widest tile of c = 64 (tests/test_torch_low_chain.py counts them by hand).
+    ("group", (32, "res", 32), 207872),
+    ("group", (64, "first", 8), 207408),
 ])
-def test_k1_layer_shared_memory(cin, cout, bf16, want):
+def test_k1_layer_shared_memory(what, args, want):
     """Hand-counted bytes of each body's shared memory (the CUDA tests hold
-    the same function against the kernel library's own count)."""
-    assert layer_smem_bytes(cin, cout, bf16) == want
+    the same functions against the kernel library's own count)."""
+    fn = layer_smem_bytes if what == "layer" else group_smem_bytes
+    assert fn(*args) == want
 
 
 def test_k1_fold_rounds_weights_to_compute_dtype():
