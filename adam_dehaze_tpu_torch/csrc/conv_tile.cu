@@ -21,14 +21,24 @@
 //   of the A descriptor ((ky * tw + kx) * 16 bytes) and no im2col copy is
 //   made. B is N-major (HWIO has Cout contiguous), read with the transpose
 //   bit.
-// - A ring of four slots, 16 input channels a stage. The input tile (halo
+// - A ring of slots, 16 input channels a stage. The input tile (halo
 //   included, zero-filled outside the image) comes by cp.async, 16 bytes a
 //   thread. The weights come by ONE bulk copy a stage from a packed copy
 //   that holds each (phase, output chunk, stage) slab contiguously in the
 //   slot's layout: with cp.async for them too the body waited for the
-//   copies, not for the products. Two stages are in flight while one is
-//   multiplied and one drains:
-//   wgmma.wait_group 1 keeps the tensor cores busy across the barrier.
+//   copies, not for the products. With four slots two stages are in flight
+//   while one is multiplied and one drains; wgmma.wait_group 1 keeps the
+//   tensor cores busy across the barrier.
+// - Blocks an SM (`wg_two_blocks`): a layer of 64 output channels or fewer
+//   walks few stages (4 for 64 -> 64) and one block an SM fills and drains
+//   its ring once a tile with nothing to cover it. Such layers are planned
+//   for two blocks an SM: three slots where four would not leave a block
+//   under half the SM's shared memory (64 output channels, 3x3: 87,104 B
+//   against 116,096), so that one block's fill and epilogue run under the
+//   other's products. Their registers (121 at most) allow two without a
+//   launch bound; `__launch_bounds__(256, 2)` only let ptxas take more
+//   registers for the narrow chunks and gained nothing (PERF.md). Wider
+//   chunks keep one block of four slots.
 // - Epilogue on the accumulator fragment: shift, skip add (read then written
 //   by the same thread, so residual may alias out) and ReLU in f32, one
 //   rounding; the four lanes of a quad exchange their 4-byte pairs so that
@@ -231,8 +241,10 @@ int launch_fma(const ConvArgs& a, int N, cudaStream_t stream) {
 // ---- bf16 wgmma body -------------------------------------------------------
 constexpr int kWgTile = 16;        // 16x16 output positions: four 8x8 patches
 constexpr int kWgKc = 16;          // input channels per stage: one k16 step per tap
-constexpr int kWgStages = 4;       // ring slots: two landing, one read, one draining
 constexpr int kWgThreads = 256;    // two warpgroups, each two m64 patches
+// Shared memory a block may take so that two fit an SM (228 KB, 1 KB of it
+// reserved per block).
+constexpr size_t kWgTwoBlockSmem = (233472 - 2 * 1024) / 2;
 
 // The staged input tile of a stage: [channel octet (2)][tile pixel][8 channels],
 // 16 bytes per pixel per octet, an octet plane padded to 2 mod 8 pixels so that
@@ -246,11 +258,20 @@ template <int KS> struct WgTile {
 
 constexpr int kWgBarrierBytes = 128;   // one mbarrier per slot, ahead of the slots
 
-constexpr size_t wg_smem_bytes(int n, int ks) {
+constexpr size_t wg_smem_bytes(int n, int ks, int stages) {
   return kWgBarrierBytes +
-         size_t(kWgStages) *
+         size_t(stages) *
              ((ks == 3 ? WgTile<3>::a_bytes : WgTile<2>::a_bytes) + ks * ks * kWgKc * n * 2);
 }
+
+// The plan of a layer whose block is n output channels wide: two blocks an
+// SM or one, and with it the ring's slots (four, or three where four would
+// not let two blocks fit). ops/kernels/conv_tile.py:conv_tile_plan mirrors it.
+constexpr bool wg_two_blocks(int n, int ks) { return n <= 64; }
+constexpr int wg_stages(int n, int ks) {
+  return wg_two_blocks(n, ks) && wg_smem_bytes(n, ks, 4) > kWgTwoBlockSmem ? 3 : 4;
+}
+constexpr size_t wg_plan_smem(int n, int ks) { return wg_smem_bytes(n, ks, wg_stages(n, ks)); }
 
 // The output-channel chunk of a block: the widest instantiated N that
 // divides Cout (a multiple of 16).
@@ -260,7 +281,7 @@ inline int wg_cout_chunk(int cout) {
   return 0;
 }
 
-template <int N, int KS>
+template <int N, int KS, int kWgStages>
 __global__ void __launch_bounds__(kWgThreads)
 conv_tile_wgmma_kernel(ConvArgs a) {
   using T = WgTile<KS>;
@@ -434,20 +455,45 @@ conv_tile_wgmma_kernel(ConvArgs a) {
   }
 }
 
+// The kernel of a layer's plan.
+template <int N, int KS>
+auto wg_kernel() {
+  return conv_tile_wgmma_kernel<N, KS, wg_stages(N, KS)>;
+}
+
 template <int N, int KS>
 int launch_wgmma(const ConvArgs& a, int batch, cudaStream_t stream) {
-  constexpr size_t smem = wg_smem_bytes(N, KS);
-  cudaError_t err = adam::allow_dynamic_smem(conv_tile_wgmma_kernel<N, KS>, smem);
+  constexpr size_t smem = wg_plan_smem(N, KS);
+  auto kernel = wg_kernel<N, KS>();
+  cudaError_t err = adam::allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int tiles = ((a.H + kWgTile - 1) / kWgTile) * ((a.W + kWgTile - 1) / kWgTile);
   const dim3 grid(tiles * (KS == 3 ? 1 : 4) * (a.Cout / N), batch);
-  conv_tile_wgmma_kernel<N, KS><<<grid, kWgThreads, smem, stream>>>(a);
+  kernel<<<grid, kWgThreads, smem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks an SM that the plan's kernel of this chunk and tap count gets
+// (cudaOccupancyMaxActiveBlocksPerMultiprocessor), or a negative CUDA error.
+template <int N, int KS>
+int occupancy_wgmma() {
+  constexpr size_t smem = wg_plan_smem(N, KS);
+  auto kernel = wg_kernel<N, KS>();
+  int blocks = 0;
+  cudaError_t err = adam::allow_dynamic_smem(kernel, smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel, kWgThreads, smem);
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 template <int N>
 int launch_wgmma_n(const ConvArgs& a, int batch, cudaStream_t stream) {
   return a.ksize == 3 ? launch_wgmma<N, 3>(a, batch, stream) : launch_wgmma<N, 2>(a, batch, stream);
+}
+
+template <int N>
+int occupancy_wgmma_n(int ksize) {
+  return ksize == 3 ? occupancy_wgmma<N, 3>() : occupancy_wgmma<N, 2>();
 }
 
 }  // namespace
@@ -512,7 +558,25 @@ extern "C" int conv_tile(const void* in0, const void* w0, const void* wp0, int c
 // Dynamic shared memory per block of the body that `conv_tile` takes for
 // these widths (ops/kernels/conv_tile.py:conv_tile_plan mirrors it).
 extern "C" int conv_tile_smem_bytes(int c0, int c1, int Cout, int ksize, int is_bf16) {
-  if (adam::conv_uses_wgmma(c0, c1, Cout, is_bf16))
-    return static_cast<int>(wg_smem_bytes(wg_cout_chunk(Cout), ksize));
+  if (adam::conv_uses_wgmma(c0, c1, Cout, is_bf16)) {
+    const int n = wg_cout_chunk(Cout);
+    return static_cast<int>(wg_plan_smem(n, ksize));
+  }
   return static_cast<int>(kFmaSmem);
+}
+
+// Blocks an SM that the wgmma body's kernel for a layer of Cout output
+// channels and this tap count gets on the current device, as the occupancy
+// API reads it from its registers and shared memory; a negative CUDA error
+// if it could not be read.
+extern "C" int conv_tile_blocks_per_sm(int Cout, int ksize) {
+  if (Cout % 16 != 0 || (ksize != 2 && ksize != 3)) return -static_cast<int>(cudaErrorInvalidValue);
+  switch (wg_cout_chunk(Cout)) {
+    case 128: return occupancy_wgmma_n<128>(ksize);
+    case 96: return occupancy_wgmma_n<96>(ksize);
+    case 64: return occupancy_wgmma_n<64>(ksize);
+    case 48: return occupancy_wgmma_n<48>(ksize);
+    case 32: return occupancy_wgmma_n<32>(ksize);
+    default: return occupancy_wgmma_n<16>(ksize);
+  }
 }

@@ -66,6 +66,15 @@
 //   before the products. chip_smoke.py prints the time beside the bound,
 //   chip_conv_steps.py what each part gives.
 //
+// The same body runs K3's head group (ops/kernels/tail_chain.py): the medium
+// tail's last two layers, c -> c/2 and c/2 -> 3 with tanh, x + res and the
+// clip, at c = 32 or 64, as one launch in kLast's manner (kTailHead). The
+// c/2-wide activation never leaves shared memory, and the last layer is
+// m64n8k16 with its epilogue on the accumulators. It replaced a launch of the
+// shared conv body (c -> c/2, whose output made a round trip through device
+// memory) and one of the f32 FMA body (c/2 -> 3, a block of 32 output
+// channels for 3 real ones, no tensor core).
+//
 // fp32, and bf16 at the other widths (multiples of 8), keep one launch per
 // layer of the f32 FMA body: a block computes an 8x16 output tile for up to
 // 32 output channels, stages the input tile with a 1-pixel zero halo as f32
@@ -206,6 +215,7 @@ using namespace adam::wg;
 constexpr int kFirst = 0;   // 3 -> c, then the first residual block
 constexpr int kRes = 1;     // one residual block
 constexpr int kLast = 2;    // c -> c, then c -> 3 with sigmoid and blend
+constexpr int kTailHead = 3;   // K3's head: c -> c/2, then c/2 -> 3 with tanh, x + res and clip
 constexpr int kFuWarpgroups = 4;   // a block: they take a layer's units in turn
 constexpr int kFuThreads = 128 * kFuWarpgroups;
 constexpr int kFuTiles[] = {32, 28, 24, 20, 16, 12, 8};   // output tile sides, widest first
@@ -229,40 +239,49 @@ struct FuLayout {
 // Shared memory of a group at width C and tile side T: the packed weights
 // and the shifts of its layers, buffer 1 (T + 4 rows: the staged input; for
 // kFirst the first layer's output), buffer 2 (T + 2 rows: the middle layer's
-// output; for kFirst first the K = 32 rows of the first layer, T + 4 rows of
-// 4 octets), and for kFirst the 3-channel f32 tile (T + 6 rows).
+// output, c/2 wide in kTailHead; for kFirst first the K = 32 rows of the first
+// layer, T + 4 rows of 4 octets), and for kFirst the 3-channel f32 tile (T + 6
+// rows).
 __host__ __device__ inline FuLayout fu_layout(int C, int kind, int T) {
   const int P = T + 4, oct = C / 8;
   FuLayout L;
   L.w_bytes = kind == kFirst ? 64 * C + 36 * C * C
             : kind == kRes   ? 36 * C * C
-                             : 18 * C * C + 144 * C;
-  L.shift_bytes = 4 * (kind == kFirst ? 3 * C : kind == kRes ? 2 * C : C + 8);
+            : kind == kLast  ? 18 * C * C + 144 * C
+                             : 9 * C * C + 72 * C;
+  L.shift_bytes = 4 * (kind == kFirst ? 3 * C : kind == kRes ? 2 * C
+                       : kind == kLast ? C + 8 : C / 2 + 8);
   L.buf1_bytes = oct * fu_plane(T + 4, P) * 16;
-  const int mid = oct * fu_plane(T + 2, P);
+  const int mid = (kind == kTailHead ? oct / 2 : oct) * fu_plane(T + 2, P);
   const int rows32 = kind == kFirst ? 4 * fu_plane(T + 4, P) : 0;
   L.buf2_bytes = (mid > rows32 ? mid : rows32) * 16;
   L.xs_bytes = kind == kFirst ? (((T + 6) * (T + 6) * 12 + 15) / 16) * 16 : 0;
   return L;
 }
 
-inline bool fu_width(int C) { return C == 16 || C == 32 || C == 48 || C == 64; }
+// K1's groups take c = 16 to 64; K3's head group c = 32 or 64 (c/2 is then
+// a multiple of 16, one k16 step of its last layer or two).
+inline bool fu_width(int C, int kind) {
+  return kind == kTailHead ? C == 32 || C == 64 : C == 16 || C == 32 || C == 48 || C == 64;
+}
 
-// The widest tile whose largest group (kFirst) fits a block, or 0.
-inline int fu_tile(int C) {
-  if (!fu_width(C)) return 0;
+// The widest tile whose largest group fits a block, or 0: kFirst for K1's
+// chain, the group itself for K3's head.
+inline int fu_tile(int C, int kind = kFirst) {
+  if (!fu_width(C, kind)) return 0;
   for (int T : kFuTiles)
-    if (static_cast<size_t>(fu_layout(C, kFirst, T).total()) <= adam::kMaxDynamicSmem) return T;
+    if (static_cast<size_t>(fu_layout(C, kind, T).total()) <= adam::kMaxDynamicSmem) return T;
   return 0;
 }
 
 struct GroupArgs {
-  const float* x;            // the branch input (N, H, W, 3): kFirst convolves it, kLast blends with it
-  const __nv_bfloat16* in;   // kRes, kLast: the activation (N, H, W, C)
+  const float* x;            // the branch input (N, H, W, 3): kFirst convolves it, kLast and
+                             // kTailHead add it to their result
+  const __nv_bfloat16* in;   // kRes, kLast, kTailHead: the activation (N, H, W, C)
   const __nv_bfloat16* w;    // the group's packed weights, layer after layer
   const float* shift;        // the group's shifts, layer after layer (the c -> 3 bias padded to 8)
   __nv_bfloat16* out;        // kFirst, kRes: the activation (N, H, W, C)
-  float* out_f32;            // kLast: the result (N, H, W, 3)
+  float* out_f32;            // kLast, kTailHead: the result (N, H, W, 3)
   float alpha;
   int N, H, W, T;
 };
@@ -272,6 +291,7 @@ constexpr int kToSmem = 0;       // shift, ReLU, zero outside the image, one rou
 constexpr int kSkipSmemOut = 1;  // shift, skip add from the centre of a staged buffer, ReLU, one rounding -> device memory
 constexpr int kSkipGlobalOut = 2;  // the same, the skip read from the group's input in device memory
 constexpr int kBlendOut = 3;     // bias, sigmoid, blend with the image -> device memory (f32, 3 channels)
+constexpr int kTanhOut = 4;      // bias, tanh, + the image, clip to [0, 1] -> device memory (f32, 3 channels)
 
 struct LayerIO {
   uint32_t a_base, a_plane;    // input buffer and its plane stride (shared address space, bytes)
@@ -294,7 +314,7 @@ struct UnitRows {
   bool inside[2], ok[2];     // inside the image; a position this tile writes
   size_t pix[2];             // (n, y, x) flattened, where ok
   uint32_t skip_w[2][EPI == kSkipGlobalOut ? N / 8 : 1];
-  float image[2][2];         // kBlendOut
+  float image[2][2];         // kBlendOut, kTanhOut
 };
 
 // One layer of a group over the whole tile: the warpgroups take the units of
@@ -306,13 +326,14 @@ struct UnitRows {
 // before the products, so that its latency passes under them.
 template <int N, int KSTEPS, int TAPS, int EPI>
 __device__ __forceinline__ void fu_layer(const LayerIO& io, const GroupArgs& g, int n, int P) {
+  constexpr bool kImageOut = EPI == kBlendOut || EPI == kTanhOut;   // 3 channels, f32
   const int tid = threadIdx.x;
   const int warp = (tid >> 5) & 3, lane = tid & 31, q8 = lane >> 2, l = lane & 3;
   const int units = (io.rows * P + 63) >> 6;
 
   // This thread's shifts: columns 8 j + 2 l (+ 1) whatever the unit.
-  float2 sh[EPI == kBlendOut ? 1 : N / 8];
-  if constexpr (EPI != kBlendOut) {
+  float2 sh[kImageOut ? 1 : N / 8];
+  if constexpr (!kImageOut) {
 #pragma unroll
     for (int j = 0; j < N / 8; ++j)
       sh[j] = *reinterpret_cast<const float2*>(io.shift + 8 * j + 2 * l);
@@ -338,7 +359,7 @@ __device__ __forceinline__ void fu_layer(const LayerIO& io, const GroupArgs& g, 
                                          g.in + r.pix[h] * N + 8 * j + 2 * l)
                                    : 0u;
       }
-      if constexpr (EPI == kBlendOut) {
+      if constexpr (kImageOut) {
         // N = 8: columns 0..2 are the image's channels; lane % 4 = 0 holds 0
         // and 1, lane % 4 = 1 holds 2 (and a padded column).
 #pragma unroll
@@ -425,9 +446,15 @@ __device__ __forceinline__ void fu_layer(const LayerIO& io, const GroupArgs& g, 
         for (int k = 0; k < 2; ++k) {
           if (r.ok[h] && 2 * l + k < 3) {
             const float v = acc[2 * h + k] + io.shift[2 * l + k];
-            const float sg = 1.f / (1.f + expf(-v));
+            // The image as the compute dtype holds it.
             const float xin = __bfloat162float(__float2bfloat16(r.image[h][k]));
-            g.out_f32[r.pix[h] * 3 + 2 * l + k] = (1.f - g.alpha) * xin + g.alpha * sg;
+            if constexpr (EPI == kBlendOut) {
+              const float sg = 1.f / (1.f + expf(-v));
+              g.out_f32[r.pix[h] * 3 + 2 * l + k] = (1.f - g.alpha) * xin + g.alpha * sg;
+            } else {
+              const float res = tanhf(v);
+              g.out_f32[r.pix[h] * 3 + 2 * l + k] = fminf(fmaxf(xin + res, 0.f), 1.f);
+            }
           }
         }
       }
@@ -450,7 +477,8 @@ __global__ void __launch_bounds__(kFuThreads, 1)
 lightweight_group_kernel(GroupArgs g) {
   extern __shared__ __align__(128) unsigned char fu_smem[];
   constexpr int kOct = C / 8;
-  constexpr int kLayerBytes = 18 * C * C;    // one packed c -> c layer
+  constexpr int kMid = KIND == kTailHead ? C / 2 : C;   // the middle layer's output width
+  constexpr int kLayerBytes = 18 * C * kMid;    // the packed middle layer
   const int T = g.T, P = T + 4;
   const FuLayout L = fu_layout(C, KIND, T);
   unsigned char* s_w = fu_smem;
@@ -551,7 +579,7 @@ lightweight_group_kernel(GroupArgs g) {
       LayerIO io = {};
       io.a_base = b1; io.a_plane = pl4; io.b_base = w_addr + kW0; io.shift = s_shift + kS0;
       io.rows = T + 2; io.oy = ty0 - 1; io.ox = tx0 - 1; io.dst = buf2; io.dst_plane = pl2;
-      fu_layer<C, C / 16, 9, kToSmem>(io, g, n, P);
+      fu_layer<kMid, C / 16, 9, kToSmem>(io, g, n, P);
     }
     fence_proxy_async();
     __syncthreads();
@@ -562,10 +590,12 @@ lightweight_group_kernel(GroupArgs g) {
     {
       LayerIO io = {};
       io.a_base = b2; io.a_plane = pl2; io.b_base = w_addr + kW0 + kLayerBytes;
-      io.shift = s_shift + kS0 + C;
+      io.shift = s_shift + kS0 + kMid;
       io.rows = T; io.oy = ty0; io.ox = tx0; io.skip = buf1; io.skip_plane = pl4;
       if constexpr (KIND == kLast)
         fu_layer<8, C / 16, 9, kBlendOut>(io, g, n, P);
+      else if constexpr (KIND == kTailHead)
+        fu_layer<8, kMid / 16, 9, kTanhOut>(io, g, n, P);
       else if constexpr (KIND == kRes)
         fu_layer<C, C / 16, 9, kSkipGlobalOut>(io, g, n, P);
       else
@@ -636,7 +666,8 @@ extern "C" int lightweight_group(int kind, const void* x, const void* in, const 
                                  const void* shift, void* out, float alpha, int N, int H,
                                  int W, int C, void* stream) {
   const int T = fu_tile(C);
-  if (N < 1 || H < 1 || W < 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (N < 1 || H < 1 || W < 1 || T < 1 || kind < kFirst || kind > kLast)
+    return static_cast<int>(cudaErrorInvalidValue);
   GroupArgs g = {};
   g.x = static_cast<const float*>(x);
   g.in = static_cast<const __nv_bfloat16*>(in);
@@ -652,6 +683,36 @@ extern "C" int lightweight_group(int kind, const void* x, const void* in, const 
     case 32: return launch_group_c<32>(kind, g, s);
     case 48: return launch_group_c<48>(kind, g, s);
     case 64: return launch_group_c<64>(kind, g, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The output tile side of K3's head group at width C, or 0 where the group
+// does not serve the width. ops/kernels/lightweight_chain.py mirrors it
+// (`head_tile`).
+extern "C" int tail_head_tile(int C) { return fu_tile(C, kTailHead); }
+
+// K3's head group (ops/kernels/tail_chain.py): h1 (N, H, W, C) bf16 -> out
+// (N, H, W, 3) f32 = clip(x + tanh(conv(h) + bias), 0, 1) with h =
+// relu(conv(h1) + t2) (C/2 channels, rounded to bf16, held in shared memory
+// only) and x (N, H, W, 3) f32 rounded to bf16. w and shift are the group's
+// packed weights and shifts (pack_group: the c -> c/2 layer, then the c/2 ->
+// 3 one padded to 8). The tile is tail_head_tile(C).
+extern "C" int tail_head_group(const void* x, const void* h1, const void* w, const void* shift,
+                               void* out, int N, int H, int W, int C, void* stream) {
+  const int T = fu_tile(C, kTailHead);
+  if (N < 1 || H < 1 || W < 1 || T < 1) return static_cast<int>(cudaErrorInvalidValue);
+  GroupArgs g = {};
+  g.x = static_cast<const float*>(x);
+  g.in = static_cast<const __nv_bfloat16*>(h1);
+  g.w = static_cast<const __nv_bfloat16*>(w);
+  g.shift = static_cast<const float*>(shift);
+  g.out_f32 = static_cast<float*>(out);
+  g.N = N; g.H = H; g.W = W; g.T = T;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 32: return launch_group<32, kTailHead>(g, s);
+    case 64: return launch_group<64, kTailHead>(g, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -33,7 +33,10 @@
 // conv as four sub-pixel phases; FMAs for fp32 and the 3-channel layers;
 // the last layer's tanh, guidance, blend and clip as its epilogue, launched
 // from here). The Python wrapper launches it per layer through
-// ops/kernels/conv_tile.py; K6 runs the same kernel.
+// ops/kernels/conv_tile.py; K6 runs the same kernel. In bf16 at c = 32 or
+// 64 K3's last two layers (c -> c/2 and c/2 -> 3 with tanh, x + res and the
+// clip) are instead one launch of a fused group on wgmma, beside K1's groups
+// (lightweight_chain.cu: tail_head_group): 5 launches, not 6.
 // K4's attention block is four more kernels: a two-stage (deterministic)
 // per-image channel reduction, the two-layer MLP with its sigmoid, a pass
 // that writes the channel-gated activation (rounded to the compute dtype,

@@ -15,7 +15,8 @@ _branch_layout.
 The high branch is the canonical forward with all six AttentionBlocks on
 kernel K2; the JAX package's space-to-depth rewrite of it was a lane-fill
 workaround for the TPU and is not ported. The low branch's eval forward on
-a CUDA tensor is kernel K1.
+a CUDA tensor is kernel K1; `LightweightDehazeModel.module_forward` is the
+same branch through its modules on any device.
 """
 from __future__ import annotations
 
@@ -73,12 +74,18 @@ class LightweightDehazeModel(nn.Module):
         return fold_lightweight(self, dtype)
 
     def forward(self, x):
-        dt = self.compute_dtype
         if not self.training and x.is_cuda:
             # Folds on every call: serving holds a fold-once apply instead.
-            chain = self.serving_chain(dt)
+            chain = self.serving_chain(self.compute_dtype)
             if chain is not None:
                 return lightweight_chain(x.float(), chain)
+        return self.module_forward(x)
+
+    def module_forward(self, x):
+        """The branch through its modules (cuDNN's convs on a CUDA tensor),
+        never kernel K1: the training path, and the low branch's
+        `canonical` serving candidate."""
+        dt = self.compute_dtype
         xin = _nchw(x, dt)
         y = self.output_conv(self.residual_blocks(self.init_conv(xin)))
         alpha = self.skip_alpha.to(dt)

@@ -62,6 +62,12 @@ _SIGNATURES = {
     "conv_tile": (P, P, P, I, P, P, P, I, P, P, P, I, I, I, I, I, I, I, P),
     # c0, c1, Cout, ksize, is_bf16; returns shared-memory bytes per block
     "conv_tile_smem_bytes": (I, I, I, I, I),
+    # Cout, ksize; returns the wgmma body's blocks an SM, or -cudaError_t
+    "conv_tile_blocks_per_sm": (I, I),
+    # C; returns K3's head group's tile side, or 0
+    "tail_head_tile": (I,),
+    # x, h1, w, shift, out, N, H, W, C, stream
+    "tail_head_group": (P, P, P, P, P, I, I, I, I, P),
     # h, w, cin, bias, image, guidance, gc, guidance_w, guidance_b, out_f32, N, H, W,
     # is_bf16, stream
     "tail_conv_final": (P, P, I, P, P, P, I, P, F, P, I, I, I, I, P),

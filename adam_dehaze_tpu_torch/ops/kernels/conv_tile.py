@@ -18,8 +18,13 @@ On a CPU tensor `conv_tile` is `conv_tile_reference`, the plain version; on
 a CUDA tensor it launches the kernel or raises. `conv_tile_plan` is the
 Python mirror of the library's choice of body: bf16 with every width a
 multiple of 16 runs on `wgmma` (16x16 output positions by a chunk of output
-channels per block, input channels in stages of 16 through a ring of four
-shared-memory slots), anything else on f32 FMAs.
+channels per block, input channels in stages of 16 through a ring of
+shared-memory slots), anything else on f32 FMAs. A wgmma block of at most 64
+output channels is planned for two blocks an SM (three slots where four
+would not leave it under half the SM's shared memory: 64 channels, 3x3), a
+wider one for one block of four slots. On an NVIDIA H100 the 64-wide 3x3
+trunk layers of K3 ran faster so (PERF.md, `chip_conv_steps.py k3`); the
+other widths of at most 64 already fit two blocks with four slots.
 
 The wgmma body copies a stage's weights into its slot with one bulk copy,
 so it reads them from a packed copy that holds every (phase, output chunk,
@@ -39,13 +44,17 @@ import torch.nn.functional as F
 
 from adam_dehaze_tpu_torch.ops.kernels import _build
 
-# Mirror of csrc/conv_tile.cu: the wgmma body's tile, stage depth, ring and
-# instantiated output-channel chunks; the FMA body's fixed request.
+# Mirror of csrc/conv_tile.cu: the wgmma body's tile, stage depth, ring,
+# instantiated output-channel chunks and the widest chunk planned for two
+# blocks an SM (with the shared memory a block may then take); the FMA
+# body's fixed request.
 WGMMA_TILE = 16
 WGMMA_KC = 16
 WGMMA_STAGES = 4
 WGMMA_BARRIER_BYTES = 128
 WGMMA_COUT_CHUNKS = (128, 96, 64, 48, 32, 16)
+WGMMA_TWO_BLOCK_MAX_CHUNK = 64
+WGMMA_TWO_BLOCK_SMEM = (233472 - 2 * 1024) // 2   # an SM's 228 KB, 1 KB reserved a block
 FMA_TILE = (8, 16)
 FMA_COUT_CHUNK = 32
 FMA_KC = 32
@@ -59,8 +68,9 @@ class ConvPlan(NamedTuple):
     cout_chunk: int           # output channels per block
     tile: Tuple[int, int]     # output positions per block (rows, columns)
     kc: int                   # input channels per staged step
-    stages: int               # shared-memory slots in flight
+    stages: int               # shared-memory slots of the ring
     smem_bytes: int           # dynamic shared memory per block
+    blocks_per_sm: int        # blocks an SM the plan's shared memory is built for
 
 
 def conv_tile_plan(c0: int, c1: int, cout: int, ksize: int,
@@ -74,9 +84,13 @@ def conv_tile_plan(c0: int, c1: int, cout: int, ksize: int,
         pixels = (WGMMA_TILE + ksize - 1) ** 2
         plane = (pixels + 5) // 8 * 8 + 2          # 16-byte units, 2 mod 8
         stage = 2 * plane * 16 + ksize * ksize * WGMMA_KC * chunk * 2
-        return ConvPlan("wgmma", chunk, (WGMMA_TILE, WGMMA_TILE), WGMMA_KC,
-                        WGMMA_STAGES, WGMMA_BARRIER_BYTES + WGMMA_STAGES * stage)
-    return ConvPlan("fma", FMA_COUT_CHUNK, FMA_TILE, FMA_KC, 1, FMA_SMEM_BYTES)
+        two = chunk <= WGMMA_TWO_BLOCK_MAX_CHUNK
+        stages = WGMMA_STAGES
+        if two and WGMMA_BARRIER_BYTES + stages * stage > WGMMA_TWO_BLOCK_SMEM:
+            stages -= 1
+        return ConvPlan("wgmma", chunk, (WGMMA_TILE, WGMMA_TILE), WGMMA_KC, stages,
+                        WGMMA_BARRIER_BYTES + stages * stage, 2 if two else 1)
+    return ConvPlan("fma", FMA_COUT_CHUNK, FMA_TILE, FMA_KC, 1, FMA_SMEM_BYTES, 1)
 
 
 def _packed_dims(w: torch.Tensor, ksize: int) -> Tuple[int, ...]:

@@ -14,7 +14,9 @@ here per tile: csrc/lightweight_chain.cu runs bf16 at c = 16, 32, 48 or 64
 as fused groups of layers on `wgmma` (`n_blocks + 1` launches, the
 activation of a tile in shared memory across a group, halo recompute), and
 fp32 and every other width as one FMA launch per layer; its source note
-says what bounds it and why. `chain_plan` mirrors the choice.
+says what bounds it and why. `chain_plan` mirrors the choice. The same
+fused body runs K3's head group (ops/kernels/tail_chain.py), whose tile
+`head_tile` mirrors.
 
 `fold_lightweight` builds the folded weights once (and packs them per group
 where the fused body serves); `lightweight_chain` runs them: on a CPU tensor
@@ -40,10 +42,12 @@ _MAX_SMEM = 232448          # 227 KB, Hopper's per-block limit
 _TILE_PIX = (8 + 2) * (16 + 2)
 _CO_CHUNK = 32
 # The fused bf16 body: widths it is instantiated for, output tile sides
-# (widest first), and the kinds of its groups.
+# (widest first), and the kinds of its groups (K1's three, then K3's head
+# group, which takes the widths HEAD_WIDTHS).
 FUSED_WIDTHS = (16, 32, 48, 64)
 FUSED_TILES = (32, 28, 24, 20, 16, 12, 8)
-GROUP_KINDS = ("first", "res", "last")
+GROUP_KINDS = ("first", "res", "last", "tail_head")
+HEAD_WIDTHS = (32, 64)
 
 
 def layer_smem_bytes(cin: int) -> int:
@@ -64,15 +68,18 @@ def _plane(rows: int, pitch: int) -> int:
 def group_smem_bytes(c: int, kind: str, tile: int) -> int:
     """Shared memory per block of one fused group at width c and output
     tile side `tile`: packed weights, shifts, the buffer of tile + 4 rows,
-    the buffer of tile + 2 rows (for "first" at least the K = 32 rows of the
-    3 -> c layer: 4 octets of tile + 4 rows) and, for "first", the 3-channel
-    f32 tile of tile + 6 rows. Every buffer has the pitch tile + 4."""
+    the buffer of tile + 2 rows (c/2 wide for "tail_head"; for "first" at
+    least the K = 32 rows of the 3 -> c layer: 4 octets of tile + 4 rows)
+    and, for "first", the 3-channel f32 tile of tile + 6 rows. Every buffer
+    has the pitch tile + 4."""
     pitch, octets = tile + 4, c // 8
     weights = {"first": 64 * c + 36 * c * c, "res": 36 * c * c,
-               "last": 18 * c * c + 144 * c}[kind]
-    shifts = 4 * {"first": 3 * c, "res": 2 * c, "last": c + 8}[kind]
+               "last": 18 * c * c + 144 * c, "tail_head": 9 * c * c + 72 * c}[kind]
+    shifts = 4 * {"first": 3 * c, "res": 2 * c, "last": c + 8,
+                  "tail_head": c // 2 + 8}[kind]
     buf1 = octets * _plane(tile + 4, pitch) * 16
-    buf2 = 16 * max(octets * _plane(tile + 2, pitch),
+    mid_octets = octets // 2 if kind == "tail_head" else octets
+    buf2 = 16 * max(mid_octets * _plane(tile + 2, pitch),
                     4 * _plane(tile + 4, pitch) if kind == "first" else 0)
     xs = ((tile + 6) ** 2 * 12 + 15) // 16 * 16 if kind == "first" else 0
     return weights + shifts + buf1 + buf2 + xs
@@ -86,6 +93,16 @@ def fused_tile(c: int) -> int:
         return 0
     return next((t for t in FUSED_TILES
                  if group_smem_bytes(c, "first", t) <= _MAX_SMEM), 0)
+
+
+def head_tile(c: int) -> int:
+    """The output tile side of K3's head group at width c: the widest whose
+    group fits a block; 0 where the group does not serve the width (c/2
+    must be a multiple of 16)."""
+    if c not in HEAD_WIDTHS:
+        return 0
+    return next((t for t in FUSED_TILES
+                 if group_smem_bytes(c, "tail_head", t) <= _MAX_SMEM), 0)
 
 
 class ChainPlan(NamedTuple):
@@ -152,16 +169,19 @@ def _pack_conv(w: torch.Tensor) -> torch.Tensor:
     return pack_layer(w).flatten()
 
 
+def pack_group(layers) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One launch of the fused body: (packed weights, shifts) of its layers
+    (w HWIO, shift) after one another, the c -> 3 bias padded to 8."""
+    shifts = [F.pad(t, (0, -t.numel() % 8)) for _, t in layers]
+    return (torch.cat([_pack_conv(w) for w, _ in layers]), torch.cat(shifts).contiguous())
+
+
 def pack_groups(layers, n_blocks: int):
-    """The fused body's launches: ((packed weights, shifts), ...), one pair
-    per group, its layers after one another (the c -> 3 bias padded to 8)."""
+    """K1's launches on the fused body: one `pack_group` per group."""
     groups, first = [], 0
     for size in (3,) + (2,) * (n_blocks - 1) + (2,):
-        group = layers[first:first + size]
+        groups.append(pack_group(layers[first:first + size]))
         first += size
-        shifts = [F.pad(t, (0, -t.numel() % 8)) for _, t in group]
-        groups.append((torch.cat([_pack_conv(w) for w, _ in group]),
-                       torch.cat(shifts).contiguous()))
     return tuple(groups)
 
 
@@ -220,6 +240,26 @@ def _conv(h: torch.Tensor, layer, padding: int) -> torch.Tensor:
             + t[None, :, None, None])
 
 
+def window(src: torch.Tensor, y0: int, x0: int, side: int) -> torch.Tensor:
+    """Rows y0 .. y0 + side and columns x0 .. x0 + side of src (NCHW), zero
+    outside the image: a tile staged with its halo."""
+    n, c, h, w = src.shape
+    out = src.new_zeros((n, c, side, side))
+    ys, xs, ye, xe = max(y0, 0), max(x0, 0), min(y0 + side, h), min(x0 + side, w)
+    if ye > ys and xe > xs:
+        out[:, :, ys - y0:ye - y0, xs - x0:xe - x0] = src[:, :, ys:ye, xs:xe]
+    return out
+
+
+def zero_outside(v: torch.Tensor, y0: int, x0: int, h: int, w: int) -> torch.Tensor:
+    """v covers image rows y0.. and columns x0.. of an h x w image: 0 at
+    its positions outside the image, where the next conv pads with zeros."""
+    ys = torch.arange(y0, y0 + v.shape[2])
+    xs = torch.arange(x0, x0 + v.shape[3])
+    inside = (((ys >= 0) & (ys < h))[:, None] & ((xs >= 0) & (xs < w))[None, :])
+    return v * inside.to(v.device, v.dtype)
+
+
 def lightweight_chain_reference(x: torch.Tensor,
                                 chain: LightweightChainWeights) -> torch.Tensor:
     """Plain PyTorch version: x (N, H, W, 3) f32 -> (N, H, W, 3) f32, with
@@ -255,20 +295,6 @@ def lightweight_chain_tiled_reference(x: torch.Tensor, chain: LightweightChainWe
     n, h, w, _ = x.shape
     xin = x.to(dt).permute(0, 3, 1, 2)
 
-    def window(src, y0, x0, side):
-        """Rows y0 .. y0 + side and columns x0 .. x0 + side of src (NCHW),
-        zero outside the image."""
-        pad = side + tile
-        return F.pad(src, (pad, pad, pad, pad))[:, :, y0 + pad:y0 + pad + side,
-                                                x0 + pad:x0 + pad + side]
-
-    def zero_outside(v, y0, x0):
-        """v covers image rows y0.. and columns x0..: 0 outside the image."""
-        ys = torch.arange(y0, y0 + v.shape[2])
-        xs = torch.arange(x0, x0 + v.shape[3])
-        inside = (((ys >= 0) & (ys < h))[:, None] & ((xs >= 0) & (xs < w))[None, :])
-        return v * inside.to(v.device, v.dtype)
-
     def run_group(src, layers, first, last):
         out = torch.empty((n, 3 if last else chain.channels, h, w),
                           dtype=torch.float32 if last else dt, device=x.device)
@@ -278,9 +304,9 @@ def lightweight_chain_tiled_reference(x: torch.Tensor, chain: LightweightChainWe
                 a = window(src, ty0 - halo, tx0 - halo, tile + 2 * halo)
                 if first:
                     a = torch.relu(_conv(a, layers[0], 0)).to(dt)
-                    a = zero_outside(a, ty0 - 2, tx0 - 2)
+                    a = zero_outside(a, ty0 - 2, tx0 - 2, h, w)
                 y = torch.relu(_conv(a, layers[-2], 0)).to(dt)
-                y = zero_outside(y, ty0 - 1, tx0 - 1)
+                y = zero_outside(y, ty0 - 1, tx0 - 1, h, w)
                 if last:
                     res = ((1.0 - chain.alpha) * window(xin, ty0, tx0, tile).float()
                            + chain.alpha * torch.sigmoid(_conv(y, layers[-1], 0)))

@@ -15,13 +15,18 @@ matmul-first rolls, 0/1-selection matmuls, 128-lane padding) does not: here
 every stage is one launch (csrc/tail_chain.cu, whose source note says what
 bounds it; the conv kernel is csrc/conv_tile.cu through
 `conv_tile`, shared with K6), and
-tensors are plain NHWC.
+tensors are plain NHWC. In bf16 at c = 32 or 64 K3's last two layers
+(c -> c/2, c/2 -> 3 with tanh, x + res and the clip) are one launch instead:
+the head group of the fused body that K1 runs
+(csrc/lightweight_chain.cu), the c/2-wide activation held in shared memory
+per tile; `medium_tail_plan` decides that by shape, before any launch.
 
 `fold_medium_tail` / `fold_high_tail` build the folded weights once from a
 port branch; `medium_tail_chain` / `high_tail_chain` run them: on CPU
 tensors through the plain versions (`*_reference`), on CUDA tensors through
 the kernels. K4's spatial step is kernel K2' (`cbam.launch_spatial_gate`,
-counted there).
+counted there). `medium_tail_chain_tiled_reference` is K3 with the head
+group's tile, halo and zeroed ring in plain PyTorch, for the CPU tests.
 """
 from __future__ import annotations
 
@@ -38,6 +43,13 @@ from adam_dehaze_tpu_torch.ops.kernels.conv_tile import (
     conv_tile,
     packed_for_kernel,
     subpixel_up_reference,
+)
+from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
+    group_smem_bytes,
+    head_tile,
+    pack_group,
+    window,
+    zero_outside,
 )
 
 Layer = Tuple[torch.Tensor, torch.Tensor]   # (weight HWIO compute dtype, shift f32)
@@ -60,7 +72,9 @@ class TrunkPacked(NamedTuple):
 
 class MediumTailWeights(NamedTuple):
     """Folded layers of a tail's conv trunk (the whole medium tail).
-    Weights are in the compute dtype, shifts f32."""
+    Weights are in the compute dtype, shifts f32. `head_group` holds head2
+    and out again as K3's head group reads them (`pack_group`), None where
+    `medium_tail_plan` runs them as two launches."""
     up: torch.Tensor          # (4 phases, 4 taps, 4c, c), phase a*2+b, tap u*2+v
     up_shift: torch.Tensor    # (c,)
     res_a: Layer              # (3, 3, c, c)
@@ -71,6 +85,7 @@ class MediumTailWeights(NamedTuple):
     head2: Layer              # (3, 3, c, c/2)
     out: Layer                # (3, 3, c/2, 3), bias as the shift
     packed: TrunkPacked
+    head_group: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
 
     @property
     def dtype(self) -> torch.dtype:
@@ -116,6 +131,26 @@ def tail_supported(channels: int, height: int, width: int,
             and height >= 4 and width >= 4)
 
 
+class MediumTailPlan(NamedTuple):
+    """What one call of K3 launches."""
+    head: str          # "group": head2 and out as one fused launch; "layers": two launches
+    tile: int          # the head group's output tile side, 0 for "layers"
+    launches: int
+    smem_bytes: int    # the head group's dynamic shared memory a block, 0 for "layers"
+
+
+def medium_tail_plan(channels: int, dtype: torch.dtype) -> MediumTailPlan:
+    """K3's launches at this width and dtype, decided before any launch:
+    bf16 at a width the head group serves (`head_tile`: c = 32 or 64) runs
+    the trunk's four conv launches and the group (5); fp32 and the other
+    widths run head2 on the shared conv body and the last layer on its FMA
+    body (6)."""
+    tile = head_tile(channels) if dtype == torch.bfloat16 else 0
+    if tile:
+        return MediumTailPlan("group", tile, 5, group_smem_bytes(channels, "tail_head", tile))
+    return MediumTailPlan("layers", 0, 6, 0)
+
+
 def _hwio(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     """OIHW -> a fresh contiguous HWIO tensor in `dtype`."""
     return w.detach().permute(2, 3, 1, 0).to(
@@ -145,13 +180,16 @@ def fold_medium_tail(model, dtype: torch.dtype) -> MediumTailWeights:
     up_w = phases.detach().reshape(4, 4, 4 * c, c).to(dtype).contiguous()
     res_a, res_b, head2 = layer(res.conv1), layer(res.conv2), layer(model.output_conv[1])
     head1_d2, head1_f0 = _hwio(wa, dtype), _hwio(wb, dtype)
+    out = (_hwio(out_conv.weight.float(), dtype), _shift(out_conv.bias))
+    group = medium_tail_plan(c, dtype).head == "group"
     return MediumTailWeights(
         up=up_w, up_shift=_shift(t_up), res_a=res_a, res_b=res_b,
         head1_d2=head1_d2, head1_f0=head1_f0, head1_shift=_shift(t1), head2=head2,
-        out=(_hwio(out_conv.weight.float(), dtype), _shift(out_conv.bias)),
+        out=out,
         packed=TrunkPacked(
             packed_for_kernel(up_w, 2),
-            *(packed_for_kernel(w) for w in (res_a[0], res_b[0], head1_d2, head1_f0, head2[0]))))
+            *(packed_for_kernel(w) for w in (res_a[0], res_b[0], head1_d2, head1_f0, head2[0]))),
+        head_group=pack_group([head2, out]) if group else None)
 
 
 @torch.no_grad()
@@ -173,7 +211,9 @@ def fold_high_tail(model, dtype: torch.dtype) -> HighTailWeights:
         attn_stencil=stencil.to(dtype).float().contiguous())
     guidance2 = layer(guidance[1])
     return HighTailWeights(
-        trunk=fold_medium_tail(model, dtype), guidance1=layer(guidance[0]),
+        # K4 runs its own last layer (the guidance epilogue): no head group.
+        trunk=fold_medium_tail(model, dtype)._replace(head_group=None),
+        guidance1=layer(guidance[0]),
         guidance2=guidance2, guidance2_packed=packed_for_kernel(guidance2[0]),
         guidance_out_w=guidance[2].weight.detach().float().reshape(-1).clone(),
         guidance_out_b=float(guidance[2].bias.detach().float()), **attn_kwargs)
@@ -194,12 +234,16 @@ def _trunk_front_reference(d1, wt: MediumTailWeights):
     return torch.relu(_conv_ref(y, wt.res_b[0]) + _sh(wt.res_b[1]) + d2.float()).to(dt)
 
 
+def _head1_reference(d2, f0, wt: MediumTailWeights):
+    """The first head conv on [d2, f0], rounded to the compute dtype."""
+    return torch.relu(_conv_ref(d2, wt.head1_d2) + _conv_ref(f0, wt.head1_f0)
+                      + _sh(wt.head1_shift)).to(wt.dtype)
+
+
 def _trunk_heads_reference(d2, f0, wt: MediumTailWeights):
     """tanh(output_conv([d2, f0])) in f32."""
-    dt = wt.dtype
-    h = torch.relu(_conv_ref(d2, wt.head1_d2) + _conv_ref(f0, wt.head1_f0)
-                   + _sh(wt.head1_shift)).to(dt)
-    h = torch.relu(_conv_ref(h, wt.head2[0]) + _sh(wt.head2[1])).to(dt)
+    h = _head1_reference(d2, f0, wt)
+    h = torch.relu(_conv_ref(h, wt.head2[0]) + _sh(wt.head2[1])).to(wt.dtype)
     return torch.tanh(_conv_ref(h, wt.out[0]) + _sh(wt.out[1]))
 
 
@@ -217,6 +261,40 @@ def medium_tail_chain_reference(d1, f0, x, wt: MediumTailWeights) -> torch.Tenso
     d2 = _trunk_front_reference(_nchw(d1, dt), wt)
     res = _trunk_heads_reference(d2, _nchw(f0, dt), wt)
     out = torch.clamp(_nchw(x, dt).float() + res, 0.0, 1.0)
+    return out.permute(0, 2, 3, 1).contiguous()
+
+
+def _valid(a: torch.Tensor, layer: Layer) -> torch.Tensor:
+    """3x3 conv without padding + shift, summed in f32. a NCHW."""
+    w, t = layer
+    return F.conv2d(a.float(), w.float().permute(3, 2, 0, 1)) + _sh(t)
+
+
+def medium_tail_chain_tiled_reference(d1, f0, x, wt: MediumTailWeights,
+                                      tile: int) -> torch.Tensor:
+    """K3 with its head group's geometry in plain PyTorch, in the weights'
+    dtype: the trunk and the first head conv as `medium_tail_chain_reference`
+    runs them, then head2 and the output conv over `tile` x `tile` output
+    tiles as the group runs them. A tile stages h1 with a halo of 2 (zero
+    outside the image), computes head2 without padding on the (tile + 2)^2
+    ring, rounds it to the compute dtype and stores 0 at the ring's
+    positions outside the image (the output conv pads with zeros there, not
+    with relu(shift)), then the output conv, tanh, x + res and the clip, and
+    writes only its own positions. Equal to `medium_tail_chain_reference` up
+    to the order of the f32 sums: a recomputed ring position sees the same
+    operands as its owner's."""
+    dt = wt.dtype
+    h1 = _head1_reference(_trunk_front_reference(_nchw(d1, dt), wt), _nchw(f0, dt), wt)
+    xin = _nchw(x, dt)
+    n, _, h, w = h1.shape
+    out = torch.empty((n, 3, h, w), dtype=torch.float32, device=h1.device)
+    for ty0 in range(0, h, tile):
+        for tx0 in range(0, w, tile):
+            mid = torch.relu(_valid(window(h1, ty0 - 2, tx0 - 2, tile + 4), wt.head2)).to(dt)
+            mid = zero_outside(mid, ty0 - 1, tx0 - 1, h, w)
+            res = torch.tanh(_valid(mid, wt.out))
+            o = torch.clamp(window(xin, ty0, tx0, tile).float() + res, 0.0, 1.0)
+            out[:, :, ty0:ty0 + tile, tx0:tx0 + tile] = o[:, :, :h - ty0, :w - tx0]
     return out.permute(0, 2, 3, 1).contiguous()
 
 
@@ -292,6 +370,15 @@ class _Launcher:
             guidance_b, out.data_ptr(), n, hh, wd, self.bf16, self.stream),
             "tail_conv_final")
 
+    def head_group(self, h1, group, x, out) -> None:
+        """K3's head group: h1 -> out through head2, the output conv, tanh,
+        x + res and the clip; x f32."""
+        n, hh, wd, c = h1.shape
+        wp, shifts = group
+        self.done(self.lib.tail_head_group(
+            x.data_ptr(), h1.data_ptr(), wp.data_ptr(), shifts.data_ptr(), out.data_ptr(),
+            n, hh, wd, c, self.stream), "tail_head_group")
+
 
 def weight_tensors(weights) -> List[torch.Tensor]:
     """Every tensor of a (nested) tuple of folded weights."""
@@ -328,10 +415,15 @@ def _trunk_front(run: _Launcher, d1, wt: MediumTailWeights, d2, tmp) -> None:
              packed=wt.packed.res_b)
 
 
+def _head1(run: _Launcher, d2, f0, wt: MediumTailWeights, out) -> None:
+    """The first head conv on [d2, f0] -> out (N, H, W, c)."""
+    run.conv(d2, wt.head1_d2, wt.head1_shift, out, src2=f0, w2=wt.head1_f0,
+             packed=wt.packed.head1_d2, packed2=wt.packed.head1_f0)
+
+
 def _trunk_heads(run: _Launcher, d2, f0, wt: MediumTailWeights, tmp):
     """The two head convs; returns the (N, H, W, c/2) activation."""
-    run.conv(d2, wt.head1_d2, wt.head1_shift, tmp, src2=f0, w2=wt.head1_f0,
-             packed=wt.packed.head1_d2, packed2=wt.packed.head1_f0)
+    _head1(run, d2, f0, wt, tmp)
     n, h, wd, c = d2.shape
     h2 = torch.empty((n, h, wd, c // 2), dtype=d2.dtype, device=d2.device)
     run.conv(tmp, wt.head2[0], wt.head2[1], h2, packed=wt.packed.head2)
@@ -343,21 +435,30 @@ def medium_tail_chain(d1: torch.Tensor, f0: torch.Tensor, x: torch.Tensor,
     """The medium branch after the d1 concat. d1 (N, H/2, W/2, 4c) is
     cat([decoder[0] output, e1]), f0 (N, H, W, c) the stem features, x
     (N, H, W, 3) the input image, all NHWC; returns (N, H, W, 3) f32. CPU
-    tensors take the plain version; CUDA tensors launch the kernels (6
-    launches) or raise."""
+    tensors take the plain version; CUDA tensors launch the kernels
+    (`medium_tail_plan`: 5 launches with the head group, 6 without) or
+    raise."""
     if x.device.type == "cpu":
         return medium_tail_chain_reference(d1, f0, x, weights)
     name = "medium_tail_chain"
     n, h, wd, c = _require_tail_inputs(name, d1, f0, x, weights)
     dt = weights.dtype
+    plan = medium_tail_plan(c, dt)
     run = _Launcher(medium_tail_chain, x.device, dt == torch.bfloat16)
-    d1, f0, xin = (t.to(dt).contiguous() for t in (d1, f0, x))
+    d1, f0 = (t.to(dt).contiguous() for t in (d1, f0))
     d2 = torch.empty((n, h, wd, c), dtype=dt, device=x.device)
     tmp = torch.empty_like(d2)
     out = torch.empty((n, h, wd, 3), dtype=torch.float32, device=x.device)
     _trunk_front(run, d1, weights, d2, tmp)
-    h2 = _trunk_heads(run, d2, f0, weights, tmp)
-    run.final(h2, weights.out, xin, out)
+    if plan.head == "group":
+        _build.require(weights.head_group is not None
+                       and weights.head_group[0].data_ptr() % 16 == 0, name,
+                       "the head group needs the packed weights of fold_medium_tail")
+        _head1(run, d2, f0, weights, tmp)
+        run.head_group(tmp, weights.head_group, x.float().contiguous(), out)
+    else:
+        h2 = _trunk_heads(run, d2, f0, weights, tmp)
+        run.final(h2, weights.out, x.to(dt).contiguous(), out)
     return out
 
 
@@ -422,6 +523,6 @@ def high_tail_chain(d1: torch.Tensor, f0: torch.Tensor, x: torch.Tensor,
 
 high_tail_chain.launches = 0
 
-# Kernel launches per call on a CUDA tensor (K4's twelfth is K2').
-MEDIUM_TAIL_LAUNCHES = 6
+# K4's kernel launches per call on a CUDA tensor (its twelfth is K2'); K3's
+# are `medium_tail_plan(c, dtype).launches`.
 HIGH_TAIL_LAUNCHES = 11

@@ -82,6 +82,20 @@ class LightweightChainApply(nn.Module):
         return lightweight_chain(x.float(), self.chain)
 
 
+class ModulePathApply(nn.Module):
+    """The low branch's `canonical` serving candidate: a serving copy (as
+    `cast_for_serving` makes it) run through its modules, never kernel K1,
+    as the JAX package's `canonical` is the plain `model.apply`.
+    x (N, H, W, 3) float -> (N, H, W, 3) float32."""
+
+    def __init__(self, model: LightweightDehazeModel, dtype: torch.dtype):
+        super().__init__()
+        self.model = cast_for_serving(model, dtype)
+
+    def forward(self, x):
+        return self.model.module_forward(x)
+
+
 def cast_for_serving(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """An eval-mode copy of `module` whose conv and linear weights are in
     `dtype`; BN and other parameters (skip_alpha) stay float32. The

@@ -52,11 +52,15 @@ class AdaptiveDehazer:
     winners' times to the engine's chunk planner."""
 
     # What one more bucket of each branch costs, in ms: the part of a branch
-    # call that does not grow with its rows (the host's enqueue of its
-    # launches). Measured by chip_smoke.py (its [dispatch] lines) on an
-    # NVIDIA H100 80GB HBM3 at 700 W: bf16, 256^2, the default dispatch's
-    # applies, which are also the tuner's winners there.
-    DISPATCH_MS = {"low": 0.22, "medium": 1.23, "high": 2.26}
+    # call that does not grow with its rows (mostly the host's enqueue of
+    # its launches). `_chunk_costs` subtracts it from the tuned winner's
+    # time, so it is read on the winners: chip_smoke.py's [dispatch tuned
+    # bf16] lines (the intercept of the winner's warm time over 1-32 rows),
+    # on an NVIDIA H100 80GB HBM3 at 700 W, bf16, 256^2, where the winners
+    # are chain, tail_chain (K3 and the canonical prefix) and
+    # res_e2b_tail_chain (K6 and K4, 32 launches); the median of three runs.
+    # Hosts spread about 2x (PERF.md).
+    DISPATCH_MS = {"low": 0.19, "medium": 2.79, "high": 2.78}
 
     def __init__(self, router, variables, config, device="cuda",
                  autotune: bool = False, autotune_cache: Optional[str] = None):

@@ -18,8 +18,9 @@ or through the serving API:
 Candidates, all held to the canonical forward by the tests:
 
 - `canonical` for every branch: the eval forward on a serving copy (conv
-  and linear weights cast to the compute dtype). On a CUDA tensor the low
-  branch's canonical forward itself runs kernel K1, folding on every call;
+  and linear weights cast to the compute dtype), through the branch's
+  modules (cuDNN on a CUDA device); for the low branch that is
+  `module_forward` (`serving_apply.ModulePathApply`), never kernel K1;
 - `chain` for the low branch: kernel K1 on weights folded once;
 - `tail_chain` for the medium and the high branch: the prefix canonical,
   everything after the d1 concat on kernel K3 or K4 (the JAX package's
@@ -37,13 +38,15 @@ by `chain_supported` and `chain_apply_supported` (`tail_supported`,
 `res_chain_supported`). A kernel candidate that is offered and then fails
 to build, to launch or to run raises out of the tuner: the port never gives
 way to `canonical` behind a broken kernel. The cache key holds the device,
-the torch version, the model class, the width, the dtype and the sample
-shape; a cache hit skips all timing.
+the torch version, the model class, the width, the dtype, the sample shape
+and, on a CUDA device, the hash of the kernels' sources
+(`_build._source_hash`), since their speed moves with the sources as a
+compiler's does with its version; a cache hit skips all timing.
 
-On the NVIDIA H100 80GB HBM3 `canonical` (cuDNN) wins the medium and the
-high branch and `chain` the low one (PERF.md), which is the dispatch
-`make_router_serving_apply` builds without tuning: there the tuner is the
-harness that holds K3, K4 and K6 beside cuDNN, not a faster way to serve.
+On the NVIDIA H100 80GB HBM3 in bf16 the kernel candidates win every branch:
+`chain`, `tail_chain` and `res_e2b_tail_chain` (PERF.md). The dispatch that
+`make_router_serving_apply` builds without tuning is still `chain` /
+`canonical` / `canonical`, so tuning serves faster there.
 """
 from __future__ import annotations
 
@@ -60,6 +63,7 @@ from adam_dehaze_tpu_torch.models.branches import (
     MediumIntensityDehazeModel,
 )
 from adam_dehaze_tpu_torch.ops import serving_apply
+from adam_dehaze_tpu_torch.ops.kernels import _build
 from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import chain_supported
 
 
@@ -85,9 +89,9 @@ def candidate_builders(model, dtype: torch.dtype,
     A kernel candidate is offered only where its kernel takes the model's
     width and depth, the dtype and (when given) the sample's height and
     width; a shape it refuses is no candidate at all."""
-    cands: Dict[str, Callable] = {
-        "canonical": lambda: serving_apply.cast_for_serving(model, dtype),
-    }
+    canonical = (serving_apply.ModulePathApply if isinstance(model, LightweightDehazeModel)
+                 else serving_apply.cast_for_serving)
+    cands: Dict[str, Callable] = {"canonical": lambda: canonical(model, dtype)}
     if _device_of(model).type != "cuda":
         return cands
     _, h, w, _ = sample_shape or (1, 4, 4, 3)
@@ -107,15 +111,17 @@ def candidate_builders(model, dtype: torch.dtype,
 
 def _cache_key(model, dtype: torch.dtype, sample_shape) -> str:
     device = _device_of(model)
-    # The device name tells GPU generations apart and the torch version a
-    # change of cuDNN or of the compiler: a cached winner is as stale across
-    # either as across backends.
-    kind = (torch.cuda.get_device_name(device).replace(" ", "_")
-            if device.type == "cuda" else "cpu")
+    # The device name tells GPU generations apart, the torch version a
+    # change of cuDNN, and the sources' hash a change of the port's own
+    # kernels: a cached winner is as stale across any of them as across
+    # backends.
+    cuda = device.type == "cuda"
+    kind = torch.cuda.get_device_name(device).replace(" ", "_") if cuda else "cpu"
     shape = "x".join(str(int(s)) for s in sample_shape)
+    kernels = f":kernels{_build._source_hash()}" if cuda else ""
     return (f"{device.type}:{kind}:torch{torch.__version__}:"
             f"{type(model).__name__}:{getattr(model, 'base_channels', 0)}:"
-            f"{str(dtype).replace('torch.', '')}:{shape}")
+            f"{str(dtype).replace('torch.', '')}:{shape}{kernels}")
 
 
 def _read_cache(cache_path: Optional[str]) -> Dict:

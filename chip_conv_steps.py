@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
-"""What each part of the wgmma conv body, and of K1's fused groups, gives, on
-one GPU.
+"""What each part of the wgmma conv body, of K1's fused groups and of K3's
+head group and trunk plan gives, on one GPU.
 
-    python3 chip_conv_steps.py [conv] [k1]
+    python3 chip_conv_steps.py [conv] [k1] [k3]
 
-With no argument both sections run.
+With no argument every section runs.
 
 The bf16 body of csrc/conv_tile.cu is wgmma on large tiles fed by an
 asynchronous ring. This script times four conv layers of the main path
@@ -36,6 +36,16 @@ would take on the shared conv body without fusion, its first and last layer
 not counted); other tiles and warpgroup counts; and two diagnostics that compute wrong results on
 purpose: "no products" (staging, barriers and epilogues only) and "no
 staging" (products and epilogues on whatever the buffers hold).
+
+The K3 section times the medium tail (c = 64, bf16, batch 16 at 256^2):
+K3 whole and its head group alone beside the two launches the group
+replaced (head2 on the conv body, the last layer on the FMA body), the group
+without its products or its staging (wrong results, timed only); then the
+64-wide trunk layers, with K4's two layers that fall under the same plan,
+and K3 whole under the plan as it is (two blocks an SM: three slots for the
+3x3 64-wide layers) and under four slots at every width (one block of the
+3x3 64-wide layers an SM, the plan before the three-slot ring). Each plan
+prints the blocks an SM the occupancy API gives each layer's kernel.
 """
 import shutil
 import sys
@@ -98,16 +108,31 @@ TIMED_ONLY = ("products only", "copies only")
 
 
 def make_layer(name, dev, gen):
-    side, c0, _, cout, ksize = cs.CONV_LAYERS[name]
+    side, c0, c1, cout, ksize = cs.CONV_LAYERS[name]
     taps = (3, 3) if ksize == 3 else (4, 4)
-    x = torch.relu(torch.randn(cs.BATCH, side, side, c0, generator=gen)).to(dev).bfloat16()
-    w = (torch.randn(*taps, c0, cout, generator=gen) * (9 * c0) ** -0.5).to(dev).bfloat16()
+
+    def draw(c):
+        x = torch.relu(torch.randn(cs.BATCH, side, side, c, generator=gen)).to(dev).bfloat16()
+        w = torch.randn(*taps, c, cout, generator=gen) * (9 * (c0 + c1)) ** -0.5
+        return x, w.to(dev).bfloat16()
+    x, w = draw(c0)
     shift = (torch.randn(cout, generator=gen) * 0.1).to(dev)
+    args = dict(x=x, w=w, shift=shift, ksize=ksize)
+    if c1:
+        args["x2"], args["w2"] = draw(c1)
     with torch.inference_mode():
-        want = conv_tile_reference(x, w, shift, ksize=ksize)
+        want = conv_tile_reference(**args)
     flops = cs.conv_flops(cs.BATCH * side * side, ksize * ksize * (4 if ksize == 2 else 1),
-                          c0, cout)
-    return dict(x=x, w=w, shift=shift, ksize=ksize), want, flops
+                          c0 + c1, cout)
+    return args, want, flops
+
+
+def packs(args):
+    """The packed weights of a layer, as the folds hand them to conv_tile."""
+    out = dict(packed=pack_conv_weights(args["w"], args["ksize"]))
+    if "w2" in args:
+        out["packed2"] = pack_conv_weights(args["w2"], args["ksize"])
+    return out
 
 
 # K1 variants: name -> (edits of lightweight_chain.cu, tile sides the Python
@@ -227,8 +252,100 @@ def k1_section(dev, gen):
     _build.library.cache_clear()
 
 
+# K3: the trunk layers under each plan, and the head group's variants.
+K3_LAYERS = ("K3 up 128^2 256->64", "K3 256^2 64->64", "K3 256^2 [64+64]->64",
+             "K3 256^2 64->32", "K4 256^2 96->48", "K4 256^2 16->16")
+_TWO_BLOCKS = "constexpr bool wg_two_blocks(int n, int ks) { return n <= 64; }"
+_ONE_BLOCK = "constexpr bool wg_two_blocks(int n, int ks) { return false; }"
+K3_PLANS = {
+    "as it is: two blocks an SM (three slots at 64 wide, 3x3)": [],
+    "four slots at every width (one block an SM at 64 wide, 3x3)": [(_TWO_BLOCKS, _ONE_BLOCK)],
+}
+K3_GROUP_VARIANTS = {
+    "as it is": [],
+    "no products": [_K1_NO_PRODUCTS],
+    "no staging": [("        cp_async16(b1 + v * pl4 + p * 16, src, ok ? 16 : 0);\n", "")],
+}
+
+
+def built_from(edits, tmp, tag):
+    """Load the library built from csrc/ with `edits` ({file: [(old, new)]})."""
+    csrc = Path(tmp) / tag
+    shutil.copytree(_ORIGINAL, csrc)
+    for fname, pairs in edits.items():
+        text = (csrc / fname).read_text()
+        for old, new in pairs:
+            cs.check(old in text, f"{tag}: its text is not in {fname}")
+            text = text.replace(old, new)
+        (csrc / fname).write_text(text)
+    _build.CSRC = csrc
+    _build.library.cache_clear()
+
+
+def k3_section(dev, gen):
+    from adam_dehaze_tpu_torch.ops.kernels import tail_chain as tc
+    model = cs.perturb_bn_(cs.init_params_(cs.MediumIntensityDehazeModel(64), gen), gen)
+    wbf = cs.fold_medium_tail(model.eval().to(dev), torch.bfloat16)
+    n, side, c = cs.BATCH, cs.SIZE, 64
+    d1 = torch.relu(torch.randn(n, side // 2, side // 2, 4 * c, generator=gen)).to(dev).bfloat16()
+    f0 = torch.relu(torch.randn(n, side, side, c, generator=gen)).to(dev).bfloat16()
+    h1 = torch.relu(torch.randn(n, side, side, c, generator=gen)).to(dev).bfloat16()
+    x = torch.rand(n, side, side, 3, generator=gen).to(dev)
+    out = torch.empty(n, side, side, 3, device=dev)
+    with torch.inference_mode():
+        want = cs.medium_tail_chain_reference(d1, f0, x, wbf)
+    layers = {name: make_layer(name, dev, gen) for name in K3_LAYERS}
+
+    def head_group():
+        tc._Launcher(tc.medium_tail_chain, dev, True).head_group(h1, wbf.head_group, x, out)
+
+    def head_layers():
+        run = tc._Launcher(tc.medium_tail_chain, dev, True)
+        h2 = torch.empty(n, side, side, c // 2, dtype=torch.bfloat16, device=dev)
+        run.conv(h1, wbf.head2[0], wbf.head2[1], h2, packed=wbf.packed.head2)
+        run.final(h2, wbf.out, x.bfloat16(), out)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (variant, edits) in enumerate(K3_GROUP_VARIANTS.items()):
+            built_from({"lightweight_chain.cu": edits}, tmp, f"g{i}")
+            with torch.inference_mode():
+                err = cs.max_err(cs.medium_tail_chain(d1, f0, x, wbf), want)
+                ms = cs.cuda_ms(lambda: cs.medium_tail_chain(d1, f0, x, wbf))
+                group_ms = cs.cuda_ms(head_group)
+                extra = (f"; the two launches it replaced (head2 on the conv body, the last "
+                         f"layer on the FMA body) {cs.cuda_ms(head_layers):.3f} ms"
+                         if not edits else "")
+            cs.log(f"[k3 steps] head group {variant}: K3 {ms:.3f} ms, err vs bf16 plain "
+                   f"{err:.3e}; the group alone {group_ms:.3f} ms{extra}")
+            cs.check(edits or err <= cs.TAIL_BF16_ATOL, f"{variant}: K3 disagrees with plain")
+        for i, (variant, edits) in enumerate(K3_PLANS.items()):
+            built_from({"conv_tile.cu": edits}, tmp, f"p{i}")
+            lib = _build.library()
+            for name, (args, want_l, flops) in layers.items():
+                o = torch.empty_like(want_l)
+                packed = packs(args)
+                with torch.inference_mode():
+                    err = cs.scaled_err(conv_tile(out=o, **packed, **args), want_l)
+                    ms = cs.cuda_ms(lambda: conv_tile(out=o, **packed, **args))
+                resident = lib.conv_tile_blocks_per_sm(args["w"].shape[-1], args["ksize"])
+                cs.log(f"[k3 steps] {variant}: {name}: {ms:.3f} ms "
+                       f"({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s), {resident} blocks an SM by "
+                       f"the occupancy API, err {err:.3e}")
+                cs.check(err <= cs.CONV_BF16_RTOL, f"{variant}: {name} disagrees with plain")
+            with torch.inference_mode():
+                err = cs.max_err(cs.medium_tail_chain(d1, f0, x, wbf), want)
+                ms = cs.cuda_ms(lambda: cs.medium_tail_chain(d1, f0, x, wbf))
+            cs.log(f"[k3 steps] {variant}: K3 {ms:.3f} ms, err vs bf16 plain {err:.3e}")
+            cs.check(err <= cs.TAIL_BF16_ATOL, f"{variant}: K3 disagrees with plain")
+    _build.CSRC = _ORIGINAL
+    _build.library.cache_clear()
+
+
+_ORIGINAL = _build.CSRC
+
+
 def main():
-    sections = sys.argv[1:] or ["conv", "k1"]
+    sections = sys.argv[1:] or ["conv", "k1", "k3"]
     cs.phase_device()
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(cs.SEED)
@@ -236,6 +353,8 @@ def main():
         k1_section(dev, gen)
     if "conv" in sections:
         conv_section(dev, gen)
+    if "k3" in sections:
+        k3_section(dev, gen)
 
 
 def conv_section(dev, gen):
@@ -255,10 +374,10 @@ def conv_section(dev, gen):
             conv_tile_module.WGMMA_COUT_CHUNKS = CHUNKS.get(variant, chunks)
             for name, (args, want, flops) in layers.items():
                 out = torch.empty_like(want)
-                packed = pack_conv_weights(args["w"], args["ksize"])
+                packed = packs(args)
                 with torch.inference_mode():
-                    err = cs.scaled_err(conv_tile(out=out, packed=packed, **args), want)
-                    ms = cs.cuda_ms(lambda: conv_tile(out=out, packed=packed, **args))
+                    err = cs.scaled_err(conv_tile(out=out, **packed, **args), want)
+                    ms = cs.cuda_ms(lambda: conv_tile(out=out, **packed, **args))
                 cs.log(f"[steps] {variant}: {name}: {ms:.3f} ms "
                        f"({flops / (ms * 1e-3) / 1e12:.1f} TFLOP/s), err {err:.3e}")
                 cs.check(variant in TIMED_ONLY or err <= cs.CONV_BF16_RTOL,

@@ -3,9 +3,9 @@
 
     python3 chip_mutation_check.py
 
-The bf16 kernels K3 and K4 are held against their bf16 plain versions at
-TAIL_BF16_ATOL, K6 at RES_BF16_RTOL, K1's fused body at K1_BF16_ATOL with
-alpha 1, and K2's statistics pass against `padded_stats` at MAPS_ATOL
+The bf16 kernels K3 (its head group included) and K4 are held against
+their bf16 plain versions at TAIL_BF16_ATOL, K6 at RES_BF16_RTOL, K1's fused
+body at K1_BF16_ATOL with alpha 1, and K2's statistics pass against `padded_stats` at MAPS_ATOL
 (chip_smoke.py, tests/test_torch_cuda.py). This script shows that the bounds see a broken
 kernel: for each mutation it copies csrc/ to a temporary directory, breaks
 the copy by a text substitution, builds it, and measures the broken kernels
@@ -74,23 +74,44 @@ TIGHT = {"K1": K1_BF16_ATOL, "K3": TAIL_BF16_ATOL, "K4": TAIL_BF16_ATOL,
 K6_KINDS = ("res", "res", "attn", "res", "attn")
 
 # name -> (file, text to find, replacement). Every occurrence is replaced.
+# The fused-group body serves K1's groups and K3's head group: a mutation of
+# its shared lines reaches both; those for the head group alone name its
+# middle layer by its template arguments (64 -> 32: N 32, four k16 steps,
+# which no layer of K1 has) or its epilogue (kTanhOut). The three-slot ring
+# of the conv body serves K3's 64-wide 3x3 trunk layers.
 MUTATIONS = {
-    "last tap dropped (K1's fused body)": (
+    "last tap dropped (the fused-group body)": (
         "lightweight_chain.cu", "    for (int tap = 0; tap < TAPS; ++tap) {",
         "    for (int tap = 0; tap < (TAPS == 9 ? 8 : 1); ++tap) {"),
-    "skip add dropped (K1's fused body)": (
+    "skip add dropped (K1's residual groups)": (
         "lightweight_chain.cu",
         "          const float v0 = fmaxf(acc[4 * j + 2 * h] + sh[j].x + sk.x, 0.f);\n"
         "          const float v1 = fmaxf(acc[4 * j + 2 * h + 1] + sh[j].y + sk.y, 0.f);\n",
         "          const float v0 = fmaxf(acc[4 * j + 2 * h] + sh[j].x + 0.f * sk.x, 0.f);\n"
         "          const float v1 = fmaxf(acc[4 * j + 2 * h + 1] + sh[j].y + 0.f * sk.y, 0.f);\n"),
-    "ring positions outside the image not stored as 0 (K1's fused body)": (
+    "ring positions outside the image not stored as 0 (the fused-group body)": (
         "lightweight_chain.cu",
         "          if (!r.inside[h]) v0 = v1 = 0.f;   // the next conv pads with zeros outside "
         "the image\n", ""),
-    "a group's last layer reads its middle layer's weights (K1's fused body)": (
+    "a group's last layer reads its middle layer's weights (the fused-group body)": (
         "lightweight_chain.cu", " io.b_base = w_addr + kW0 + kLayerBytes;",
         " io.b_base = w_addr + kW0;"),
+    "head2's last tap dropped (K3's head group)": (
+        "lightweight_chain.cu", "    for (int tap = 0; tap < TAPS; ++tap) {",
+        "    for (int tap = 0; tap < (N == 32 && KSTEPS == 4 ? TAPS - 1 : TAPS); ++tap) {"),
+    "ring positions outside the image not stored as 0 (K3's head group)": (
+        "lightweight_chain.cu",
+        "          if (!r.inside[h]) v0 = v1 = 0.f;   // the next conv pads with zeros outside "
+        "the image\n",
+        "          if (!r.inside[h] && !(N == 32 && KSTEPS == 4)) v0 = v1 = 0.f;\n"),
+    "tanh dropped (K3's head group)": (
+        "lightweight_chain.cu", "              const float res = tanhf(v);",
+        "              const float res = v;"),
+    "the image read one pixel off (K3's head group)": (
+        "lightweight_chain.cu",
+        "          r.image[h][k] = r.ok[h] && 2 * l + k < 3 ? g.x[r.pix[h] * 3 + 2 * l + k] : 0.f;",
+        "          r.image[h][k] = r.ok[h] && 2 * l + k < 3\n"
+        "              ? g.x[(r.pix[h] - (EPI == kTanhOut && r.pix[h] > 0)) * 3 + 2 * l + k] : 0.f;"),
     "max map not reduced across the sub-group (K2's statistics pass)": (
         "cbam_gate.cu", "      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));\n", ""),
     "last tap dropped (wgmma body)": (
@@ -114,6 +135,10 @@ MUTATIONS = {
         "conv_tile.cu",
         "    cp_async_wait<kWgStages - 3>();   // stage `it` has landed (this thread's part)\n",
         ""),
+    "the three-slot ring's cp.async wait removed (K3's 64-wide trunk layers)": (
+        "conv_tile.cu",
+        "    cp_async_wait<kWgStages - 3>();   // stage `it` has landed (this thread's part)\n",
+        "    if (kWgStages != 3) cp_async_wait<kWgStages - 3>();\n"),
     "guidance fixed at 1": (
         "conv_tile.cu", "      gd = 1.f / (1.f + expf(-d));", "      gd = 1.f;"),
     "channel gate dropped (K4's gated pass)": (

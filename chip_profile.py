@@ -8,7 +8,12 @@ Profiles, each over 3 warm calls at the sizes of chip_smoke.py (16 images at
 
 - the low-branch chain K1 alone, so that each fused group shows, and the
   canonical high branch alone, so that K2's two passes show beside cuDNN;
-- the tail chains K3 and K4 alone, so that each stage's kernel shows;
+- the soft blend K5 alone at (16, 256, 256, 3) in fp32 and in bf16: its
+  device time, which CUDA events around back-to-back launches through
+  Triton's launcher do not read apart from the host's;
+- the tail chains K3 and K4 alone, so that each stage's kernel shows (K3's
+  head group as `lightweight_group_kernel<64, 3>`, its trunk layers as
+  `conv_tile_wgmma_kernel<N, taps, slots>`);
 - the segment chain K6 alone at the high branch's 64^2 x 384 segment and at
   the medium branch's 128^2 x 128 one;
 - route_hard and soft routing under the default dispatch, under the forced
@@ -77,6 +82,13 @@ def main():
         profiled("K1 lightweight_chain", lambda: cs.lightweight_chain(x, chain))
         profiled("canonical high branch", lambda: high(x))
     del x, high
+    ys = [torch.rand(cs.BATCH, cs.SIZE, cs.SIZE, 3, generator=own).to(dev) for _ in range(3)]
+    wts = torch.softmax(torch.randn(cs.BATCH, 3, generator=own), dim=1).to(dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        imgs = [y.to(dtype) for y in ys]
+        with torch.inference_mode():
+            profiled(f"K5 blend3 {str(dtype)[6:]}", lambda: cs.blend3(wts, *imgs))
+    del ys, imgs
 
     for name, cls, c, fold_fn, tail in (
             ("K3 medium_tail_chain", cs.MediumIntensityDehazeModel, 64,
@@ -111,7 +123,7 @@ def main():
                                               dtype=np.float32)
     cfg = load_config()
     with tempfile.TemporaryDirectory() as tmp:
-        (tail_cache, res_cache), _ = cs.tune_then_force(
+        (tail_cache, res_cache), _, _ = cs.tune_then_force(
             router, cfg, dev, tmp, "bf16", (cs.TAIL_FORCED, cs.RES_FORCED))
         for tag, kwargs in (("default", {}),
                             ("tail_chain", dict(autotune=True, autotune_cache=tail_cache)),

@@ -28,28 +28,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    and plain version, for K3, K4 and K6 the time of the same stage on the
    serving copy's canonical modules (cuDNN), and each kernel's bound: the
    larger of its bytes over the card's memory rate and its operations over
-   the card's peak rate, counted from this run's shapes.
+   the card's peak rate, counted from this run's shapes. The conv-layer
+   table also prints each layer's plan (ring slots, blocks an SM) and the
+   blocks an SM the occupancy API gives its kernel; K3 its plan (in bf16
+   at c=64 the head group, its tile and shared memory: 5 launches).
 4. Slice, default dispatch: the full-width default router (resnet18, low
    c=32, medium c=64, high c=96) with seeded random weights behind an
    AdaptiveDehazer in bf16, 16 images at 256^2: route_hard, the engine with
    forced labels cycling 0, 1, 2 (so every branch runs), and soft routing.
    Outputs must be finite and in [0, 1], and the launch counters, set to 0
    just before, must show that the runs went through K1 (4 launches per
-   low bucket in bf16), K2 (6 launches per high-branch call) and K5. Prints the warm ms/image of route_hard and
-   soft, and what one more bucket of each branch costs the engine (the
-   intercept of the branch apply's time over its rows), beside the
-   constants the chunk planner is fed under autotune
-   (AdaptiveDehazer.DISPATCH_MS).
+   low bucket in bf16), K2 (6 launches per high-branch call) and K5. Prints
+   the warm ms/image of route_hard (the classifier's labels: with this seed
+   all 16 images route medium), of the forced-label engine (labels cycling
+   0, 1, 2: the one hard-routing reading that runs every branch) and of soft
+   routing, and what one more bucket of each branch costs the engine (the
+   intercept of the branch apply's time over its rows).
 5. Tune: a dehazer with autotune=True and a fresh cache file times every
    candidate of the three branches at (16, 256, 256, 3) and prints the
-   tables (no candidate may fail). The two forced paths below share this
-   one tuning run (each used to tune for itself).
+   tables (no candidate may fail; the low `canonical` must launch no K1).
+   The cost of one more bucket is read again on the tuned winners: the
+   chunk planner subtracts AdaptiveDehazer.DISPATCH_MS from the winners'
+   times, so those intercepts are the ones it stands for, and they are
+   printed beside it. The two forced paths below share this one tuning run.
 6. Slice, tail-chain dispatch: a dehazer whose cache names chain /
    tail_chain / tail_chain runs the same three calls. The counters, set to
    0 just before, must show K3 and K4 launched once per medium and high
-   bucket (6 and 11 launches), K2' once and K2 5 times per high bucket; the
-   outputs must agree with phase 4's within 3e-2. Prints the warm ms/image
-   beside phase 4's.
+   bucket (5 and 11 launches in bf16), K2' once and K2 5 times per high
+   bucket; the outputs must agree with phase 4's within 3e-2. Prints the
+   warm ms/image of the three calls beside phase 4's.
 7. Slice, res-chain dispatch: the same under chain / chain_hybrid /
    res_e2b_tail_chain: K6 must show 14 launches per medium bucket and 17
    per high bucket, K4 11 and K2' 1 per high bucket, K2 5 (3 inside K6, 2
@@ -126,17 +133,18 @@ from adam_dehaze_tpu_torch.ops.kernels.res_chain import (
 )
 from adam_dehaze_tpu_torch.ops.kernels.tail_chain import (
     HIGH_TAIL_LAUNCHES,
-    MEDIUM_TAIL_LAUNCHES,
     fold_high_tail,
     fold_medium_tail,
     high_tail_chain,
     high_tail_chain_reference,
     medium_tail_chain,
     medium_tail_chain_reference,
+    medium_tail_plan,
     weight_tensors,
 )
 from adam_dehaze_tpu_torch.ops.serving_apply import cast_for_serving
 from adam_dehaze_tpu_torch.serving import AdaptiveDehazer
+from adam_dehaze_tpu_torch.serving_autotune import candidate_builders
 from adam_dehaze_tpu_torch.tools import probe_ops
 
 SEED = 0
@@ -235,6 +243,9 @@ CONV_BF16_RTOL = 2 ** -7
 # K1's launches per low bucket at the slice's width and depth, by compute
 # dtype: the fused groups in bf16 (4), one launch per layer in fp32 (9).
 K1_LAUNCHES = {dt: chain_plan(32, 3, dt).launches for dt in (torch.bfloat16, torch.float32)}
+# K3's at the medium width: the head group in bf16 (5), two launches for the
+# head in fp32 (6).
+K3_LAUNCHES = {dt: medium_tail_plan(64, dt).launches for dt in (torch.bfloat16, torch.float32)}
 
 
 def _k6_launches(level, segments):
@@ -244,13 +255,14 @@ def _k6_launches(level, segments):
 
 
 # Kernel launches per bucket of every serving candidate: (level, name) ->
-# {kernel: launches} (K1's by compute dtype). K2 counts the AttentionBlocks that stay canonical and
-# the gates' pass of every attention block on K6.
+# {kernel: launches} (K1's and K3's by compute dtype). K2 counts the AttentionBlocks that stay
+# canonical and the gates' pass of every attention block on K6. The low
+# `canonical` runs the branch's modules: no kernel.
 BUCKET_LAUNCHES = {
-    ("low", "canonical"): {"lightweight_chain": K1_LAUNCHES},
+    ("low", "canonical"): {},
     ("low", "chain"): {"lightweight_chain": K1_LAUNCHES},
     ("medium", "canonical"): {},
-    ("medium", "tail_chain"): {"medium_tail_chain": MEDIUM_TAIL_LAUNCHES},
+    ("medium", "tail_chain"): {"medium_tail_chain": K3_LAUNCHES},
     ("medium", "chain_hybrid"): {"res_attn_chain": _k6_launches("medium", SEGMENTS)[0]},
     ("high", "canonical"): {"cbam_gate": 6},
     ("high", "tail_chain"): {"high_tail_chain": HIGH_TAIL_LAUNCHES, "spatial_gate": 1,
@@ -323,10 +335,12 @@ def weights_nbytes(weights):
     """Bytes of a chain's folded weights as a launch reads them: each conv's
     weights once (the packed copies hold the same values again)."""
     if hasattr(weights, "trunk"):
-        weights = weights._replace(trunk=weights.trunk._replace(packed=()),
+        weights = weights._replace(trunk=weights.trunk._replace(packed=(), head_group=None),
                                    guidance2_packed=None)
     else:
         weights = weights._replace(packed=())
+        if hasattr(weights, "head_group"):
+            weights = weights._replace(head_group=None)
     return nbytes(*weight_tensors(weights))
 
 
@@ -588,6 +602,7 @@ def phase_conv_layers(dev, gen):
         if c1:
             packed.update(packed2=pack_conv_weights(kwargs["w2"], ksize))
         plan = conv_tile_plan(c0, c1, cout, ksize, torch.bfloat16)
+        resident = _build.library().conv_tile_blocks_per_sm(cout, ksize)
         with torch.inference_mode():
             want = conv_tile_reference(first, w, shift, **kwargs)
             out = torch.empty_like(want)
@@ -603,7 +618,8 @@ def phase_conv_layers(dev, gen):
         bd = bound(flops, moved, PEAK_BF16_FLOPS)
         log(f"[conv {name}] body {plan.body}, {plan.cout_chunk} output channels by "
             f"{plan.tile[0]}x{plan.tile[1]} positions a block, {plan.kc} input channels a "
-            f"stage, {plan.stages} slots, {plan.smem_bytes} B of shared memory: err "
+            f"stage, {plan.stages} slots, {plan.smem_bytes} B of shared memory, planned for "
+            f"{plan.blocks_per_sm} blocks an SM, {resident} by the occupancy API: err "
             f"{err:.3e} of max|plain| (bound {CONV_BF16_RTOL:.3e}), the library call against "
             f"plain {lib_err:.3e}; kernel {ms:.3f} ms ({flops / (ms * 1e-3) / 1e12:.1f} "
             f"TFLOP/s), bound {bd['bound_ms']:.3f} ms by {bd['bound_by']} "
@@ -611,10 +627,12 @@ def phase_conv_layers(dev, gen):
             f"({flops / (lib_ms * 1e-3) / 1e12:.1f} TFLOP/s)")
         check(plan.body == "wgmma" and plan.smem_bytes <= 232448,
               f"conv layer {name} does not take the wgmma body: {plan}")
+        check(resident >= 1, f"conv layer {name}: the occupancy API read {resident}")
         check(err <= CONV_BF16_RTOL, f"conv layer {name} disagrees with its plain version")
         check(lib_err <= BF16_ATOL, f"conv layer {name}: the library call computes another function")
         rows[name] = dict(body=plan.body, cout_chunk=plan.cout_chunk, tile=list(plan.tile),
                           kc=plan.kc, stages=plan.stages, smem_bytes=plan.smem_bytes,
+                          blocks_per_sm_planned=plan.blocks_per_sm, blocks_per_sm=resident,
                           max_abs_err=err, ms=ms, tflops=flops / (ms * 1e-3) / 1e12,
                           library_ms=lib_ms, **bd)
         del x, first, want, got, out, lib_out, kwargs
@@ -641,7 +659,7 @@ def phase_tail_kernels(dev, gen):
     results = {}
     for name, label, cls, c, fold_fn, tail, reference, n_launch in (
             ("medium_tail_chain", "K3", MediumIntensityDehazeModel, 64, fold_medium_tail,
-             medium_tail_chain, medium_tail_chain_reference, MEDIUM_TAIL_LAUNCHES),
+             medium_tail_chain, medium_tail_chain_reference, K3_LAUNCHES[torch.bfloat16]),
             ("high_tail_chain", "K4", HighIntensityDehazeModel, 96, fold_high_tail,
              high_tail_chain, high_tail_chain_reference, HIGH_TAIL_LAUNCHES)):
         high = name == "high_tail_chain"
@@ -669,6 +687,11 @@ def phase_tail_kernels(dev, gen):
         flops = tail_flops(BATCH, SIZE, SIZE, c, high)
         moved = nbytes(d1b, f0b, x, got) + weights_nbytes(wbf)
         bd = bound(flops, moved, PEAK_BF16_FLOPS)
+        if not high:
+            plan = medium_tail_plan(c, torch.bfloat16)
+            log(f"[{label} {name}] bf16 plan: head {plan.head}, tile {plan.tile}, "
+                f"{plan.smem_bytes} B of shared memory a block, {plan.launches} launches")
+            check(plan.head == "group", "K3's head did not take the fused group")
         log(f"[{label} {name}] d1 {tuple(d1.shape)}, f0 {tuple(f0.shape)}, c={c}: fp32 err "
             f"{e32:.3e}, bf16 vs fp32 plain {ebf:.3e}, bf16 vs bf16 plain {tight:.3e} "
             f"(bound {TAIL_BF16_ATOL}), bf16 vs the canonical bf16 tail {ecan:.3e}; "
@@ -814,11 +837,18 @@ def counts():
     return {k: fn.launches for k, fn in launch_counters().items()}
 
 
-def time_slice(d, x, tag):
-    """Warm ms/image of route_hard and soft, host clock around a
-    synchronize, 3 runs each."""
+def time_slice(d, x, labels, tag):
+    """Warm ms/image of route_hard (the classifier's labels), of the engine
+    on the forced labels (numpy in and out, as route_hard) and of soft
+    routing; host clock around a synchronize, 3 runs each."""
     def run_hard():
         d.route_hard(x)
+        torch.cuda.synchronize()
+
+    def run_forced():
+        with torch.inference_mode():
+            y, _ = d.engine(torch.from_numpy(x).to(d.device), intensity=labels)
+            y.cpu().numpy()
         torch.cuda.synchronize()
 
     def run_soft():
@@ -826,7 +856,8 @@ def time_slice(d, x, tag):
         torch.cuda.synchronize()
 
     means = {}
-    for name, fn in (("route_hard", run_hard), ("soft", run_soft)):
+    for name, fn in (("route_hard", run_hard), ("forced_labels", run_forced),
+                     ("soft", run_soft)):
         fn()
         times = []
         for _ in range(3):
@@ -841,13 +872,13 @@ def time_slice(d, x, tag):
     return means
 
 
-def dispatch_cost_ms(d, dev, gen):
+def dispatch_cost_ms(d, dev, gen, tag):
     """What one more bucket costs the engine: the part of a branch call
-    that does not grow with its rows. Every branch apply is timed warm at
-    every bucket size (host clock around a synchronize, the least of 5
-    runs); the intercept of the least-squares line through (rows, ms) is
-    that branch's fixed cost, printed beside the constant the chunk planner
-    is fed for it under autotune. Returns {level: intercept}."""
+    that does not grow with its rows. Every branch apply of dehazer `d` is
+    timed warm at every bucket size (host clock around a synchronize, the
+    least of 5 runs); the intercept of the least-squares line through (rows,
+    ms) is that branch's fixed cost, printed beside the constant the chunk
+    planner is fed for it under autotune. Returns {level: intercept}."""
     eng = d.engine
     x = torch.rand(max(eng.buckets), SIZE, SIZE, 3, generator=gen).to(dev)
     fixed = {}
@@ -864,9 +895,9 @@ def dispatch_cost_ms(d, dev, gen):
                 times.append((time.perf_counter() - t0) * 1e3)
             ms.append(min(times[1:]))
         slope, fixed[level] = np.polyfit(np.asarray(eng.buckets, float), ms, 1)
-        log(f"[dispatch] {level}: ms at {list(eng.buckets)} rows "
+        log(f"[dispatch {tag}] {level}: ms at {list(eng.buckets)} rows "
             f"{[round(v, 3) for v in ms]}: {slope:.4f} ms/row, fixed {fixed[level]:.4f} ms "
-            f"({fixed[level] / slope:.2f} rows; default dispatch, bf16, {SIZE}^2); the "
+            f"({fixed[level] / slope:.2f} rows; bf16, {SIZE}^2); the "
             f"chunk planner is fed AdaptiveDehazer.DISPATCH_MS = "
             f"{AdaptiveDehazer.DISPATCH_MS[level]}")
     return {k: float(v) for k, v in fixed.items()}
@@ -923,14 +954,16 @@ def phase_slice(router, dev, x, labels, gen):
     check(nonzero(soft_d) == {"lightweight_chain": k1, "cbam_gate": 6, "blend3": 1},
           f"soft run launches {soft_d}")
     check(all(main[k] > 0 for k in DEFAULT_PATH_KERNELS), f"a kernel never ran: {main}")
-    return main, outs, time_slice(d, x, "slice"), dispatch_cost_ms(d, dev, gen)
+    return (main, outs, time_slice(d, x, labels, "slice"),
+            dispatch_cost_ms(d, dev, gen, "default"))
 
 
-def tune_then_force(router, cfg, dev, tmp, tag, dispatches):
+def tune_then_force(router, cfg, dev, tmp, tag, dispatches, gen=None):
     """A dehazer with autotune on and a fresh cache times every candidate
     and prints the tables; returns, for each forced dispatch (level ->
     candidate), the path of a copy of that cache whose winners are set to
-    it, and the tables."""
+    it, the tables, and (with `gen`) what one more bucket of each tuned
+    winner costs (`dispatch_cost_ms`), else None."""
     fresh = os.path.join(tmp, f"autotune_{tag}.json")
     d = AdaptiveDehazer(copy.deepcopy(router), None, cfg, device=dev, autotune=True,
                         autotune_cache=fresh)
@@ -945,6 +978,14 @@ def tune_then_force(router, cfg, dev, tmp, tag, dispatches):
         check(set(report["table"]) == offered,
               f"{level}: candidates {sorted(report['table'])}, expected {sorted(offered)}")
         tables[level] = dict(best=report["best"], **report["table"])
+    # The low `canonical` is the branch's module path: no kernel launch.
+    reset_launch_counts()
+    with torch.inference_mode():
+        candidate_builders(d.router.models["low"], d.dtype)["canonical"]()(
+            torch.rand(2, SIZE, SIZE, 3, device=dev))
+    torch.cuda.synchronize()
+    check(not nonzero(counts()), f"the low canonical candidate launched {nonzero(counts())}")
+    dispatch = dispatch_cost_ms(d, dev, gen, f"tuned {tag}") if gen is not None else None
     with open(fresh) as f:
         cache = json.load(f)
     check(len(cache) == 3, f"the cache holds {len(cache)} entries, not 3")
@@ -958,7 +999,7 @@ def tune_then_force(router, cfg, dev, tmp, tag, dispatches):
             json.dump(cache, f)
     del d
     torch.cuda.empty_cache()
-    return paths, tables
+    return paths, tables, dispatch
 
 
 def expected_launches(forced, per_class, soft, dtype=torch.bfloat16):
@@ -1004,7 +1045,7 @@ def phase_forced_slice(router, dev, x, labels, canonical_outs, forced_cache, for
     check(nonzero(soft_d) == expected_launches(forced, (1, 1, 1), soft=True),
           f"{tag}, soft run launches {soft_d}")
     check(all(main[k] > 0 for k in path_kernels), f"{tag}: a kernel never ran: {main}")
-    return main, time_slice(d, x, tag)
+    return main, time_slice(d, x, labels, tag)
 
 
 def phase_probe_tool(dev):
@@ -1023,8 +1064,8 @@ def phase_vs_plain(router, dev, rng, tmp):
     cfg = load_config(overrides={"cuda": {"compute_dtype": "float32"}})
     x = rng.random((3, SIZE, SIZE, 3), dtype=np.float32)
     labels = np.array([0, 1, 2])
-    (tail_cache, res_cache), _ = tune_then_force(router, cfg, dev, tmp, "fp32",
-                                                 (TAIL_FORCED, RES_FORCED))
+    (tail_cache, res_cache), _, _ = tune_then_force(router, cfg, dev, tmp, "fp32",
+                                                    (TAIL_FORCED, RES_FORCED))
     outs = {}
     for tag, device, cache, forced in (
             ("CPU", "cpu", None, None), ("card, default dispatch", dev, None, None),
@@ -1059,15 +1100,17 @@ def main():
     labels = np.arange(BATCH) % 3
     with tempfile.TemporaryDirectory() as tmp:
         default, outs, default_ms, dispatch = phase_slice(router, dev, x, labels, gen)
-        (tail_cache, res_cache), tables = tune_then_force(
-            router, load_config(), dev, tmp, "bf16", (TAIL_FORCED, RES_FORCED))
+        # Its own generator, as the conv-layer table's.
+        (tail_cache, res_cache), tables, tuned_dispatch = tune_then_force(
+            router, load_config(), dev, tmp, "bf16", (TAIL_FORCED, RES_FORCED),
+            gen=torch.Generator().manual_seed(SEED + 3))
         tail, tail_ms = phase_forced_slice(router, dev, x, labels, outs, tail_cache,
                                            TAIL_FORCED, "tail slice", TAIL_PATH_KERNELS)
         res, res_ms = phase_forced_slice(router, dev, x, labels, outs, res_cache,
                                          RES_FORCED, "res slice", RES_PATH_KERNELS)
         probes = phase_probe_tool(dev)
         phase_vs_plain(router, dev, rng, tmp)
-    for name in ("route_hard", "soft"):
+    for name in ("route_hard", "forced_labels", "soft"):
         log(f"[slices] {name}: default dispatch {default_ms[name]:.3f} ms/image, "
             f"tail-chain dispatch {tail_ms[name]:.3f} ms/image, res-chain dispatch "
             f"{res_ms[name]:.3f} ms/image")
@@ -1079,7 +1122,8 @@ def main():
          "launches_by_path": {tag: path[name] for tag, path in paths.items()},
          **kernels[name]}
         for name, (route, source, replaces) in KERNELS.items()],
-        "conv_layers": conv_layers, "autotune_ms_per_16_images": tables, "dispatch_ms": dispatch,
+        "conv_layers": conv_layers, "autotune_ms_per_16_images": tables,
+        "dispatch_ms": {"default": dispatch, "tuned": tuned_dispatch},
         "slice_ms_per_image": {"default": default_ms, "tail_chain": tail_ms,
                                "res_chain": res_ms}}
     check(all(k["launches"] > 0 for k in line["kernels"]),

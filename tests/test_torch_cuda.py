@@ -12,7 +12,8 @@ another order); bf16 kernel vs fp32 plain at 3e-2, the bf16 bound of the
 JAX tail-chain tests. The blend has one rounding per element: 1e-6 in fp32.
 K1's fused tensor-core body is also held against the bf16 plain version, which
 rounds at the same points, at K1_BF16_ATOL (see there), and so are the tail
-chains K3 and K4 at TAIL_BF16_ATOL and the segment chain K6 at RES_BF16_RTOL.
+chains K3 (its fused head group included) and K4 at TAIL_BF16_ATOL and the
+segment chain K6 at RES_BF16_RTOL.
 K6's errors are in units of the plain result's largest magnitude: a segment
 ends in a ReLU or a gate, not in a clip to [0, 1]. The conv layer those
 three share (`conv_tile`) is held against its plain version alone: one
@@ -40,6 +41,7 @@ from adam_dehaze_tpu_torch.ops.kernels.conv_tile import (
     conv_tile_reference,
     pack_conv_weights,
 )
+from adam_dehaze_tpu_torch.ops.kernels import lightweight_chain as k1_module
 from adam_dehaze_tpu_torch.ops.kernels.res_chain import (
     fold_res_attn_chain,
     launches_of,
@@ -48,13 +50,14 @@ from adam_dehaze_tpu_torch.ops.kernels.res_chain import (
 )
 from adam_dehaze_tpu_torch.ops.kernels.tail_chain import (
     HIGH_TAIL_LAUNCHES,
-    MEDIUM_TAIL_LAUNCHES,
     fold_high_tail,
     fold_medium_tail,
     high_tail_chain,
     high_tail_chain_reference,
     medium_tail_chain,
     medium_tail_chain_reference,
+    medium_tail_chain_tiled_reference,
+    medium_tail_plan,
 )
 from adam_dehaze_tpu_torch.ops.kernels import _build
 from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
@@ -65,6 +68,7 @@ from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
     fold_lightweight,
     fused_tile,
     group_smem_bytes,
+    head_tile,
     layer_smem_bytes,
     lightweight_chain,
     lightweight_chain_reference,
@@ -172,6 +176,7 @@ def test_k1_plan_mirror_matches_library(cuda_device):
         assert lib.conv3x3_smem_bytes(cin) == layer_smem_bytes(cin), cin
     for c in range(8, 136, 8):
         assert lib.lightweight_fused_tile(c) == fused_tile(c), c
+        assert lib.tail_head_tile(c) == head_tile(c), c
     for c in FUSED_WIDTHS:
         for kind, name in enumerate(GROUP_KINDS):
             for tile in FUSED_TILES:
@@ -364,6 +369,36 @@ def test_conv_tile_plan_mirrors_library(cuda_device):
                         ) == plan.smem_bytes, (c0, c1, cout, ksize, dtype)
 
 
+# K3's 64-wide trunk layers and K4's two layers that fall under the same
+# plan: (sides, c0, c1, cout, ksize), ragged sides around the 16x16 tile.
+TWO_BLOCK_CASES = {
+    "k3_64_64": ((2, 13, 21), 64, 0, 64, 3),
+    "k3_head1": ((1, 9, 40), 64, 64, 64, 3),
+    "k3_up": ((2, 13, 21), 256, 0, 64, 2),
+    "k4_96_48": ((1, 9, 40), 96, 0, 48, 3),
+    "k4_16_16": ((2, 13, 21), 16, 0, 16, 3),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TWO_BLOCK_CASES))
+def test_two_block_plan_matches_reference(cuda_device, case):
+    """Layers of 64 output channels or fewer are planned for two blocks an
+    SM (three ring slots at 64 wide, 3x3): the occupancy API gives their
+    kernel at least two, and each agrees with its plain version within one
+    bf16 step of the result's largest magnitude (2^-7)."""
+    sides, c0, c1, cout, ksize = TWO_BLOCK_CASES[case]
+    plan = conv_tile_plan(c0, c1, cout, ksize, torch.bfloat16)
+    assert plan.blocks_per_sm == 2
+    assert plan.stages == (3 if (cout, ksize) == (64, 3) else 4)
+    assert _build.library().conv_tile_blocks_per_sm(cout, ksize) >= 2
+    args = _conv_case(sides, c0, c1, cout, ksize, torch.bfloat16, 67, False)
+    args = {k: v.to(cuda_device) for k, v in args.items()}
+    with torch.inference_mode():
+        want = conv_tile_reference(**args, ksize=ksize)
+        got = conv_tile(**args, ksize=ksize)
+    assert _scaled_err(got, want) <= 2 ** -7
+
+
 def test_conv_tile_refuses_what_it_does_not_take(cuda_device):
     args = _conv_case((1, 8, 8), 16, 0, 16, 3, torch.bfloat16, 61, False)
     args = {k: v.to(cuda_device) for k, v in args.items()}
@@ -387,11 +422,11 @@ def _tail_case(kind, c, seed, size=(36, 72)):
     if kind == "medium":
         model = _seeded(MediumIntensityDehazeModel(c), seed)
         fns = (fold_medium_tail, medium_tail_chain, medium_tail_chain_reference,
-               MEDIUM_TAIL_LAUNCHES)
+               lambda dtype: medium_tail_plan(c, dtype).launches)
     else:
         model = _seeded(HighIntensityDehazeModel(c), seed)
         fns = (fold_high_tail, high_tail_chain, high_tail_chain_reference,
-               HIGH_TAIL_LAUNCHES)
+               lambda dtype: HIGH_TAIL_LAUNCHES)
     gen = torch.Generator().manual_seed(seed + 1)
     h, w = size
     d1 = torch.relu(torch.randn(2, h // 2, w // 2, 4 * c, generator=gen))
@@ -407,15 +442,16 @@ def _tail_case(kind, c, seed, size=(36, 72)):
 def test_tail_kernels_match_fp32_plain(cuda_device, dtype, atol, kind, c):
     """Sizes that are no multiple of the 8x16 tile exercise its edges;
     c=16 takes the FMA body for the c/2-wide layers in bf16 too, c=48 and
-    96 a 16-channel last input chunk or output chunk."""
-    model, inputs, (fold_fn, tail, reference, n_launch) = _tail_case(kind, c, 11)
+    96 a 16-channel last input chunk or output chunk; medium c=64 in bf16
+    the head group (5 launches, 6 otherwise)."""
+    model, inputs, (fold_fn, tail, reference, launches) = _tail_case(kind, c, 11)
     want = reference(*inputs, fold_fn(model, torch.float32))
     weights = fold_fn(model.to(cuda_device), dtype)
     before = tail.launches, spatial_gate.launches
     with torch.inference_mode():
         got = tail(*[t.to(cuda_device) for t in inputs], weights)
     torch.cuda.synchronize()
-    assert tail.launches - before[0] == n_launch
+    assert tail.launches - before[0] == launches(dtype)
     assert spatial_gate.launches - before[1] == (1 if kind == "high" else 0)
     torch.testing.assert_close(got.cpu(), want, rtol=0, atol=atol)
 
@@ -432,6 +468,37 @@ def test_tail_kernels_match_bf16_plain(cuda_device, kind, c):
         want = reference(*inputs, weights)
         got = tail(*inputs, weights)
     torch.testing.assert_close(got, want, rtol=0, atol=TAIL_BF16_ATOL)
+
+
+# (c, image sides): the head group's tile is 24 at c = 64 and 32 at c = 32;
+# sides that end in a part of a tile, exactly one tile, a tile and 4 more
+# positions each way, and a non-square image.
+HEAD_CASES = {"c64_36x72": (64, (36, 72)), "c64_one_tile": (64, (24, 24)),
+              "c64_tile_plus_4": (64, (28, 28)), "c32_68x44": (32, (68, 44)),
+              "c32_one_tile": (32, (32, 32))}
+
+
+@pytest.mark.parametrize("case", sorted(HEAD_CASES))
+def test_k3_head_group_matches_bf16_plain(cuda_device, case):
+    """bf16 K3 at c = 64 and 32 runs its last two layers as the fused head
+    group (5 launches): against the bf16 plain version and the tiled plain
+    version at TAIL_BF16_ATOL. A dropped tap, a ring position outside the
+    image that is not stored as 0, or the image read off by a pixel shows."""
+    c, size = HEAD_CASES[case]
+    model, inputs, (fold_fn, tail, reference, _) = _tail_case("medium", c, 71, size=size)
+    weights = fold_fn(model.to(cuda_device), torch.bfloat16)
+    plan = medium_tail_plan(c, torch.bfloat16)
+    assert plan.head == "group" and plan.launches == 5 and plan.tile == head_tile(c)
+    inputs = [t.to(cuda_device) for t in inputs]
+    before = tail.launches
+    with torch.inference_mode():
+        want = reference(*inputs, weights)
+        tiled = medium_tail_chain_tiled_reference(*inputs, weights, plan.tile)
+        got = tail(*inputs, weights)
+    torch.cuda.synchronize()
+    assert tail.launches - before == 5
+    torch.testing.assert_close(got, want, rtol=0, atol=TAIL_BF16_ATOL)
+    torch.testing.assert_close(got, tiled, rtol=0, atol=TAIL_BF16_ATOL)
 
 
 def test_tail_kernels_are_reproducible(cuda_device):
@@ -574,6 +641,26 @@ def test_chain_apply_matches_canonical_on_card(cuda_device, level, kwargs):
         got = BranchChainApply(model, torch.float32, level, **kwargs)(x)
     assert res_attn_chain.launches > before
     torch.testing.assert_close(got, want, rtol=0, atol=FP32_ATOL)
+
+
+def test_low_canonical_candidate_launches_no_k1(cuda_device):
+    """The low branch's `canonical` serving candidate is the module path
+    (cuDNN), never K1; `chain` is K1. In fp32 with TF32 off both give the
+    canonical result within 1e-4."""
+    from adam_dehaze_tpu_torch.models.branches import LightweightDehazeModel
+    from adam_dehaze_tpu_torch.serving_autotune import candidate_builders
+    low = _seeded(LightweightDehazeModel(32, 3), 5).to(cuda_device)
+    cands = candidate_builders(low, torch.float32, (2, 32, 32, 3))
+    assert set(cands) == {"canonical", "chain"}
+    x = torch.rand(2, 32, 32, 3, generator=torch.Generator().manual_seed(3)).to(cuda_device)
+    before = k1_module.lightweight_chain.launches
+    with torch.inference_mode():
+        canonical = cands["canonical"]()(x)
+        torch.cuda.synchronize()
+        assert k1_module.lightweight_chain.launches == before
+        chain = cands["chain"]()(x)
+    assert k1_module.lightweight_chain.launches > before
+    torch.testing.assert_close(chain, canonical, rtol=0, atol=FP32_ATOL)
 
 
 def test_probes_on_card(cuda_device):
