@@ -1,10 +1,10 @@
 #!/usr/bin/env python3
 """Where the device time goes, on one GPU: torch.profiler over warm calls.
 
-    python3 chip_profile.py
+    python3 chip_profile.py [kernels] [routes]      (both by default)
 
 Profiles, each over 3 warm calls at the sizes of chip_smoke.py (16 images at
-256^2, bf16, the same seeded weights and inputs):
+256^2, bf16, the same seeded weights and inputs). `kernels`:
 
 - the low-branch chain K1 alone, so that each fused group shows, and the
   canonical high branch alone, so that K2's two passes show beside cuDNN;
@@ -20,12 +20,20 @@ Profiles, each over 3 warm calls at the sizes of chip_smoke.py (16 images at
   chain / tail_chain / tail_chain dispatch and under the forced chain /
   chain_hybrid / res_e2b_tail_chain dispatch.
 
+`routes`: under the default dispatch, route_hard and route_device_binned on
+the 16 images, and route_hard_stream, route_hard_queued and
+route_device_binned_stream over 8 batches of them (a call is the 8
+batches; each result dropped as it comes, and route_hard_stream again with
+all 8 kept), each with the largest host-side entries (CUDA runtime calls
+included) beside the device ones.
+
 For each it prints the device-busy time per call (kernels and memcpys,
 summed once each), the host wall time per call, and the largest device
 entries by name. It fails without a CUDA card, and if the profiler saw no
 device time.
 """
 import copy
+import sys
 import tempfile
 import time
 
@@ -41,17 +49,18 @@ CALLS = 3
 TOP = 12
 
 
-def profiled(tag, fn):
+def profiled(tag, fn, host_top=0):
     """Run fn CALLS times under the profiler; print the busy time per call
-    and the top device entries."""
+    and the top device entries (and the `host_top` largest host entries by
+    self time)."""
     fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()   # the profiler's own start and stop left out
         for _ in range(CALLS):
             fn()
         torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3 / CALLS
+        wall = (time.perf_counter() - t0) * 1e3 / CALLS
     rows = [(e.key, e.self_device_time_total / 1e3 / CALLS, e.count // CALLS)
             for e in prof.key_averages() if e.self_device_time_total > 0
             and e.device_type == torch.autograd.DeviceType.CUDA]
@@ -61,12 +70,52 @@ def profiled(tag, fn):
            f"{wall:.3f} ms per call; {len(rows)} kinds of device entries")
     for name, ms, count in sorted(rows, key=lambda r: -r[1])[:TOP]:
         cs.log(f"[profile {tag}]   {ms:8.3f} ms  x{count:<4d} {name[:110]}")
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / CALLS, e.count // CALLS)
+                   for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                  key=lambda r: -r[1])
+    for name, ms, count in host[:host_top]:
+        cs.log(f"[profile {tag}]   host {ms:8.3f} ms  x{count:<4d} {name[:100]}")
+
+
+def profile_routes(router, dev):
+    """The serving routes under the default dispatch (see the docstring)."""
+    cfg = load_config()
+    d = AdaptiveDehazer(copy.deepcopy(router), None, cfg, device=dev)
+    x = np.random.default_rng(cs.SEED).random((cs.BATCH, cs.SIZE, cs.SIZE, 3),
+                                              dtype=np.float32)
+    stream = [x] * 8
+    cs.log(f"[profile routes] route_hard intensities "
+           f"{np.bincount(d.route_hard(x)[1], minlength=3).tolist()}")
+    for tag, fn in (
+            ("route_hard", lambda: d.route_hard(x)),
+            ("route_device_binned", lambda: d.route_device_binned(x)),
+            ("route_hard_stream, 8 batches", lambda: cs.drain(d.route_hard_stream(stream))),
+            ("route_hard_stream, 8 batches, results kept",
+             lambda: list(d.route_hard_stream(stream))),
+            ("route_hard_queued, 8 batches", lambda: cs.drain(d.route_hard_queued(stream))),
+            ("route_device_binned_stream, 8 batches",
+             lambda: cs.drain(d.route_device_binned_stream(stream)))):
+        profiled(tag, fn, host_top=8)
+    del d
+    torch.cuda.empty_cache()
 
 
 def main():
+    sections = sys.argv[1:] or ["kernels", "routes"]
+    unknown = set(sections) - {"kernels", "routes"}
+    if unknown:
+        raise SystemExit(f"chip_profile: unknown sections {sorted(unknown)}")
     cs.phase_device()
     dev = torch.device("cuda")
     cs.phase_build()
+    if "kernels" in sections:
+        profile_kernels(dev)
+    if "routes" in sections:
+        profile_routes(cs.make_router(load_config(), torch.Generator().manual_seed(cs.SEED)),
+                       dev)
+
+
+def profile_kernels(dev):
     gen = torch.Generator().manual_seed(cs.SEED)
 
     # Their own generator: the draws below, and with them the router's

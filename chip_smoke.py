@@ -44,6 +44,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    0, 1, 2: the one hard-routing reading that runs every branch) and of soft
    routing, and what one more bucket of each branch costs the engine (the
    intercept of the branch apply's time over its rows).
+4b. Engines, on phase 4's dehazer and the same 16 images. Forced labels
+   (cycling 0, 1, 2) through run_stream and run_queued (three batches,
+   given intensities) and the device-binned engine with and without spill
+   (three calls): every output within 3e-2 of phase 4's forced-label
+   engine, run_queued's global indices cover 0..47 once, and the counters
+   (set to 0 just before) show 4 K1 launches per low chunk and 6 K2
+   launches per high chunk. The product routes route_hard_stream,
+   route_hard_queued, route_device_binned, route_device_binned_stream (on
+   ragged batches of 16, 5, 16 and 11), route_switch and route_sharded:
+   labels equal route_hard's on the same batches, outputs finite and in
+   [0, 1]; make_adaptive_infer("soft") launches K5 once. The device-binned
+   call's classifier and binning, up to its one event-guarded read, run
+   under torch.cuda.set_sync_debug_mode("error"); whether each branch apply
+   synchronizes is printed (a reading). Prints the warm ms/image of every
+   route beside route_hard's (16 images, 3 runs, host clock around a
+   synchronize; the stream routes over 8 batches of 16, each result dropped
+   as it comes, and the two numpy stream routes again with all 8 kept).
 5. Tune: a dehazer with autotune=True and a fresh cache file times every
    candidate of the three branches at (16, 256, 256, 3) and prints the
    tables (no candidate may fail; the low `canonical` must launch no K1).
@@ -68,6 +85,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    the default, the tail-chain and the res-chain dispatch.
 10. Prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
 """
+import collections
 import copy
 import json
 import os
@@ -89,6 +107,7 @@ from adam_dehaze_tpu_torch.models.classifier import create_classifier
 from adam_dehaze_tpu_torch.models.routing import (
     INTENSITY_ORDER,
     create_router,
+    make_adaptive_infer,
     plan_chunks,
 )
 from adam_dehaze_tpu_torch.nn.blocks import (
@@ -383,6 +402,7 @@ def phase_device():
     log(f"[device] {torch.cuda.get_device_name(0)}; torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}; count {torch.cuda.device_count()}")
     log(smi)
+    return smi
 
 
 def phase_build():
@@ -955,7 +975,194 @@ def phase_slice(router, dev, x, labels, gen):
           f"soft run launches {soft_d}")
     check(all(main[k] > 0 for k in DEFAULT_PATH_KERNELS), f"a kernel never ran: {main}")
     return (main, outs, time_slice(d, x, labels, "slice"),
-            dispatch_cost_ms(d, dev, gen, "default"))
+            dispatch_cost_ms(d, dev, gen, "default"), d)
+
+
+def chunks(labels, b):
+    """The device-binned engine's chunks of each class for these labels."""
+    return [-(-int((labels == c).sum()) // b) for c in range(3)]
+
+
+def first_line(err):
+    return str(err).strip().splitlines()[0]
+
+
+def syncs_under_debug_mode(fn):
+    """Run fn() with torch.cuda.set_sync_debug_mode("error"): None if no op
+    of it synchronizes, else the error's first line. The mode is restored."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        fn()
+    except RuntimeError as err:
+        return first_line(err)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    return None
+
+
+def drain(results):
+    """Consume an iterator, dropping each item as it comes."""
+    collections.deque(results, maxlen=0)
+
+
+def route_ms(run, n_images):
+    """Warm ms/image of run(): one warm-up, then 3 runs, host clock around a
+    synchronize."""
+    run()
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / n_images)
+    return float(np.mean(times)), min(times), max(times)
+
+
+def phase_engines(d, dev, x, labels, forced_ref, smi):
+    """The serving engines and routes on phase 4's dehazer (default
+    dispatch): forced labels through every engine, the product routes, the
+    binning under the sync debug mode, and the routes' ms/image. Returns the
+    launch counters of the checked runs, the errors and the times."""
+    k1 = K1_LAUNCHES[torch.bfloat16]
+    eng = d.engine
+    xd = torch.from_numpy(x).to(dev)
+    n = BATCH
+    reps = 3
+    want = {"lightweight_chain": 0, "cbam_gate": 0}
+
+    def expect(low, high):
+        want["lightweight_chain"] += k1 * low
+        want["cbam_gate"] += 6 * high
+
+    errs = {}
+
+    def agree(name, y, ref):
+        y = y.float().cpu().numpy() if isinstance(y, torch.Tensor) else y
+        check_images(y, ref.shape[0], name)
+        errs[name] = max(errs.get(name, 0.0), float(np.abs(y - ref).max()))
+
+    reset_launch_counts()
+    with torch.inference_mode():
+        per_class = buckets_per_class(eng, labels)
+        streamed = list(eng.run_stream([xd] * reps, intensities=[labels] * reps))
+        check(len(streamed) == reps, f"run_stream yielded {len(streamed)} batches")
+        for y, lab in streamed:
+            check(np.array_equal(lab, labels), f"run_stream labels {lab}")
+            agree("run_stream", y, forced_ref)
+        expect(reps * per_class[0], reps * per_class[2])
+
+        served = np.zeros(reps * n, np.int32)
+        for y, gidx, cls in eng.run_queued([xd] * reps, intensities=[labels] * reps):
+            check(bool((labels[gidx % n] == cls).all()), f"run_queued class {cls} for {gidx}")
+            agree("run_queued", y, forced_ref[gidx % n])
+            served[gidx] += 1
+            expect(int(cls == 0), int(cls == 2))
+        check(bool((served == 1).all()), f"run_queued served the images {served.tolist()} times")
+
+        for spill in (False, True):
+            fn = d._device_binned_fn(16, spill)
+            for _ in range(reps):
+                y, lab, logits = fn(xd, labels)
+                check(np.array_equal(lab.cpu().numpy(), labels), "device-binned labels")
+                agree(f"device_binned spill={spill}", y, forced_ref)
+            low, _, high = chunks(labels, min(16, n))
+            expect(reps * low, reps * high)
+        torch.cuda.synchronize()
+        forced = nonzero(counts())
+        log(f"[engines] forced labels {labels.tolist()} x {reps} batches: launches {forced} "
+            f"(K1 {k1} a low chunk, K2 6 a high chunk: {nonzero(want)}); largest error "
+            f"against phase 4's forced-label engine: "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f" (bound {BF16_ATOL})")
+        check(forced == nonzero(want), f"engine launches {forced}, expected {nonzero(want)}")
+        check(all(v <= BF16_ATOL for v in errs.values()), f"an engine disagrees: {errs}")
+
+        # The product routes: labels are route_hard's on the same batches.
+        ragged = [x[:16], x[:5], x[:16], x[5:16]]
+        ref = [d.route_hard(b) for b in ragged]
+        top2 = torch.topk(eng.classifier_apply(xd)[0].float(), 2, dim=1).values
+        log(f"[routes] route_hard labels per ragged batch "
+            f"{[np.bincount(r[1], minlength=3).tolist() for r in ref]}; smallest top-2 "
+            f"logit margin {float((top2[:, 0] - top2[:, 1]).min()):.3e}")
+        # route_device_binned_stream classifies each batch padded with its
+        # last image to STREAM_BUCKETS: its reference is route_hard on that
+        # padded batch (a bf16 logit margin can be one step, and the convs'
+        # sums follow the batch size).
+        padded = [np.concatenate([b, np.repeat(b[-1:], d._bucket_batch(
+            b.shape[0], d.STREAM_BUCKETS) - b.shape[0], axis=0)]) for b in ragged]
+        ref_padded = [d.route_hard(p)[1][:b.shape[0]] for p, b in zip(padded, ragged)]
+        for name, got, want_labels in (
+                ("route_hard_stream", list(d.route_hard_stream(ragged)), [r[1] for r in ref]),
+                ("route_device_binned_stream", list(d.route_device_binned_stream(ragged)),
+                 ref_padded)):
+            check(len(got) == len(ragged), f"{name} yielded {len(got)} batches")
+            for (y, lab), want_lab, b in zip(got, want_labels, ragged):
+                check_images(y, b.shape[0], name)
+                check(np.array_equal(lab, want_lab), f"{name} labels {lab} vs {want_lab}")
+        ref_labels = np.concatenate([r[1] for r in ref])
+        served = np.zeros(ref_labels.size, np.int32)
+        for y, gidx, cls in d.route_hard_queued(ragged):
+            check_images(y.cpu().numpy(), gidx.size, "route_hard_queued")
+            check(bool((ref_labels[gidx] == cls).all()), f"route_hard_queued class {cls}")
+            served[gidx] += 1
+        check(bool((served == 1).all()), "route_hard_queued: an image not served once")
+        _, hard_lab = ref[0]
+        for name, (y, lab) in (("route_device_binned", d.route_device_binned(x)),
+                               ("route_switch", d.route_switch(x)),
+                               ("route_sharded", d.route_sharded(x))):
+            check_images(y, n, name)
+            check(np.array_equal(lab, hard_lab), f"{name} labels {lab} vs {hard_lab}")
+        soft = make_adaptive_infer(eng.classifier_apply, eng.branch_applies, "soft",
+                                   temperature=d.router.temperature)
+        before = counts()
+        y, _ = soft(xd)
+        check_images(y.cpu().numpy(), n, "make_adaptive_infer soft")
+        check(delta(before)["blend3"] == 1, f"soft infer launched {nonzero(delta(before))}")
+        log("[routes] route_hard_stream, route_hard_queued, route_device_binned, "
+            "route_device_binned_stream (ragged 16, 5, 16, 11), route_switch, route_sharded: "
+            "labels equal route_hard's, outputs finite in [0, 1]; soft infer: K5 once")
+
+        # No hidden sync: the classifier and the binning, up to the one read.
+        fns = [d._device_binned_fn(16, spill) for spill in (False, True)]
+        binned = []
+        sync = syncs_under_debug_mode(lambda: binned.extend(
+            [fns[0].bin(xd), fns[0].bin(xd, labels), fns[1].bin(xd, labels)]))
+        log(f"[sync] device-binned classifier and binning (predicted, forced, forced with "
+            f"spill) under set_sync_debug_mode('error'): {sync or 'no sync'}")
+        check(sync is None, f"the device binning synchronizes: {sync}")
+        for fn, b in zip((fns[0], fns[0], fns[1]), binned):
+            fn.serve(b)
+        torch.cuda.synchronize()
+        main = counts()
+
+        for level, apply in zip(INTENSITY_ORDER, eng.branch_applies):
+            sync = syncs_under_debug_mode(lambda apply=apply: apply(xd))
+            log(f"[sync] branch apply {level}: {sync or 'no sync'} (a reading)")
+
+    # The stream routes' consumer drops each result as it comes, as a server
+    # that sends it on; "results kept" holds all 8 (fresh pageable pages for
+    # every numpy fetch of route_hard_stream).
+    times = {"route_hard": route_ms(lambda: d.route_hard(x), n)}
+    stream = [x] * 8
+    for name, run, images in (
+            ("route_hard_stream", lambda: drain(d.route_hard_stream(stream)), 8 * n),
+            ("route_hard_stream, results kept", lambda: list(d.route_hard_stream(stream)),
+             8 * n),
+            ("route_hard_queued", lambda: drain(d.route_hard_queued(stream)), 8 * n),
+            ("route_device_binned", lambda: d.route_device_binned(x), n),
+            ("route_device_binned_stream", lambda: drain(d.route_device_binned_stream(stream)),
+             8 * n),
+            ("route_device_binned_stream, results kept",
+             lambda: list(d.route_device_binned_stream(stream)), 8 * n),
+            ("route_switch", lambda: d.route_switch(x), n),
+            ("route_sharded", lambda: d.route_sharded(x), n)):
+        times[name] = route_ms(run, images)
+    for name, (mean, lo, hi) in times.items():
+        log(f"[routes] {name}: {mean:.3f} ms/image warm (min {lo:.3f}, max {hi:.3f}; 3 runs "
+            f"of {n} images at {SIZE}^2{', 8 batches' if 'stream' in name or 'queued' in name else ''}"
+            f", bf16, default dispatch; route_hard {times['route_hard'][0]:.3f}; {smi})")
+    return main, errs, {k: v[0] for k, v in times.items()}
 
 
 def tune_then_force(router, cfg, dev, tmp, tag, dispatches, gen=None):
@@ -1089,7 +1296,7 @@ def phase_vs_plain(router, dev, rng, tmp):
 
 
 def main():
-    phase_device()
+    smi = phase_device()
     dev = torch.device("cuda")
     phase_build()
     gen = torch.Generator().manual_seed(SEED)
@@ -1099,7 +1306,10 @@ def main():
     x = rng.random((BATCH, SIZE, SIZE, 3), dtype=np.float32)
     labels = np.arange(BATCH) % 3
     with tempfile.TemporaryDirectory() as tmp:
-        default, outs, default_ms, dispatch = phase_slice(router, dev, x, labels, gen)
+        default, outs, default_ms, dispatch, d = phase_slice(router, dev, x, labels, gen)
+        engines, engine_errs, engine_ms = phase_engines(d, dev, x, labels, outs[1], smi)
+        del d
+        torch.cuda.empty_cache()
         # Its own generator, as the conv-layer table's.
         (tail_cache, res_cache), tables, tuned_dispatch = tune_then_force(
             router, load_config(), dev, tmp, "bf16", (TAIL_FORCED, RES_FORCED),
@@ -1115,7 +1325,8 @@ def main():
             f"tail-chain dispatch {tail_ms[name]:.3f} ms/image, res-chain dispatch "
             f"{res_ms[name]:.3f} ms/image")
 
-    paths = {"default": default, "tail_chain": tail, "res_chain": res, "probe_tool": probes}
+    paths = {"default": default, "engines": engines, "tail_chain": tail, "res_chain": res,
+             "probe_tool": probes}
     line = {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
          "launches": sum(path[name] for path in paths.values()),
@@ -1125,7 +1336,8 @@ def main():
         "conv_layers": conv_layers, "autotune_ms_per_16_images": tables,
         "dispatch_ms": {"default": dispatch, "tuned": tuned_dispatch},
         "slice_ms_per_image": {"default": default_ms, "tail_chain": tail_ms,
-                               "res_chain": res_ms}}
+                               "res_chain": res_ms},
+        "routes_ms_per_image": engine_ms, "engines_max_abs_err": engine_errs}
     check(all(k["launches"] > 0 for k in line["kernels"]),
           f"a kernel was launched no time on any path: {line['kernels']}")
     print(json.dumps(line), flush=True)

@@ -1,5 +1,8 @@
 """Kernels K1 to K6 and K2' of the PyTorch port and its operation probes
-against their plain versions on a CUDA card (marker `cuda`; every test skips without a card).
+against their plain versions on a CUDA card (marker `cuda`; every test skips without a card),
+and the serving engines on the card: the device-binned, switch and sharded
+routes against the host-binned engine, the binning under the sync debug
+mode, the stream routes against their per-batch counterparts.
 
 This file imports neither JAX nor the JAX package, so that it also runs on
 a machine that has only PyTorch:
@@ -745,3 +748,116 @@ def test_small_slice_on_card_matches_cpu(cuda_device):
         soft = d(x)
         assert np.isfinite(soft).all()
     torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=1e-4)
+
+
+def _small_dehazer(device, seed=2):
+    """The serving slice at small widths, fp32, seeded (as
+    test_small_slice_on_card_matches_cpu)."""
+    from adam_dehaze_tpu_torch.config import load_config
+    from adam_dehaze_tpu_torch.models.branches import create_branch_models
+    from adam_dehaze_tpu_torch.models.classifier import create_classifier
+    from adam_dehaze_tpu_torch.models.routing import create_router
+    from adam_dehaze_tpu_torch.serving import AdaptiveDehazer
+
+    cfg = load_config(overrides={"cuda": {"compute_dtype": "float32"}})
+    for level, ch in (("low", 8), ("medium", 8), ("high", 16)):
+        cfg["dehazing"][level]["channels"] = ch
+    router = _seeded(create_router(create_branch_models(cfg), create_classifier(cfg), cfg), seed)
+    return AdaptiveDehazer(router, None, cfg, device=device)
+
+
+@pytest.mark.parametrize("spill", [False, True], ids=["fidelity", "spill"])
+def test_device_binned_matches_forced_engine_on_card(cuda_device, spill):
+    """Forced labels over every class: the device-binned engine (one read of
+    the chunk classes) serves each image as the host-binned engine does.
+    With spill and balanced labels the capacity plan moves nothing."""
+    d = _small_dehazer(cuda_device)
+    x = torch.from_numpy(np.random.default_rng(3).random((9, 32, 32, 3), dtype=np.float32))
+    labels = np.arange(9) % 3
+    fn = d._device_binned_fn(4, spill)
+    with torch.inference_mode():
+        want, _ = d.engine(x.to(cuda_device), intensity=labels)
+        got, intensity, logits = fn(x.to(cuda_device), labels)
+    assert got.device.type == "cuda" and tuple(logits.shape) == (9, 3)
+    np.testing.assert_array_equal(intensity.cpu().numpy(), labels)
+    torch.testing.assert_close(got, want, rtol=0, atol=FP32_ATOL)
+
+
+def test_switch_and_sharded_match_route_hard_on_card(cuda_device):
+    d = _small_dehazer(cuda_device)
+    x = np.random.default_rng(4).random((5, 32, 32, 3), dtype=np.float32)
+    want, want_i = d.route_hard(x)
+    for got, got_i in (d.route_switch(x), d.route_sharded(x), d.route_device_binned(x)):
+        np.testing.assert_array_equal(got_i, want_i)
+        np.testing.assert_allclose(got, want, rtol=0, atol=FP32_ATOL)
+
+
+def test_device_binning_does_not_sync(cuda_device):
+    """The classifier and the binning, up to the one event-guarded read,
+    under set_sync_debug_mode("error"): no op of theirs synchronizes."""
+    from adam_dehaze_tpu_torch.models.routing import _device_capacity_labels
+
+    d = _small_dehazer(cuda_device)
+    x = torch.from_numpy(np.random.default_rng(5).random((9, 32, 32, 3), dtype=np.float32))
+    xd = x.to(cuda_device)
+    labels = np.arange(9) % 3
+    with torch.inference_mode():
+        for spill in (False, True):
+            fn = d._device_binned_fn(4, spill)
+            want = fn(xd, labels)[0]          # warm: allocations, lazy folds
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                binned = [fn.bin(xd), fn.bin(xd, labels)]
+                _device_capacity_labels(torch.zeros(9, dtype=torch.long, device=cuda_device),
+                                        torch.rand(9, 3, device=cuda_device), 3, 3)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.testing.assert_close(fn.serve(binned[1])[0], want, rtol=0, atol=FP32_ATOL)
+
+
+def test_route_device_binned_stream_on_card(cuda_device):
+    """Ragged batches, padded with their last image and staged through the
+    pinned ring, against route_device_binned batch by batch."""
+    d = _small_dehazer(cuda_device)
+    x = np.random.default_rng(6).random((20, 32, 32, 3), dtype=np.float32)
+    batches = [x[:8], x[8:11], x[11:19], x[19:], x[:5], x[5:8]]
+    for depth in (1, 2):
+        got = list(d.route_device_binned_stream(batches, chunk=4, depth=depth))
+        assert len(got) == len(batches)
+        for (y, i), b in zip(got, batches):
+            want, want_i = d.route_device_binned(b, chunk=4)
+            np.testing.assert_array_equal(i, want_i)
+            np.testing.assert_allclose(y, want, rtol=0, atol=FP32_ATOL)
+
+
+def test_route_hard_stream_and_queued_on_card(cuda_device):
+    d = _small_dehazer(cuda_device)
+    x = np.random.default_rng(7).random((12, 32, 32, 3), dtype=np.float32)
+    batches = [x[:5], x[5:9], x[9:]]
+    for (y, i), b in zip(d.route_hard_stream(batches), batches, strict=True):
+        want, want_i = d.route_hard(b)
+        np.testing.assert_array_equal(i, want_i)
+        np.testing.assert_allclose(y, want, rtol=0, atol=FP32_ATOL)
+    want, want_i = d.route_hard(x)
+    seen = np.zeros(12, np.int32)
+    for y, gidx, cls in d.route_hard_queued(batches, queue_bucket=4):
+        assert y.device.type == "cuda" and (want_i[gidx] == cls).all()
+        np.testing.assert_allclose(y.cpu().numpy(), want[gidx], rtol=0, atol=FP32_ATOL)
+        seen[gidx] += 1
+    np.testing.assert_array_equal(seen, 1)
+
+
+def test_soft_adaptive_infer_launches_k5_once(cuda_device):
+    from adam_dehaze_tpu_torch.models.routing import INTENSITY_ORDER, make_adaptive_infer
+
+    d = _small_dehazer(cuda_device)
+    x = np.random.default_rng(8).random((3, 32, 32, 3), dtype=np.float32)
+    fn = make_adaptive_infer(d._serving.classifier,
+                             [d._serving.models[lvl] for lvl in INTENSITY_ORDER], "soft",
+                             temperature=d.router.temperature)
+    before = blend3.launches
+    with torch.inference_mode():
+        y, _ = fn(torch.from_numpy(x).to(cuda_device))
+    assert blend3.launches == before + 1
+    np.testing.assert_allclose(y.cpu().numpy(), d(x), rtol=0, atol=FP32_ATOL)
