@@ -191,13 +191,17 @@ def require(cond: bool, name: str, what: str) -> None:
 
 
 def require_cuda_inputs(name: str, *tensors) -> None:
-    """Every tensor on one CUDA device, none needing a gradient: the kernels
-    are forward-only (their backward kernels come with training)."""
+    """Every tensor on one CUDA device, none needing a gradient. The
+    kernels that call this are forward-only: K1, K3, K4 and K6 take BN-folded
+    eval weights (their JAX counterparts have no VJP either), and K2' and
+    K5 get their autograd Functions with the joint trainer. K2 checks its
+    inputs here inside its Function's forward, where no gradient is
+    recorded."""
     import torch
     dev = tensors[0].device
     for t in tensors:
         require(t.device == dev, name, f"tensors on {dev} and {t.device}")
     require(dev.type == "cuda", name, f"expects CUDA or CPU tensors, got {dev}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name} has no backward kernel yet; call it under "
-                           "torch.no_grad() or torch.inference_mode()")
+        raise RuntimeError(f"{name} is a forward-only kernel (no autograd Function); "
+                           "call it under torch.no_grad() or torch.inference_mode()")

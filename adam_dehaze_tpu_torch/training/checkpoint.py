@@ -1,4 +1,14 @@
-"""Weights from the JAX package into the port.
+"""Checkpoints of the port, and weights from the JAX package.
+
+The save side: `save_checkpoint` writes a state tree (training/common.py:
+`state_to_tree`) as `{ckpt_dir}/{name}.pth` with its metrics in the
+`{name}.metrics.json` sidecar; `load_checkpoint` reads both back;
+`find_latest_checkpoint` picks the highest `checkpoint_epoch_N` for a
+resume, falling back to `best_model`. The layout follows the JAX package's
+(adam_dehaze_tpu/training/checkpoint.py), one torch file where that is an
+orbax directory.
+
+Weights from the JAX package:
 
 `load_flax_variables(module, variables)` fills a port module from the JAX
 package's `{"params", "batch_stats"}` tree (nested dicts of arrays): a
@@ -11,16 +21,22 @@ load_torch_classifier). Because the port registers its submodules under
 the upstream reference's torch names, `module.state_dict()` fed back
 through the JAX side's `load_torch_joint` gives the original tree.
 
-orbax checkpoints, which only JAX reads, are not read here.
+The loss nets (VGG16Features, AlexNetFeatures, LPIPS) map flax's
+`conv{stage}_{idx}` / `conv{i}` / `lin{i}` onto torchvision's `features.N`
+keys. orbax checkpoints, which only JAX reads, are not read here.
 """
 from __future__ import annotations
 
-from typing import Callable, List, Optional, Tuple
+import json
+import os
+import re
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
+from adam_dehaze_tpu_torch.losses.lpips import LPIPS
 from adam_dehaze_tpu_torch.models.branches import (
     HighIntensityDehazeModel,
     LightweightDehazeModel,
@@ -32,12 +48,62 @@ from adam_dehaze_tpu_torch.models.routing import (
     HardRouter,
     SoftRouter,
 )
+from adam_dehaze_tpu_torch.nn.alexnet import AlexNetFeatures
 from adam_dehaze_tpu_torch.nn.blocks import (
     AttentionBlock,
     ConvBlock,
     ResidualBlock,
     UpBlock,
 )
+from adam_dehaze_tpu_torch.nn.vgg import _STAGES as _VGG_STAGES
+from adam_dehaze_tpu_torch.nn.vgg import VGG16Features
+
+_EPOCH_RE = re.compile(r"checkpoint_epoch_(\d+)\.pth$")
+
+
+def _metrics_path(path: str) -> str:
+    return os.path.splitext(path)[0] + ".metrics.json"
+
+
+def save_checkpoint(ckpt_dir: str, name: str, state: Dict[str, Any],
+                    metrics: Optional[Dict[str, float]] = None) -> str:
+    """Save a state tree as {ckpt_dir}/{name}.pth (+ the metrics sidecar);
+    returns the path. The file is replaced atomically."""
+    os.makedirs(ckpt_dir, exist_ok=True)
+    path = os.path.abspath(os.path.join(ckpt_dir, f"{name}.pth"))
+    torch.save(state, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    if metrics is not None:
+        with open(_metrics_path(path), "w") as f:
+            json.dump({k: float(v) for k, v in metrics.items()}, f, indent=2)
+    return path
+
+
+def load_checkpoint(path: str) -> Tuple[Dict[str, Any], Dict[str, float]]:
+    """Read a checkpoint onto the CPU: (state tree, metrics)."""
+    state = torch.load(path, map_location="cpu", weights_only=True)
+    metrics = {}
+    if os.path.exists(_metrics_path(path)):
+        with open(_metrics_path(path)) as f:
+            metrics = json.load(f)
+    return state, metrics
+
+
+def best_model_path(ckpt_dir: str) -> str:
+    return os.path.join(ckpt_dir, "best_model.pth")
+
+
+def find_latest_checkpoint(ckpt_dir: str) -> Optional[str]:
+    """The highest checkpoint_epoch_N for a resume, else best_model, else
+    None."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    epochs = [(int(m.group(1)), entry) for entry in os.listdir(ckpt_dir)
+              if (m := _EPOCH_RE.match(entry))]
+    if epochs:
+        return os.path.join(ckpt_dir, max(epochs)[1])
+    best = best_model_path(ckpt_dir)
+    return best if os.path.exists(best) else None
 
 # (torch key, collection, flax path, transform or None)
 Assign = Tuple[str, str, tuple, Optional[Callable]]
@@ -166,9 +232,30 @@ def _branch_table(model: nn.Module) -> list:
     raise TypeError(f"no weight layout for {type(model).__name__}")
 
 
+def _feature_net_assigns(module: nn.Module, tp: str = "", fp: tuple = ()) -> List[Assign]:
+    """The loss nets: flax `conv{stage}_{idx}` (VGG16) or `conv{i}`
+    (AlexNet) onto `features.N`, LPIPS's trunk and heads."""
+    if isinstance(module, LPIPS):
+        out = _feature_net_assigns(module.net, "net.", ("AlexNetFeatures_0",))
+        return out + [(f"lin{i}", "params", (f"lin{i}",), None) for i in range(5)]
+    convs = [i for i, m in enumerate(module.features) if isinstance(m, nn.Conv2d)]
+    if isinstance(module, VGG16Features):
+        names = [f"conv{si}_{ci}" for si, (_, n) in enumerate(_VGG_STAGES, start=1)
+                 for ci in range(1, n + 1)]
+    else:
+        names = [f"conv{i}" for i in range(1, 6)]
+    out: List[Assign] = []
+    for idx, name in zip(convs, names):
+        out += [(f"{tp}features.{idx}.weight", "params", fp + (name, "kernel"), _conv),
+                (f"{tp}features.{idx}.bias", "params", fp + (name, "bias"), None)]
+    return out
+
+
 def _assigns(module: nn.Module, variables) -> List[Assign]:
     keys = set(module.state_dict())
     out: List[Assign] = []
+    if isinstance(module, (VGG16Features, AlexNetFeatures, LPIPS)):
+        return _feature_net_assigns(module)
     if isinstance(module, FogIntensityClassifier):
         bb = next(k for k in variables["params"] if k.startswith("ResNet"))
         resnet = module.backbone

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the device time goes, on one GPU: torch.profiler over warm calls.
 
-    python3 chip_profile.py [kernels] [routes]      (both by default)
+    python3 chip_profile.py [kernels] [routes] [train] [gate] [grads]
+                                          (kernels, routes and train by default)
 
 Profiles, each over 3 warm calls at the sizes of chip_smoke.py (16 images at
 256^2, bf16, the same seeded weights and inputs). `kernels`:
@@ -27,10 +28,40 @@ batches; each result dropped as it comes, and route_hard_stream again with
 all 8 kept), each with the largest host-side entries (CUDA runtime calls
 included) beside the device ones.
 
-For each it prints the device-busy time per call (kernels and memcpys,
-summed once each), the host wall time per call, and the largest device
-entries by name. It fails without a CUDA card, and if the profiler saw no
-device time.
+`train`: one bf16 train step of the high branch at the default width (the
+trainer's `make_train_step`: forward and loss under autocast, backward, Adam)
+on 16 seeded images at 256^2, profiled, then its parts timed alone with
+CUDA events: the branch's forward, its forward and backward under a plain
+mean loss, the loss nets' (VGG16, LPIPS) forward and backward on a fixed
+output, the Adam step, K2's forward and backward at the six AttentionBlock
+shapes, and a batch's host-to-device copies (hazy, clear, dehazed) from
+pageable and from pinned memory.
+
+`gate` (no profiler): K2's wrapper `channel_spatial_gate` in inference
+mode at the six AttentionBlock shapes, bf16, timed as chip_smoke.py's phase
+3 times it (CUDA events, 20 calls after 3), GATE_REPEATS times over, with
+the spread of the sum per high-branch call; and its host time per call at
+a tiny shape (1, 8, 8, 8), where the launch path and not the card sets the
+pace. It runs on any tree whose chip_smoke.py has K2_SHAPES and cuda_ms, so
+that two trees can be compared in one call.
+
+`grads` (no profiler): the fp32 train step of chip_smoke.py's phase 10 for
+each default branch, on the CPU in fp32 and float64, again in float64 with
+every input pixel moved by one fp32 rounding (how far the step amplifies a
+change of its inputs), and on the card GRAD_RUNS times under each of
+cuDNN's default algorithms, `torch.backends.cudnn.deterministic` and cuDNN
+turned off: one line per parameter with its errors against float64 in
+units of its own largest magnitude, and for a Conv2d weight its
+conditioning (the largest sum|x|*|dy| over its entries, in units of the
+gradient's largest magnitude, from the float64 step); and each Conv2d alone
+on the card, with cuDNN and without, on the float64 step's own tensors: the
+layers whose forward, input gradient or weight gradient is furthest from
+float64.
+
+For the profiled sections it prints the device-busy time per call (kernels
+and memcpys, summed once each), the host wall time per call, and the
+largest device entries by name. It fails without a CUDA card, and if the
+profiler saw no device time.
 """
 import copy
 import sys
@@ -47,6 +78,10 @@ from adam_dehaze_tpu_torch.serving import AdaptiveDehazer
 
 CALLS = 3
 TOP = 12
+GATE_REPEATS = 10
+GATE_HOST_CALLS = 2000
+GRAD_RUNS = 3
+SECTIONS = ("kernels", "routes", "train", "gate", "grads")
 
 
 def profiled(tag, fn, host_top=0):
@@ -101,8 +136,8 @@ def profile_routes(router, dev):
 
 
 def main():
-    sections = sys.argv[1:] or ["kernels", "routes"]
-    unknown = set(sections) - {"kernels", "routes"}
+    sections = sys.argv[1:] or ["kernels", "routes", "train"]
+    unknown = set(sections) - set(SECTIONS)
     if unknown:
         raise SystemExit(f"chip_profile: unknown sections {sorted(unknown)}")
     cs.phase_device()
@@ -113,6 +148,188 @@ def main():
     if "routes" in sections:
         profile_routes(cs.make_router(load_config(), torch.Generator().manual_seed(cs.SEED)),
                        dev)
+    if "train" in sections:
+        profile_train(dev)
+    if "gate" in sections:
+        time_gate(dev)
+    if "grads" in sections:
+        fp32_step_readings(dev)
+
+
+def time_gate(dev):
+    """K2's wrapper at the high branch's shapes, and its host path (see the
+    docstring)."""
+    from adam_dehaze_tpu_torch.ops.kernels.cbam import channel_spatial_gate
+
+    gen = torch.Generator().manual_seed(cs.SEED)
+    inputs = []
+    for shape, calls in cs.K2_SHAPES.items():
+        x = torch.rand(shape, generator=gen).to(dev).bfloat16()
+        g = torch.sigmoid(torch.randn(shape[0], shape[3], generator=gen)).to(dev)
+        w = (torch.randn(7, 7, 2, 1, generator=gen) * 0.1).to(dev).bfloat16().float()
+        inputs.append((calls, x, g, w))
+    tiny = (torch.rand(1, 8, 8, 8, generator=gen).to(dev).bfloat16(),
+            torch.rand(1, 8, generator=gen).to(dev),
+            torch.zeros(7, 7, 2, 1, device=dev))
+    with torch.inference_mode():
+        per_call = []
+        for _ in range(GATE_REPEATS):
+            per_call.append(sum(calls * cs.cuda_ms(lambda: channel_spatial_gate(x, g, w))
+                                for calls, x, g, w in inputs))
+        host_us = []
+        for _ in range(GATE_REPEATS):
+            channel_spatial_gate(*tiny)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(GATE_HOST_CALLS):
+                channel_spatial_gate(*tiny)
+            torch.cuda.synchronize()
+            host_us.append((time.perf_counter() - t0) * 1e6 / GATE_HOST_CALLS)
+    for tag, vals, unit in (("wrapper per high-branch call (6 blocks)", per_call, "ms"),
+                            ("host time per call at (1, 8, 8, 8)", host_us, "us")):
+        ranked = sorted(vals)
+        cs.log(f"[gate] K2 {tag}, {GATE_REPEATS} repeats: min {ranked[0]:.3f}, median "
+               f"{ranked[len(vals) // 2]:.3f}, max {ranked[-1]:.3f} {unit} (in order: "
+               f"{', '.join(f'{v:.3f}' for v in vals)})")
+
+
+def fp32_step_readings(dev):
+    """Every parameter's fp32 gradient error against float64, CPU and card,
+    and each Conv2d alone on the card (see the docstring)."""
+    from adam_dehaze_tpu_torch.losses.dehazing import get_dehazing_loss
+
+    cfg = load_config(overrides={"cuda": {"compute_dtype": "float32"}})
+    batch = cs.fp32_step_batch()
+    loss = get_dehazing_loss(cfg)
+    for level in cs.INTENSITY_ORDER:
+        io = {}
+        _, g64, m64 = cs.fp32_step(level, cfg, loss, batch, "cpu", torch.float64, capture=io)
+        _, g_cpu, _ = cs.fp32_step(level, cfg, loss, batch, "cpu", torch.float32)
+        cpu, _ = cs.per_tensor_errs(g_cpu, g64)
+        # The step's own sensitivity: float64 throughout, each input pixel
+        # moved by one part in 2^24 (an fp32 rounding), up or down at random.
+        signs = torch.Generator().manual_seed(cs.SEED)
+        moved = {k: v.double() * (1 + 2.0 ** -24 * (torch.randint(
+            0, 2, v.shape, generator=signs) * 2 - 1)) for k, v in batch.items()}
+        nudged, _ = cs.per_tensor_errs(
+            cs.fp32_step(level, cfg, loss, moved, "cpu", torch.float64)[1], g64)
+        convs = {n: (m64.get_submodule(n), x, dy) for n, (x, dy) in io.items()}
+        cond = {}
+        for n, (m, x, dy) in convs.items():
+            terms = torch.nn.grad.conv2d_weight(x.abs(), m.weight.shape, dy.abs(), m.stride,
+                                                m.padding, m.dilation, m.groups)
+            cond[f"{n}.weight"] = float(terms.max()) / float(g64[f"{n}.weight"].abs().max())
+        # (cudnn.enabled, cudnn.deterministic) per mode, set directly: the
+        # cudnn.flags context resets every flag it is not given.
+        modes = {"cuDNN default": (True, False), "cuDNN deterministic": (True, True),
+                 "cuDNN off": (False, False)}
+        runs = {}
+        for mode, (on, det) in modes.items():
+            torch.backends.cudnn.enabled, torch.backends.cudnn.deterministic = on, det
+            runs[mode] = [cs.per_tensor_errs(cs.fp32_step(
+                level, cfg, loss, batch, dev, torch.float32)[1], g64)[0]
+                for _ in range(GRAD_RUNS)]
+            if mode != "cuDNN deterministic":
+                conv_alone(level, mode, convs, dev)
+        torch.backends.cudnn.enabled, torch.backends.cudnn.deterministic = True, False
+        cs.log(f"[grads] {level}: per tensor, error against float64 in units of its own "
+               f"max|g|: CPU | float64 with the inputs moved by 2^-24 | card, {GRAD_RUNS} "
+               f"runs each under {' | '.join(modes)} | conditioning")
+        for n in cpu:
+            cards = " | ".join(" ".join(f"{r[n]:.3e}" for r in rs) for rs in runs.values())
+            c = f"{cond[n]:.3e}" if n in cond else "-"
+            cs.log(f"[grads] {level} {n}: {cpu[n]:.3e} | {nudged[n]:.3e} | {cards} | {c}")
+        most = max(nudged, key=nudged.get)
+        cs.log(f"[grads] {level}, float64 with the inputs moved by 2^-24: largest change on "
+               f"{most}: {nudged[most]:.3e} (CPU fp32 {cpu[most]:.3e} there)")
+        for mode, rs in runs.items():
+            worst = max(cpu, key=lambda n: max(r[n] for r in rs) / max(cpu[n], 1e-12))
+            most = max(cpu, key=lambda n: max(r[n] for r in rs))
+            cs.log(f"[grads] {level}, {mode}: largest card/CPU ratio on {worst}: card "
+                   f"{max(r[worst] for r in rs):.3e}, CPU {cpu[worst]:.3e}; largest card "
+                   f"error on {most}: {max(r[most] for r in rs):.3e} (CPU {cpu[most]:.3e})")
+
+
+def conv_alone(level, mode, convs, dev):
+    """Each Conv2d of the float64 step alone on the card in fp32, on that
+    step's own input, weight and output gradient: its forward, input
+    gradient and weight gradient against float64, in units of each result's
+    largest magnitude; the three layers with the largest error of each."""
+    errs = {}
+    for n, (m, x, dy) in convs.items():
+        args = (m.stride, m.padding, m.dilation, m.groups)
+        w = m.weight.detach()
+        ops = [lambda x, w, dy: torch.nn.functional.conv2d(x, w, None, *args),
+               lambda x, w, dy: torch.nn.grad.conv2d_input(x.shape, w, dy, *args),
+               lambda x, w, dy: torch.nn.grad.conv2d_weight(x, w.shape, dy, *args)]
+        card = [t.to(dev, torch.float32) for t in (x, w, dy)]
+        errs[n] = [cs.max_err(op(*card).cpu(), want) / float(want.abs().max())
+                   for op, want in ((op, op(x, w, dy)) for op in ops)]
+    for i, op in enumerate(("forward", "input gradient", "weight gradient")):
+        top = sorted(errs, key=lambda n: -errs[n][i])[:3]
+        cs.log(f"[grads] {level}, {mode}, each Conv2d alone, {op}: "
+               + ", ".join(f"{n} {errs[n][i]:.2e}" for n in top))
+
+
+def profile_train(dev):
+    """A high-branch bf16 train step and its parts (see the docstring)."""
+    from adam_dehaze_tpu_torch.losses.dehazing import get_dehazing_loss
+    from adam_dehaze_tpu_torch.training.state import TrainState, make_optimizer
+    from adam_dehaze_tpu_torch.training.train_dehazing import init_branch, make_train_step
+
+    cfg = load_config()
+    model = init_branch("high", cfg, dev).train()
+    state = TrainState(model, make_optimizer(model.parameters(), 1e-4))
+    loss = get_dehazing_loss(cfg)
+    nets = loss.init(torch.Generator().manual_seed(0), dev)
+    gen = torch.Generator().manual_seed(cs.SEED)
+    host = {k: torch.rand(cs.BATCH, cs.SIZE, cs.SIZE, 3, generator=gen)
+            for k in ("hazy", "clear", "dehazed")}
+    batch = {k: v.to(dev) for k, v in host.items()}
+    aug = torch.Generator(dev).manual_seed(1)
+    step = make_train_step(loss, nets, dtype=torch.bfloat16)
+    profiled("train step, high, bf16", lambda: step(state, batch, aug))
+    parts = {"whole step (augment, forward, loss, backward, Adam)":
+             lambda: step(state, batch, aug)}
+
+    def autocast():
+        return torch.autocast("cuda", dtype=torch.bfloat16)
+
+    def branch_fwd():
+        with torch.no_grad(), autocast():
+            model(batch["hazy"])
+
+    def branch_fwd_bwd():
+        with autocast():
+            out = model(batch["hazy"])
+        out.mean().backward()
+
+    with torch.no_grad(), autocast():
+        fixed = model(batch["hazy"])
+
+    def loss_fwd_bwd():
+        out = fixed.detach().requires_grad_(True)
+        with autocast():
+            total, _ = loss(nets, out, batch["clear"], hazy=batch["hazy"])
+        total.backward()
+
+    parts.update({"branch forward": branch_fwd, "branch forward + backward": branch_fwd_bwd,
+                  "loss nets forward + backward": loss_fwd_bwd,
+                  "Adam step": lambda: state.optimizer.step()})
+    for name, fn in parts.items():
+        cs.log(f"[train parts] {name}: {cs.cuda_ms(fn, iters=10, warmup=2):.3f} ms")
+    del fixed
+    torch.cuda.empty_cache()
+    k2 = cs.phase_gate_grad(dev, torch.Generator().manual_seed(cs.SEED + 4))
+    cs.log(f"[train parts] K2 forward {k2['forward_ms']:.3f} ms, backward "
+           f"{k2['backward_ms']:.3f} ms per step (six AttentionBlocks)")
+    pinned = {k: v.pin_memory() for k, v in host.items()}
+    for tag, src, non_blocking in (("pageable", host, False), ("pinned", pinned, True)):
+        ms = cs.cuda_ms(lambda: [v.to(dev, non_blocking=non_blocking) for v in src.values()],
+                        iters=10, warmup=2)
+        mb = sum(v.numel() * 4 for v in src.values()) / 1e6
+        cs.log(f"[train parts] batch upload from {tag} memory: {ms:.3f} ms for {mb:.1f} MB "
+               f"({mb / ms:.1f} GB/s)")
 
 
 def profile_kernels(dev):

@@ -83,7 +83,34 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. Slice vs plain: the same weights run a forced-label batch on the CPU in
    fp32 (the plain versions) and on the card in fp32 (the kernels), under
    the default, the tail-chain and the res-chain dispatch.
-10. Prints the kernels' JSON line and, last, {"ok": true, "device": ...}.
+10. Training (the per-branch trainer, adam_dehaze_tpu_torch/training/
+   train_dehazing.py). First, with the launches of this part not counted
+   on any path: K2's autograd Function at the six AttentionBlock shapes of
+   the high branch, its forward against the fp32 plain version and its
+   gradients against plain autograd of the plain version in the same dtype
+   (fp32 within 1e-4, bf16 within 3e-2 of each result's largest magnitude),
+   its forward and backward timed per high train step (the bf16 gradients
+   also against the fp32 plain version, as a reading); and one fp32 train
+   step of each default branch (TF32 off, augmentation off, 64^2, batch 2)
+   on the card against the same step on the CPU (loss within 1e-4
+   relative) and against float64 on the CPU: each gradient, in units of
+   its own largest magnitude, within 4 times the CPU's fp32 error on it or
+   1e-1, whichever is larger; all of them within 1e-3 of the branch's
+   largest gradient, or twice the CPU's own error there (see STEP_GRAD_K).
+   Then, counters
+   at 0: a synthetic 256^2 corpus (48 train and 16 val images an intensity)
+   written by the port, `train_all_dehazing_models` at the default widths in
+   bf16 for 1 epoch, then again with resume=True for 2 epochs, which must
+   pick up each branch's best_model (6 steps in all). Every loss component
+   of every step must be finite; after each branch's first step every
+   trainable parameter must hold a finite gradient that is not all zero;
+   each high train step must launch K2 six times and each high eval batch
+   six times, the low validation must launch K1; each branch's best_model
+   must reload into a fresh module and give the same eval output. Prints
+   each branch's warm ms per train step (synchronized), images/s and peak
+   memory, with the card's name and power limit.
+11. Prints the kernels' JSON line (`launches_by_path` with "training") and,
+   last, {"ok": true, "device": ...}.
 """
 import collections
 import copy
@@ -97,6 +124,8 @@ import numpy as np
 import torch
 
 from adam_dehaze_tpu_torch.config import load_config
+from adam_dehaze_tpu_torch.data.preprocessing import generate_synthetic_dataset
+from adam_dehaze_tpu_torch.losses.dehazing import get_dehazing_loss
 from adam_dehaze_tpu_torch.models.branches import (
     HighIntensityDehazeModel,
     LightweightDehazeModel,
@@ -165,6 +194,10 @@ from adam_dehaze_tpu_torch.ops.serving_apply import cast_for_serving
 from adam_dehaze_tpu_torch.serving import AdaptiveDehazer
 from adam_dehaze_tpu_torch.serving_autotune import candidate_builders
 from adam_dehaze_tpu_torch.tools import probe_ops
+from adam_dehaze_tpu_torch.training import checkpoint as ckpt
+from adam_dehaze_tpu_torch.training import train_dehazing as td
+from adam_dehaze_tpu_torch.training.common import device_batch
+from adam_dehaze_tpu_torch.training.state import TrainState, make_optimizer
 
 SEED = 0
 BATCH, SIZE = 16, 256
@@ -305,6 +338,40 @@ TAIL_PATH_KERNELS = ("lightweight_chain", "cbam_gate", "blend3", "spatial_gate",
                      "medium_tail_chain", "high_tail_chain")
 RES_PATH_KERNELS = ("lightweight_chain", "cbam_gate", "blend3", "spatial_gate",
                     "high_tail_chain", "res_attn_chain")
+TRAINING_PATH_KERNELS = ("lightweight_chain", "cbam_gate")
+# The training phase's corpus: per intensity 48 train images (3 steps of 16)
+# and 16 val images (one validation batch).
+TRAIN_PER_CLASS = 64
+TRAIN_SPLITS = {"train": 0.75, "val": 0.25}
+# K2's autograd Function vs the plain version on the same inputs, in units
+# of each result's largest magnitude: its forward (the kernel) against the
+# plain version in fp32, and its gradients against plain autograd of the
+# plain version in the same dtype (its backward recomputes that plain
+# version, so these read 0 unless a library pass sums in another order). The
+# bounds are the port's fp32 and bf16 ones.
+K2_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# One fp32 train step (TF32 off), card vs CPU: the loss, relative. The
+# gradients are held against the same step in float64 on the CPU, twice:
+# - per tensor, in units of its own largest magnitude: the card's error
+#   within STEP_GRAD_K times the CPU's fp32 error on that tensor, or within
+#   STEP_GRAD_FLOOR where that is larger. fp32 itself is far from float64 on
+#   some tensors at the default widths, 64^2, batch 2 (`chip_profile.py
+#   grads`; NVIDIA H100 80GB HBM3, 700.00 W): up to 5.8e-2 on the CPU
+#   (the high branch's decoder.0.3.conv1 weight), 5.4e-2 on the card with
+#   cuDNN off, 3.8e-2 with cuDNN's default algorithms on a tensor where the
+#   CPU reads 1.0e-3 (decoder.1.3.conv1). The floor is under twice the
+#   largest; a gradient with its sign flipped reads 2;
+# - all together, in units of the branch's largest gradient: within
+#   STEP_GRAD_RTOL, or twice the CPU's own error where that is larger (the
+#   medium branch's CPU reads 2.2e-3 there, the card 1.0e-3 to 1.5e-3).
+# A gradient that is 0 in exact arithmetic (a bias before a train-mode BN:
+# float64 max below ZERO_GRAD of the branch's largest) has no scale of its
+# own and is held only by the second.
+STEP_LOSS_RTOL = 1e-4
+STEP_GRAD_K = 4.0
+STEP_GRAD_FLOOR = 1e-1
+STEP_GRAD_RTOL = 1e-3
+ZERO_GRAD = 1e-6
 
 
 def log(msg):
@@ -1295,6 +1362,289 @@ def phase_vs_plain(router, dev, rng, tmp):
         check(err <= SLICE_ATOL, f"the card's slice ({tag}) disagrees with the plain path")
 
 
+def phase_gate_grad(dev, gen):
+    """K2's autograd Function at the six AttentionBlock shapes: its forward
+    against the fp32 plain version, its gradients against plain autograd of
+    the plain version on the same inputs in the same dtype (and, as a
+    reading, the bf16 ones against the fp32 plain version), and the bf16
+    forward and backward time of one high train step's six blocks."""
+    fwd_ms = bwd_ms = 0.0
+    worst, worst_y, vs_fp32 = {}, {}, 0.0
+    for shape, n_blocks in K2_SHAPES.items():
+        b, _, _, c = shape
+        base = (torch.randn(shape, generator=gen), torch.rand(b, c, generator=gen),
+                torch.randn(7, 7, 2, 1, generator=gen) * 0.1)
+        dy = torch.randn(shape, generator=gen)
+        for dtype in (torch.float32, torch.bfloat16):
+            dyd = dy.to(dev, dtype)
+            ref_in = [t.to(dev, dtype).requires_grad_(True) for t in base]
+            want = torch.autograd.grad(channel_spatial_gate_reference(*ref_in), ref_in, dyd)
+            ours = [t.to(dev, dtype).requires_grad_(True) for t in base]
+            y = channel_spatial_gate(*ours)
+            got = torch.autograd.grad(y, ours, dyd, retain_graph=True)
+            with torch.no_grad():
+                y_ref = channel_spatial_gate_reference(*(t.float() for t in ours))
+            torch.cuda.synchronize()
+            err_y = max_err(y.detach(), y_ref) / float(y_ref.abs().max())
+            errs = [max_err(a, b) / float(b.float().abs().max()) for a, b in zip(got, want)]
+            worst[dtype] = max(worst.get(dtype, 0.0), *errs)
+            worst_y[dtype] = max(worst_y.get(dtype, 0.0), err_y)
+            note = ""
+            if dtype == torch.bfloat16:
+                errs32 = [max_err(a, b) / float(b.float().abs().max())
+                          for a, b in zip(got, fp32_want)]
+                vs_fp32 = max(vs_fp32, *errs32)
+                note = (f"; against the fp32 plain version {', '.join(f'{e:.2e}' for e in errs32)}"
+                        " (a reading: bf16 rounding can move a pixel's channel max)")
+            log(f"[train K2 grad] {shape} {str(dtype)[6:]}: forward err {err_y:.2e} of max|y| "
+                f"against the fp32 plain version; (dx, dg, dw) err "
+                f"{', '.join(f'{e:.2e}' for e in errs)} of max|grad| (bound "
+                f"{K2_GRAD_TOL[dtype]}){note}")
+            check(err_y <= K2_GRAD_TOL[dtype],
+                  f"K2's Function forward at {shape} {dtype} disagrees with the plain version")
+            check(max(errs) <= K2_GRAD_TOL[dtype],
+                  f"K2's Function gradient at {shape} {dtype} disagrees with plain autograd")
+            if dtype == torch.bfloat16:
+                fwd_ms += n_blocks * cuda_ms(lambda: channel_spatial_gate(*ours))
+                bwd_ms += n_blocks * cuda_ms(
+                    lambda: torch.autograd.grad(y, ours, dyd, retain_graph=True))
+            else:
+                fp32_want = want
+            del y, y_ref, got, ref_in
+        del fp32_want, want
+    log(f"[train K2] the high branch's six AttentionBlocks, bf16, batch {BATCH}: K2 forward "
+        f"{fwd_ms:.3f} ms + backward (autograd of the plain version) {bwd_ms:.3f} ms per "
+        "train step")
+    torch.cuda.empty_cache()
+    return dict(forward_ms=fwd_ms, backward_ms=bwd_ms, bf16_vs_fp32_plain=vs_fp32,
+                grad_err={str(k)[6:]: v for k, v in worst.items()},
+                forward_err={str(k)[6:]: v for k, v in worst_y.items()})
+
+
+def fp32_step_batch():
+    """The fixed inputs of the fp32 step checks: 2 images at 64^2."""
+    rng = np.random.default_rng(SEED + 5)
+    return {k: torch.from_numpy(rng.random((2, 64, 64, 3), dtype=np.float32))
+            for k in ("hazy", "clear")}
+
+
+def fp32_step(level, cfg, loss, batch, device, dtype, capture=None):
+    """One train step (augmentation off) of the freshly initialised `level`
+    branch in `dtype` on `device`: (total loss, {parameter: gradient as
+    float64 on the CPU}, the module). With a dict `capture`, each Conv2d's
+    input and output gradient go into it under the module's name."""
+    model = td.init_branch(level, cfg, device).train().to(dtype)
+    state = TrainState(model, make_optimizer(model.parameters(), 1e-4))
+    nets = {k: v.to(dtype) for k, v in
+            loss.init(torch.Generator().manual_seed(0), device).items()}
+
+    def keep(name):
+        def hook(module, inputs, out):
+            capture[name] = [inputs[0].detach()]
+            out.register_hook(lambda dy: capture[name].append(dy.detach()))
+        return hook
+
+    hooks = [] if capture is None else [
+        m.register_forward_hook(keep(n)) for n, m in model.named_modules()
+        if type(m) is torch.nn.Conv2d]
+    comps = td.make_train_step(loss, nets, augmentation=False)(
+        state, {k: v.to(device, dtype) for k, v in batch.items()})
+    for h in hooks:
+        h.remove()
+    return (float(comps["total"]),
+            {n: p.grad.double().cpu() for n, p in model.named_parameters()}, model)
+
+
+def per_tensor_errs(grads, g64):
+    """Each gradient's error against float64 in units of its own largest
+    magnitude, over the tensors whose float64 gradient is not 0 in exact
+    arithmetic; and the largest error of all in units of the branch's
+    largest gradient."""
+    g_max = max(float(g.abs().max()) for g in g64.values())
+    live = {n: float(g.abs().max()) for n, g in g64.items()
+            if float(g.abs().max()) > ZERO_GRAD * g_max}
+    errs = {n: max_err(grads[n], g64[n]) / scale for n, scale in live.items()}
+    return errs, max(max_err(grads[n], g) for n, g in g64.items()) / g_max
+
+
+def phase_train_step_vs_cpu(dev):
+    """One fp32 train step of each default branch on the card and on the
+    CPU, both held against the same step in float64 on the CPU."""
+    cfg = load_config(overrides={"cuda": {"compute_dtype": "float32"}})
+    batch = fp32_step_batch()
+    loss = get_dehazing_loss(cfg)
+    errs = {}
+    for level in INTENSITY_ORDER:
+        (l_cpu, g_cpu, _), (l64, g64, _), (l_card, g_card, _) = (
+            fp32_step(level, cfg, loss, batch, device, dtype)
+            for device, dtype in (("cpu", torch.float32), ("cpu", torch.float64),
+                                  (dev, torch.float32)))
+        cpu, cpu_all = per_tensor_errs(g_cpu, g64)
+        card, card_all = per_tensor_errs(g_card, g64)
+        # The card's error over its bound, per tensor: at most 1 passes.
+        over = {n: e / max(STEP_GRAD_K * cpu[n], STEP_GRAD_FLOOR) for n, e in card.items()}
+        tight = max(over, key=over.get)
+        worst = {tag: max(r, key=r.get) for tag, r in (("card", card), ("cpu", cpu))}
+        bound_all = max(STEP_GRAD_RTOL, 2 * cpu_all)
+        loss_err = abs(l_card - l_cpu) / abs(l_cpu)
+        errs[level] = dict(loss_rel=loss_err, loss_f64_rel=abs(l_card - l64) / abs(l64),
+                           card_vs_f64=card_all, cpu_vs_f64=cpu_all, bound=bound_all,
+                           per_tensor=dict(card=card[worst["card"]], cpu=cpu[worst["cpu"]],
+                                           tightest=tight, of_bound=over[tight]))
+        log(f"[train fp32 step] {level}: loss CPU {l_cpu:.7f}, card {l_card:.7f}, float64 "
+            f"{l64:.7f} (card vs CPU rel err {loss_err:.2e}, bound {STEP_LOSS_RTOL}); "
+            f"gradients against float64 in units of the branch's max|g|: card "
+            f"{card_all:.2e}, CPU {cpu_all:.2e} (bound {bound_all:.2e}); {len(card)} of "
+            f"{len(g64)} per tensor, in units of its own max|g|: card at most "
+            f"{card[worst['card']]:.2e} ({worst['card']}; the CPU's fp32 "
+            f"{cpu[worst['card']]:.2e} there), CPU at most {cpu[worst['cpu']]:.2e} "
+            f"({worst['cpu']}); closest to its bound (the larger of {STEP_GRAD_K:g} x the "
+            f"CPU's error and {STEP_GRAD_FLOOR:g}): {tight}, {over[tight]:.2f} of it")
+        check(loss_err <= STEP_LOSS_RTOL, f"the fp32 {level} train step's loss: card vs CPU")
+        check(card_all <= bound_all, f"the fp32 {level} train step's gradients: card vs float64")
+        check(over[tight] <= 1.0,
+              f"the fp32 {level} train step's gradient of {tight}: card vs float64")
+    return errs
+
+
+class TrainProbe:
+    """Wraps the trainer's step makers. Per branch: the steps taken, every
+    loss component finite, the first step's gradients, the warm step times
+    (synchronized), the peak memory, and the K1 and K2 launches of the train
+    and eval steps."""
+
+    def __init__(self):
+        self.run = 0
+        self.rec = {lvl: dict(steps=0, warm_ms=[], peak=0, by_run=collections.Counter(),
+                              start_step={}, train=collections.Counter(),
+                              eval=collections.Counter(), eval_batches=0)
+                    for lvl in INTENSITY_ORDER}
+
+    @staticmethod
+    def _k12():
+        return collections.Counter(lightweight_chain=lightweight_chain.launches,
+                                   cbam_gate=channel_spatial_gate.launches)
+
+    def wrap_train(self, make):
+        def made(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def probed(state, batch, generator=None):
+                rec = self.rec[CLASS_OF[type(state.module).__name__]]
+                before = self._k12()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                comps = step(state, batch, generator)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                rec["train"].update(self._k12() - before)
+                rec["peak"] = max(rec["peak"], torch.cuda.max_memory_allocated())
+                check(all(bool(torch.isfinite(v)) for v in comps.values()),
+                      f"a loss component is not finite: {comps}")
+                if rec["steps"] == 0:
+                    for name, p in state.module.named_parameters():
+                        check(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                              and bool(p.grad.abs().max() > 0),
+                              f"after the first step, {name} has no finite non-zero gradient")
+                if rec["by_run"][self.run]:
+                    rec["warm_ms"].append(ms)
+                else:
+                    rec["start_step"][self.run] = state.step - 1
+                rec["by_run"][self.run] += 1
+                rec["steps"] += 1
+                return comps
+            return probed
+        return made
+
+    def wrap_eval(self, make):
+        def made(*args, **kwargs):
+            step = make(*args, **kwargs)
+
+            def probed(state, batch):
+                rec = self.rec[CLASS_OF[type(state.module).__name__]]
+                before = self._k12()
+                out = step(state, batch)
+                rec["eval"].update(self._k12() - before)
+                rec["eval_batches"] += 1
+                return out
+            return probed
+        return made
+
+
+def phase_training(dev, smi, tmp):
+    """The trainer at the default widths, bf16 (see phase 10 above).
+    Returns the training path's launch counts and the readings."""
+    root = os.path.join(tmp, "corpus")
+    t0 = time.perf_counter()
+    n = generate_synthetic_dataset(root, n_per_class=TRAIN_PER_CLASS, size=SIZE, seed=SEED,
+                                   splits=TRAIN_SPLITS)
+    log(f"[training] corpus: {n} triplets at {SIZE}^2 in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated on the card before "
+        "the trainer (earlier phases)")
+    cfg = load_config()     # default widths, bf16
+    cfg["dataset"].update(train_path=root, val_path=root, test_path=root)
+    cfg["dehazing"].update(epochs=1, checkpoint_dir=os.path.join(tmp, "checkpoints"))
+    cfg["_logs_dir"] = os.path.join(tmp, "logs")
+    resumed_cfg = copy.deepcopy(cfg)
+    resumed_cfg["dehazing"]["epochs"] = 2
+
+    probe = TrainProbe()
+    makers = td.make_train_step, td.make_eval_step
+    td.make_train_step, td.make_eval_step = probe.wrap_train(makers[0]), probe.wrap_eval(makers[1])
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        td.train_all_dehazing_models(cfg)
+        probe.run = 1
+        trained = td.train_all_dehazing_models(resumed_cfg, resume=True)
+        path = counts()
+        wall = time.perf_counter() - t0
+    finally:
+        td.make_train_step, td.make_eval_step = makers
+    log(f"[training] two trainer runs (1 epoch, then resumed to 2) in {wall:.1f} s; "
+        f"launches {nonzero(path)}")
+
+    readings = {}
+    loss = get_dehazing_loss(cfg)
+    nets = loss.init(torch.Generator().manual_seed(0), dev)
+    for level in INTENSITY_ORDER:
+        rec, (model, state) = probe.rec[level], trained[level]
+        check(rec["by_run"] == {0: 3, 1: 3} and rec["start_step"] == {0: 0, 1: 3},
+              f"{level}: steps {dict(rec['by_run'])} from step {rec['start_step']} in the two "
+              "runs; the resumed run should have taken one epoch of 3 from the saved step 3")
+        if level == "low":
+            check(rec["eval"]["lightweight_chain"] > 0, "the low validation launched no K1")
+        k2_train = 6 * rec["steps"] if level == "high" else 0
+        k2_eval = 6 * rec["eval_batches"] if level == "high" else 0
+        check(rec["train"]["cbam_gate"] == k2_train and rec["eval"]["cbam_gate"] == k2_eval,
+              f"{level}: K2 launched {rec['train']['cbam_gate']} times in training and "
+              f"{rec['eval']['cbam_gate']} in validation, expected {k2_train} and {k2_eval}")
+        # The best checkpoint in a fresh module gives the same eval output.
+        fresh = TrainState(td.init_branch(level, cfg, dev), None)
+        best = ckpt.best_model_path(os.path.join(cfg["dehazing"]["checkpoint_dir"], level))
+        fresh.module.load_state_dict(ckpt.load_checkpoint(best)[0]["model"])
+        batch = device_batch(next(iter(td.get_intensity_loader(cfg, "val", level))), dev)
+        step = td.make_eval_step(loss, nets, torch.bfloat16)
+        a, b = step(state, batch), step(fresh, batch)
+        reload_err = max_err(a["dehazed"], b["dehazed"])
+        check(reload_err == 0.0 and float(a["psnr"]) == float(b["psnr"]),
+              f"{level}: best_model reloaded gives another eval output ({reload_err:.2e})")
+        ms = float(np.median(rec["warm_ms"]))
+        readings[level] = dict(ms_per_step=ms, images_per_s=BATCH / ms * 1e3,
+                               peak_gib=rec["peak"] / 2 ** 30, warm_ms=rec["warm_ms"],
+                               val_psnr=float(a["psnr"]))
+        log(f"[training] {level}: {rec['steps']} steps of {BATCH} at {SIZE}^2 bf16, warm "
+            f"{ms:.2f} ms/step (median of {len(rec['warm_ms'])}: "
+            f"{', '.join(f'{t:.2f}' for t in rec['warm_ms'])}), {BATCH / ms * 1e3:.1f} "
+            f"images/s, peak memory {rec['peak'] / 2 ** 30:.2f} GiB; train launches "
+            f"{dict(rec['train'])}, eval {dict(rec['eval'])}; best_model reloaded: eval "
+            f"output identical, val PSNR {float(a['psnr']):.2f} dB; {smi}")
+    for name in TRAINING_PATH_KERNELS:
+        check(path[name] > 0, f"the training path launched no {name}")
+    return path, readings
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
@@ -1320,13 +1670,20 @@ def main():
                                          RES_FORCED, "res slice", RES_PATH_KERNELS)
         probes = phase_probe_tool(dev)
         phase_vs_plain(router, dev, rng, tmp)
+        del router
+        torch.cuda.empty_cache()
+        k2_train = phase_gate_grad(dev, torch.Generator().manual_seed(SEED + 4))
+        step_errs = phase_train_step_vs_cpu(dev)
+        training, train_readings = phase_training(dev, smi, tmp)
     for name in ("route_hard", "forced_labels", "soft"):
         log(f"[slices] {name}: default dispatch {default_ms[name]:.3f} ms/image, "
             f"tail-chain dispatch {tail_ms[name]:.3f} ms/image, res-chain dispatch "
             f"{res_ms[name]:.3f} ms/image")
 
     paths = {"default": default, "engines": engines, "tail_chain": tail, "res_chain": res,
-             "probe_tool": probes}
+             "probe_tool": probes, "training": training}
+    kernels["cbam_gate"].update(training_forward_ms_per_step=k2_train["forward_ms"],
+                                training_backward_ms_per_step=k2_train["backward_ms"])
     line = {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
          "launches": sum(path[name] for path in paths.values()),
@@ -1337,7 +1694,9 @@ def main():
         "dispatch_ms": {"default": dispatch, "tuned": tuned_dispatch},
         "slice_ms_per_image": {"default": default_ms, "tail_chain": tail_ms,
                                "res_chain": res_ms},
-        "routes_ms_per_image": engine_ms, "engines_max_abs_err": engine_errs}
+        "routes_ms_per_image": engine_ms, "engines_max_abs_err": engine_errs,
+        "training": {"branches": train_readings, "k2": k2_train,
+                     "fp32_step_card_vs_cpu": step_errs}}
     check(all(k["launches"] > 0 for k in line["kernels"]),
           f"a kernel was launched no time on any path: {line['kernels']}")
     print(json.dumps(line), flush=True)

@@ -2,7 +2,10 @@
 against their plain versions on a CUDA card (marker `cuda`; every test skips without a card),
 and the serving engines on the card: the device-binned, switch and sharded
 routes against the host-binned engine, the binning under the sync debug
-mode, the stream routes against their per-batch counterparts.
+mode, the stream routes against their per-batch counterparts; and
+training: K2's autograd Function against plain autograd, one bf16 train
+step of each default branch, and the serving kernels' refusal of a
+gradient.
 
 This file imports neither JAX nor the JAX package, so that it also runs on
 a machine that has only PyTorch:
@@ -861,3 +864,98 @@ def test_soft_adaptive_infer_launches_k5_once(cuda_device):
         y, _ = fn(torch.from_numpy(x).to(cuda_device))
     assert blend3.launches == before + 1
     np.testing.assert_allclose(y.cpu().numpy(), d(x), rtol=0, atol=FP32_ATOL)
+
+
+# ---------------------------------------------------------------- training ---
+# K2 is an autograd Function: its forward is the kernel, its backward the VJP
+# of the plain version (as the JAX package's custom_vjp). The K2 gradient
+# bounds are in units of each gradient's largest magnitude, against plain
+# autograd of the plain version on the same inputs in the same dtype.
+K2_GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(16, 128, 128, 192), (16, 64, 64, 384),
+                                   (16, 256, 256, 96)], ids=["e1_d1", "e2_b", "d2"])
+def test_k2_function_gradients_match_plain_autograd(cuda_device, dtype, shape):
+    """At the high branch's AttentionBlock shapes (c = 96, 256^2, batch 16):
+    the forward launches the kernel once and matches the plain version (at
+    1e-4 in fp32, 3e-2 in bf16, of its largest magnitude); the gradients
+    match plain autograd of the plain version; the backward launches
+    nothing."""
+    gen = torch.Generator().manual_seed(shape[-1])
+    base = (torch.randn(shape, generator=gen), torch.rand(shape[0], shape[-1], generator=gen),
+            torch.randn(7, 7, 2, 1, generator=gen) * 0.1)
+    dy = torch.randn(shape, generator=gen).to(cuda_device, dtype)
+    ref = [t.to(cuda_device, dtype).requires_grad_(True) for t in base]
+    y_ref = channel_spatial_gate_reference(*ref)
+    want = torch.autograd.grad(y_ref, ref, dy)
+    ours = [t.to(cuda_device, dtype).requires_grad_(True) for t in base]
+    before = channel_spatial_gate.launches
+    y = channel_spatial_gate(*ours)
+    assert channel_spatial_gate.launches - before == 1
+    got = torch.autograd.grad(y, ours, dy)
+    torch.cuda.synchronize()
+    assert channel_spatial_gate.launches - before == 1
+    # x is drawn from N(0, 1), so |y| reaches 4: the bounds are in units of
+    # the largest magnitude (one bf16 step at 3.7 is 0.031).
+    bound = FP32_ATOL if dtype == torch.float32 else BF16_ATOL
+    assert float((y.float() - y_ref.float()).abs().max()) <= bound * float(
+        y_ref.float().abs().max())
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        scale = float(b.float().abs().max())
+        assert float((a.float() - b.float()).abs().max()) <= K2_GRAD_TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("level", ["low", "medium", "high"])
+def test_bf16_train_step_of_each_default_branch(cuda_device, level):
+    """One bf16 train step at the default width, 256^2, batch 16, through
+    the trainer's step: finite loss components, a finite gradient on every
+    parameter; the high branch launches K2 six times (forward only)."""
+    from adam_dehaze_tpu_torch.config import load_config
+    from adam_dehaze_tpu_torch.losses.dehazing import get_dehazing_loss
+    from adam_dehaze_tpu_torch.training.state import TrainState, make_optimizer
+    from adam_dehaze_tpu_torch.training.train_dehazing import init_branch, make_train_step
+
+    cfg = load_config()                      # default widths, bf16
+    model = init_branch(level, cfg, cuda_device).train()
+    state = TrainState(model, make_optimizer(model.parameters(), 1e-4))
+    loss = get_dehazing_loss(cfg)
+    nets = loss.init(torch.Generator().manual_seed(0), cuda_device)
+    gen = torch.Generator().manual_seed(7)
+    batch = {k: torch.rand(16, 256, 256, 3, generator=gen).to(cuda_device)
+             for k in ("hazy", "clear", "dehazed")}
+    before = channel_spatial_gate.launches
+    comps = make_train_step(loss, nets, dtype=torch.bfloat16)(
+        state, batch, torch.Generator(cuda_device).manual_seed(1))
+    torch.cuda.synchronize()
+    assert all(bool(torch.isfinite(v)) for v in comps.values())
+    for name, p in model.named_parameters():
+        assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
+    assert channel_spatial_gate.launches - before == (6 if level == "high" else 0)
+
+
+def test_serving_kernels_still_refuse_a_gradient(cuda_device):
+    """K1, K3, K4 and K6 take BN-folded eval weights and have no gradient:
+    on an input that needs one they raise; K2 does not."""
+    from adam_dehaze_tpu_torch.models.branches import LightweightDehazeModel
+    low = _seeded(LightweightDehazeModel(32, 3), 3).to(cuda_device)
+    x = torch.rand(1, 16, 16, 3, device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        lightweight_chain(x, fold_lightweight(low, torch.float32))
+    for kind, c in (("medium", 16), ("high", 16)):
+        model, (d1, f0, xt), (fold_fn, tail, _, _) = _tail_case(kind, c, 23)
+        weights = fold_fn(model.to(cuda_device), torch.float32)
+        d1, f0 = d1.to(cuda_device), f0.to(cuda_device)
+        with pytest.raises(RuntimeError, match="forward-only"):
+            tail(d1.requires_grad_(True), f0, xt.to(cuda_device), weights)
+    blocks, xr = _res_case(("res", "attn"), 32, (1, 8, 8), 41)
+    weights = fold_res_attn_chain(blocks.to(cuda_device), torch.float32)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        res_attn_chain(xr.to(cuda_device).requires_grad_(True), weights)
+    g = torch.rand(1, 32, device=cuda_device, requires_grad=True)
+    w = torch.rand(7, 7, 2, 1, device=cuda_device, requires_grad=True)
+    xg = xr.to(cuda_device).contiguous().requires_grad_(True)
+    channel_spatial_gate(xg, g, w).sum().backward()
+    assert xg.grad is not None and g.grad is not None and w.grad is not None

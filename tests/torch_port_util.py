@@ -90,3 +90,16 @@ def dehazer_pair(**port_kwargs):
     port_router = TR.create_router(p_branches(pcfg), p_classifier(pcfg), pcfg)
     pd = AdaptiveDehazer(port_router, vs, pcfg, device="cpu", **port_kwargs)
     return jd, pd
+
+
+def port_loss_params(jax_loss_params):
+    """The port's frozen loss nets filled from the JAX DehazingLoss's
+    `init` tree ({"content": VGG16 params, "lpips": LPIPS params})."""
+    from adam_dehaze_tpu_torch.losses.dehazing import CONTENT_TAPS
+    from adam_dehaze_tpu_torch.losses.lpips import LPIPS
+    from adam_dehaze_tpu_torch.nn.vgg import VGG16Features
+    nets = {"content": port_of(VGG16Features(CONTENT_TAPS), jax_loss_params["content"]),
+            "lpips": port_of(LPIPS(), jax_loss_params["lpips"])}
+    for net in nets.values():
+        net.requires_grad_(False)
+    return nets
