@@ -1,6 +1,7 @@
-"""The dehazing loss of the port.
+"""The dehazing and joint losses of the port.
 
-Counterpart of the DehazingLoss of adam_dehaze_tpu/losses/dehazing.py:
+Counterparts of DehazingLoss and JointLoss in
+adam_dehaze_tpu/losses/dehazing.py:
 
     total = lambda_l1 * L1 + lambda_content * VGG-MSE + lambda_perceptual * LPIPS
 
@@ -10,13 +11,19 @@ feature nets are frozen modules made by `init` (seeded, `requires_grad`
 off, eval mode) and passed to `__call__`, as the JAX loss takes its frozen
 parameters; the VGG trunk runs once per call over the concatenated pair.
 Without `loss.vgg_weights` / `loss.lpips_weights` the nets are random
-surrogates, as in the JAX package. JointLoss waits for the joint trainer.
+surrogates, as in the JAX package.
+
+JointLoss adds the classifier's cross-entropy and a detection term:
+
+    total = lambda_dehazing * dehazing + lambda_classification * CE
+            + lambda_detection * detection
 """
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from adam_dehaze_tpu_torch.data.synthetic import fog_density_map
 from adam_dehaze_tpu_torch.losses.lpips import LPIPS, lpips_from_unit_range
@@ -110,3 +117,50 @@ def get_dehazing_loss(config) -> DehazingLoss:
         vgg_weights=loss_cfg.get("vgg_weights") or None,
         lpips_weights=loss_cfg.get("lpips_weights") or None,
     )
+
+
+class JointLoss:
+    """Dehazing + classification (+ detection passthrough) loss. `init`
+    makes the dehazing loss's frozen nets, which `__call__` takes as
+    `loss_params`."""
+
+    def __init__(self, lambda_dehazing: float = 1.0,
+                 lambda_classification: float = 0.2,
+                 lambda_detection: float = 0.5,
+                 dehazing_loss: Optional[DehazingLoss] = None):
+        self.lambda_dehazing = lambda_dehazing
+        self.lambda_classification = lambda_classification
+        self.lambda_detection = lambda_detection
+        self.dehazing_loss = dehazing_loss or DehazingLoss()
+
+    def init(self, generator: torch.Generator, device="cpu") -> Dict[str, torch.nn.Module]:
+        return self.dehazing_loss.init(generator, device)
+
+    def __call__(self, loss_params, pred: torch.Tensor, target_clear: torch.Tensor,
+                 pred_intensity: Optional[torch.Tensor] = None,
+                 target_intensity: Optional[torch.Tensor] = None,
+                 detection_loss: Optional[torch.Tensor] = None,
+                 hazy: Optional[torch.Tensor] = None):
+        """(total, {dehazing, classification, detection, total,
+        dehazing_components}); the CE term only when both the logits and
+        the labels are given, 0 otherwise."""
+        dh, dh_components = self.dehazing_loss(loss_params, pred, target_clear, hazy=hazy)
+        zero = torch.zeros((), dtype=torch.float32, device=pred.device)
+        if pred_intensity is not None and target_intensity is not None:
+            cls = F.cross_entropy(pred_intensity.float(), target_intensity.long())
+        else:
+            cls = zero
+        det = detection_loss if detection_loss is not None else zero
+        total = (self.lambda_dehazing * dh + self.lambda_classification * cls
+                 + self.lambda_detection * det)
+        return total, {"dehazing": dh, "classification": cls, "detection": det,
+                       "total": total, "dehazing_components": dh_components}
+
+
+def get_joint_loss(config) -> JointLoss:
+    """The `joint_training` lambdas over the config's DehazingLoss."""
+    jt = config["joint_training"]
+    return JointLoss(lambda_dehazing=jt["lambda_dehazing"],
+                     lambda_classification=jt["lambda_classification"],
+                     lambda_detection=jt["lambda_detection"],
+                     dehazing_loss=get_dehazing_loss(config))

@@ -12,6 +12,12 @@ Submodule names are the upstream reference's (`init_conv`,
 `skip_alpha`), as read by adam_dehaze_tpu/training/checkpoint.py:
 _branch_layout.
 
+Under `cuda.remat: fullres` the factories checkpoint each branch's
+full-resolution blocks (`fullres_blocks`, training/remat.py), as the JAX
+package's `_fullres_blocks` builds them as remat twins: the full-resolution
+ConvBlocks, ResidualBlocks, AttentionBlocks and the last UpBlock, whose
+ResidualBlock and AttentionBlock the port keeps inside it.
+
 The high branch is the canonical forward with all six AttentionBlocks on
 kernel K2; the JAX package's space-to-depth rewrite of it was a lane-fill
 workaround for the TPU and is not ported. The low branch's eval forward on
@@ -35,6 +41,7 @@ from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
     fold_lightweight,
     lightweight_chain,
 )
+from adam_dehaze_tpu_torch.training.remat import remat_blocks_, remat_mode
 
 
 def _nchw(x, dtype):
@@ -64,6 +71,11 @@ class LightweightDehazeModel(nn.Module):
     @property
     def compute_dtype(self) -> torch.dtype:
         return self.init_conv.block[0].weight.dtype
+
+    def fullres_blocks(self):
+        """The blocks that `cuda.remat: fullres` checkpoints: all of them."""
+        return (["init_conv"] + [f"residual_blocks.{i}" for i in range(self.n_blocks)]
+                + ["output_conv.0"])
 
     def serving_chain(self, dtype: torch.dtype):
         """Kernel K1's folded weights in `dtype` when the kernel takes this
@@ -115,6 +127,11 @@ class MediumIntensityDehazeModel(nn.Module):
             ConvBlock(2 * c, c, 3), ConvBlock(c, c // 2, 3),
             nn.Conv2d(c // 2, 3, 3, padding=1))
 
+    def fullres_blocks(self):
+        """The full-resolution blocks that `cuda.remat: fullres`
+        checkpoints."""
+        return ["init_conv", "decoder.1", "output_conv.0", "output_conv.1"]
+
     def forward(self, x):
         dt = self.init_conv.block[0].weight.dtype
         xin = _nchw(x, dt)
@@ -159,6 +176,12 @@ class HighIntensityDehazeModel(nn.Module):
             ConvBlock(2 * c, c, 3), ConvBlock(c, c // 2, 3),
             nn.Conv2d(c // 2, 3, 3, padding=1))
 
+    def fullres_blocks(self):
+        """The full-resolution blocks that `cuda.remat: fullres`
+        checkpoints."""
+        return ["detail_branch.0", "detail_branch.1", "init_conv", "decoder.1",
+                "output_conv.0", "output_conv.1"]
+
     def forward(self, x):
         dt = self.init_conv.block[0].weight.dtype
         xin = _nchw(x, dt)
@@ -183,22 +206,28 @@ def _only(sub, level: str, supported: str):
             f"(the port has {supported!r})")
 
 
+def _built(model: nn.Module, config) -> nn.Module:
+    if remat_mode(config) == "fullres":
+        remat_blocks_(model, model.fullres_blocks())
+    return model
+
+
 def create_low_intensity_model(config) -> nn.Module:
     sub = config["dehazing"]["low"]
     _only(sub, "low", "lightweight")
-    return LightweightDehazeModel(sub["channels"], sub["blocks"])
+    return _built(LightweightDehazeModel(sub["channels"], sub["blocks"]), config)
 
 
 def create_medium_intensity_model(config) -> nn.Module:
     sub = config["dehazing"]["medium"]
     _only(sub, "medium", "standard")
-    return MediumIntensityDehazeModel(sub["channels"], sub["blocks"])
+    return _built(MediumIntensityDehazeModel(sub["channels"], sub["blocks"]), config)
 
 
 def create_high_intensity_model(config) -> nn.Module:
     sub = config["dehazing"]["high"]
     _only(sub, "high", "complex")
-    return HighIntensityDehazeModel(sub["channels"], sub["blocks"])
+    return _built(HighIntensityDehazeModel(sub["channels"], sub["blocks"]), config)
 
 
 def create_branch_models(config):

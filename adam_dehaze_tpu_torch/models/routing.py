@@ -1,11 +1,16 @@
-"""Adaptive routing: the soft and hard routers and the binned serving engine.
+"""Adaptive routing: the soft, hard and gated routers and the binned
+serving engine.
 
 Counterparts of adam_dehaze_tpu/models/routing.py:
 
 - `SoftRouter`: softmax(logits / T) blend of all three branches; the blend
-  is kernel K5 (`blend3`) on CUDA tensors.
-- `HardRouter`: one-hot select over all three branch outputs (training
+  is kernel K5 (`blend3`) on CUDA tensors, differentiable in training.
+- `HardRouter`: one-hot select over all three branch outputs by the argmax
+  of the classifier's logits, no gradient through the choice (training
   parity, not a serving path).
+- `GatedRouter`: a learned gate MLP over the classifier's features
+  (Dense 256 -> ReLU -> Dropout 0.3 -> Dense 128 -> ReLU -> Dense 3,
+  softmax) blends the branches.
 - `bucket_for` / `plan_chunks`: the bucket rule and the chunk planner,
   pure Python, as in the JAX package.
 - `BinnedAdaptiveEngine`: classify, bin images by class on the host, pad
@@ -25,7 +30,10 @@ labels go to pinned host memory with non_blocking=True behind an event
 waits for the work it needs and not for what was enqueued after it.
 
 Routers take and return NHWC images and keep the branch modules under
-`models.{low,medium,high}` and the classifier under `classifier`.
+`models.{low,medium,high}` and the classifier under `classifier`. In train
+mode the classifier's dropouts (and the gate's) draw from the
+`torch.Generator` passed to forward, as the JAX routers draw from the
+step's dropout key.
 """
 from __future__ import annotations
 
@@ -36,6 +44,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from adam_dehaze_tpu_torch.nn.blocks import Dropout
 from adam_dehaze_tpu_torch.ops.kernels.blend import blend3
 
 INTENSITY_ORDER = ("low", "medium", "high")
@@ -56,9 +65,9 @@ class SoftRouter(nn.Module):
         self.classifier = classifier
         self.temperature = temperature
 
-    def forward(self, x, classifier_logits=None):
+    def forward(self, x, classifier_logits=None, generator=None):
         if classifier_logits is None and self.classifier is not None:
-            logits, _ = self.classifier(x)
+            logits, _ = self.classifier(x, generator)
         else:
             logits = classifier_logits
         weights = torch.softmax(logits / self.temperature, dim=1)
@@ -86,10 +95,10 @@ class HardRouter(nn.Module):
         self.models = nn.ModuleDict(models)
         self.classifier = classifier
 
-    def forward(self, x, intensity=None):
+    def forward(self, x, intensity=None, generator=None):
         logits = None
         if intensity is None and self.classifier is not None:
-            logits, _ = self.classifier(x)
+            logits, _ = self.classifier(x, generator)
             intensity = torch.argmax(logits.detach(), dim=1)
         outputs = _branch_outputs(self.models, x)
         onehot = nn.functional.one_hot(intensity, 3).to(x.dtype)
@@ -102,12 +111,53 @@ class HardRouter(nn.Module):
                         "high_mask": intensity == 2, "logits": logits}
 
 
+class GatedRouter(nn.Module):
+    """Blend the branches with a learned gate over the classifier's
+    features; without a classifier, uniform weights. The gate runs in f32
+    (outside autocast), as the JAX gate's Dense layers run in their f32
+    parameters' dtype. `gate_network.{0,3,5}` are the reference's keys."""
+
+    def __init__(self, models: Dict[str, nn.Module],
+                 classifier: Optional[nn.Module] = None, feature_dim: int = 512):
+        super().__init__()
+        self.models = nn.ModuleDict(models)
+        self.classifier = classifier
+        self.feature_dim = feature_dim
+        if classifier is not None:
+            self.gate_network = nn.Sequential(
+                nn.Linear(feature_dim, 256), nn.ReLU(), Dropout(0.3),
+                nn.Linear(256, 128), nn.ReLU(), nn.Linear(128, len(models)))
+
+    def forward(self, x, generator=None):
+        n_models = len(self.models)
+        logits = None
+        if self.classifier is not None:
+            logits, features = self.classifier(x, generator)
+            fc0, relu0, drop, fc1, relu1, fc2 = self.gate_network
+            with torch.autocast(x.device.type, enabled=False):
+                h = drop(relu0(fc0(features.float())), generator)
+                gate = torch.softmax(fc2(relu1(fc1(h))), dim=1)
+        else:
+            gate = torch.full((x.shape[0], n_models), 1.0 / n_models,
+                              dtype=x.dtype, device=x.device)
+        outputs = _branch_outputs(self.models, x)
+        final = torch.zeros_like(x)
+        for i, name in enumerate(INTENSITY_ORDER):
+            if name in outputs:
+                final = final + gate[:, i, None, None, None] * outputs[name]
+        return final, {"gate_weights": gate, "individual_outputs": outputs,
+                       "logits": logits}
+
+
 def create_router(models: Dict[str, nn.Module], classifier, config) -> nn.Module:
     routing_type = config["routing"]["type"]
     if routing_type == "hard":
         return HardRouter(models, classifier)
     if routing_type == "soft":
         return SoftRouter(models, classifier, config["routing"]["temperature"])
+    if routing_type == "gated":
+        fdim = classifier.feature_dim if classifier is not None else 512
+        return GatedRouter(models, classifier, fdim)
     raise ValueError(f"Unsupported routing type: {routing_type}")
 
 

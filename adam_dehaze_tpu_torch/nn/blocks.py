@@ -110,6 +110,23 @@ class AttentionBlock(nn.Module):
         return y.permute(0, 3, 1, 2)
 
 
+class Dropout(nn.Module):
+    """Dropout whose mask is drawn from a `torch.Generator` passed with each
+    call, as flax's Dropout draws from the step's dropout key (nn.Dropout
+    takes no generator): keep with probability 1 - p, scale the kept values
+    by 1 / (1 - p). The identity in eval mode and at p = 0."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        self.p = p
+
+    def forward(self, x, generator: Optional[torch.Generator] = None):
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.empty_like(x).bernoulli_(1.0 - self.p, generator=generator)
+        return x * keep / (1.0 - self.p)
+
+
 class UpBlock(nn.Sequential):
     """ConvTranspose2d(4, stride 2, pad 1, with bias) -> BN -> ReLU: an exact
     2x upsample. Blocks passed as `tail` follow as children 3, 4, ..., the

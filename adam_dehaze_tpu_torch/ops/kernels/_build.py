@@ -191,12 +191,11 @@ def require(cond: bool, name: str, what: str) -> None:
 
 
 def require_cuda_inputs(name: str, *tensors) -> None:
-    """Every tensor on one CUDA device, none needing a gradient. The
-    kernels that call this are forward-only: K1, K3, K4 and K6 take BN-folded
-    eval weights (their JAX counterparts have no VJP either), and K2' and
-    K5 get their autograd Functions with the joint trainer. K2 checks its
-    inputs here inside its Function's forward, where no gradient is
-    recorded."""
+    """Every tensor on one CUDA device, none needing a gradient. K1, K3,
+    K4 and K6 are forward-only: they take BN-folded eval weights, and their
+    JAX counterparts have no VJP either. K2, K2' and K5 are differentiable
+    through their autograd Functions, which check their inputs here inside
+    the Function's forward, where no gradient is recorded."""
     import torch
     dev = tensors[0].device
     for t in tensors:

@@ -10,8 +10,16 @@ with three FMAs per element and no reuse, so Triton serves as well as CUDA
 C++ here. Design: one program per (image, chunk of BLOCK elements of that
 image's H*W*C), the image's three weights loaded once per program, a masked
 tail. The TPU version viewed images as (B, H, W*C) to fill 128-lane vregs;
-a flat chunk already gives coalesced 16-byte accesses. Forward only: the
-analytic backward (`_blend3_bwd`) comes with training.
+a flat chunk already gives coalesced 16-byte accesses.
+
+`blend3` is differentiable, as the JAX package's `jax.custom_vjp` of
+`blend3`: with a gradient to record it runs as `_Blend3`, whose forward is
+the kernel (the plain version on a CPU tensor) and whose backward is the
+analytic formula of `_blend3_bwd` in plain PyTorch (the JAX package's
+backward is XLA, not a kernel):
+
+    d w[n, i] = sum(g[n] * y_i[n])      (in f32, returned in w's dtype)
+    d y_i[n]  = w[n, i] * g[n]          (w cast to g's dtype)
 
 `triton` is imported only when a CUDA tensor launches the kernel.
 """
@@ -64,19 +72,14 @@ def _kernel():
     return triton, blend3_kernel
 
 
-def blend3(weights: torch.Tensor, low: torch.Tensor, med: torch.Tensor,
-           high: torch.Tensor) -> torch.Tensor:
-    """weights: (B, 3); low/med/high: (B, ...) of one shape and dtype. A CPU
-    tensor takes the plain version; a CUDA tensor launches the kernel
-    (float32 or bfloat16, contiguous)."""
-    if low.device.type == "cpu":
-        return blend3_reference(weights, low, med, high)
+def _blend3_cuda(weights: torch.Tensor, low: torch.Tensor, med: torch.Tensor,
+                 high: torch.Tensor) -> torch.Tensor:
+    """One launch of the kernel on CUDA tensors of one dtype (raises on
+    inputs the kernel does not take)."""
     name = "blend3"
     _build.require_cuda_inputs(name, weights, low, med, high)
     _build.require(low.shape == med.shape == high.shape, name,
                    "low/med/high shapes differ")
-    _build.require(low.dtype == med.dtype == high.dtype, name,
-                   "low/med/high dtypes differ")
     _build.require(low.dtype in (torch.float32, torch.bfloat16), name,
                    f"dtype {low.dtype} not float32/bfloat16")
     _build.require(all(t.is_contiguous() for t in (low, med, high)), name,
@@ -91,6 +94,54 @@ def blend3(weights: torch.Tensor, low: torch.Tensor, med: torch.Tensor,
     kernel[grid](w, low, med, high, out, per_image, BLOCK=_BLOCK)
     blend3.launches += 1
     return out
+
+
+def _blend3_forward(weights, low, med, high):
+    """K5's forward: the kernel on a CUDA tensor, the plain version on a
+    CPU tensor."""
+    if low.device.type == "cpu":
+        return blend3_reference(weights, low, med, high)
+    return _blend3_cuda(weights, low, med, high)
+
+
+class _Blend3(torch.autograd.Function):
+    """K5 with a gradient: the forward of `_blend3_forward`, the backward
+    `_blend3_bwd`'s analytic formula (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, weights, low, med, high):
+        ctx.save_for_backward(weights, low, med, high)
+        return _blend3_forward(weights, low, med, high)
+
+    @staticmethod
+    def backward(ctx, g):
+        weights, *ys = ctx.saved_tensors
+        gw = None
+        if ctx.needs_input_grad[0]:
+            gf = g.float()
+            gw = torch.stack([(gf * y.float()).flatten(1).sum(1) for y in ys],
+                             dim=1).to(weights.dtype)
+        wb = weights.to(g.dtype).reshape(*weights.shape, *(1,) * (g.dim() - 1))
+        dys = [(wb[:, i] * g).to(y.dtype) if ctx.needs_input_grad[i + 1] else None
+               for i, y in enumerate(ys)]
+        return (gw, *dys)
+
+
+def blend3(weights: torch.Tensor, low: torch.Tensor, med: torch.Tensor,
+           high: torch.Tensor) -> torch.Tensor:
+    """weights: (B, 3); low/med/high: (B, ...) of one shape; they are
+    promoted to one dtype first (under autocast the branches may return
+    different ones). A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (float32 or bfloat16, contiguous), never the plain
+    version. Differentiable (`_Blend3`); with no gradient to record the
+    same forward runs without the Function, whose dispatch costs host time
+    on every serving call."""
+    dtype = torch.promote_types(torch.promote_types(low.dtype, med.dtype), high.dtype)
+    low, med, high = (t.to(dtype) for t in (low, med, high))
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (weights, low, med, high)):
+        return _Blend3.apply(weights, low, med, high)
+    return _blend3_forward(weights, low, med, high)
 
 
 blend3.launches = 0

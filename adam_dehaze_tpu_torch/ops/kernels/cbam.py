@@ -25,10 +25,11 @@ through its own entry point of the C library, which never reads a gate. The
 high branch's tail chain (ops/kernels/tail_chain.py) launches it for its
 spatial step through `launch_spatial_gate`.
 
-`channel_spatial_gate` is differentiable (a torch.autograd.Function whose
-backward is the VJP of the plain version), so the high branch trains
-through K2. `spatial_gate` is forward-only: its gradient comes with the
-joint trainer.
+Both gates are differentiable, as the JAX package's `jax.custom_vjp`s of
+`channel_spatial_gate` and `spatial_gate`: with a gradient to record they
+run as `_Gate`, whose forward is the kernel and whose backward is the VJP
+of the plain version. The high branch trains through K2; no trainer calls
+K2' (only the inference tail chains do).
 """
 from __future__ import annotations
 
@@ -125,12 +126,9 @@ def _require_gate_input(name: str, x: torch.Tensor, w: torch.Tensor) -> None:
                    f"w must be (7, 7, 2, 1), got {tuple(w.shape)}")
 
 
-def spatial_gate(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The spatial CBAM gate alone. x: (B, H, W, C) NHWC; w: (7, 7, 2, 1).
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel, which takes what `channel_spatial_gate` takes."""
-    if x.device.type == "cpu":
-        return spatial_gate_reference(x, w)
+def _spatial_gate_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The two launches of K2' on CUDA tensors (raises on inputs the kernel
+    does not take)."""
     name = "spatial_gate"
     _build.require_cuda_inputs(name, x, w)
     _require_gate_input(name, x, w)
@@ -138,6 +136,27 @@ def spatial_gate(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     launch_spatial_gate(x, mean_p, max_p, w.float().contiguous(), out)
     return out
+
+
+def _spatial_gate_forward(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """K2''s forward: the kernel on a CUDA tensor, the plain version
+    (outside autocast) on a CPU tensor."""
+    if x.device.type == "cpu":
+        with torch.autocast("cpu", enabled=False):
+            return spatial_gate_reference(x, w)
+    return _spatial_gate_cuda(x, w)
+
+
+def spatial_gate(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The spatial CBAM gate alone, differentiable. x: (B, H, W, C) NHWC;
+    w: (7, 7, 2, 1). A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel (never the plain version), which takes what
+    `channel_spatial_gate` takes. The backward differentiates the plain
+    version (see `_Gate`); with no gradient to record the forward runs
+    without the Function."""
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        return _Gate.apply(_spatial_gate_forward, spatial_gate_reference, x, w)
+    return _spatial_gate_forward(x, w)
 
 
 spatial_gate.launches = 0
@@ -168,30 +187,32 @@ def _gate_forward(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor) -> torch.Te
     return _cbam_gate_cuda(x, g, w)
 
 
-class _ChannelSpatialGate(torch.autograd.Function):
-    """K2 with a gradient, as the JAX package's `jax.custom_vjp` of
-    `channel_spatial_gate`: the forward is the kernel on a CUDA tensor (the
-    plain version on a CPU tensor); the backward is the VJP of the plain
-    version at the saved (x, g, w), by autograd, recomputing its forward as
-    `_cs_gate_bwd` does with `jax.vjp`. The JAX package has no backward
-    kernel. Both run outside autocast, in the dtypes the inputs came in (under
-    autocast x and g arrive in the compute dtype, w already rounded to it)."""
+class _Gate(torch.autograd.Function):
+    """K2 or K2' with a gradient, as the JAX package's `jax.custom_vjp`s:
+    `apply(forward, reference, *inputs)` runs `forward` (the kernel on a
+    CUDA tensor, the plain version on a CPU tensor); the backward is the VJP
+    of `reference`, the plain version, at the saved inputs, by autograd,
+    recomputing its forward as `_cs_gate_bwd` and `_spatial_gate_bwd` do
+    with `jax.vjp`. The JAX package has no backward kernel. Both run outside
+    autocast, in the dtypes the inputs came in (under autocast x and g
+    arrive in the compute dtype, w already rounded to it)."""
 
     @staticmethod
-    def forward(ctx, x, g, w):
-        ctx.save_for_backward(x, g, w)
-        return _gate_forward(x, g, w)
+    def forward(ctx, forward, reference, *inputs):
+        ctx.reference = reference
+        ctx.save_for_backward(*inputs)
+        return forward(*inputs)
 
     @staticmethod
     def backward(ctx, dy):
         saved = ctx.saved_tensors
         with torch.enable_grad(), torch.autocast(dy.device.type, enabled=False):
             inputs = [t.detach().requires_grad_(need)
-                      for t, need in zip(saved, ctx.needs_input_grad)]
+                      for t, need in zip(saved, ctx.needs_input_grad[2:])]
             wanted = [t for t in inputs if t.requires_grad]
-            grads = iter(torch.autograd.grad(
-                channel_spatial_gate_reference(*inputs), wanted, dy))
-        return tuple(next(grads) if t.requires_grad else None for t in inputs)
+            grads = iter(torch.autograd.grad(ctx.reference(*inputs), wanted, dy))
+        return (None, None) + tuple(next(grads) if t.requires_grad else None
+                                    for t in inputs)
 
 
 def channel_spatial_gate(x: torch.Tensor, g: torch.Tensor,
@@ -200,12 +221,12 @@ def channel_spatial_gate(x: torch.Tensor, g: torch.Tensor,
     g: (B, C); w: (7, 7, 2, 1). A CPU tensor takes the plain version; a
     CUDA tensor launches the kernel (never the plain version), which takes
     float32 or bfloat16 x, contiguous, with C a multiple of 8. The backward
-    differentiates the plain version (see `_ChannelSpatialGate`). With no
-    gradient to record (inference, or inputs that need none) the same
-    forward runs without the Function, whose dispatch costs host time on
-    every serving call."""
+    differentiates the plain version (see `_Gate`). With no gradient to
+    record (inference, or inputs that need none) the same forward runs
+    without the Function, whose dispatch costs host time on every serving
+    call."""
     if torch.is_grad_enabled() and (x.requires_grad or g.requires_grad or w.requires_grad):
-        return _ChannelSpatialGate.apply(x, g, w)
+        return _Gate.apply(_gate_forward, channel_spatial_gate_reference, x, g, w)
     return _gate_forward(x, g, w)
 
 

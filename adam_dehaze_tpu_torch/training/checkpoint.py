@@ -13,13 +13,14 @@ Weights from the JAX package:
 `load_flax_variables(module, variables)` fills a port module from the JAX
 package's `{"params", "batch_stats"}` tree (nested dicts of arrays): a
 block, a branch, the classifier, or a whole router (subtrees `classifier` and
-`models_{low,medium,high}`). It inverts the layout conversions of
-adam_dehaze_tpu/training/checkpoint.py (convert_torch_conv,
-convert_torch_linear, convert_torch_convtranspose) along the same
-block tables (_block_assigns, _branch_layout, load_torch_resnet,
-load_torch_classifier). Because the port registers its submodules under
-the upstream reference's torch names, `module.state_dict()` fed back
-through the JAX side's `load_torch_joint` gives the original tree.
+`models_{low,medium,high}`, and a GatedRouter's gate `Dense_{0,1,2}`). It
+inverts the layout conversions of adam_dehaze_tpu/training/checkpoint.py
+(convert_torch_conv, convert_torch_linear, convert_torch_convtranspose)
+along the same block tables (_block_assigns, _branch_layout,
+load_torch_resnet, load_torch_classifier, load_torch_gate). Because the
+port registers its submodules under the upstream reference's torch names,
+`module.state_dict()` fed back through the JAX side's `load_torch_joint`
+gives the original tree.
 
 The loss nets (VGG16Features, AlexNetFeatures, LPIPS) map flax's
 `conv{stage}_{idx}` / `conv{i}` / `lin{i}` onto torchvision's `features.N`
@@ -45,6 +46,7 @@ from adam_dehaze_tpu_torch.models.branches import (
 from adam_dehaze_tpu_torch.models.classifier import FogIntensityClassifier
 from adam_dehaze_tpu_torch.models.routing import (
     INTENSITY_ORDER,
+    GatedRouter,
     HardRouter,
     SoftRouter,
 )
@@ -282,8 +284,15 @@ def _assigns(module: nn.Module, variables) -> List[Assign]:
                      _linear),
                     (f"classifier.{ti}.bias", "params", (f"Dense_{fi}", "bias"), None)]
         return out
-    if isinstance(module, (SoftRouter, HardRouter)):
+    if isinstance(module, (SoftRouter, HardRouter, GatedRouter)):
         out = []
+        if isinstance(module, GatedRouter) and module.classifier is not None:
+            # The gate MLP: the reference's gate_network.{0,3,5} are flax's
+            # router-level Dense_{0,1,2} (load_torch_gate).
+            for ti, fi in ((0, 0), (3, 1), (5, 2)):
+                out += [(f"gate_network.{ti}.weight", "params", (f"Dense_{fi}", "kernel"),
+                         _linear),
+                        (f"gate_network.{ti}.bias", "params", (f"Dense_{fi}", "bias"), None)]
         subs = [("classifier", "classifier", module.classifier)]
         subs += [(f"models.{lvl}", f"models_{lvl}", module.models[lvl])
                  for lvl in INTENSITY_ORDER if lvl in module.models]

@@ -31,6 +31,11 @@ def tree_to_state(state: TrainState, tree: Dict[str, Any]) -> TrainState:
     return state
 
 
+def autocast(device: torch.device, dtype: torch.dtype):
+    """Autocast to the compute dtype on `device`; off for float32."""
+    return torch.autocast(device.type, dtype=dtype, enabled=dtype != torch.float32)
+
+
 def device_batch(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     """The array fields of a host batch as tensors on `device` (non-array
     fields, the names, are dropped). On a CUDA device the copies go

@@ -14,7 +14,9 @@ an epoch checkpoint every 5 epochs; `resume` continues from the latest.
   autograd Function), and the low branch's eval forward (validation) is
   kernel K1 at the weights' dtype.
 - Validation is single-process (the JAX package's cross-host mean is the
-  identity there). Rematerialisation (`tpu.remat`) has no counterpart yet.
+  identity there).
+- `cuda.remat` (training/remat.py): true checkpoints the branch forward of
+  the train step, fullres the branches' full-resolution blocks.
 
 Entry points run on the card unless the caller passes device="cpu".
 """
@@ -42,6 +44,7 @@ from adam_dehaze_tpu_torch.nn.blocks import init_params_
 from adam_dehaze_tpu_torch.ops.image import psnr, ssim_gray
 from adam_dehaze_tpu_torch.training import checkpoint as ckpt
 from adam_dehaze_tpu_torch.training.common import (
+    autocast,
     device_batch,
     device_prefetch,
     masked_mean,
@@ -49,6 +52,7 @@ from adam_dehaze_tpu_torch.training.common import (
     tree_to_state,
 )
 from adam_dehaze_tpu_torch.training.logging import MetricsLogger
+from adam_dehaze_tpu_torch.training.remat import apply_remat, remat_mode
 from adam_dehaze_tpu_torch.training.state import (
     ReduceLROnPlateau,
     TrainState,
@@ -95,21 +99,18 @@ def get_intensity_loader(config, split: str, intensity: str) -> DataLoader:
                       seed=config["seed"])
 
 
-def _autocast(device: torch.device, dtype: torch.dtype):
-    return torch.autocast(device.type, dtype=dtype, enabled=dtype != torch.float32)
-
-
 def make_train_step(loss, loss_params, augmentation: bool = True,
-                    dtype: torch.dtype = torch.float32):
+                    dtype: torch.dtype = torch.float32, remat=False):
     """step(state, batch, generator) -> loss components (detached tensors):
-    augment, forward and loss under autocast, backward, one Adam step. The
-    gradients stay on the parameters after the step."""
+    augment, forward (checkpointed under remat True/"full") and loss under
+    autocast, backward, one Adam step. The gradients stay on the
+    parameters after the step."""
     def step(state: TrainState, batch, generator=None):
         if augmentation:
             batch = augment_triplet(generator, batch)
         dev = batch["hazy"].device
-        with _autocast(dev, dtype):
-            out = state.module(batch["hazy"])
+        with autocast(dev, dtype):
+            out = apply_remat(state.module, remat, state.module)(batch["hazy"])
             total, comps = loss(loss_params, out, batch["clear"], hazy=batch["hazy"])
         state.optimizer.zero_grad(set_to_none=True)
         total.backward()
@@ -127,7 +128,7 @@ def make_eval_step(loss, loss_params, dtype: torch.dtype = torch.float32):
     def step(state: TrainState, batch):
         state.module.eval()
         dev = batch["hazy"].device
-        with _autocast(dev, dtype):
+        with autocast(dev, dtype):
             out = state.module(batch["hazy"])
             total, _ = loss(loss_params, out, batch["clear"], hazy=batch["hazy"])
         mask = batch.get("mask")
@@ -186,7 +187,8 @@ def train_dehazing_model(intensity: str, config, resume: bool = False,
     train_loader = get_intensity_loader(config, "train", intensity)
     val_loader = get_intensity_loader(config, "val", intensity)
     train_step = make_train_step(loss, loss_params,
-                                 config["dataset"].get("augmentation", True), dtype)
+                                 config["dataset"].get("augmentation", True), dtype,
+                                 remat=remat_mode(config))
     eval_step = make_eval_step(loss, loss_params, dtype)
     # The augmentation's draws, on the batches' device.
     gen = torch.Generator(device).manual_seed(config["seed"] + INTENSITY_MAP[intensity])

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the device time goes, on one GPU: torch.profiler over warm calls.
 
-    python3 chip_profile.py [kernels] [routes] [train] [gate] [grads]
+    python3 chip_profile.py [kernels] [routes] [train] [gate] [grads] [joint]
                                           (kernels, routes and train by default)
 
 Profiles, each over 3 warm calls at the sizes of chip_smoke.py (16 images at
@@ -36,6 +36,16 @@ mean loss, the loss nets' (VGG16, LPIPS) forward and backward on a fixed
 output, the Adam step, K2's forward and backward at the six AttentionBlock
 shapes, and a batch's host-to-device copies (hazy, clear, dehazed) from
 pageable and from pinned memory.
+
+`joint`: one bf16 soft joint step at the default widths (the joint
+trainer's `make_train_step`: the frozen classifier's train-mode forward,
+the three branches, K5, the JointLoss under autocast, backward, Adam) on 16
+seeded images at 256^2, profiled, then its parts timed alone with CUDA
+events: the classifier's forward; each branch's forward and its forward
+and backward under a plain mean loss; K5's forward (the Function) and its
+analytic backward; the JointLoss's forward and backward on a fixed output;
+the Adam step. Then the classifier trainer's step (resnet18, refog off,
+augmentation on) on the same batch, profiled and timed.
 
 `gate` (no profiler): K2's wrapper `channel_spatial_gate` in inference
 mode at the six AttentionBlock shapes, bf16, timed as chip_smoke.py's phase
@@ -81,7 +91,7 @@ TOP = 12
 GATE_REPEATS = 10
 GATE_HOST_CALLS = 2000
 GRAD_RUNS = 3
-SECTIONS = ("kernels", "routes", "train", "gate", "grads")
+SECTIONS = ("kernels", "routes", "train", "gate", "grads", "joint")
 
 
 def profiled(tag, fn, host_top=0):
@@ -154,6 +164,8 @@ def main():
         time_gate(dev)
     if "grads" in sections:
         fp32_step_readings(dev)
+    if "joint" in sections:
+        profile_joint(dev)
 
 
 def time_gate(dev):
@@ -330,6 +342,92 @@ def profile_train(dev):
         mb = sum(v.numel() * 4 for v in src.values()) / 1e6
         cs.log(f"[train parts] batch upload from {tag} memory: {ms:.3f} ms for {mb:.1f} MB "
                f"({mb / ms:.1f} GB/s)")
+
+
+def profile_joint(dev):
+    """A bf16 soft joint step and its parts (see the docstring)."""
+    from adam_dehaze_tpu_torch.losses.dehazing import get_joint_loss
+    from adam_dehaze_tpu_torch.models.routing import INTENSITY_ORDER
+    from adam_dehaze_tpu_torch.ops.kernels.blend import blend3
+    from adam_dehaze_tpu_torch.training.state import TrainState, make_optimizer
+    from adam_dehaze_tpu_torch.training.train_joint import build_router_state, make_train_step
+
+    cfg = load_config()
+    cfg["classifier"]["checkpoint_dir"] = cfg["dehazing"]["checkpoint_dir"] = "absent"
+    router, state = build_router_state(cfg, dev)
+    router.train()
+    loss = get_joint_loss(cfg)
+    nets = loss.init(torch.Generator().manual_seed(0), dev)
+    gen = torch.Generator().manual_seed(cs.SEED)
+    batch = {k: torch.rand(cs.BATCH, cs.SIZE, cs.SIZE, 3, generator=gen).to(dev)
+             for k in ("hazy", "clear", "dehazed")}
+    batch["intensity"] = (torch.arange(cs.BATCH) % 3).to(dev)
+    aug = torch.Generator(dev).manual_seed(1)
+    step = make_train_step(loss, nets, dtype=torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    profiled("soft joint step, bf16", lambda: step(state, batch, aug))
+    cs.log(f"[joint parts] peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    x = batch["hazy"]
+
+    def autocast():
+        return torch.autocast("cuda", dtype=torch.bfloat16)
+
+    def classifier_fwd():
+        with torch.no_grad(), autocast():
+            router.classifier(x, aug)
+
+    parts = {"whole step (augment, forward, loss, backward, Adam)":
+             lambda: step(state, batch, aug),
+             "classifier forward (train mode, frozen)": classifier_fwd}
+    for level in INTENSITY_ORDER:
+        model = router.models[level]
+
+        def fwd(model=model):
+            with torch.no_grad(), autocast():
+                model(x)
+
+        def fwd_bwd(model=model):
+            with autocast():
+                out = model(x)
+            out.mean().backward()
+
+        parts[f"{level} forward"] = fwd
+        parts[f"{level} forward + backward"] = fwd_bwd
+    with torch.no_grad(), autocast():
+        ys = [router.models[level](x) for level in INTENSITY_ORDER]
+        logits = router.classifier(x)[0]
+        weights = torch.softmax(logits / router.temperature, dim=1)
+    ys = [y.detach().requires_grad_(True) for y in ys]
+    blended = blend3(weights, *ys)
+    g = torch.randn_like(blended)
+    parts["K5 forward (Function)"] = lambda: blend3(weights, *ys)
+    parts["K5 backward (analytic)"] = lambda: torch.autograd.grad(blended, ys, g,
+                                                                  retain_graph=True)
+    fixed = blended.detach()
+
+    def loss_fwd_bwd():
+        out = fixed.clone().requires_grad_(True)
+        with autocast():
+            total, _ = loss(nets, out, batch["clear"], logits, batch["intensity"],
+                            hazy=batch["hazy"])
+        total.backward()
+
+    parts["JointLoss forward + backward"] = loss_fwd_bwd
+    parts["Adam step"] = lambda: state.optimizer.step()
+    for name, fn in parts.items():
+        cs.log(f"[joint parts] {name}: {cs.cuda_ms(fn, iters=10, warmup=2):.3f} ms")
+    cs.log(f"[joint parts] {cs.BATCH} images at {cs.SIZE}^2, bf16 autocast, default widths")
+    del state, router, parts, ys, blended, fixed
+    torch.cuda.empty_cache()
+
+    # The classifier trainer's step on the same batch (its data on the card).
+    from adam_dehaze_tpu_torch.training import train_classifier as tc
+    model = tc.init_classifier(cfg, dev).train()
+    cstate = TrainState(model, make_optimizer(model.parameters(), 1e-4, 1e-4))
+    cstep = tc.make_train_step(dtype=torch.bfloat16)
+    profiled("classifier train step, bf16", lambda: cstep(cstate, batch, aug))
+    cs.log(f"[joint parts] classifier train step: "
+           f"{cs.cuda_ms(lambda: cstep(cstate, batch, aug), iters=10, warmup=2):.3f} ms")
 
 
 def profile_kernels(dev):

@@ -109,8 +109,41 @@ Phases, in order; any failure raises and the script exits non-zero:
    must reload into a fresh module and give the same eval output. Prints
    each branch's warm ms per train step (synchronized), images/s and peak
    memory, with the card's name and power limit.
-11. Prints the kernels' JSON line (`launches_by_path` with "training") and,
-   last, {"ok": true, "device": ...}.
+   The same fp32 check (card and CPU against float64, the same per-tensor
+   rule) also takes one soft joint step of the default router (64^2, batch
+   2, dropout off): the frozen classifier, the three branches, K5 and the
+   JointLoss.
+11. The autograd Functions of K5 and K2' (launches not counted on any
+   path): at (16, 256, 256, 3) and (16, 256, 256, 96), fp32 and bf16, the
+   forward launches the kernel once and matches the fp32 plain version,
+   every gradient matches plain autograd of the plain version in the same
+   dtype (1e-4 fp32, 3e-2 bf16 of each result's largest magnitude), the
+   backward launches nothing; the Function's forward and backward and the
+   plain forward and backward timed (CUDA events; K5 in fp32, its dtype in
+   the joint step, K2' in bf16).
+12. The classifier trainer (training/train_classifier.py) at the default
+   width (resnet18, bf16, 256^2, batch 16) on phase 10's corpus, counters
+   at 0: 1 epoch, then resumed to 2 (9 steps each, the second run from the
+   saved step 9); the best checkpoint, reloaded into a fresh classifier,
+   gives the same eval output. Prints warm ms/step, images/s, peak memory
+   and the validation accuracy.
+13. The joint trainer (training/train_joint.py) at the default widths
+   (soft routing, T = 0.5, bf16), counters at 0, grafting phase 12's
+   classifier and phase 10's branches: 2 epochs, soft then hard
+   (hard_finetune_frac 0.5). Every soft step and soft validation batch
+   launches K5 once and K2 six times (and the validation K1); each hard
+   step of the high branch K2 six times and none of the others K2 or K5;
+   the classifier's parameters stay bitwise as grafted while its BN
+   statistics move; the best checkpoint, reloaded into a fresh router,
+   gives the same eval output. That checkpoint is then served through
+   `AdaptiveDehazer(router, None, cfg).route_hard` on the 48 validation
+   images: its label histogram, accuracy, kernels launched and warm
+   ms/image. Prints the soft ms/step, images/s and peak memory, and each
+   hard branch's.
+14. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
+   with "training", "classifier_training" and "joint_training"; K5's and
+   K2''s Function readings under "function") and, last, {"ok": true,
+   "device": ...}.
 """
 import collections
 import copy
@@ -124,8 +157,9 @@ import numpy as np
 import torch
 
 from adam_dehaze_tpu_torch.config import load_config
+from adam_dehaze_tpu_torch.data.dataset import get_dataloader
 from adam_dehaze_tpu_torch.data.preprocessing import generate_synthetic_dataset
-from adam_dehaze_tpu_torch.losses.dehazing import get_dehazing_loss
+from adam_dehaze_tpu_torch.losses.dehazing import get_dehazing_loss, get_joint_loss
 from adam_dehaze_tpu_torch.models.branches import (
     HighIntensityDehazeModel,
     LightweightDehazeModel,
@@ -141,6 +175,7 @@ from adam_dehaze_tpu_torch.models.routing import (
 )
 from adam_dehaze_tpu_torch.nn.blocks import (
     AttentionBlock,
+    Dropout,
     ResidualBlock,
     init_params_,
 )
@@ -195,7 +230,9 @@ from adam_dehaze_tpu_torch.serving import AdaptiveDehazer
 from adam_dehaze_tpu_torch.serving_autotune import candidate_builders
 from adam_dehaze_tpu_torch.tools import probe_ops
 from adam_dehaze_tpu_torch.training import checkpoint as ckpt
+from adam_dehaze_tpu_torch.training import train_classifier as tc
 from adam_dehaze_tpu_torch.training import train_dehazing as td
+from adam_dehaze_tpu_torch.training import train_joint as tj
 from adam_dehaze_tpu_torch.training.common import device_batch
 from adam_dehaze_tpu_torch.training.state import TrainState, make_optimizer
 
@@ -339,6 +376,16 @@ TAIL_PATH_KERNELS = ("lightweight_chain", "cbam_gate", "blend3", "spatial_gate",
 RES_PATH_KERNELS = ("lightweight_chain", "cbam_gate", "blend3", "spatial_gate",
                     "high_tail_chain", "res_attn_chain")
 TRAINING_PATH_KERNELS = ("lightweight_chain", "cbam_gate")
+# The joint trainer's path: the soft step and the soft validation blend
+# through K5 and run K2 in the high branch; the validation's low branch is K1.
+JOINT_PATH_KERNELS = ("lightweight_chain", "cbam_gate", "blend3")
+# The autograd Functions of K5 and K2' at their main-path shapes: K5 in the
+# soft joint step (the branches return f32, so fp32 is the step's dtype),
+# K2' at the high tail's shape. Forward against the fp32 plain version,
+# gradients against plain autograd of the plain version in the same dtype,
+# in units of each result's largest magnitude.
+GRAD_FUNCTION_SHAPES = {"blend3": (BATCH, SIZE, SIZE, 3), "spatial_gate": (BATCH, SIZE, SIZE, 96)}
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # The training phase's corpus: per intensity 48 train images (3 steps of 16)
 # and 16 val images (one validation batch).
 TRAIN_PER_CLASS = 64
@@ -1455,6 +1502,25 @@ def fp32_step(level, cfg, loss, batch, device, dtype, capture=None):
             {n: p.grad.double().cpu() for n, p in model.named_parameters()}, model)
 
 
+def fp32_joint_step(cfg, loss, batch, device, dtype):
+    """One soft joint step (augmentation and dropout off) of the seeded
+    default router in `dtype` on `device`: (total loss, {trainable
+    parameter: gradient as float64 on the CPU})."""
+    router, state = tj.build_router_state(cfg, device)
+    for m in router.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    router.train().to(dtype)
+    nets = {k: v.to(dtype) for k, v in
+            loss.init(torch.Generator().manual_seed(0), device).items()}
+    comps = tj.make_train_step(loss, nets, augmentation=False)(
+        state, {k: v.to(device, dtype) if v.is_floating_point() else v.to(device)
+                for k, v in batch.items()})
+    return (float(comps["total"]),
+            {n: p.grad.double().cpu() for n, p in router.named_parameters()
+             if p.grad is not None})
+
+
 def per_tensor_errs(grads, g64):
     """Each gradient's error against float64 in units of its own largest
     magnitude, over the tensors whose float64 gradient is not 0 in exact
@@ -1468,17 +1534,27 @@ def per_tensor_errs(grads, g64):
 
 
 def phase_train_step_vs_cpu(dev):
-    """One fp32 train step of each default branch on the card and on the
-    CPU, both held against the same step in float64 on the CPU."""
+    """One fp32 train step of each default branch, and one fp32 soft joint
+    step of the default router (dropout off), on the card and on the CPU,
+    both held against the same step in float64 on the CPU."""
     cfg = load_config(overrides={"cuda": {"compute_dtype": "float32"}})
+    cfg["classifier"]["checkpoint_dir"] = cfg["dehazing"]["checkpoint_dir"] = "absent"
     batch = fp32_step_batch()
     loss = get_dehazing_loss(cfg)
+    joint_loss = get_joint_loss(cfg)
     errs = {}
-    for level in INTENSITY_ORDER:
-        (l_cpu, g_cpu, _), (l64, g64, _), (l_card, g_card, _) = (
-            fp32_step(level, cfg, loss, batch, device, dtype)
-            for device, dtype in (("cpu", torch.float32), ("cpu", torch.float64),
-                                  (dev, torch.float32)))
+    for level in INTENSITY_ORDER + ("joint",):
+        if level == "joint":
+            jbatch = {**batch, "intensity": torch.tensor([2, 0])}
+            (l_cpu, g_cpu), (l64, g64), (l_card, g_card) = (
+                fp32_joint_step(cfg, joint_loss, jbatch, device, dtype)
+                for device, dtype in (("cpu", torch.float32), ("cpu", torch.float64),
+                                      (dev, torch.float32)))
+        else:
+            (l_cpu, g_cpu, _), (l64, g64, _), (l_card, g_card, _) = (
+                fp32_step(level, cfg, loss, batch, device, dtype)
+                for device, dtype in (("cpu", torch.float32), ("cpu", torch.float64),
+                                      (dev, torch.float32)))
         cpu, cpu_all = per_tensor_errs(g_cpu, g64)
         card, card_all = per_tensor_errs(g_card, g64)
         # The card's error over its bound, per tensor: at most 1 passes.
@@ -1507,69 +1583,61 @@ def phase_train_step_vs_cpu(dev):
     return errs
 
 
-class TrainProbe:
-    """Wraps the trainer's step makers. Per branch: the steps taken, every
-    loss component finite, the first step's gradients, the warm step times
-    (synchronized), the peak memory, and the K1 and K2 launches of the train
-    and eval steps."""
+class StepProbe:
+    """Wraps a trainer's step makers. Per step kind (a name, or a function
+    of the state): the steps taken and the step count each run started
+    from, every loss component finite, the warm step times (synchronized),
+    the peak memory, and the kernels' launches per step and per eval
+    batch; `on_first(state)` after a kind's first step."""
 
     def __init__(self):
         self.run = 0
-        self.rec = {lvl: dict(steps=0, warm_ms=[], peak=0, by_run=collections.Counter(),
-                              start_step={}, train=collections.Counter(),
-                              eval=collections.Counter(), eval_batches=0)
-                    for lvl in INTENSITY_ORDER}
+        self.rec = collections.defaultdict(lambda: dict(
+            steps=0, warm_ms=[], peak=0, by_run=collections.Counter(), start_step={},
+            launches=[]))
 
-    @staticmethod
-    def _k12():
-        return collections.Counter(lightweight_chain=lightweight_chain.launches,
-                                   cbam_gate=channel_spatial_gate.launches)
-
-    def wrap_train(self, make):
+    def wrap(self, make, kind, eval_step=False, on_first=None):
         def made(*args, **kwargs):
             step = make(*args, **kwargs)
 
-            def probed(state, batch, generator=None):
-                rec = self.rec[CLASS_OF[type(state.module).__name__]]
-                before = self._k12()
+            def probed(state, batch, *rest):
+                tag = kind(state) if callable(kind) else kind
+                rec = self.rec[tag]
+                before = counts()
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
                 t0 = time.perf_counter()
-                comps = step(state, batch, generator)
+                out = step(state, batch, *rest)
                 torch.cuda.synchronize()
                 ms = (time.perf_counter() - t0) * 1e3
-                rec["train"].update(self._k12() - before)
+                rec["launches"].append(nonzero(delta(before)))
                 rec["peak"] = max(rec["peak"], torch.cuda.max_memory_allocated())
-                check(all(bool(torch.isfinite(v)) for v in comps.values()),
-                      f"a loss component is not finite: {comps}")
-                if rec["steps"] == 0:
-                    for name, p in state.module.named_parameters():
-                        check(p.grad is not None and bool(torch.isfinite(p.grad).all())
-                              and bool(p.grad.abs().max() > 0),
-                              f"after the first step, {name} has no finite non-zero gradient")
-                if rec["by_run"][self.run]:
-                    rec["warm_ms"].append(ms)
-                else:
-                    rec["start_step"][self.run] = state.step - 1
-                rec["by_run"][self.run] += 1
+                if not eval_step:
+                    check(all(bool(torch.isfinite(v)) for v in out.values()),
+                          f"{tag}: a loss component is not finite: {out}")
+                    if on_first is not None and rec["steps"] == 0:
+                        on_first(state)
+                    if rec["by_run"][self.run]:
+                        rec["warm_ms"].append(ms)
+                    else:
+                        rec["start_step"][self.run] = state.step - 1
+                    rec["by_run"][self.run] += 1
                 rec["steps"] += 1
-                return comps
-            return probed
-        return made
-
-    def wrap_eval(self, make):
-        def made(*args, **kwargs):
-            step = make(*args, **kwargs)
-
-            def probed(state, batch):
-                rec = self.rec[CLASS_OF[type(state.module).__name__]]
-                before = self._k12()
-                out = step(state, batch)
-                rec["eval"].update(self._k12() - before)
-                rec["eval_batches"] += 1
                 return out
             return probed
         return made
+
+
+def launch_sum(rec):
+    """A probed kind's kernel launches over all its steps."""
+    return sum((collections.Counter(launches) for launches in rec["launches"]),
+               collections.Counter())
+
+
+def warm_reading(rec, images=BATCH):
+    ms = float(np.median(rec["warm_ms"]))
+    return dict(ms_per_step=ms, images_per_s=images / ms * 1e3,
+                peak_gib=rec["peak"] / 2 ** 30, warm_ms=rec["warm_ms"], steps=rec["steps"])
 
 
 def phase_training(dev, smi, tmp):
@@ -1589,9 +1657,20 @@ def phase_training(dev, smi, tmp):
     resumed_cfg = copy.deepcopy(cfg)
     resumed_cfg["dehazing"]["epochs"] = 2
 
-    probe = TrainProbe()
+    def branch(state):
+        return CLASS_OF[type(state.module).__name__]
+
+    def first_gradients(state):
+        for name, p in state.module.named_parameters():
+            check(p.grad is not None and bool(torch.isfinite(p.grad).all())
+                  and bool(p.grad.abs().max() > 0),
+                  f"after the first step, {name} has no finite non-zero gradient")
+
+    probe = StepProbe()
     makers = td.make_train_step, td.make_eval_step
-    td.make_train_step, td.make_eval_step = probe.wrap_train(makers[0]), probe.wrap_eval(makers[1])
+    td.make_train_step = probe.wrap(makers[0], branch, on_first=first_gradients)
+    td.make_eval_step = probe.wrap(makers[1], lambda state: (branch(state), "eval"),
+                                   eval_step=True)
     try:
         reset_launch_counts()
         t0 = time.perf_counter()
@@ -1609,17 +1688,18 @@ def phase_training(dev, smi, tmp):
     loss = get_dehazing_loss(cfg)
     nets = loss.init(torch.Generator().manual_seed(0), dev)
     for level in INTENSITY_ORDER:
-        rec, (model, state) = probe.rec[level], trained[level]
+        rec, ev, (model, state) = probe.rec[level], probe.rec[(level, "eval")], trained[level]
+        train_l, eval_l = launch_sum(rec), launch_sum(ev)
         check(rec["by_run"] == {0: 3, 1: 3} and rec["start_step"] == {0: 0, 1: 3},
               f"{level}: steps {dict(rec['by_run'])} from step {rec['start_step']} in the two "
               "runs; the resumed run should have taken one epoch of 3 from the saved step 3")
         if level == "low":
-            check(rec["eval"]["lightweight_chain"] > 0, "the low validation launched no K1")
+            check(eval_l["lightweight_chain"] > 0, "the low validation launched no K1")
         k2_train = 6 * rec["steps"] if level == "high" else 0
-        k2_eval = 6 * rec["eval_batches"] if level == "high" else 0
-        check(rec["train"]["cbam_gate"] == k2_train and rec["eval"]["cbam_gate"] == k2_eval,
-              f"{level}: K2 launched {rec['train']['cbam_gate']} times in training and "
-              f"{rec['eval']['cbam_gate']} in validation, expected {k2_train} and {k2_eval}")
+        k2_eval = 6 * ev["steps"] if level == "high" else 0
+        check(train_l["cbam_gate"] == k2_train and eval_l["cbam_gate"] == k2_eval,
+              f"{level}: K2 launched {train_l['cbam_gate']} times in training and "
+              f"{eval_l['cbam_gate']} in validation, expected {k2_train} and {k2_eval}")
         # The best checkpoint in a fresh module gives the same eval output.
         fresh = TrainState(td.init_branch(level, cfg, dev), None)
         best = ckpt.best_model_path(os.path.join(cfg["dehazing"]["checkpoint_dir"], level))
@@ -1638,52 +1718,326 @@ def phase_training(dev, smi, tmp):
             f"{ms:.2f} ms/step (median of {len(rec['warm_ms'])}: "
             f"{', '.join(f'{t:.2f}' for t in rec['warm_ms'])}), {BATCH / ms * 1e3:.1f} "
             f"images/s, peak memory {rec['peak'] / 2 ** 30:.2f} GiB; train launches "
-            f"{dict(rec['train'])}, eval {dict(rec['eval'])}; best_model reloaded: eval "
+            f"{dict(train_l)}, eval {dict(eval_l)}; best_model reloaded: eval "
             f"output identical, val PSNR {float(a['psnr']):.2f} dB; {smi}")
     for name in TRAINING_PATH_KERNELS:
         check(path[name] > 0, f"the training path launched no {name}")
     return path, readings
 
 
+def phase_grad_functions(dev, gen):
+    """(a) The autograd Functions of K5 and K2' at GRAD_FUNCTION_SHAPES, fp32
+    and bf16: the forward launches the kernel once and matches the fp32
+    plain version; every gradient matches plain autograd of the plain
+    version on the same inputs in the same dtype; the backward launches
+    nothing. Times (CUDA events) the Function's forward and backward and
+    the plain version's forward and backward, in K5's training dtype (fp32)
+    and K2''s serving dtype (bf16)."""
+    out = {}
+    for name, shape in GRAD_FUNCTION_SHAPES.items():
+        fn, ref_fn = (blend3, blend3_reference) if name == "blend3" else (
+            spatial_gate, spatial_gate_reference)
+        if name == "blend3":
+            base = [torch.softmax(torch.randn(shape[0], 3, generator=gen), 1)] + [
+                torch.rand(shape, generator=gen) for _ in range(3)]
+        else:
+            base = [torch.randn(shape, generator=gen),
+                    torch.randn(7, 7, 2, 1, generator=gen) * 0.1]
+        dy32 = torch.randn(shape, generator=gen)
+        rec = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            # K5's weights stay f32 (the softmax's dtype); its images and
+            # K2''s x and w take the dtype.
+            args = [t.to(dev) if (name == "blend3" and i == 0) else t.to(dev, dtype)
+                    for i, t in enumerate(base)]
+            dy = dy32.to(dev, dtype)
+            ref = [a.clone().requires_grad_(True) for a in args]
+            want = torch.autograd.grad(ref_fn(*ref), ref, dy)
+            ours = [a.clone().requires_grad_(True) for a in args]
+            before = fn.launches
+            y = fn(*ours)
+            fwd_launches = fn.launches - before
+            got = torch.autograd.grad(y, ours, dy, retain_graph=True)
+            torch.cuda.synchronize()
+            check(fwd_launches == 1 and fn.launches - before == 1,
+                  f"{name}'s Function launched {fn.launches - before} times, expected 1")
+            with torch.no_grad():
+                y32 = ref_fn(*(a.float() for a in args))
+            err_y = max_err(y.detach(), y32) / float(y32.abs().max())
+            errs = [max_err(a, b) / float(b.float().abs().max()) for a, b in zip(got, want)]
+            check(err_y <= GRAD_TOL[dtype], f"{name}'s Function forward ({dtype}) disagrees "
+                  f"with the fp32 plain version: {err_y:.2e}")
+            check(max(errs) <= GRAD_TOL[dtype], f"{name}'s Function gradients ({dtype}) "
+                  f"disagree with plain autograd: {errs}")
+            timed = (name == "blend3") == (dtype == torch.float32)
+            if timed:
+                rec.update(
+                    dtype=str(dtype)[6:], shape=list(shape),
+                    forward_ms=cuda_ms(lambda: fn(*ours)),
+                    backward_ms=cuda_ms(lambda: torch.autograd.grad(y, ours, dy,
+                                                                    retain_graph=True)),
+                    plain_forward_backward_ms=cuda_ms(
+                        lambda: torch.autograd.grad(ref_fn(*ref), ref, dy)))
+            rec[f"forward_err_{str(dtype)[6:]}"] = err_y
+            rec[f"grad_err_{str(dtype)[6:]}"] = max(errs)
+            log(f"[grad {name}] {shape} {str(dtype)[6:]}: forward err {err_y:.2e} of max|y| "
+                f"against the fp32 plain version; gradients err "
+                f"{', '.join(f'{e:.2e}' for e in errs)} of max|grad| against plain autograd "
+                f"(bound {GRAD_TOL[dtype]})"
+                + (f"; Function forward {rec['forward_ms']:.4f} ms, backward "
+                   f"{rec['backward_ms']:.4f} ms; plain forward + backward "
+                   f"{rec['plain_forward_backward_ms']:.4f} ms" if timed else ""))
+            del y, got, want, ref, ours, args, dy, y32
+        out[name] = rec
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_classifier_training(dev, smi, tmp, root):
+    """(b) The classifier trainer at the default width (resnet18, bf16, 256²,
+    batch 16) on the training phase's corpus: 1 epoch, then resumed to 2.
+    Returns its launch counts, its readings and its checkpoint directory."""
+    cfg = load_config()
+    cfg["dataset"].update(train_path=root, val_path=root, test_path=root)
+    ck_dir = os.path.join(tmp, "classifier")
+    cfg["classifier"].update(epochs=1, checkpoint_dir=ck_dir)
+    cfg["_logs_dir"] = os.path.join(tmp, "logs")
+    resumed_cfg = copy.deepcopy(cfg)
+    resumed_cfg["classifier"]["epochs"] = 2
+    probe = StepProbe()
+    makers = tc.make_train_step, tc.make_eval_step
+    tc.make_train_step = probe.wrap(makers[0], "train")
+    tc.make_eval_step = probe.wrap(makers[1], "eval", eval_step=True)
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        tc.train_classifier(cfg)
+        probe.run = 1
+        model, state = tc.train_classifier(resumed_cfg, resume=True)
+        path = counts()
+        wall = time.perf_counter() - t0
+    finally:
+        tc.make_train_step, tc.make_eval_step = makers
+    rec = probe.rec["train"]
+    per_epoch = 3 * TRAIN_PER_CLASS * 3 // 4 // BATCH
+    check(rec["by_run"] == {0: per_epoch, 1: per_epoch}
+          and rec["start_step"] == {0: 0, 1: per_epoch},
+          f"classifier: steps {dict(rec['by_run'])} from step {rec['start_step']}; the "
+          f"resumed run should have taken one epoch of {per_epoch} from the saved step")
+    # The best checkpoint in a fresh classifier gives the same eval logits.
+    fresh = TrainState(tc.init_classifier(cfg, dev), None)
+    best = ckpt.load_checkpoint(ckpt.best_model_path(ck_dir))
+    fresh.module.load_state_dict(best[0]["model"])
+    batch = device_batch(next(iter(get_dataloader(cfg, "val"))), dev)
+    step = makers[1](torch.bfloat16)
+    a, b = step(state, batch), step(fresh, batch)
+    reload_err = max_err(a["pred"], b["pred"]) + abs(float(a["loss"]) - float(b["loss"]))
+    check(reload_err == 0.0, "classifier: best_model reloaded gives another eval output")
+    val = tc.evaluate_classifier_pass(step, state, get_dataloader(cfg, "val"), dev)
+    readings = warm_reading(rec)
+    readings.update(val_acc=val["acc"], val_loss=val["loss"], best_epoch=best[1]["epoch"],
+                    wall_s=wall)
+    log(f"[classifier training] {rec['steps']} steps of {BATCH} at {SIZE}^2 bf16 (resnet18), "
+        f"warm {readings['ms_per_step']:.2f} ms/step (median of {len(rec['warm_ms'])}: "
+        f"{', '.join(f'{t:.2f}' for t in rec['warm_ms'])}), {readings['images_per_s']:.1f} "
+        f"images/s, peak memory {readings['peak_gib']:.2f} GiB; val accuracy "
+        f"{val['acc']:.4f} (loss {val['loss']:.4f}; best epoch {best[1]['epoch']:.0f}); "
+        f"best_model reloaded: eval output identical; two runs in {wall:.1f} s; launches "
+        f"{nonzero(path)}; {smi}")
+    return path, readings, ck_dir
+
+
+def phase_joint_training(dev, smi, tmp, root, classifier_dir, dehazing_dir):
+    """(c) The joint trainer at the default widths (soft routing, T = 0.5,
+    bf16, 256², batch 16), grafting what the classifier and the per-branch
+    trainers saved: 2 epochs, soft then hard (hard_finetune_frac 0.5); then
+    its best checkpoint served through route_hard. Returns its launch
+    counts and its readings."""
+    cfg = load_config()
+    cfg["dataset"].update(train_path=root, val_path=root, test_path=root)
+    cfg["classifier"]["checkpoint_dir"] = classifier_dir
+    cfg["dehazing"]["checkpoint_dir"] = dehazing_dir
+    ck_dir = os.path.join(tmp, "joint")
+    cfg["joint_training"].update(epochs=2, hard_finetune_frac=0.5, checkpoint_dir=ck_dir)
+    cfg["_logs_dir"] = os.path.join(tmp, "logs")
+    probe = StepProbe()
+    built = {}
+    makers = (tj.make_train_step, tj.make_hard_branch_step, tj.make_eval_step,
+              tj.build_router_state)
+
+    def build(*args, **kwargs):
+        router, state = makers[3](*args, **kwargs)
+        built["classifier"] = {k: v.clone() for k, v in router.classifier.state_dict().items()}
+        return router, state
+
+    tj.make_train_step = probe.wrap(makers[0], "soft")
+    tj.make_hard_branch_step = probe.wrap(
+        makers[1], lambda state: CLASS_OF[type(state.module).__name__])
+    tj.make_eval_step = probe.wrap(makers[2], "eval", eval_step=True)
+    tj.build_router_state = build
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        router, state = tj.train_joint_model(cfg)
+        path = counts()
+        wall = time.perf_counter() - t0
+    finally:
+        (tj.make_train_step, tj.make_hard_branch_step, tj.make_eval_step,
+         tj.build_router_state) = makers
+    per_epoch = 3 * TRAIN_PER_CLASS * 3 // 4 // BATCH
+    soft = probe.rec["soft"]
+    check(soft["steps"] == per_epoch, f"joint: {soft['steps']} soft steps, expected {per_epoch}")
+    for launches in soft["launches"]:
+        check(launches.get("blend3") == 1 and launches.get("cbam_gate") == 6,
+              f"joint: a soft step launched {launches}, expected K5 once and K2 six times")
+    for launches in probe.rec["eval"]["launches"]:
+        check(launches.get("blend3") == 1 and launches.get("cbam_gate") == 6
+              and launches.get("lightweight_chain", 0) > 0,
+              f"joint: a soft validation batch launched {launches}, expected K5 once, K2 six "
+              "times and K1")
+    hard = {}
+    for level in INTENSITY_ORDER:
+        rec = probe.rec[level]
+        check(rec["steps"] == per_epoch // 3, f"joint: {rec['steps']} hard {level} steps")
+        k2 = 6 if level == "high" else 0
+        for launches in rec["launches"]:
+            check(launches.get("cbam_gate", 0) == k2 and not launches.get("blend3"),
+                  f"joint: a hard {level} step launched {launches}")
+        hard[level] = warm_reading(rec)
+    # The classifier is frozen: its parameters bitwise as grafted, its BN
+    # statistics moved by the soft epoch's train-mode forwards.
+    now = router.classifier.state_dict()
+    moved = [k for k in now if "running" in k and not torch.equal(now[k], built["classifier"][k])]
+    for k, v in now.items():
+        if "running" not in k and "num_batches" not in k:
+            check(torch.equal(v, built["classifier"][k]), f"joint: classifier {k} moved")
+    check(len(moved) > 0, "joint: the classifier's BN statistics did not move")
+    # The best checkpoint in a fresh router gives the same eval output.
+    fresh = create_router(create_branch_models(cfg), create_classifier(cfg), cfg).to(dev)
+    best = ckpt.load_checkpoint(ckpt.best_model_path(ck_dir))
+    fresh.load_state_dict(best[0]["model"])
+    loss = get_joint_loss(cfg)
+    nets = loss.init(torch.Generator().manual_seed(0), dev)
+    step = makers[2](loss, nets, torch.bfloat16)
+    batch = device_batch(next(iter(get_dataloader(cfg, "val"))), dev)
+    a, b = step(state, batch), step(TrainState(fresh, None), batch)
+    reload_err = max_err(a["dehazed"], b["dehazed"])
+    check(reload_err == 0.0 and float(a["psnr"]) == float(b["psnr"]),
+          f"joint: best_model reloaded gives another eval output ({reload_err:.2e})")
+    val = tj._validate(step, state, get_dataloader(cfg, "val"), dev)
+    readings = dict(soft=warm_reading(soft), hard=hard, wall_s=wall, best_epoch=best[1]["epoch"],
+                    moved_bn_buffers=len(moved), **{f"val_{k}": v for k, v in val.items()})
+    # The hard epoch's images over its steps at each branch's warm median.
+    hard_ips = per_epoch * BATCH / sum(
+        np.median(r["warm_ms"]) * r["steps"] for r in hard.values()) * 1e3
+    readings["hard_tail_images_per_s"] = hard_ips
+    log(f"[joint training] soft: {soft['steps']} steps of {BATCH} at {SIZE}^2 bf16, warm "
+        f"{readings['soft']['ms_per_step']:.2f} ms/step (median of {len(soft['warm_ms'])}: "
+        f"{', '.join(f'{t:.2f}' for t in soft['warm_ms'])}), "
+        f"{readings['soft']['images_per_s']:.1f} images/s, peak memory "
+        f"{readings['soft']['peak_gib']:.2f} GiB; each soft step and val batch: K5 1, K2 6; "
+        f"{smi}")
+    for level, r in hard.items():
+        log(f"[joint training] hard {level}: {r['steps']} steps, warm {r['ms_per_step']:.2f} "
+            f"ms/step ({r['images_per_s']:.1f} images/s), peak {r['peak_gib']:.2f} GiB")
+    log(f"[joint training] hard tail {hard_ips:.1f} images/s (warm medians); val PSNR "
+        f"{val['psnr']:.2f} dB, SSIM {val['ssim']:.4f}, classifier accuracy "
+        f"{val['cls_acc']:.4f} (best epoch {best[1]['epoch']:.0f}); classifier parameters "
+        f"bitwise as grafted, {len(moved)} BN buffers moved; best_model reloaded: eval output "
+        f"identical; trainer {wall:.1f} s; launches {nonzero(path)}")
+    for name in JOINT_PATH_KERNELS:
+        check(path[name] > 0, f"the joint training path launched no {name}")
+
+    # Serve the best checkpoint: route_hard over the validation images.
+    val_x = np.concatenate([b["hazy"][b["mask"]] for b in get_dataloader(cfg, "val")])
+    val_y = np.concatenate([b["intensity"][b["mask"]] for b in get_dataloader(cfg, "val")])
+    d = AdaptiveDehazer(fresh, None, cfg, device=dev)
+    reset_launch_counts()
+    y, labels = d.route_hard(val_x)
+    torch.cuda.synchronize()
+    served = nonzero(counts())
+    check_images(y, len(val_x), "route_hard on the joint checkpoint")
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d.route_hard(val_x)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / len(val_x))
+    hist = np.bincount(labels, minlength=3).tolist()
+    readings["served"] = dict(labels_histogram=hist, launches=served,
+                              accuracy=float((labels == val_y).mean()),
+                              ms_per_image=float(np.median(times)), ms_runs=times)
+    log(f"[joint serving] route_hard on the {len(val_x)} validation images with the joint "
+        f"checkpoint: labels (low, medium, high) {hist}, accuracy {readings['served']['accuracy']:.4f}; "
+        f"kernels launched {served}; warm {np.median(times):.3f} ms/image (3 runs: "
+        f"{', '.join(f'{t:.3f}' for t in times)}; bf16, numpy in and out)")
+    return path, readings
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
-    phase_build()
+    seconds = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        seconds[name] = time.perf_counter() - t0
+        log(f"[phase] {name}: {seconds[name]:.1f} s")
+        return out
+
+    timed("build", phase_build)
     gen = torch.Generator().manual_seed(SEED)
-    kernels, conv_layers = phase_kernels(dev, gen)
+    kernels, conv_layers = timed("kernels", phase_kernels, dev, gen)
     router = make_router(load_config(), gen)
     rng = np.random.default_rng(SEED)
     x = rng.random((BATCH, SIZE, SIZE, 3), dtype=np.float32)
     labels = np.arange(BATCH) % 3
     with tempfile.TemporaryDirectory() as tmp:
-        default, outs, default_ms, dispatch, d = phase_slice(router, dev, x, labels, gen)
-        engines, engine_errs, engine_ms = phase_engines(d, dev, x, labels, outs[1], smi)
+        default, outs, default_ms, dispatch, d = timed("slice", phase_slice, router, dev, x,
+                                                       labels, gen)
+        engines, engine_errs, engine_ms = timed("engines", phase_engines, d, dev, x, labels,
+                                                outs[1], smi)
         del d
         torch.cuda.empty_cache()
         # Its own generator, as the conv-layer table's.
-        (tail_cache, res_cache), tables, tuned_dispatch = tune_then_force(
-            router, load_config(), dev, tmp, "bf16", (TAIL_FORCED, RES_FORCED),
-            gen=torch.Generator().manual_seed(SEED + 3))
-        tail, tail_ms = phase_forced_slice(router, dev, x, labels, outs, tail_cache,
-                                           TAIL_FORCED, "tail slice", TAIL_PATH_KERNELS)
-        res, res_ms = phase_forced_slice(router, dev, x, labels, outs, res_cache,
-                                         RES_FORCED, "res slice", RES_PATH_KERNELS)
-        probes = phase_probe_tool(dev)
-        phase_vs_plain(router, dev, rng, tmp)
+        (tail_cache, res_cache), tables, tuned_dispatch = timed(
+            "tune", tune_then_force, router, load_config(), dev, tmp, "bf16",
+            (TAIL_FORCED, RES_FORCED), torch.Generator().manual_seed(SEED + 3))
+        tail, tail_ms = timed("tail slice", phase_forced_slice, router, dev, x, labels, outs,
+                              tail_cache, TAIL_FORCED, "tail slice", TAIL_PATH_KERNELS)
+        res, res_ms = timed("res slice", phase_forced_slice, router, dev, x, labels, outs,
+                            res_cache, RES_FORCED, "res slice", RES_PATH_KERNELS)
+        probes = timed("probe tool", phase_probe_tool, dev)
+        timed("slice vs plain", phase_vs_plain, router, dev, rng, tmp)
         del router
         torch.cuda.empty_cache()
-        k2_train = phase_gate_grad(dev, torch.Generator().manual_seed(SEED + 4))
-        step_errs = phase_train_step_vs_cpu(dev)
-        training, train_readings = phase_training(dev, smi, tmp)
+        k2_train = timed("K2 gradient", phase_gate_grad, dev,
+                         torch.Generator().manual_seed(SEED + 4))
+        grad_fns = timed("K5 and K2' gradients", phase_grad_functions, dev,
+                         torch.Generator().manual_seed(SEED + 6))
+        step_errs = timed("fp32 steps vs CPU", phase_train_step_vs_cpu, dev)
+        training, train_readings = timed("training", phase_training, dev, smi, tmp)
+        corpus = os.path.join(tmp, "corpus")
+        classifier, cls_readings, cls_dir = timed(
+            "classifier training", phase_classifier_training, dev, smi, tmp, corpus)
+        joint, joint_readings = timed(
+            "joint training", phase_joint_training, dev, smi, tmp, corpus, cls_dir,
+            os.path.join(tmp, "checkpoints"))
     for name in ("route_hard", "forced_labels", "soft"):
         log(f"[slices] {name}: default dispatch {default_ms[name]:.3f} ms/image, "
             f"tail-chain dispatch {tail_ms[name]:.3f} ms/image, res-chain dispatch "
             f"{res_ms[name]:.3f} ms/image")
+    log(f"[phase] all: {sum(seconds.values()):.1f} s")
 
     paths = {"default": default, "engines": engines, "tail_chain": tail, "res_chain": res,
-             "probe_tool": probes, "training": training}
+             "probe_tool": probes, "training": training, "classifier_training": classifier,
+             "joint_training": joint}
     kernels["cbam_gate"].update(training_forward_ms_per_step=k2_train["forward_ms"],
                                 training_backward_ms_per_step=k2_train["backward_ms"])
+    for name, rec in grad_fns.items():
+        kernels[name].update(function=rec)
     line = {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
          "launches": sum(path[name] for path in paths.values()),
@@ -1696,7 +2050,9 @@ def main():
                                "res_chain": res_ms},
         "routes_ms_per_image": engine_ms, "engines_max_abs_err": engine_errs,
         "training": {"branches": train_readings, "k2": k2_train,
-                     "fp32_step_card_vs_cpu": step_errs}}
+                     "fp32_step_card_vs_cpu": step_errs, "classifier": cls_readings,
+                     "joint": joint_readings},
+        "phase_seconds": seconds}
     check(all(k["launches"] > 0 for k in line["kernels"]),
           f"a kernel was launched no time on any path: {line['kernels']}")
     print(json.dumps(line), flush=True)

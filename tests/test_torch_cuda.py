@@ -3,9 +3,9 @@ against their plain versions on a CUDA card (marker `cuda`; every test skips wit
 and the serving engines on the card: the device-binned, switch and sharded
 routes against the host-binned engine, the binning under the sync debug
 mode, the stream routes against their per-batch counterparts; and
-training: K2's autograd Function against plain autograd, one bf16 train
-step of each default branch, and the serving kernels' refusal of a
-gradient.
+training: the autograd Functions of K2, K2' and K5 against plain autograd,
+one bf16 train step of each default branch, a bf16 soft joint step, and the
+serving kernels' refusal of a gradient.
 
 This file imports neither JAX nor the JAX package, so that it also runs on
 a machine that has only PyTorch:
@@ -720,9 +720,11 @@ def test_kernels_refuse_what_they_do_not_take(cuda_device):
     y = torch.rand(1, 4, 4, 3, device=cuda_device, dtype=torch.float16)
     with pytest.raises(ValueError):
         blend3(torch.rand(1, 3, device=cuda_device), y, y, y)
+    # With a gradient to record, K5 runs its autograd Function, whose forward
+    # is the kernel: it still raises on what the kernel does not take.
     wq = torch.rand(1, 3, device=cuda_device, requires_grad=True)
-    z = torch.rand(1, 4, 4, 3, device=cuda_device)
-    with pytest.raises(RuntimeError):
+    z = torch.rand(1, 4, 3, 4, device=cuda_device).transpose(2, 3)     # not contiguous
+    with pytest.raises(ValueError):
         blend3(wq, z, z, z)
 
 
@@ -906,6 +908,100 @@ def test_k2_function_gradients_match_plain_autograd(cuda_device, dtype, shape):
         assert a.dtype == dtype
         scale = float(b.float().abs().max())
         assert float((a.float() - b.float()).abs().max()) <= K2_GRAD_TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_k5_function_forward_and_gradients(cuda_device, dtype):
+    """K5 with a gradient, at the soft joint step's shapes (16 images at
+    256^2): the forward launches the kernel once and matches the plain
+    version (fp32 1e-4, bf16 3e-2 of its largest magnitude); every gradient
+    matches plain autograd of the plain version in the same dtype (the
+    backward is that formula, so 1e-4 / 3e-2 of each gradient's largest
+    magnitude bound sums taken in another order); the backward launches
+    nothing."""
+    gen = torch.Generator().manual_seed(5)
+    w = torch.softmax(torch.randn(16, 3, generator=gen), dim=1)
+    ys = [torch.rand(16, 256, 256, 3, generator=gen) for _ in range(3)]
+    g = torch.randn(16, 256, 256, 3, generator=gen).to(cuda_device, dtype)
+    ref = [w.to(cuda_device).requires_grad_(True)] + [
+        y.to(cuda_device, dtype).requires_grad_(True) for y in ys]
+    y_ref = blend3_reference(*ref)
+    want = torch.autograd.grad(y_ref, ref, g)
+    ours = [t.detach().clone().requires_grad_(True) for t in ref]
+    before = blend3.launches
+    y = blend3(*ours)
+    assert blend3.launches - before == 1
+    got = torch.autograd.grad(y, ours, g)
+    torch.cuda.synchronize()
+    assert blend3.launches - before == 1
+    tol = K2_GRAD_TOL[dtype]
+    with torch.no_grad():
+        y32 = blend3_reference(w.to(cuda_device), *[t.float() for t in ours[1:]])
+    assert float((y.float() - y32).abs().max()) <= tol * float(y32.abs().max())
+    for a, b, t in zip(got, want, ours):
+        assert a.dtype == t.dtype
+        assert float((a.float() - b.float()).abs().max()) <= tol * float(b.float().abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+def test_k2_prime_function_forward_and_gradients(cuda_device, dtype):
+    """K2' with a gradient, at the high tail's shape (16, 256^2, 96): the
+    forward launches the kernel once and matches the fp32 plain version; the
+    gradients match plain autograd of the plain version in the same dtype
+    (its backward recomputes it); the backward launches nothing."""
+    shape = (16, 256, 256, 96)
+    gen = torch.Generator().manual_seed(9)
+    base = (torch.randn(shape, generator=gen), torch.randn(7, 7, 2, 1, generator=gen) * 0.1)
+    dy = torch.randn(shape, generator=gen).to(cuda_device, dtype)
+    ref = [t.to(cuda_device, dtype).requires_grad_(True) for t in base]
+    want = torch.autograd.grad(spatial_gate_reference(*ref), ref, dy)
+    ours = [t.to(cuda_device, dtype).requires_grad_(True) for t in base]
+    before = spatial_gate.launches
+    y = spatial_gate(*ours)
+    assert spatial_gate.launches - before == 1
+    got = torch.autograd.grad(y, ours, dy)
+    torch.cuda.synchronize()
+    assert spatial_gate.launches - before == 1
+    with torch.no_grad():
+        y32 = spatial_gate_reference(*(t.float() for t in ours))
+    tol = K2_GRAD_TOL[dtype]
+    assert float((y.float() - y32).abs().max()) <= tol * float(y32.abs().max())
+    for a, b in zip(got, want):
+        assert a.dtype == dtype
+        assert float((a.float() - b.float()).abs().max()) <= tol * float(b.float().abs().max())
+
+
+def test_bf16_soft_joint_step(cuda_device):
+    """One bf16 soft joint step at the default widths (16 images at 256^2)
+    through the joint trainer's step: finite components, a finite gradient
+    on every trainable parameter, none on the frozen classifier, whose
+    parameters do not move; K5 launched once, K2 six times."""
+    from adam_dehaze_tpu_torch.config import load_config
+    from adam_dehaze_tpu_torch.losses.dehazing import get_joint_loss
+    from adam_dehaze_tpu_torch.training.train_joint import build_router_state, make_train_step
+
+    cfg = load_config()
+    cfg["classifier"]["checkpoint_dir"] = cfg["dehazing"]["checkpoint_dir"] = "absent"
+    router, state = build_router_state(cfg, cuda_device)
+    router.train()
+    frozen = {k: v.clone() for k, v in router.classifier.named_parameters()}
+    loss = get_joint_loss(cfg)
+    nets = loss.init(torch.Generator().manual_seed(0), cuda_device)
+    gen = torch.Generator().manual_seed(7)
+    batch = {k: torch.rand(16, 256, 256, 3, generator=gen).to(cuda_device)
+             for k in ("hazy", "clear", "dehazed")}
+    batch["intensity"] = (torch.arange(16) % 3).to(cuda_device)
+    before = blend3.launches, channel_spatial_gate.launches
+    comps = make_train_step(loss, nets, dtype=torch.bfloat16)(
+        state, batch, torch.Generator(cuda_device).manual_seed(1))
+    torch.cuda.synchronize()
+    assert (blend3.launches - before[0], channel_spatial_gate.launches - before[1]) == (1, 6)
+    assert all(bool(torch.isfinite(v)) for v in comps.values())
+    for name, p in router.named_parameters():
+        if name.startswith("classifier."):
+            assert p.grad is None and torch.equal(p, frozen[name[len("classifier."):]]), name
+        else:
+            assert p.grad is not None and bool(torch.isfinite(p.grad).all()), name
 
 
 @pytest.mark.parametrize("level", ["low", "medium", "high"])

@@ -103,3 +103,145 @@ def port_loss_params(jax_loss_params):
     for net in nets.values():
         net.requires_grad_(False)
     return nets
+
+
+def _bn_counts(module, *inputs):
+    """Elements per channel that each BatchNorm2d of `module` normalises
+    when it is called on `inputs` (eval mode, no gradient)."""
+    counts = {}
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out, name=name: counts.__setitem__(
+            name, inp[0].numel() // inp[0].shape[1]))
+        for name, m in module.named_modules() if isinstance(m, torch.nn.BatchNorm2d)]
+    was_training = module.training
+    with torch.no_grad():
+        module.eval()(*inputs)
+    for h in hooks:
+        h.remove()
+    module.train(was_training)
+    return counts
+
+
+def assert_bn_stats_match_flax(model, before, after, *inputs, steps=1):
+    """`model`'s BN running statistics after `steps` train-mode forwards on
+    `inputs` against flax's: `before` and `after` are port modules holding
+    flax's statistics before and after those forwards (momentum 0.9). Torch
+    updates the running variance with the unbiased batch variance, flax with
+    the biased one: the batch variance read from flax's update is scaled by
+    n / (n - 1) (one forward: steps=1) before the comparison."""
+    counts = _bn_counts(model, *inputs)
+    for name, m in model.named_modules():
+        if not isinstance(m, torch.nn.BatchNorm2d):
+            continue
+        old, new, n = before.get_submodule(name), after.get_submodule(name), counts[name]
+        batch_var = (new.running_var.double() - 0.9 * old.running_var.double()) / 0.1
+        want_var = 0.9 * old.running_var.double() + 0.1 * batch_var * n / (n - 1)
+        np.testing.assert_allclose(m.running_mean.numpy(), new.running_mean.numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+        np.testing.assert_allclose(m.running_var.numpy(), want_var.numpy(),
+                                   rtol=1e-5, atol=1e-6, err_msg=name)
+        assert int(m.num_batches_tracked) == int(old.num_batches_tracked) + steps, name
+
+
+def joint_configs(routing="soft"):
+    """(JAX config, port config) of the joint trainer's tests: branches
+    low 4 x 1, medium 4, high 8, resnet18, 32^2, batch 2, fp32,
+    augmentation off."""
+    from adam_dehaze_tpu.config import default_config
+    from adam_dehaze_tpu_torch.config import load_config
+    jcfg = default_config()
+    pcfg = load_config(overrides={"cuda": {"compute_dtype": "float32"}})
+    for cfg in (jcfg, pcfg):
+        for level, (c, b) in {"low": (4, 1), "medium": (4, 2), "high": (8, 2)}.items():
+            cfg["dehazing"][level].update(channels=c, blocks=b)
+        cfg["dataset"].update(img_size=32, batch_size=2, num_workers=2, augmentation=False)
+        cfg["routing"]["type"] = routing
+    jcfg["tpu"].update(compute_dtype="float32", use_pallas=False)
+    return jcfg, pcfg
+
+
+def f64(jax_config):
+    """The JAX config computing in float64 (under jax.enable_x64)."""
+    return {**jax_config, "tpu": {**jax_config["tpu"], "compute_dtype": "float64"}}
+
+
+def as64(tree):
+    return jax.tree_util.tree_map(lambda a: jnp.asarray(a, jnp.float64), tree)
+
+
+def as_np(tree):
+    return jax.tree_util.tree_map(np.asarray, tree)
+
+
+def no_dropout_(module):
+    """p = 0 on every dropout of a port module (the frameworks draw
+    different masks)."""
+    from adam_dehaze_tpu_torch.nn.blocks import Dropout
+    for m in module.modules():
+        if isinstance(m, Dropout):
+            m.p = 0.0
+    return module
+
+
+def flax_dropout_off(monkeypatch):
+    """flax's Dropout as the identity, for the rest of the test (the two
+    frameworks draw different masks)."""
+    import flax.linen
+    monkeypatch.setattr(flax.linen, "Dropout", lambda *a, **k: (lambda x, *aa, **kk: x))
+
+
+def recording(module, name, key, records, starts=None):
+    """`module.<name>` (a step maker) wrapped so that every step's
+    metric `key` lands in `records` and, with `starts`, the state's step
+    count before it."""
+    original = getattr(module, name)
+
+    def make(*args, **kwargs):
+        step = original(*args, **kwargs)
+
+        def recorded(*a):
+            if starts is not None:
+                starts.append(a[0].step)
+            out = step(*a)
+            m = out[1] if isinstance(out, tuple) else out
+            records.append(float(m[key]))
+            return out
+        return recorded
+    return make
+
+
+def jax_router_variables(routing, seed=0):
+    """Seeded variables of the JAX router of `joint_configs(routing)`, BN
+    statistics moved away from 0/1: drawn by the port's init (flax's init,
+    run op by op, takes over a minute on the CPU, jitted half of one) and
+    carried over by the JAX package's own converter of reference
+    checkpoints, load_torch_joint."""
+    from adam_dehaze_tpu.models import branches as JB
+    from adam_dehaze_tpu.models import classifier as JC
+    from adam_dehaze_tpu.models import routing as JR
+    from adam_dehaze_tpu.training.checkpoint import load_torch_joint
+    from adam_dehaze_tpu_torch.models.branches import create_branch_models
+    from adam_dehaze_tpu_torch.models.classifier import create_classifier
+    from adam_dehaze_tpu_torch.models.routing import create_router
+    from adam_dehaze_tpu_torch.nn.blocks import init_params_
+    jcfg, pcfg = joint_configs(routing)
+    gen = torch.Generator().manual_seed(seed)
+    port = init_params_(create_router(create_branch_models(pcfg), create_classifier(pcfg), pcfg),
+                        gen)
+    with torch.no_grad():
+        for m in port.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.uniform_(0.0, 0.3, generator=gen)
+                m.running_var.uniform_(1.0, 1.3, generator=gen)
+
+    def sd(module):
+        return {k: v.numpy() for k, v in module.state_dict().items()}
+
+    router = JR.create_router(JB.create_branch_models(jcfg), JC.create_classifier(jcfg), jcfg)
+    key = jax.random.PRNGKey(seed)
+    shapes = jax.eval_shape(router.init, {"params": key, "dropout": key},
+                            jnp.zeros((1, 32, 32, 3), jnp.float32))
+    template = jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype), shapes)
+    ckpt = {"classifier_state_dict": sd(port.classifier), "router_state_dict": sd(port),
+            **{f"{lvl}_model_state_dict": sd(port.models[lvl]) for lvl in ("low", "medium", "high")}}
+    return as_np(load_torch_joint(ckpt, template, jcfg))
