@@ -1,4 +1,5 @@
-"""ResNet backbones for the fog-intensity classifier (torch.nn, NCHW).
+"""ResNet backbones for the fog-intensity classifier and the detector
+(torch.nn, NCHW).
 
 Counterpart of adam_dehaze_tpu/nn/resnet.py, with torchvision's structure
 and state-dict names (conv1, bn1, layer{1..4}.{i}.conv{1,2,3}/bn*/
@@ -65,7 +66,9 @@ class Bottleneck(nn.Module):
 
 
 class ResNet(nn.Module):
-    """NCHW images -> pooled features (B, feature_dim) in float32."""
+    """NCHW images -> pooled features (B, feature_dim) in float32; with
+    `return_stages`, also the outputs of layer1-layer4 (C2-C5) for a
+    detection neck."""
 
     def __init__(self, stage_sizes: Sequence[int], block: str = "basic"):
         super().__init__()
@@ -83,12 +86,15 @@ class ResNet(nn.Module):
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
         self.feature_dim = cin
 
-    def forward(self, x):
+    def forward(self, x, return_stages: bool = False):
         x = torch.relu(self.bn1(self.conv1(x)))
         x = F.max_pool2d(x, 3, stride=2, padding=1)
+        stages = []
         for i in range(len(self.stage_sizes)):
             x = getattr(self, f"layer{i + 1}")(x)
-        return x.mean(dim=(2, 3)).float()
+            stages.append(x)
+        pooled = x.mean(dim=(2, 3)).float()
+        return (pooled, stages) if return_stages else pooled
 
 
 def resnet18() -> ResNet:

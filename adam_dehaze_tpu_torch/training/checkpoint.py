@@ -12,8 +12,11 @@ Weights from the JAX package:
 
 `load_flax_variables(module, variables)` fills a port module from the JAX
 package's `{"params", "batch_stats"}` tree (nested dicts of arrays): a
-block, a branch, the classifier, or a whole router (subtrees `classifier` and
-`models_{low,medium,high}`, and a GatedRouter's gate `Dense_{0,1,2}`). It
+block, a branch, the classifier, a whole router (subtrees `classifier` and
+`models_{low,medium,high}`, and a GatedRouter's gate `Dense_{0,1,2}`), or
+the FCOS detector (`ResNet_0`, `FPN_0`: lateral{i}, smooth{i}, p6, p7;
+`FCOSHead_0`: cls{i}, reg{i}, cls_gn{i}, reg_gn{i}, cls_out, reg_out,
+ctr_out). It
 inverts the layout conversions of adam_dehaze_tpu/training/checkpoint.py
 (convert_torch_conv, convert_torch_linear, convert_torch_convtranspose)
 along the same block tables (_block_assigns, _branch_layout,
@@ -44,6 +47,7 @@ from adam_dehaze_tpu_torch.models.branches import (
     MediumIntensityDehazeModel,
 )
 from adam_dehaze_tpu_torch.models.classifier import FogIntensityClassifier
+from adam_dehaze_tpu_torch.models.detection import FCOSDetector
 from adam_dehaze_tpu_torch.models.routing import (
     INTENSITY_ORDER,
     GatedRouter,
@@ -57,6 +61,7 @@ from adam_dehaze_tpu_torch.nn.blocks import (
     ResidualBlock,
     UpBlock,
 )
+from adam_dehaze_tpu_torch.nn.resnet import Bottleneck
 from adam_dehaze_tpu_torch.nn.vgg import _STAGES as _VGG_STAGES
 from adam_dehaze_tpu_torch.nn.vgg import VGG16Features
 
@@ -253,6 +258,30 @@ def _feature_net_assigns(module: nn.Module, tp: str = "", fp: tuple = ()) -> Lis
     return out
 
 
+def _resnet(tp: str, resnet, fp: tuple, keys, out: List[Assign]) -> None:
+    """A ResNet at torch prefix `tp` and flax path `fp` (the JAX package's
+    load_torch_resnet): the stem, then each block's convs and BNs and its
+    downsample pair."""
+    out.append((f"{tp}.conv1.weight", "params", fp + ("Conv_0", "kernel"), _conv))
+    _bn(f"{tp}.bn1", fp + ("BatchNorm_0",), out)
+    bottleneck = isinstance(resnet.layer1[0], Bottleneck)
+    block_name = "Bottleneck" if bottleneck else "BasicBlock"
+    n_convs = 3 if bottleneck else 2
+    idx = 0
+    for li, n_blocks in enumerate(resnet.stage_sizes, start=1):
+        for b in range(n_blocks):
+            bp, bf = f"{tp}.layer{li}.{b}", fp + (f"{block_name}_{idx}",)
+            for ci in range(n_convs):
+                out.append((f"{bp}.conv{ci + 1}.weight", "params",
+                            bf + (f"Conv_{ci}", "kernel"), _conv))
+                _bn(f"{bp}.bn{ci + 1}", bf + (f"BatchNorm_{ci}",), out)
+            if f"{bp}.downsample.0.weight" in keys:
+                out.append((f"{bp}.downsample.0.weight", "params",
+                            bf + (f"Conv_{n_convs}", "kernel"), _conv))
+                _bn(f"{bp}.downsample.1", bf + (f"BatchNorm_{n_convs}",), out)
+            idx += 1
+
+
 def _assigns(module: nn.Module, variables) -> List[Assign]:
     keys = set(module.state_dict())
     out: List[Assign] = []
@@ -260,29 +289,29 @@ def _assigns(module: nn.Module, variables) -> List[Assign]:
         return _feature_net_assigns(module)
     if isinstance(module, FogIntensityClassifier):
         bb = next(k for k in variables["params"] if k.startswith("ResNet"))
-        resnet = module.backbone
-        out.append(("backbone.conv1.weight", "params", (bb, "Conv_0", "kernel"), _conv))
-        _bn("backbone.bn1", (bb, "BatchNorm_0"), out)
-        bottleneck = module.model_name == "resnet50"
-        block_name = "Bottleneck" if bottleneck else "BasicBlock"
-        n_convs = 3 if bottleneck else 2
-        idx = 0
-        for li, n_blocks in enumerate(resnet.stage_sizes, start=1):
-            for b in range(n_blocks):
-                tp, fp = f"backbone.layer{li}.{b}", (bb, f"{block_name}_{idx}")
-                for ci in range(n_convs):
-                    out.append((f"{tp}.conv{ci + 1}.weight", "params",
-                                fp + (f"Conv_{ci}", "kernel"), _conv))
-                    _bn(f"{tp}.bn{ci + 1}", fp + (f"BatchNorm_{ci}",), out)
-                if f"{tp}.downsample.0.weight" in keys:
-                    out.append((f"{tp}.downsample.0.weight", "params",
-                                fp + (f"Conv_{n_convs}", "kernel"), _conv))
-                    _bn(f"{tp}.downsample.1", fp + (f"BatchNorm_{n_convs}",), out)
-                idx += 1
+        _resnet("backbone", module.backbone, (bb,), keys, out)
         for ti, fi in ((1, 0), (4, 1)):
             out += [(f"classifier.{ti}.weight", "params", (f"Dense_{fi}", "kernel"),
                      _linear),
                     (f"classifier.{ti}.bias", "params", (f"Dense_{fi}", "bias"), None)]
+        return out
+    if isinstance(module, FCOSDetector):
+        _resnet("backbone", module.backbone, ("ResNet_0",), keys, out)
+        fpn = module.fpn
+        convs = [f"{kind}{i}" for i in range(fpn.n_levels) for kind in ("lateral", "smooth")]
+        convs += ["p6", "p7"] if fpn.extra_levels else []
+        for name in convs:
+            _block("CONV", f"fpn.{name}", ("FPN_0", name), keys, out)
+        head = module.head
+        for i in range(head.tower_convs):
+            for branch in ("cls", "reg"):
+                _block("CONV", f"head.{branch}{i}", ("FCOSHead_0", f"{branch}{i}"), keys, out)
+                if head.group_norm:
+                    gn, fp = f"head.{branch}_gn{i}", ("FCOSHead_0", f"{branch}_gn{i}")
+                    out += [(f"{gn}.weight", "params", fp + ("scale",), None),
+                            (f"{gn}.bias", "params", fp + ("bias",), None)]
+        for name in ("cls_out", "reg_out", "ctr_out"):
+            _block("CONV", f"head.{name}", ("FCOSHead_0", name), keys, out)
         return out
     if isinstance(module, (SoftRouter, HardRouter, GatedRouter)):
         out = []

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the device time goes, on one GPU: torch.profiler over warm calls.
 
-    python3 chip_profile.py [kernels] [routes] [train] [gate] [grads] [joint]
+    python3 chip_profile.py [kernels] [routes] [train] [gate] [grads] [joint] [detect]
                                           (kernels, routes and train by default)
 
 Profiles, each over 3 warm calls at the sizes of chip_smoke.py (16 images at
@@ -47,6 +47,16 @@ analytic backward; the JointLoss's forward and backward on a fixed output;
 the Adam step. Then the classifier trainer's step (resnet18, refog off,
 augmentation on) on the same batch, profiled and timed.
 
+`detect`: the default detector (fcos_resnet18_fpn, 91 classes, seeded) in
+bf16: its forward and top-k on 16 seeded images at 256^2, profiled, and
+timed with CUDA events beside the same forward with the module and the
+input in channels_last memory format (a reading for a later change: the
+port's detector runs NCHW); then one train step at the trainer's batch of 8
+(`make_detection_train_step`: forward under autocast, the FCOS loss,
+backward, Adam), profiled, and its parts timed alone: the forward, the
+forward and backward under a plain mean loss, the FCOS loss's target
+assignment and backward on fixed level outputs, and the Adam step.
+
 `gate` (no profiler): K2's wrapper `channel_spatial_gate` in inference
 mode at the six AttentionBlock shapes, bf16, timed as chip_smoke.py's phase
 3 times it (CUDA events, 20 calls after 3), GATE_REPEATS times over, with
@@ -91,7 +101,7 @@ TOP = 12
 GATE_REPEATS = 10
 GATE_HOST_CALLS = 2000
 GRAD_RUNS = 3
-SECTIONS = ("kernels", "routes", "train", "gate", "grads", "joint")
+SECTIONS = ("kernels", "routes", "train", "gate", "grads", "joint", "detect")
 
 
 def profiled(tag, fn, host_top=0):
@@ -166,6 +176,8 @@ def main():
         fp32_step_readings(dev)
     if "joint" in sections:
         profile_joint(dev)
+    if "detect" in sections:
+        profile_detect(dev)
 
 
 def time_gate(dev):
@@ -428,6 +440,75 @@ def profile_joint(dev):
     profiled("classifier train step, bf16", lambda: cstep(cstate, batch, aug))
     cs.log(f"[joint parts] classifier train step: "
            f"{cs.cuda_ms(lambda: cstep(cstate, batch, aug), iters=10, warmup=2):.3f} ms")
+
+
+def profile_detect(dev):
+    """The detector's forward and train step (see the docstring)."""
+    from adam_dehaze_tpu_torch.models.detection import DetectionModel, imagenet_normalize
+    from adam_dehaze_tpu_torch.training.state import TrainState, make_optimizer
+    from adam_dehaze_tpu_torch.training.train_detection import (
+        fcos_loss,
+        make_detection_train_step,
+    )
+
+    det = DetectionModel(dtype=torch.bfloat16, device=dev)
+    det.init(cs.SEED)
+    gen = torch.Generator().manual_seed(cs.SEED)
+    x = imagenet_normalize(torch.rand(cs.BATCH, cs.SIZE, cs.SIZE, 3, generator=gen).to(dev))
+    profiled("detector forward + top-k, bf16", lambda: det.candidates(x))
+    ms = cs.cuda_ms(lambda: det.candidates(x), iters=10, warmup=2)
+    last = copy.deepcopy(det)
+    last.module = last.module.to(memory_format=torch.channels_last)
+    x_last = x.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
+    x_last = x_last.permute(0, 2, 3, 1)     # NHWC view of channels_last storage
+    ms_last = cs.cuda_ms(lambda: last.candidates(x_last), iters=10, warmup=2)
+    cs.log(f"[detect parts] forward + top-k, {cs.BATCH} images at {cs.SIZE}^2, bf16: "
+           f"{ms:.3f} ms ({ms / cs.BATCH:.3f} ms/image); module and input in channels_last "
+           f"{ms_last:.3f} ms ({ms_last / cs.BATCH:.3f} ms/image)")
+    del last
+
+    n = cs.BATCH // 2
+    model = det.module.train()
+    state = TrainState(model, make_optimizer(model.parameters(), 1e-5, 1e-4))
+    boxes = torch.rand(n, 64, 4, generator=gen) * 128
+    boxes[..., 2:] += boxes[..., :2] + 8
+    batch = {"hazy": x[:n], "boxes": boxes.to(dev),
+             "labels": torch.randint(1, 3, (n, 64), generator=gen).to(dev),
+             "n_boxes": torch.randint(4, 12, (n,), generator=gen).to(dev)}
+    step = make_detection_train_step(torch.bfloat16)
+    torch.cuda.reset_peak_memory_stats()
+    profiled("detector train step, bf16", lambda: step(state, batch))
+
+    def autocast():
+        return torch.autocast("cuda", dtype=torch.bfloat16)
+
+    def fwd():
+        with torch.no_grad(), autocast():
+            model(batch["hazy"])
+
+    def fwd_bwd():
+        with autocast():
+            outs = model(batch["hazy"])
+        sum(o["logits"].mean() + o["offsets"].mean() + o["centerness"].mean()
+            for o in outs).backward()
+
+    with torch.no_grad(), autocast():
+        fixed = model(batch["hazy"])
+
+    def loss_fwd_bwd():
+        outs = [{**o, **{k: o[k].detach().requires_grad_(True)
+                         for k in ("logits", "offsets", "centerness")}} for o in fixed]
+        fcos_loss(outs, batch["boxes"], batch["labels"], batch["n_boxes"],
+                  model.num_classes)["total"].backward()
+
+    parts = {"whole step (forward, loss, backward, Adam)": lambda: step(state, batch),
+             "forward": fwd, "forward + backward (mean of the outputs)": fwd_bwd,
+             "FCOS loss: assignment, forward + backward": loss_fwd_bwd,
+             "Adam step": lambda: state.optimizer.step()}
+    for name, fn in parts.items():
+        cs.log(f"[detect parts] {name}: {cs.cuda_ms(fn, iters=10, warmup=2):.3f} ms")
+    cs.log(f"[detect parts] train step batch {n} at {cs.SIZE}^2, bf16 autocast; peak memory "
+           f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
 
 
 def profile_kernels(dev):

@@ -140,10 +140,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    images: its label histogram, accuracy, kernels launched and warm
    ms/image. Prints the soft ms/step, images/s and peak memory, and each
    hard branch's.
-14. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
-   with "training", "classifier_training" and "joint_training"; K5's and
-   K2''s Function readings under "function") and, last, {"ok": true,
-   "device": ...}.
+14. Detection (models/detection.py, training/train_detection.py,
+   evaluation/evaluate.py) at full width: fcos_resnet18_fpn, 91 classes,
+   256^2, bf16, detection batch 8. A corpus with boxes from the port's
+   corpus tool (32 train, 16 val and 16 test images an intensity). The
+   seeded detector in fp32 on the card against the CPU on 8 test images
+   (TF32 off): each level's logits, offsets and centerness within 1e-4 of
+   the tensor's largest magnitude, the same top-k candidates (labels equal,
+   boxes within 1e-3 px, scores within 1e-5) and the same detections; bf16
+   against fp32 at 3e-2. `train_detection` for 2 epochs, counters at 0:
+   every loss component finite, the best checkpoint reloaded into a fresh
+   DetectionModel gives bitwise the same candidates and detections; warm
+   ms/step, images/s and peak memory. `evaluate_object_detection` with phase
+   13's joint checkpoint as the dehazer and the trained detector, counters
+   at 0: every test batch's dehazing launches K2 six times and K5 once; the
+   COCO matcher that ran must be the native one, and its 12 stats on the
+   phase's detections equal the Python matcher's. Prints hazy and dehazed
+   mAP (no threshold: two epochs train no detector), the detector's warm
+   ms/image (forward and top-k, synchronized, batch 16), the router's and
+   the integrated system's ms/image and the host's decode + NMS ms a batch.
+15. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
+   with "training", "classifier_training", "joint_training" and
+   "detection"; K5's and K2''s Function readings under "function") and,
+   last, {"ok": true, "device": ...}.
 """
 import collections
 import copy
@@ -158,7 +177,10 @@ import torch
 
 from adam_dehaze_tpu_torch.config import load_config
 from adam_dehaze_tpu_torch.data.dataset import get_dataloader
+from adam_dehaze_tpu_torch.data.detection import get_detection_dataloader
 from adam_dehaze_tpu_torch.data.preprocessing import generate_synthetic_dataset
+from adam_dehaze_tpu_torch.evaluation import coco_eval
+from adam_dehaze_tpu_torch.evaluation import evaluate as det_eval
 from adam_dehaze_tpu_torch.losses.dehazing import get_dehazing_loss, get_joint_loss
 from adam_dehaze_tpu_torch.models.branches import (
     HighIntensityDehazeModel,
@@ -167,6 +189,16 @@ from adam_dehaze_tpu_torch.models.branches import (
     create_branch_models,
 )
 from adam_dehaze_tpu_torch.models.classifier import create_classifier
+from adam_dehaze_tpu_torch.models.detection import (
+    DetectionModel,
+    _device_topk,
+    candidates_agree,
+    create_detection_model,
+    create_integrated_system,
+    detections_agree,
+    imagenet_normalize,
+    postprocess,
+)
 from adam_dehaze_tpu_torch.models.routing import (
     INTENSITY_ORDER,
     create_router,
@@ -229,11 +261,13 @@ from adam_dehaze_tpu_torch.ops.serving_apply import cast_for_serving
 from adam_dehaze_tpu_torch.serving import AdaptiveDehazer
 from adam_dehaze_tpu_torch.serving_autotune import candidate_builders
 from adam_dehaze_tpu_torch.tools import probe_ops
+from adam_dehaze_tpu_torch.tools.make_synthetic_corpus import make_corpus
 from adam_dehaze_tpu_torch.training import checkpoint as ckpt
 from adam_dehaze_tpu_torch.training import train_classifier as tc
+from adam_dehaze_tpu_torch.training import train_detection as tdet
 from adam_dehaze_tpu_torch.training import train_dehazing as td
 from adam_dehaze_tpu_torch.training import train_joint as tj
-from adam_dehaze_tpu_torch.training.common import device_batch
+from adam_dehaze_tpu_torch.training.common import autocast, device_batch
 from adam_dehaze_tpu_torch.training.state import TrainState, make_optimizer
 
 SEED = 0
@@ -525,6 +559,9 @@ def phase_build():
     _build.library()
     log(f"[build] {path}: nvcc {nvcc_s:.1f} s, build and load "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    coco_eval.native_library()
+    log(f"[build] the COCO matcher (native/coco_match.cpp, g++): {time.perf_counter() - t0:.1f} s")
     for line in nvcc_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
@@ -1975,6 +2012,224 @@ def phase_joint_training(dev, smi, tmp, root, classifier_dir, dehazing_dir):
     return path, readings
 
 
+# The detection phase's corpus: per intensity 32 train, 16 val and 16 test
+# images at 256^2, with boxes (the port's corpus tool).
+DET_COUNTS = {"train": 32, "val": 16, "test": 16}
+# fp32 detector, card vs CPU (TF32 off), in units of each level tensor's
+# largest magnitude: the backbone, FPN and head sum in another order on
+# each side; candidates and detections: boxes in px, scores absolute.
+DET_FP32_RTOL = 1e-4
+DET_BOX_ATOL, DET_SCORE_ATOL = 1e-3, 1e-5
+# A score threshold that the seeded detector (class bias -4) passes, so that
+# the card-vs-CPU detections are not empty.
+DET_SEEDED_THRESHOLD = 0.005
+# Kernels each detection-evaluation batch must launch: the soft router's
+# high branch K2 six times, its blend K5 once.
+DETECTION_PATH_KERNELS = {"cbam_gate": 6, "blend3": 1}
+
+
+def detection_levels_err(got, want):
+    """Per level and tensor, the largest difference in units of the
+    reference tensor's largest magnitude."""
+    return [{key: max_err(g[key].cpu(), w[key].cpu()) / float(w[key].abs().max())
+             for key in ("logits", "offsets", "centerness")} for g, w in zip(got, want)]
+
+
+def warm_ms(fn, runs=3):
+    """Host clock around fn() and a synchronize: the first call warms."""
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times)), times
+
+
+def phase_detection(dev, smi, tmp, joint_dir):
+    """14. The detection stage at full width (see the docstring). Returns the
+    evaluation path's launch counts and the readings."""
+    root = os.path.join(tmp, "det_corpus")
+    t0 = time.perf_counter()
+    n = make_corpus(root, SIZE, DET_COUNTS["train"], DET_COUNTS["val"], DET_COUNTS["test"],
+                    seed=SEED)
+    log(f"[detection] corpus with boxes: {n} triplets at {SIZE}^2 in "
+        f"{time.perf_counter() - t0:.1f} s")
+    cfg = load_config()     # fcos_resnet18_fpn, 91 classes, bf16
+    cfg["dataset"].update(train_path=root, val_path=root, test_path=root)
+    cfg["joint_training"]["checkpoint_dir"] = joint_dir
+    cfg["detection"]["checkpoint_dir"] = os.path.join(tmp, "detection")
+    cfg["evaluation"].update(results_dir=os.path.join(tmp, "results"), annotation_paths={
+        lvl: os.path.join(root, "annotations", f"coco_{lvl}.json") for lvl in INTENSITY_ORDER})
+    cfg["_logs_dir"] = os.path.join(tmp, "logs")
+    readings = {}
+
+    # (a) The seeded detector, fp32, card vs CPU; bf16 vs fp32 on the card.
+    batch = next(iter(get_detection_dataloader(cfg, "test", img_size=SIZE)))
+    x = torch.from_numpy(batch["hazy"])
+    dets = {}
+    for name, device, dtype in (("cpu", "cpu", torch.float32), ("fp32", dev, torch.float32),
+                                ("bf16", dev, torch.bfloat16)):
+        det = DetectionModel(dtype=dtype, score_threshold=DET_SEEDED_THRESHOLD, device=device)
+        det.init(SEED, image_size=SIZE)
+        xd = x.to(device)
+        with torch.no_grad(), autocast(xd.device, dtype):
+            levels = det.module(xd)
+        dets[name] = (levels, _device_topk(levels, det.topk), det(xd))
+    fp32_err = detection_levels_err(dets["fp32"][0], dets["cpu"][0])
+    bf16_err = detection_levels_err(dets["bf16"][0], dets["fp32"][0])
+    worst = max(max(e.values()) for e in fp32_err)
+    check(worst <= DET_FP32_RTOL, f"detection: fp32 card vs CPU {fp32_err}")
+    worst_bf16 = max(max(e.values()) for e in bf16_err)
+    check(worst_bf16 <= BF16_ATOL, f"detection: bf16 vs fp32 {bf16_err}")
+    agree, moved = candidates_agree(dets["fp32"][1], dets["cpu"][1], DET_BOX_ATOL,
+                                    DET_SCORE_ATOL)
+    check(agree, "detection: the card's top-k candidates differ from the CPU's")
+    card_dets, cpu_dets = dets["fp32"][2], dets["cpu"][2]
+    n_dets = sum(len(r["labels"]) for r in cpu_dets)
+    check(n_dets > 0 and detections_agree(card_dets, cpu_dets, DET_BOX_ATOL, DET_SCORE_ATOL),
+          f"detection: the card's detections differ from the CPU's ({n_dets} on the CPU)")
+    n_cand = sum(int(lv["index"].numel()) for lv in dets["cpu"][1])
+    readings.update(fp32_card_vs_cpu=worst, bf16_vs_fp32=worst_bf16, seeded_detections=n_dets,
+                    candidates=n_cand, candidates_reordered=moved)
+    log(f"[detection] seeded fcos_resnet18_fpn, {len(x)} test images at {SIZE}^2: fp32 card vs "
+        f"CPU {worst:.2e} of each level tensor's max (bound {DET_FP32_RTOL}); top-k "
+        f"candidates agree ({moved} of {n_cand} positions hold another location, all within "
+        f"score ties of {DET_SCORE_ATOL}); {n_dets} detections above {DET_SEEDED_THRESHOLD} "
+        f"agree (boxes within {DET_BOX_ATOL} px); bf16 vs fp32 {worst_bf16:.2e} "
+        f"(bound {BF16_ATOL})")
+    del dets
+
+    # (b) train_detection, 2 epochs, counters at 0.
+    probe = StepProbe()
+    make = tdet.make_detection_train_step
+    tdet.make_detection_train_step = probe.wrap(make, "detection")
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        det, state = tdet.train_detection(cfg, epochs=2, img_size=SIZE, device=dev)
+        wall = time.perf_counter() - t0
+        train_path = nonzero(counts())
+    finally:
+        tdet.make_detection_train_step = make
+    rec = probe.rec["detection"]
+    per_epoch = 3 * DET_COUNTS["train"] // (BATCH // 2)
+    check(rec["steps"] == 2 * per_epoch, f"detection: {rec['steps']} train steps")
+    best = ckpt.load_checkpoint(ckpt.best_model_path(cfg["detection"]["checkpoint_dir"]))
+    fresh = create_detection_model(cfg, dev)
+    fresh.init(SEED + 1, image_size=SIZE)
+    fresh.module.load_state_dict(best[0]["model"])
+    xd = x.to(dev)
+    same = (np.array_equal(det.host_candidates(xd), fresh.host_candidates(xd))
+            and detections_agree(det(xd), fresh(xd), 0.0, 0.0))
+    check(same, "detection: best_model reloaded gives other candidates or detections")
+    readings["training"] = dict(warm_reading(rec, BATCH // 2), wall_s=wall,
+                                best_epoch=best[1]["epoch"], val_loss=best[1]["val_loss"],
+                                launches=train_path)
+    r = readings["training"]
+    log(f"[detection training] {rec['steps']} steps of {BATCH // 2} at {SIZE}^2 bf16, warm "
+        f"{r['ms_per_step']:.2f} ms/step (median of {len(rec['warm_ms'])}), "
+        f"{r['images_per_s']:.1f} images/s, peak memory {r['peak_gib']:.2f} GiB; best epoch "
+        f"{best[1]['epoch']:.0f} (val loss {best[1]['val_loss']:.4f}); best_model reloaded: "
+        f"candidates and detections identical; trainer {wall:.1f} s; launches {train_path}; "
+        f"{smi}")
+
+    # (c) evaluate_object_detection: phase 13's joint checkpoint as the
+    # dehazer, the trained detector; counters at 0.
+    router = det_eval._load_joint(cfg, dev)
+    per_call = []
+    forward = router.forward
+
+    def counted_forward(*args, **kwargs):
+        before = counts()
+        out = forward(*args, **kwargs)
+        per_call.append(nonzero(delta(before)))
+        return out
+
+    router.forward = counted_forward
+    built = []
+
+    class RecordedMetrics(det_eval.DetectionMetrics):
+        def __init__(self, annotation_file):
+            super().__init__(annotation_file)
+            self.gt = annotation_file      # the merged GT dict
+            built.append(self)
+
+    metrics_cls = det_eval.DetectionMetrics
+    det_eval.DetectionMetrics = RecordedMetrics
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        result = det_eval.evaluate_object_detection(cfg, router, device=dev)
+        torch.cuda.synchronize()
+        path = counts()
+        eval_wall = time.perf_counter() - t0
+    finally:
+        det_eval.DetectionMetrics = metrics_cls
+        router.forward = forward
+    n_batches = len(get_dataloader(cfg, "test"))
+    check(len(per_call) == n_batches, f"detection: {len(per_call)} router calls, "
+          f"{n_batches} test batches")
+    for launches in per_call:
+        for name, least in DETECTION_PATH_KERNELS.items():
+            check(launches.get(name, 0) >= least,
+                  f"detection: a test batch's dehazing launched {launches}")
+    matchers = {m.evaluator.matcher for m in built}
+    check(len(built) == 2 and matchers == {"native"}, f"detection: matchers {matchers}")
+    for side, m in zip(("hazy", "dehazed"), built):
+        native = m.evaluate()
+        python = coco_eval.COCOEvaluator(m.gt, matcher="python").evaluate(m.results)
+        check(native == python, f"detection: {side} native stats {native} != python {python}")
+    hazy_map = result["hazy"]["overall"]["mAP"]
+    dehazed_map = result["dehazed"]["overall"]["mAP"]
+    readings["evaluation"] = dict(
+        hazy=result["hazy"]["overall"], dehazed=result["dehazed"]["overall"],
+        by_level={side: {k: v.get("mAP") for k, v in result[side].items() if k != "overall"}
+                  for side in ("hazy", "dehazed")},
+        launches_per_batch=per_call, matcher="native", wall_s=eval_wall,
+        detections={side: len(m.results) for side, m in zip(("hazy", "dehazed"), built)})
+    log(f"[detection eval] {n_batches} test batches of {BATCH} ({3 * DET_COUNTS['test']} "
+        f"images): mAP hazy {hazy_map:.4f}, dehazed {dehazed_map:.4f} (mAP_50 "
+        f"{result['hazy']['overall']['mAP_50']:.4f} / {result['dehazed']['overall']['mAP_50']:.4f}; "
+        f"{len(built[0].results)} / {len(built[1].results)} detections); COCO matcher: native "
+        f"(native/coco_match.cpp), its 12 stats equal the Python matcher's on both sides; "
+        f"launches per batch {per_call}; {eval_wall:.1f} s")
+
+    # (d) Where an evaluation batch's time goes, batch 16 at 256^2, bf16.
+    hazy = torch.from_numpy(next(iter(get_dataloader(cfg, "test")))["hazy"]).to(dev)
+    dtype = torch.bfloat16
+
+    @torch.no_grad()
+    def dehaze(images):
+        with autocast(images.device, dtype):
+            out, info = router(images)
+        return out.float(), info
+
+    norm = imagenet_normalize(hazy)
+    det_ms, det_runs = warm_ms(lambda: det.candidates(norm))
+    router_ms, _ = warm_ms(lambda: dehaze(hazy))
+    integrated = create_integrated_system(dehaze, det)
+    sys_ms, sys_runs = warm_ms(lambda: integrated(hazy))
+    packed = det.host_candidates(norm)
+    above = int((packed[..., 4] > det.score_threshold).sum())
+    nms_ms, _ = warm_ms(lambda: [postprocess(packed[i], det.score_threshold, (SIZE, SIZE))
+                                 for i in range(len(packed))])
+    read_ms, _ = warm_ms(lambda: det.host_candidates(norm))
+    readings["timing"] = dict(
+        detector_ms_per_image=det_ms / BATCH, router_ms_per_image=router_ms / BATCH,
+        integrated_ms_per_image=sys_ms / BATCH, host_nms_ms_per_batch=nms_ms,
+        forward_topk_read_ms_per_batch=read_ms, candidates_above_threshold=above,
+        detector_runs_ms=det_runs, integrated_runs_ms=sys_runs)
+    log(f"[detection timing] batch {BATCH} at {SIZE}^2 bf16, warm (synchronized): detector "
+        f"(forward + top-k) {det_ms / BATCH:.3f} ms/image, router {router_ms / BATCH:.3f} "
+        f"ms/image, integrated system {sys_ms / BATCH:.3f} ms/image; forward, top-k and the "
+        f"one host read {read_ms:.2f} ms a batch, host decode + NMS {nms_ms:.2f} ms a batch "
+        f"({above} candidates above {det.score_threshold}); {smi}")
+    return path, readings
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
@@ -2025,6 +2280,8 @@ def main():
         joint, joint_readings = timed(
             "joint training", phase_joint_training, dev, smi, tmp, corpus, cls_dir,
             os.path.join(tmp, "checkpoints"))
+        detection, det_readings = timed("detection", phase_detection, dev, smi, tmp,
+                                        os.path.join(tmp, "joint"))
     for name in ("route_hard", "forced_labels", "soft"):
         log(f"[slices] {name}: default dispatch {default_ms[name]:.3f} ms/image, "
             f"tail-chain dispatch {tail_ms[name]:.3f} ms/image, res-chain dispatch "
@@ -2033,7 +2290,7 @@ def main():
 
     paths = {"default": default, "engines": engines, "tail_chain": tail, "res_chain": res,
              "probe_tool": probes, "training": training, "classifier_training": classifier,
-             "joint_training": joint}
+             "joint_training": joint, "detection": detection}
     kernels["cbam_gate"].update(training_forward_ms_per_step=k2_train["forward_ms"],
                                 training_backward_ms_per_step=k2_train["backward_ms"])
     for name, rec in grad_fns.items():
@@ -2052,6 +2309,7 @@ def main():
         "training": {"branches": train_readings, "k2": k2_train,
                      "fp32_step_card_vs_cpu": step_errs, "classifier": cls_readings,
                      "joint": joint_readings},
+        "detection": det_readings,
         "phase_seconds": seconds}
     check(all(k["launches"] > 0 for k in line["kernels"]),
           f"a kernel was launched no time on any path: {line['kernels']}")

@@ -5,7 +5,10 @@ routes against the host-binned engine, the binning under the sync debug
 mode, the stream routes against their per-batch counterparts; and
 training: the autograd Functions of K2, K2' and K5 against plain autograd,
 one bf16 train step of each default branch, a bf16 soft joint step, and the
-serving kernels' refusal of a gradient.
+serving kernels' refusal of a gradient; and detection: the default detector
+in fp32 on the card against the CPU (level outputs, top-k candidates,
+detections), in bf16 against fp32, and the launches of K2 and K5 per batch
+of `evaluate_object_detection`.
 
 This file imports neither JAX nor the JAX package, so that it also runs on
 a machine that has only PyTorch:
@@ -1055,3 +1058,91 @@ def test_serving_kernels_still_refuse_a_gradient(cuda_device):
     xg = xr.to(cuda_device).contiguous().requires_grad_(True)
     channel_spatial_gate(xg, g, w).sum().backward()
     assert xg.grad is not None and g.grad is not None and w.grad is not None
+
+
+def _detector(device, dtype=torch.float32, seed=5, **kw):
+    """The default detector (fcos_resnet18_fpn, 91 classes), seeded."""
+    from adam_dehaze_tpu_torch.models.detection import DetectionModel
+    det = DetectionModel(dtype=dtype, device=device, **kw)
+    det.init(seed)
+    return det
+
+
+def test_detector_fp32_on_card_matches_cpu(cuda_device):
+    """The default detector at 256^2 (batch 2), fp32, TF32 off: each level's
+    logits, offsets and centerness on the card within 1e-4 of the tensor's
+    largest magnitude of the CPU's; the same top-k candidates (locations
+    and labels equal, boxes within 1e-3 px, scores within 1e-5, the order
+    the same up to scores tied within 1e-5) and the same detections after
+    NMS."""
+    from adam_dehaze_tpu_torch.models.detection import (
+        _device_topk,
+        candidates_agree,
+        detections_agree,
+        imagenet_normalize,
+    )
+    cpu, card = _detector("cpu", score_threshold=0.005), _detector(cuda_device,
+                                                                  score_threshold=0.005)
+    x = imagenet_normalize(torch.rand(2, 256, 256, 3, generator=torch.Generator().manual_seed(1)))
+    with torch.no_grad():
+        want = cpu.module(x)
+        got = card.module(x.to(cuda_device))
+    for g, w in zip(got, want):
+        for key in ("logits", "offsets", "centerness"):
+            err = float((g[key].cpu() - w[key]).abs().max())
+            assert err <= FP32_ATOL * float(w[key].abs().max()), (key, g["stride"], err)
+    agree, _ = candidates_agree(_device_topk(got, 300), _device_topk(want, 300), 1e-3, 1e-5)
+    assert agree
+    a, b = card(x.to(cuda_device)), cpu(x)
+    assert sum(len(r["boxes"]) for r in b) > 0
+    assert detections_agree(a, b, 1e-3, 1e-5)
+
+
+def test_detector_bf16_on_card_close_to_fp32(cuda_device):
+    """The same weights under bf16 autocast: every level output within 3e-2
+    of the fp32 one's largest magnitude."""
+    fp32, bf16 = _detector(cuda_device), _detector(cuda_device, torch.bfloat16)
+    x = torch.randn(2, 256, 256, 3, generator=torch.Generator().manual_seed(2)).to(cuda_device)
+    with torch.no_grad():
+        want = fp32.module(x)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            got = bf16.module(x)
+    for g, w in zip(got, want):
+        for key in ("logits", "offsets", "centerness"):
+            assert g[key].dtype == torch.float32
+            err = float((g[key] - w[key]).abs().max())
+            assert err <= BF16_ATOL * float(w[key].abs().max()), (key, g["stride"], err)
+
+
+def test_detection_evaluation_launches_k2_and_k5_per_batch(cuda_device, tmp_path):
+    """evaluate_object_detection on the card with a soft router at small
+    widths (fp32): every test batch's dehazing launches K5 once and K2 six
+    times (the high branch's AttentionBlocks)."""
+    from adam_dehaze_tpu_torch.config import load_config
+    from adam_dehaze_tpu_torch.data.dataset import get_dataloader
+    from adam_dehaze_tpu_torch.evaluation.evaluate import evaluate_object_detection
+    from adam_dehaze_tpu_torch.models.branches import create_branch_models
+    from adam_dehaze_tpu_torch.models.classifier import create_classifier
+    from adam_dehaze_tpu_torch.models.routing import create_router
+    from adam_dehaze_tpu_torch.tools.make_synthetic_corpus import make_corpus
+
+    root = str(tmp_path / "corpus")
+    make_corpus(root, size=32, train=0, val=0, test=3, seed=2)
+    cfg = load_config(overrides={"cuda": {"compute_dtype": "float32"}})
+    for level, ch in (("low", 8), ("medium", 8), ("high", 16)):
+        cfg["dehazing"][level]["channels"] = ch
+    cfg["dataset"].update(test_path=root, img_size=32, batch_size=4, num_workers=2)
+    cfg["detection"]["checkpoint_dir"] = str(tmp_path / "none")
+    cfg["evaluation"]["annotation_paths"] = {
+        lvl: f"{root}/annotations/coco_{lvl}.json" for lvl in ("low", "medium", "high")}
+    router = _seeded(create_router(create_branch_models(cfg), create_classifier(cfg), cfg),
+                     2).to(cuda_device)
+    n_batches = len(get_dataloader(cfg, "test"))
+    before = blend3.launches, channel_spatial_gate.launches
+    out = evaluate_object_detection(cfg, router, device=cuda_device)
+    torch.cuda.synchronize()
+    assert (blend3.launches - before[0], channel_spatial_gate.launches - before[1]) == (
+        n_batches, 6 * n_batches)
+    for side in ("hazy", "dehazed"):
+        assert set(out[side]) == {"overall", "low_intensity", "medium_intensity",
+                                  "high_intensity"}
