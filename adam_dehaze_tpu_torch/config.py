@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import copy
 import os
+import time
 from pathlib import Path
 from typing import Any, Dict, Optional
 
@@ -48,6 +49,40 @@ def load_config(path: Optional[str] = None,
     if overrides:
         cfg = _deep_merge(cfg, overrides)
     return cfg
+
+
+def apply_cli_overrides(config: Dict[str, Any], args) -> Dict[str, Any]:
+    """Apply the command line's overrides (--data_dir, --device, --seed,
+    --batch_size) to `config`, in place; returns it."""
+    if getattr(args, "data_dir", None):
+        for split in ("train_path", "val_path", "test_path"):
+            config["dataset"][split] = args.data_dir
+    if getattr(args, "device", None):
+        config["device"] = args.device
+    if getattr(args, "seed", None) is not None:
+        config["seed"] = args.seed
+    if getattr(args, "batch_size", None):
+        config["dataset"]["batch_size"] = args.batch_size
+    return config
+
+
+def create_experiment_dir(config: Dict[str, Any], exp_name: Optional[str] = None,
+                          root: str = "experiments"):
+    """Create `{root}/{exp_name}` (by default a timestamped name) with
+    checkpoints/, logs/ and results/, point every checkpoint and result
+    path of a copy of `config` into it, and snapshot that copy as
+    config.yaml (the keys that start with "_" left out). Returns
+    (exp_dir, updated config)."""
+    import yaml
+    if exp_name is None:
+        exp_name = f"experiment_{time.strftime('%Y%m%d_%H%M%S')}"
+    exp_dir = os.path.join(root, exp_name)
+    for d in (exp_dir, *(os.path.join(exp_dir, s) for s in ("checkpoints", "logs", "results"))):
+        os.makedirs(d, exist_ok=True)
+    config = update_checkpoint_paths(config, exp_dir)
+    with open(os.path.join(exp_dir, "config.yaml"), "w") as f:
+        yaml.dump({k: v for k, v in config.items() if not k.startswith("_")}, f)
+    return exp_dir, config
 
 
 def update_checkpoint_paths(config: Dict[str, Any],

@@ -1,7 +1,12 @@
-"""Synthetic dataset generation of the port.
+"""Dataset preprocessing, splitting and synthetic dataset generation of
+the port.
 
-Counterpart of the part of adam_dehaze_tpu/data/preprocessing.py that the
-trainers need: `generate_synthetic_dataset` writes a complete
+Counterpart of adam_dehaze_tpu/data/preprocessing.py:
+`resize_and_normalize` and `preprocess_dataset` resize every
+hazy/clear/dehazed triplet to the target size and re-encode it;
+`split_dataset` copies the triplets into a seeded 70/15/15
+{train,val,test}/{intensity}/{role} split (numpy's `default_rng`: the same
+split as the JAX package's); `generate_synthetic_dataset` writes a complete
 {split}/{intensity}/{hazy,clear,dehazed} tree from procedural clear images
 (`_procedural_clear_image`, numpy's `default_rng`: the JAX package's scenes,
 draw for draw) and the port's fog model (data/synthetic.py, its draws from a
@@ -27,6 +32,78 @@ def _write_rgb(path: str, img01: np.ndarray) -> None:
     os.makedirs(os.path.dirname(path), exist_ok=True)
     u8 = (np.clip(img01, 0, 1) * 255).astype(np.uint8)
     cv2.imwrite(path, cv2.cvtColor(u8, cv2.COLOR_RGB2BGR))
+
+
+_ROLES = ("hazy", "clear", "dehazed")
+
+
+def resize_and_normalize(img: np.ndarray, size: int = 256) -> np.ndarray:
+    """An (H, W, 3) image resized to size x size (OpenCV's bilinear) as
+    float32, divided by 255 when its values exceed 1."""
+    import cv2
+    if img.shape[0] != size or img.shape[1] != size:
+        img = cv2.resize(img, (size, size))
+    img = img.astype(np.float32)
+    if img.max() > 1.0:
+        img = img / 255.0
+    return img
+
+
+def preprocess_dataset(raw_dir: str, processed_dir: str, size: int = 256) -> int:
+    """Resize and re-encode every {intensity}/{hazy,clear,dehazed}/<name>
+    triplet under raw_dir into processed_dir (a triplet with a role
+    missing or unreadable is skipped); returns the number written."""
+    import cv2
+    count = 0
+    for intensity in INTENSITY_MAP:
+        hazy_dir = os.path.join(raw_dir, intensity, "hazy")
+        if not os.path.isdir(hazy_dir):
+            continue
+        for name in sorted(os.listdir(hazy_dir)):
+            if not name.endswith((".jpg", ".png")):
+                continue
+            imgs = {}
+            for role in _ROLES:
+                img = cv2.imread(os.path.join(raw_dir, intensity, role, name))
+                if img is None:
+                    break
+                imgs[role] = resize_and_normalize(cv2.cvtColor(img, cv2.COLOR_BGR2RGB), size)
+            if len(imgs) < len(_ROLES):
+                continue
+            for role, img in imgs.items():
+                _write_rgb(os.path.join(processed_dir, intensity, role, name), img)
+            count += 1
+    return count
+
+
+def split_dataset(processed_dir: str, train_ratio: float = 0.7, val_ratio: float = 0.15,
+                  test_ratio: float = 0.15, seed: int = 42) -> Dict[str, int]:
+    """Copy each intensity's triplets into {split}/{intensity}/{role}/ by a
+    seeded permutation: the first train_ratio of it to train, the next
+    val_ratio to val, the rest to test (test_ratio is what is left, as in
+    the JAX package). Returns the triplets per split."""
+    import shutil
+    rng = np.random.default_rng(seed)
+    counts = {"train": 0, "val": 0, "test": 0}
+    for intensity in INTENSITY_MAP:
+        hazy_dir = os.path.join(processed_dir, intensity, "hazy")
+        if not os.path.isdir(hazy_dir):
+            continue
+        names = sorted(n for n in os.listdir(hazy_dir) if n.endswith((".jpg", ".png")))
+        order = rng.permutation(len(names))
+        n_train = int(len(names) * train_ratio)
+        n_val = int(len(names) * val_ratio)
+        assignments = (["train"] * n_train + ["val"] * n_val
+                       + ["test"] * (len(names) - n_train - n_val))
+        for pos, split in zip(order, assignments):
+            for role in _ROLES:
+                src = os.path.join(processed_dir, intensity, role, names[pos])
+                dst = os.path.join(processed_dir, split, intensity, role, names[pos])
+                if os.path.exists(src):
+                    os.makedirs(os.path.dirname(dst), exist_ok=True)
+                    shutil.copy2(src, dst)
+            counts[split] += 1
+    return counts
 
 
 def _procedural_clear_image(rng: np.random.Generator, size: int) -> np.ndarray:

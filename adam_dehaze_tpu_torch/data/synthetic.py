@@ -18,8 +18,11 @@ NHWC in [0, 1]; maps are (..., H, W).
 """
 from __future__ import annotations
 
+import os
+from pathlib import Path
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -205,3 +208,28 @@ def progressive_fog_levels(n_levels: int = 5):
         f = (i + 1) / n_levels
         out.append((0.1 + 0.9 * f, 0.5 + 0.5 * f))
     return out
+
+
+def create_progressive_test_set(clear_imgs_dir: str, output_dir: str,
+                                fog_levels: int = 5) -> int:
+    """Write `<stem>_fog{i}.png`, i = 1..fog_levels, for every .jpg/.png in
+    clear_imgs_dir: the image under apply_fog at progressive_fog_levels'
+    (beta, A), truncated to 8 bits. Returns the number of images written."""
+    import cv2
+    os.makedirs(output_dir, exist_ok=True)
+    paths = sorted(list(Path(clear_imgs_dir).glob("*.jpg"))
+                   + list(Path(clear_imgs_dir).glob("*.png")))
+    levels = progressive_fog_levels(fog_levels)
+    written = 0
+    for img_path in paths:
+        bgr = cv2.imread(str(img_path))
+        if bgr is None:
+            continue
+        clear = torch.from_numpy(
+            cv2.cvtColor(bgr, cv2.COLOR_BGR2RGB).astype(np.float32) / 255.0)[None]
+        for i, (beta, A) in enumerate(levels):
+            hazy = apply_fog(clear, beta, A)[0].numpy()
+            out = cv2.cvtColor((hazy * 255).astype(np.uint8), cv2.COLOR_RGB2BGR)
+            cv2.imwrite(os.path.join(output_dir, f"{img_path.stem}_fog{i + 1}.png"), out)
+            written += 1
+    return written

@@ -324,9 +324,14 @@ class BinnedAdaptiveEngine:
             float(d) / max(float(r), 1e-6)
             for d, r in zip(dispatch_overhead_ms, branch_row_ms, strict=True)]
 
-    def _dispatch(self, x: torch.Tensor, intensity: np.ndarray) -> torch.Tensor:
-        """Run the binned branch buckets for one batch (labels on host).
-        The padded indices of every bucket go up in one copy."""
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        """The classifier's logits of x, on the device."""
+        return self.classifier_apply(x)[0]
+
+    def dispatch(self, x: torch.Tensor, intensity: np.ndarray) -> torch.Tensor:
+        """Serve one batch with the given labels (numpy, on the host): each
+        image through its label's branch, in the planned buckets. The
+        padded indices of every bucket go up in one copy."""
         buckets, index = [], []   # (class, real rows, bucket size)
         for cls in range(len(self.branch_applies)):
             idxs = np.nonzero(intensity == cls)[0]
@@ -358,7 +363,7 @@ class BinnedAdaptiveEngine:
         neighbouring branch (`plan_capacity_spill`); spill="up" only moves
         overflow to stronger branches. Returns (dehazed, the classifier's
         labels or the given ones as numpy)."""
-        logits, _ = self.classifier_apply(x)
+        logits = self.logits(x)
         # As in the JAX engine, spill ranks by logits only for predicted
         # labels; given labels spill without them.
         spill_logits = None
@@ -371,7 +376,7 @@ class BinnedAdaptiveEngine:
         serve = (self.plan_capacity_spill(intensity, spill_logits,
                                           up_only=(spill == "up"))
                  if spill else intensity)
-        return self._dispatch(x, serve), intensity
+        return self.dispatch(x, serve), intensity
 
     def _classify_async(self, x: torch.Tensor, given) -> _HostRead:
         """Enqueue the classifier on x and the copy of its argmax to the
@@ -395,7 +400,7 @@ class BinnedAdaptiveEngine:
             labels = read.get()
             labels_eff = (self.plan_capacity_spill(labels, up_only=(spill == "up"))
                           if spill else labels)
-            return self._dispatch(x, labels_eff), labels
+            return self.dispatch(x, labels_eff), labels
 
         pending = None   # (x, its label read)
         intensities = iter(intensities) if intensities is not None else None

@@ -16,7 +16,7 @@ block, a branch, the classifier, a whole router (subtrees `classifier` and
 `models_{low,medium,high}`, and a GatedRouter's gate `Dense_{0,1,2}`), or
 the FCOS detector (`ResNet_0`, `FPN_0`: lateral{i}, smooth{i}, p6, p7;
 `FCOSHead_0`: cls{i}, reg{i}, cls_gn{i}, reg_gn{i}, cls_out, reg_out,
-ctr_out). It
+ctr_out), or the evaluation's QualityHead (`Conv_{0..3}`, `Dense_0`). It
 inverts the layout conversions of adam_dehaze_tpu/training/checkpoint.py
 (convert_torch_conv, convert_torch_linear, convert_torch_convtranspose)
 along the same block tables (_block_assigns, _branch_layout,
@@ -40,6 +40,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from adam_dehaze_tpu_torch.evaluation.no_reference import QualityHead
 from adam_dehaze_tpu_torch.losses.lpips import LPIPS
 from adam_dehaze_tpu_torch.models.branches import (
     HighIntensityDehazeModel,
@@ -295,6 +296,11 @@ def _assigns(module: nn.Module, variables) -> List[Assign]:
                      _linear),
                     (f"classifier.{ti}.bias", "params", (f"Dense_{fi}", "bias"), None)]
         return out
+    if isinstance(module, QualityHead):
+        for i in range(len(module.convs)):
+            _block("CONV", f"convs.{i}", (f"Conv_{i}",), keys, out)
+        return out + [("dense.weight", "params", ("Dense_0", "kernel"), _linear),
+                      ("dense.bias", "params", ("Dense_0", "bias"), None)]
     if isinstance(module, FCOSDetector):
         _resnet("backbone", module.backbone, ("ResNet_0",), keys, out)
         fpn = module.fpn

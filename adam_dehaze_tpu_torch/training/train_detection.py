@@ -211,13 +211,17 @@ def epoch_learning_rate(base_lr: float, epoch: int, epochs: int) -> float:
     return base_lr * (0.05 + 0.95 * 0.5 * (1 + math.cos(math.pi * t)))
 
 
-def train_detection(config, epochs: int = None, img_size: int = 512,
+def train_detection(config, epochs: int = None, resume: bool = False, img_size: int = 512,
                     device="cuda") -> tuple:
     """Train the detector on the train split's clear frames (haze is then
     out of distribution, which is what the hazy-vs-dehazed mAP comparison
     measures); returns (DetectionModel, TrainState) with the best epoch's
     weights. `epochs` defaults to 1; the learning-rate schedule runs when
-    there are more."""
+    there are more. The arguments are the JAX trainer's, in its order, with
+    `device` last. The JAX trainer accepts `resume` and ignores it; here
+    resume=True continues from the detection checkpoint directory's latest
+    checkpoint (`find_latest_checkpoint`), at the epoch it was saved after,
+    as the port's other trainers do."""
     device = torch.device(device)
     dtype = compute_dtype(config)
     det: DetectionModel = create_detection_model(config, device)
@@ -235,8 +239,17 @@ def train_detection(config, epochs: int = None, img_size: int = 512,
     ckpt_dir = dc["checkpoint_dir"]
     epochs = epochs if epochs is not None else 1
     best_val = float("nan")
+    start_epoch = 0
+    if resume:
+        latest = ckpt.find_latest_checkpoint(ckpt_dir)
+        if latest:
+            tree, metrics = ckpt.load_checkpoint(latest)
+            tree_to_state(state, tree)
+            start_epoch = int(metrics.get("epoch", 0))
+            best_val = float(metrics.get("val_loss", float("nan")))
+            print(f"Resumed from {latest} at epoch {start_epoch}")
     base_lr = float(dc["learning_rate"])
-    for epoch in range(epochs):
+    for epoch in range(start_epoch, epochs):
         if epochs > 1:
             set_learning_rate(state.optimizer, epoch_learning_rate(base_lr, epoch, epochs))
         loader.dataset.epoch = epoch      # reseeds the augmentation

@@ -159,15 +159,35 @@ Phases, in order; any failure raises and the script exits non-zero:
    mAP (no threshold: two epochs train no detector), the detector's warm
    ms/image (forward and top-k, synchronized, batch 16), the router's and
    the integrated system's ms/image and the host's decode + NMS ms a batch.
-15. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
-   with "training", "classifier_training", "joint_training" and
-   "detection"; K5's and K2''s Function readings under "function") and,
-   last, {"ok": true, "device": ...}.
+15. The command line (adam_dehaze_tpu_torch/cli.py, what main_torch.py
+   runs), through `cli.main([...])` on the card, on an experiment directory
+   in the layout of `create_experiment_dir`: config.yaml at the default
+   widths, 256^2, bf16, with phase 14's corpus (and its boxes) as the
+   dataset; the best checkpoints of phases 12 (classifier), 10 (the three
+   branches), 13 (joint) and 14 (detection); phase 5's tuned cache as
+   serving_autotune.json. Counters at 0 before each run: `--mode evaluate`
+   must write comprehensive_results.json with the JAX package's key tree
+   (COMPREHENSIVE_SCHEMA) and only finite numbers, serve its hard rows from
+   the tuned cache (the dispatch of each branch is printed), and launch K1,
+   K2 and K5 (K3, K4, K2' and K6 printed); each section's seconds, the PSNR
+   rows, routing_acc, the spilled fractions, the three no-reference proxies
+   and the two mAPs are printed. `--mode serve` with hard (and --detect),
+   spill_up, stream, queued, device and soft on the test split's hazy
+   images: one PNG per image and a routing.json each, hard's labels equal
+   route_hard's on the same batches, detections.json one entry per image;
+   each mode's ms/image by the host clock, process set-up and PNG I/O
+   included (a reading). `--mode demo` writes its figures and `--mode
+   preprocess` splits a raw directory of a few triplets.
+16. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
+   with "training", "classifier_training", "joint_training", "detection"
+   and "cli"; K5's and K2''s Function readings under "function"; the CLI's
+   readings under "cli") and, last, {"ok": true, "device": ...}.
 """
 import collections
 import copy
 import json
 import os
+import shutil
 import subprocess
 import tempfile
 import time
@@ -2230,6 +2250,205 @@ def phase_detection(dev, smi, tmp, joint_dir):
     return path, readings
 
 
+# Phase 15's experiment: the serve modes it drives through the CLI (the
+# first with --detect), the quality head's training steps (the CLI's
+# `evaluation.nima_steps`; 300 by default), and the key tree of
+# comprehensive_results.json as the JAX package writes it
+# (adam_dehaze_tpu/evaluation/evaluate.py:662-737), without train_all's
+# pre-joint row.
+CLI_SERVE_MODES = ("hard", "spill_up", "stream", "queued", "device", "soft")
+CLI_NIMA_STEPS = 50
+COMPREHENSIVE_SCHEMA = {
+    "baseline": {"low_intensity", "medium_intensity", "high_intensity"},
+    "joint": {"low_intensity", "medium_intensity", "high_intensity", "fade_proxy",
+              "brisque_proxy", "nima_proxy"},
+    "fixed": {"fixed_low", "fixed_medium", "fixed_high"},
+    "hard_routing": {"fidelity", "spill", "spill_up", "spill_ordered", "routing_acc",
+                     "spilled_frac", "spilled_frac_up", "spilled_frac_ordered"},
+    "detection": {"hazy", "dehazed", "by_level", "improvement_percent"},
+    "comparison": {"baseline_avg_psnr", "joint_avg_psnr", "psnr_improvement",
+                   "best_fixed_psnr", "adaptive_vs_best_fixed_psnr"},
+    "baseline_comparison": {"corpus", "reference_source", "rows"},
+}
+# Kernels the CLI's `evaluate` must launch: K1 (the low branch of the
+# baseline, fixed and hard rows), K2 (every high-branch call) and K5 (the
+# router's soft blend).
+CLI_PATH_KERNELS = ("lightweight_chain", "cbam_gate", "blend3")
+
+
+def numbers(tree, path=""):
+    """(path, value) of every number in a JSON tree."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from numbers(v, f"{path}/{k}")
+    elif isinstance(tree, (int, float)) and not isinstance(tree, bool):
+        yield path, tree
+
+
+def phase_cli(dev, smi, tmp):
+    """15. The command line (adam_dehaze_tpu_torch/cli.py) on an experiment
+    directory built from the earlier phases' checkpoints (see the
+    docstring). Returns the phase's launch counts and readings."""
+    from adam_dehaze_tpu_torch import cli, serving
+    from adam_dehaze_tpu_torch.config import create_experiment_dir
+    from adam_dehaze_tpu_torch.data.dataset import _imread_rgb
+    from adam_dehaze_tpu_torch.data.preprocessing import _write_rgb
+
+    root = os.path.join(tmp, "det_corpus")
+    cfg = load_config()     # default widths, 256^2, bf16
+    cfg["dataset"].update(train_path=root, val_path=root, test_path=root)
+    cfg["evaluation"].update(nima_steps=CLI_NIMA_STEPS, annotation_paths={
+        lvl: os.path.join(root, "annotations", f"coco_{lvl}.json") for lvl in INTENSITY_ORDER})
+    exp, cfg = create_experiment_dir(cfg, "cli", root=os.path.join(tmp, "experiments"))
+    sources = {"classifier": os.path.join(tmp, "classifier"),
+               "joint": os.path.join(tmp, "joint"),
+               "detection": os.path.join(tmp, "detection"),
+               **{f"dehazing/{lvl}": os.path.join(tmp, "checkpoints", lvl)
+                  for lvl in INTENSITY_ORDER}}
+    for name, src in sources.items():
+        dst = os.path.join(exp, "checkpoints", name)
+        os.makedirs(dst, exist_ok=True)
+        for f in ("best_model.pth", "best_model.metrics.json"):
+            if os.path.exists(os.path.join(src, f)):
+                shutil.copy2(os.path.join(src, f), dst)
+        check(os.path.exists(os.path.join(dst, "best_model.pth")), f"cli: no {name} checkpoint")
+    cache = os.path.join(exp, "serving_autotune.json")
+    shutil.copy2(os.path.join(tmp, "autotune_bf16.json"), cache)
+    readings, runs = {}, {}
+
+    def run(tag, argv):
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        cli.main(argv)
+        torch.cuda.synchronize()
+        runs[tag] = counts()
+        wall = time.perf_counter() - t0
+        log(f"[cli] {tag}: {wall:.1f} s, launches {nonzero(runs[tag])}")
+        return wall
+
+    # (a) evaluate: the tuned cache serves the hard rows; each section timed.
+    tuned = []
+    load_or_tune = serving.load_or_tune
+
+    def recorded(model, *args, **kwargs):
+        fn, report = load_or_tune(model, *args, **kwargs)
+        tuned.append((CLASS_OF[type(model).__name__], report["best"], report["cached"]))
+        return fn, report
+
+    sections, section_s = ("evaluate_baseline_models", "evaluate_joint_model",
+                           "evaluate_fixed_branch", "evaluate_hard_routing",
+                           "evaluate_object_detection"), {}
+    originals = {name: getattr(det_eval, name) for name in sections}
+
+    def timed_section(name):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = originals[name](*args, **kwargs)
+            torch.cuda.synchronize()
+            section_s[name] = time.perf_counter() - t0
+            return out
+        return call
+
+    serving.load_or_tune = recorded
+    for name in sections:
+        setattr(det_eval, name, timed_section(name))
+    try:
+        eval_s = run("evaluate", ["--mode", "evaluate", "--experiment_dir", exp])
+    finally:
+        serving.load_or_tune = load_or_tune
+        for name, fn in originals.items():
+            setattr(det_eval, name, fn)
+    check(sorted(level for level, _, _ in tuned) == sorted(INTENSITY_ORDER)
+          and all(cached for _, _, cached in tuned),
+          f"cli: the hard rows did not serve from the experiment's tuned cache: {tuned}")
+    with open(os.path.join(cfg["evaluation"]["results_dir"], "comprehensive_results.json")) as f:
+        results = json.load(f)
+    tree = {k: set(v) for k, v in results.items()}
+    check(tree == COMPREHENSIVE_SCHEMA, f"cli: comprehensive_results.json keys {tree}")
+    bad = [p for p, v in numbers(results) if not np.isfinite(v)]
+    check(not bad, f"cli: numbers that are not finite: {bad}")
+    for name in CLI_PATH_KERNELS:
+        check(runs["evaluate"][name] > 0, f"cli: evaluate launched no {name}")
+    joint, hard, comp = results["joint"], results["hard_routing"], results["comparison"]
+    readings["evaluate"] = dict(
+        wall_s=eval_s, section_s=section_s, tuned={lvl: best for lvl, best, _ in tuned},
+        launches=nonzero(runs["evaluate"]),
+        psnr={k: comp[k] for k in ("baseline_avg_psnr", "joint_avg_psnr", "best_fixed_psnr")},
+        routing_acc=hard["routing_acc"],
+        spilled={k: hard[k] for k in ("spilled_frac", "spilled_frac_up", "spilled_frac_ordered")},
+        proxies={k: joint[k] for k in ("fade_proxy", "brisque_proxy", "nima_proxy")},
+        mAP={side: results["detection"][side]["mAP"] for side in ("hazy", "dehazed")})
+    r = readings["evaluate"]
+    log(f"[cli evaluate] {eval_s:.1f} s; sections (s) "
+        f"{ {k.replace('evaluate_', ''): round(v, 2) for k, v in section_s.items()} }; "
+        f"hard rows on the tuned dispatch {r['tuned']}; PSNR baseline "
+        f"{comp['baseline_avg_psnr']:.3f}, joint {comp['joint_avg_psnr']:.3f}, best fixed "
+        f"{comp['best_fixed_psnr']:.3f} dB; routing_acc {hard['routing_acc']:.4f}, spilled "
+        f"{r['spilled']}; fade {joint['fade_proxy']}, brisque {joint['brisque_proxy']}, nima "
+        f"{joint['nima_proxy']}; mAP hazy {r['mAP']['hazy']:.4f}, dehazed "
+        f"{r['mAP']['dehazed']:.4f}; K3 {runs['evaluate']['medium_tail_chain']}, K4 "
+        f"{runs['evaluate']['high_tail_chain']}, K2' {runs['evaluate']['spatial_gate']}, K6 "
+        f"{runs['evaluate']['res_attn_chain']} launches; {smi}")
+
+    # (b) serve, each mode on the test split's hazy images.
+    files = cli.serve_inputs(cfg)
+    bs = cfg["dataset"]["batch_size"]
+    d = AdaptiveDehazer(det_eval._load_joint(cfg, dev), None, cfg, device=dev)
+    want = np.concatenate([d.route_hard(np.stack([_imread_rgb(f, SIZE)
+                                                  for f in files[i:i + bs]]))[1]
+                           for i in range(0, len(files), bs)])
+    del d
+    readings["serve"] = {}
+    for mode in CLI_SERVE_MODES:
+        out = os.path.join(exp, f"served_{mode}")
+        argv = ["--mode", "serve", "--experiment_dir", exp, "--serve_mode", mode, "--out", out]
+        wall = run(f"serve {mode}", argv + (["--detect"] if mode == "hard" else []))
+        pngs = [f for f in os.listdir(out) if f.endswith(".png")]
+        check(len(pngs) == len(files), f"cli: serve {mode} wrote {len(pngs)} PNGs")
+        with open(os.path.join(out, "routing.json")) as f:
+            manifest = json.load(f)["images"]
+        labels = [manifest.get(os.path.basename(p), {}).get("intensity") for p in files]
+        if mode == "soft":
+            check(manifest == {}, "cli: serve soft wrote labels")
+        elif mode == "hard":
+            check(labels == want.tolist(), "cli: serve hard's labels differ from route_hard's")
+            with open(os.path.join(out, "detections.json")) as f:
+                check(len(json.load(f)) == len(files), "cli: detections.json misses images")
+        else:
+            check(None not in labels, f"cli: serve {mode} left images unlabelled")
+        readings["serve"][mode] = dict(ms_per_image=wall * 1e3 / len(files),
+                                       launches=nonzero(runs[f"serve {mode}"]))
+    log(f"[cli serve] {len(files)} test images, ms/image by the host clock with the process's "
+        f"loading and PNG I/O (hard with --detect): "
+        f"{ {m: round(v['ms_per_image'], 2) for m, v in readings['serve'].items()} }; hard's "
+        f"labels equal route_hard's (histogram {np.bincount(want, minlength=3).tolist()}); "
+        f"{smi}")
+
+    # (c) demo, (d) preprocess of a raw directory of a few triplets.
+    run("demo", ["--mode", "demo", "--experiment_dir", exp])
+    demo = sorted(os.listdir(os.path.join(exp, "demo")))
+    check(any(f.startswith("demo_batch") for f in demo), f"cli: demo wrote {demo}")
+    pre = os.path.join(tmp, "preprocess")
+    rng = np.random.default_rng(SEED)
+    for lvl in INTENSITY_ORDER:
+        for i in range(4):
+            for role in ("hazy", "clear", "dehazed"):
+                _write_rgb(os.path.join(pre, "raw", lvl, role, f"{lvl}_{i}.png"),
+                           rng.random((300, 280, 3), dtype=np.float32))
+    pre_cfg = os.path.join(pre, "config.yaml")
+    with open(pre_cfg, "w") as f:
+        json.dump({"dataset": {"train_path": os.path.join(pre, "processed")}}, f)
+    run("preprocess", ["--mode", "preprocess", "--config", pre_cfg,
+                       "--experiment_dir", os.path.join(tmp, "experiments", "pre")])
+    done = [f for d_, _, fs in os.walk(os.path.join(pre, "processed", "train")) for f in fs]
+    check(len(done) > 0, "cli: preprocess wrote no train split")
+    readings.update(demo_files=demo, runs={k: nonzero(v) for k, v in runs.items()})
+    path = {k: sum(r[k] for r in runs.values()) for k in runs["evaluate"]}
+    log(f"[cli] demo wrote {len(demo)} files; preprocess split {len(done)} train files; "
+        f"launches on the cli path {nonzero(path)}")
+    return path, readings
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
@@ -2282,6 +2501,7 @@ def main():
             os.path.join(tmp, "checkpoints"))
         detection, det_readings = timed("detection", phase_detection, dev, smi, tmp,
                                         os.path.join(tmp, "joint"))
+        cli_path, cli_readings = timed("cli", phase_cli, dev, smi, tmp)
     for name in ("route_hard", "forced_labels", "soft"):
         log(f"[slices] {name}: default dispatch {default_ms[name]:.3f} ms/image, "
             f"tail-chain dispatch {tail_ms[name]:.3f} ms/image, res-chain dispatch "
@@ -2290,7 +2510,7 @@ def main():
 
     paths = {"default": default, "engines": engines, "tail_chain": tail, "res_chain": res,
              "probe_tool": probes, "training": training, "classifier_training": classifier,
-             "joint_training": joint, "detection": detection}
+             "joint_training": joint, "detection": detection, "cli": cli_path}
     kernels["cbam_gate"].update(training_forward_ms_per_step=k2_train["forward_ms"],
                                 training_backward_ms_per_step=k2_train["backward_ms"])
     for name, rec in grad_fns.items():
@@ -2309,7 +2529,7 @@ def main():
         "training": {"branches": train_readings, "k2": k2_train,
                      "fp32_step_card_vs_cpu": step_errs, "classifier": cls_readings,
                      "joint": joint_readings},
-        "detection": det_readings,
+        "detection": det_readings, "cli": cli_readings,
         "phase_seconds": seconds}
     check(all(k["launches"] > 0 for k in line["kernels"]),
           f"a kernel was launched no time on any path: {line['kernels']}")

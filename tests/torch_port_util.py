@@ -6,6 +6,7 @@ import types
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 # fp32 port vs fp32 JAX (matmul precision "highest", tests/conftest.py).
@@ -245,3 +246,15 @@ def jax_router_variables(routing, seed=0):
     ckpt = {"classifier_state_dict": sd(port.classifier), "router_state_dict": sd(port),
             **{f"{lvl}_model_state_dict": sd(port.models[lvl]) for lvl in ("low", "medium", "high")}}
     return as_np(load_torch_joint(ckpt, template, jcfg))
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op thread for the port's ops for the rest of the module,
+    restored after it: on tiny tensors the ops gain nothing from threads,
+    and with several test workers sharing the CPU's cores each worker's
+    full thread pool makes a train step tens of times slower."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
