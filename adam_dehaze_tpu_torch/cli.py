@@ -10,12 +10,13 @@ defaults and choices:
        [--resume] [--seed N] [--batch_size N] [--experiment_dir DIR]
        [--serve_mode soft|hard|spill|spill_up|stream|queued|device]
        [--queue_bucket N] [--max_wait_batches W] [--out DIR] [--detect]
+       [--lowres high[,medium] | auto]
 
 Everything runs on the card (the config's `device`, "cuda" by default);
 `--device cpu` runs on the CPU. Without a card and without `--device cpu`
-the command stops at once. `--mode export`, `--mode bench`, a non-empty
-`--lowres` and `--precompiled` are parsed, for the JAX package's surface,
-and stop with a message that names what the port lacks.
+the command stops at once. `--mode export`, `--mode bench` and
+`--precompiled` are parsed, for the JAX package's surface, and stop with a
+message that names what the port lacks.
 """
 from __future__ import annotations
 
@@ -50,9 +51,6 @@ NOT_PORTED = {
               "serving bundle (the JAX package's serving_export.py)",
     "bench": "--mode bench is not ported yet: the PyTorch port has no benchmark script "
              "(bench.py times the JAX package only)",
-    "lowres": "--lowres is not ported yet: the PyTorch port has no half-resolution "
-              "serving dial (the JAX package's ops/resolution.py and "
-              "resolution_autotune.py)",
     "precompiled": "--precompiled is not ported yet: the PyTorch port has no "
                    "precompiled serving bundle (the JAX package's serving_export.py)",
 }
@@ -87,9 +85,14 @@ def parse_args(argv=None):
                    help="serve: run the trained detector on the dehazed outputs "
                         "and write detections.json (boxes/scores/labels per image)")
     p.add_argument("--precompiled", type=str, default=None,
-                   help="not ported yet (stops with a message)")
+                   help="the JAX package's precompiled XLA bundles: not ported "
+                        "(any value stops with a message)")
     p.add_argument("--lowres", type=str, default="",
-                   help="not ported yet (a non-empty value stops with a message)")
+                   help="serve hard/spill/stream: comma-separated branch "
+                        "levels (low,medium,high) to run at half resolution "
+                        "with a guided-filter lift of the correction "
+                        "(ops/resolution.py), or 'auto' for the experiment's "
+                        "tuned policy (tools/autotune_resolution.py)")
     return p.parse_args(argv)
 
 
@@ -97,8 +100,6 @@ def _not_ported(args):
     """The message for what args ask of the JAX package alone, or None."""
     if args.mode in ("export", "bench"):
         return NOT_PORTED[args.mode]
-    if args.lowres:
-        return NOT_PORTED["lowres"]
     if args.precompiled is not None:
         return NOT_PORTED["precompiled"]
     return None
@@ -277,6 +278,10 @@ def run_serve(config, exp_dir: str, args, device="cuda"):
       python3 main_torch.py --mode serve --experiment_dir experiments/X \\
           [--data_dir DIR] [--serve_mode hard|spill|spill_up|stream|queued|device|soft]
           [--queue_bucket N] [--max_wait_batches W] [--out DIR] [--detect]
+          [--lowres high[,medium] | auto]
+
+    --lowres serves the named branches at half resolution (hard, spill,
+    spill_up and stream only); "auto" reads <exp_dir>/resolution_policy.json.
     """
     from adam_dehaze_tpu_torch.data.dataset import _imread_rgb
     from adam_dehaze_tpu_torch.data.preprocessing import _write_rgb
@@ -293,13 +298,17 @@ def run_serve(config, exp_dir: str, args, device="cuda"):
     batch = config["dataset"]["batch_size"]
     out_dir = args.out or os.path.join(exp_dir, "served")
     os.makedirs(out_dir, exist_ok=True)
-    dehazer = AdaptiveDehazer(_load_joint(config, device), None, config, device=device)
+    dehazer = AdaptiveDehazer(_load_joint(config, device), None, config, device=device,
+                              resolution_policy=os.path.join(exp_dir, "resolution_policy.json"))
 
     def batches():
         for i in range(0, len(files), batch):
             yield np.stack([_imread_rgb(f, img_size) for f in files[i:i + batch]])
 
     mode = args.serve_mode
+    lowres = parse_lowres(args.lowres)
+    if lowres and mode not in ("hard", "spill", "spill_up", "stream"):
+        raise SystemExit("serve: --lowres applies to hard/spill/stream modes")
     results = {}  # global index -> (dehazed HWC float32, intensity or None)
     if mode == "queued":
         for out, gidx, cls in dehazer.route_hard_queued(
@@ -309,7 +318,7 @@ def run_serve(config, exp_dir: str, args, device="cuda"):
                 results[int(g)] = (row, int(cls))
     elif mode == "stream":
         base = 0
-        for out, intensity in dehazer.route_hard_stream(batches()):
+        for out, intensity in dehazer.route_hard_stream(batches(), lowres=lowres):
             for j, row in enumerate(out):
                 results[base + j] = (row, int(intensity[j]))
             base += out.shape[0]
@@ -322,7 +331,7 @@ def run_serve(config, exp_dir: str, args, device="cuda"):
                 out, intensity = dehazer.route_device_binned(x)
             else:
                 spill = {"hard": False, "spill": True, "spill_up": "up"}[mode]
-                out, intensity = dehazer.route_hard(x, spill=spill)
+                out, intensity = dehazer.route_hard(x, spill=spill, lowres=lowres)
             for j in range(out.shape[0]):
                 results[base + j] = (out[j], None if intensity is None else int(intensity[j]))
             base += out.shape[0]
@@ -336,12 +345,28 @@ def run_serve(config, exp_dir: str, args, device="cuda"):
     if args.detect:
         _serve_detect(config, files, results, out_dir, batch, device)
     with open(os.path.join(out_dir, "routing.json"), "w") as f:
-        json.dump({"serve_mode": mode, "lowres": [], "images": manifest}, f, indent=2)
+        json.dump({"serve_mode": mode,
+                   "lowres": "auto" if lowres == "auto" else list(lowres),
+                   "images": manifest}, f, indent=2)
     hist = {}
     for v in manifest.values():
         hist[v["branch"]] = hist.get(v["branch"], 0) + 1
     print(f"Served {len(results)} images via '{mode}' -> {out_dir} "
           f"(routing: {hist if hist else 'soft blend'})")
+
+
+def parse_lowres(value: str):
+    """--lowres as the dial of route_hard: "auto", or a tuple of levels
+    (empty for full resolution). Unknown levels stop the command."""
+    from adam_dehaze_tpu_torch.models.routing import INTENSITY_ORDER
+    if value == "auto":
+        return "auto"
+    lowres = tuple(s for s in value.split(",") if s)
+    bad = set(lowres) - set(INTENSITY_ORDER)
+    if bad:
+        raise SystemExit(f"serve: unknown --lowres levels {sorted(bad)} "
+                         f"(choose from {list(INTENSITY_ORDER)} or 'auto')")
+    return lowres
 
 
 def _serve_detect(config, files, results, out_dir: str, batch: int, device):

@@ -1,8 +1,8 @@
-"""High-level serving API of the port: dehaze images with a router.
+"""High-level serving API of the port: load an experiment and dehaze images.
 
 Counterpart of adam_dehaze_tpu/serving.py:
 
-    dehazer = AdaptiveDehazer(router, variables, config, device="cuda")
+    dehazer = AdaptiveDehazer.from_experiment("experiments/exp1")
     out = dehazer(images_nhwc_float01)            # soft routing
     out, intensity = dehazer.route_hard(images)   # binned hard routing
     out, intensity = dehazer.route_device_binned(images)   # binned on the card
@@ -11,6 +11,12 @@ Counterpart of adam_dehaze_tpu/serving.py:
     dehazer = AdaptiveDehazer(router, variables, config, device="cuda",
                               autotune=True, autotune_cache="exp/tune.json")
     dehazer.autotune_report    # per branch: the winner, the ms table, cached
+
+`from_experiment` reads an experiment directory of the port's own
+checkpoints (`config.yaml`, `checkpoints/joint/best_model.pth`, as
+`evaluation/evaluate.py:_load_joint` reads them; export_jax_experiment.py
+writes one from a JAX experiment), with `serving_autotune.json` as the
+autotune cache and `resolution_policy.json` as the tuned resolution policy.
 
 With `autotune=True` every branch's apply is the winner of a timing run on
 the serving device at (16, img_size, img_size, 3) (serving_autotune.py),
@@ -28,23 +34,31 @@ binning on the device; one read of K chunk classes a batch), `route_switch`
 shard per device). All of them serve through the one serving copy, the
 tuned winners under `autotune=True`.
 
+`route_hard` and `route_hard_stream` take `lowres`, the half-resolution
+dial (ops/resolution.py): `("high",)` serves those branches at half
+resolution with a guided-filter lift of the correction, a dict gives each
+level its {scale, mode, radius}, "auto" reads the experiment's tuned
+policy (resolution_autotune.py), `()` is full resolution and None the
+construction-time default (`lowres=` of the constructor). Each distinct
+dial has an engine of its own, over the same serving applies.
+
 Images go in and come out as numpy NHWC float32 in [0, 1] (`route_hard_queued`
 yields device tensors, as the JAX route yields device arrays). Everything
 runs in eval mode, under torch.inference_mode, in the config's
-`cuda.compute_dtype`. `from_experiment` needs orbax checkpoints, which only
-JAX reads, and waits for a checkpoint format the port can read; the
-`lowres` argument of the routes and `export_precompiled` wait too.
+`cuda.compute_dtype`. The JAX package's precompiled XLA bundles
+(`precompiled=`, `export_precompiled`) have no counterpart here.
 """
 from __future__ import annotations
 
 import copy
+import os
 from collections import deque
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
-from adam_dehaze_tpu_torch.config import compute_dtype
+from adam_dehaze_tpu_torch.config import compute_dtype, load_config, update_checkpoint_paths
 from adam_dehaze_tpu_torch.models.routing import (
     INTENSITY_ORDER,
     BinnedAdaptiveEngine,
@@ -54,7 +68,9 @@ from adam_dehaze_tpu_torch.models.routing import (
     make_device_binned_infer,
     make_sharded_binned_infer,
 )
+from adam_dehaze_tpu_torch.ops.resolution import make_lowres_apply
 from adam_dehaze_tpu_torch.ops.serving_apply import make_router_serving_apply
+from adam_dehaze_tpu_torch.resolution_autotune import load_policy, policy_to_lowres
 from adam_dehaze_tpu_torch.serving_autotune import candidate_builders, load_or_tune
 from adam_dehaze_tpu_torch.training.checkpoint import load_flax_variables
 
@@ -65,11 +81,13 @@ class AdaptiveDehazer:
     "batch_stats"} tree to load into it, or None to serve the router's own
     weights. The router is moved to `device` in place; one serving copy of
     it (weights cast, the low branch folded for K1) backs both the soft
-    call and the hard-routing engine. autotune: replace that copy's
+    call and the hard-routing engines. autotune: replace that copy's
     branches by the timed winners of serving_autotune.load_or_tune
     (`autotune_report[level]` holds each report; `autotune_cache` is the
     JSON file that keeps the winners between processes), and feed the
-    winners' times to the engine's chunk planner."""
+    winners' times to the full-resolution engine's chunk planner.
+    resolution_policy: the tuned policy file that lowres="auto" reads;
+    lowres: the default dial of route_hard and route_hard_stream."""
 
     # What one more bucket of each branch costs, in ms: the part of a branch
     # call that does not grow with its rows (mostly the host's enqueue of
@@ -83,7 +101,8 @@ class AdaptiveDehazer:
     DISPATCH_MS = {"low": 0.19, "medium": 2.79, "high": 2.78}
 
     def __init__(self, router, variables, config, device="cuda",
-                 autotune: bool = False, autotune_cache: Optional[str] = None):
+                 autotune: bool = False, autotune_cache: Optional[str] = None,
+                 resolution_policy: Optional[str] = None, lowres=()):
         if variables is not None:
             load_flax_variables(router, variables)
         self.device = torch.device(device)
@@ -91,14 +110,45 @@ class AdaptiveDehazer:
         self.config = config
         self.dtype = compute_dtype(config)
         self._serving = make_router_serving_apply(self.router, self.dtype)
-        self._engine: Optional[BinnedAdaptiveEngine] = None
         self._engines: Dict[str, Callable] = {}
         self._replicas: Dict[torch.device, torch.nn.Module] = {}
+        self._resolution_policy_path = resolution_policy
+        # () = full resolution; "auto" = the tuned policy. A route's own
+        # `lowres=` overrides it.
+        self._default_lowres = lowres
         self.autotune_report: Dict[str, dict] = {}
         if autotune:
-            self._serving.models.update(self._branch_applies(autotune_cache))
+            self._serving.models.update(self._tuned_applies(autotune_cache))
 
-    def _branch_applies(self, cache_path: Optional[str]) -> Dict[str, torch.nn.Module]:
+    @classmethod
+    def from_experiment(cls, experiment_dir: str, config_path: Optional[str] = None,
+                        autotune: bool = False, precompiled: Optional[str] = None,
+                        lowres=(), device="cuda") -> "AdaptiveDehazer":
+        """The dehazer of an experiment directory: its config.yaml (or
+        `config_path`), its best joint checkpoint (`_load_joint`), the
+        autotune cache `serving_autotune.json` and the resolution policy
+        `resolution_policy.json` in it. lowres="auto" makes the tuned policy
+        the default dial of route_hard and route_hard_stream. precompiled:
+        the JAX package's XLA bundles have no counterpart in the port; any
+        bundle (or "auto" when `<experiment_dir>/precompiled` exists) stops
+        with a message."""
+        if precompiled == "auto":
+            cand = os.path.join(experiment_dir, "precompiled")
+            precompiled = cand if os.path.isdir(cand) else None
+        if precompiled is not None:
+            from adam_dehaze_tpu_torch.cli import NOT_PORTED
+            raise NotImplementedError(NOT_PORTED["precompiled"])
+        cfg_file = config_path or os.path.join(experiment_dir, "config.yaml")
+        config = load_config(cfg_file if os.path.exists(cfg_file) else None)
+        config = update_checkpoint_paths(config, experiment_dir)
+        from adam_dehaze_tpu_torch.evaluation.evaluate import _load_joint
+        return cls(_load_joint(config, device), None, config, device=device,
+                   autotune=autotune,
+                   autotune_cache=os.path.join(experiment_dir, "serving_autotune.json"),
+                   resolution_policy=os.path.join(experiment_dir, "resolution_policy.json"),
+                   lowres=lowres)
+
+    def _tuned_applies(self, cache_path: Optional[str]) -> Dict[str, torch.nn.Module]:
         """The tuned serving apply of every branch, by level; fills
         `autotune_report`."""
         img = self.config["dataset"]["img_size"]
@@ -126,17 +176,76 @@ class AdaptiveDehazer:
     def _to_device(self, images) -> torch.Tensor:
         return torch.as_tensor(np.asarray(images, np.float32)).to(self.device)
 
+    @staticmethod
+    def _norm_lowres(lowres) -> Dict[str, dict]:
+        """The `lowres` argument as {level: {scale, mode, radius}}: a tuple
+        or list of levels (scale 2, guided, radius 4), or a dict of
+        per-level parameters (the tuned policy's form,
+        resolution_autotune.policy_to_lowres)."""
+        if not lowres:
+            return {}
+        if isinstance(lowres, dict):
+            return {lvl: {"scale": int(p.get("scale", 2)), "mode": p.get("mode", "guided"),
+                          "radius": int(p.get("radius", 4))}
+                    for lvl, p in lowres.items()}
+        return {lvl: {"scale": 2, "mode": "guided", "radius": 4} for lvl in lowres}
+
+    def _resolution_policy_lowres(self) -> Dict[str, dict]:
+        """lowres="auto": the per-level dial of the experiment's tuned
+        policy. Raises when there is none: a silent fall back to full
+        resolution would misreport the serving mode asked for."""
+        if not self._resolution_policy_path:
+            raise ValueError(
+                "lowres='auto' needs an experiment-backed dehazer "
+                "(from_experiment) with a tuned resolution policy")
+        policy = load_policy(self._resolution_policy_path)
+        if policy is None:
+            raise FileNotFoundError(
+                f"no resolution policy at {self._resolution_policy_path}; run "
+                "python -m adam_dehaze_tpu_torch.tools.autotune_resolution "
+                "--experiment <dir> first")
+        return policy_to_lowres(policy)
+
+    def _resolve_lowres(self, lowres):
+        """None -> the construction-time default; "auto" -> the tuned
+        policy; anything else as it is (() is full resolution)."""
+        if lowres is None:
+            lowres = self._default_lowres
+        if isinstance(lowres, str) and lowres == "auto":
+            lowres = self._resolution_policy_lowres()
+        return lowres
+
+    def _branch_applies(self, lowres=()) -> list:
+        """The serving applies of the branches in INTENSITY_ORDER, those
+        named in `lowres` wrapped by make_lowres_apply (see _norm_lowres)."""
+        lowres = self._norm_lowres(lowres)
+        return [make_lowres_apply(self._serving.models[lvl], **lowres[lvl])
+                if lvl in lowres else self._serving.models[lvl]
+                for lvl in INTENSITY_ORDER]
+
+    def _binned_engine(self, lowres=()) -> BinnedAdaptiveEngine:
+        """The binned engine of one dial, built on first use and kept under
+        the JAX package's key ("binned", or "binned_lowres_" and each
+        level's scale, mode and radius). Only the full-resolution engine
+        gets the tuned chunk costs: the winners were timed at full
+        resolution, and a half-resolution branch costs a fraction of that."""
+        lowres = self._norm_lowres(lowres)
+        key = ("binned" if not lowres else "binned_lowres_" + "_".join(
+            f"{lvl}-{p['scale']}-{p['mode']}-{p['radius']}"
+            for lvl, p in sorted(lowres.items())))
+        if key not in self._engines:
+            engine = BinnedAdaptiveEngine(self._serving.classifier,
+                                          self._branch_applies(lowres))
+            costs = self._chunk_costs()
+            if costs is not None and not lowres:
+                engine.set_chunk_costs(*costs)
+            self._engines[key] = engine
+        return self._engines[key]
+
     @property
     def engine(self) -> BinnedAdaptiveEngine:
-        """The binned hard-routing engine, built on first use."""
-        if self._engine is None:
-            self._engine = BinnedAdaptiveEngine(
-                self._serving.classifier,
-                [self._serving.models[lvl] for lvl in INTENSITY_ORDER])
-            costs = self._chunk_costs()
-            if costs is not None:
-                self._engine.set_chunk_costs(*costs)
-        return self._engine
+        """The full-resolution binned hard-routing engine."""
+        return self._binned_engine()
 
     @torch.inference_mode()
     def __call__(self, images) -> np.ndarray:
@@ -145,20 +254,24 @@ class AdaptiveDehazer:
         return dehazed.float().cpu().numpy()
 
     @torch.inference_mode()
-    def route_hard(self, images, spill=False) -> Tuple[np.ndarray, np.ndarray]:
+    def route_hard(self, images, spill=False, lowres=None) -> Tuple[np.ndarray, np.ndarray]:
         """Binned hard routing: each image pays only its own branch. spill:
-        see BinnedAdaptiveEngine.__call__. Returns (dehazed, intensity)."""
-        out, intensity = self.engine(self._to_device(images), spill=spill)
+        see BinnedAdaptiveEngine.__call__. lowres: the half-resolution dial
+        (see the module's docstring; None is the construction default).
+        Returns (dehazed, intensity)."""
+        engine = self._binned_engine(self._resolve_lowres(lowres))
+        out, intensity = engine(self._to_device(images), spill=spill)
         return out.cpu().numpy(), np.asarray(intensity)
 
     @torch.inference_mode()
-    def route_hard_stream(self, batches, spill=False):
+    def route_hard_stream(self, batches, spill=False, lowres=None):
         """Pipelined serving over an iterable of batches: the classifier of
         batch k+1 overlaps batch k's host binning
-        (BinnedAdaptiveEngine.run_stream). Yields (dehazed, intensity) as
-        numpy."""
+        (BinnedAdaptiveEngine.run_stream). lowres: as in route_hard. Yields
+        (dehazed, intensity) as numpy."""
+        engine = self._binned_engine(self._resolve_lowres(lowres))
         uploads = (self._to_device(x) for x in batches)
-        for out, intensity in self.engine.run_stream(uploads, spill=spill):
+        for out, intensity in engine.run_stream(uploads, spill=spill):
             yield out.cpu().numpy(), np.asarray(intensity)
 
     @torch.inference_mode()

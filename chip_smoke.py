@@ -178,10 +178,36 @@ Phases, in order; any failure raises and the script exits non-zero:
    each mode's ms/image by the host clock, process set-up and PNG I/O
    included (a reading). `--mode demo` writes its figures and `--mode
    preprocess` splits a raw directory of a few triplets.
-16. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
-   with "training", "classifier_training", "joint_training", "detection"
-   and "cli"; K5's and K2''s Function readings under "function"; the CLI's
-   readings under "cli") and, last, {"ok": true, "device": ...}.
+16. The half-resolution dial (ops/resolution.py, resolution_autotune.py)
+   on phase 15's experiment. First the kernels of its path alone at its
+   shapes, every branch at 128^2 (launches not counted on any path): K1,
+   K2 at the six AttentionBlock shapes, K2', K3, K4 and K6's six segments,
+   each against its plain version at phase 3's bounds, timed, with its
+   bound. Then `AdaptiveDehazer.from_experiment(exp, autotune=True)` reads
+   the experiment's tuned cache, and its route_hard gives phase 15's
+   dehazer's labels and outputs within 3e-2; the port's resolution tool
+   (tools/autotune_resolution.py) probes the val split through the tuned
+   winners and writes resolution_policy.json: every candidate of every
+   branch has a PSNR and a time, no error row (full against half
+   resolution, ms/image and PSNR per branch, printed as readings). Counters
+   at 0: forced labels 0/1/2 through the engine's `dispatch` with every
+   branch at half resolution under the default, the tuned and phase 5's
+   two forced dispatches (each within 3e-2 of the default's), route_hard
+   with lowres="auto", route_hard_stream with lowres=("high",) (batch by
+   batch as route_hard), and the CLI's `serve --lowres high` (hard) and
+   `--lowres auto` (stream), whose routing.json holds the dial and
+   route_hard's labels; K1, K2, K2', K3, K4 and K6 must all have launched.
+   Prints full and half-resolution ms/image of the forced-label engine
+   under the default and the tuned dispatch. Last, the fp32 path with
+   every branch at half resolution, forced labels 0/1/2, on the card under
+   the default, the tail-chain and the res-chain dispatch against the CPU
+   at 1e-3.
+17. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
+   with "training", "classifier_training", "joint_training", "detection",
+   "cli" and "lowres"; K5's and K2''s Function readings under "function";
+   each lowres kernel's readings at 128^2 under "lowres"; the CLI's and the
+   dial's readings under "cli" and "lowres") and, last,
+   {"ok": true, "device": ...}.
 """
 import collections
 import copy
@@ -326,8 +352,14 @@ PEAK_F32_FLOPS = 67e12
 SLICE_ATOL = 1e-3
 # Main-path K2 shapes of the canonical high branch (c=96) at 256^2: AB0 and
 # AB4 at 128^2 x 192, AB1-3 at 64^2 x 384, AB5 at 256^2 x 96.
-K2_SHAPES = {(BATCH, 128, 128, 192): 2, (BATCH, 64, 64, 384): 3,
-             (BATCH, 256, 256, 96): 1}
+def k2_shapes(size):
+    """K2's shapes in the canonical high branch (c=96) on size^2 images: calls
+    per branch call, by shape."""
+    return {(BATCH, size // 2, size // 2, 192): 2, (BATCH, size // 4, size // 4, 384): 3,
+            (BATCH, size, size, 96): 1}
+
+
+K2_SHAPES = k2_shapes(SIZE)
 # name -> (route, source, the TPU kernel it replaces).
 KERNELS = {
     "lightweight_chain": ("cuda", "adam_dehaze_tpu_torch/csrc/lightweight_chain.cu",
@@ -588,11 +620,44 @@ def phase_build():
 
 
 def phase_kernels(dev, gen):
-    results = {}
+    results = {"lightweight_chain": check_k1(dev, gen, SIZE),
+               "cbam_gate": check_k2(dev, gen, SIZE)}
 
-    # K1 at (16, 256, 256, 3), c=32, 3 residual blocks.
+    # K5 at (16, 256, 256, 3).
+    ys = [torch.rand(BATCH, SIZE, SIZE, 3, generator=gen).to(dev) for _ in range(3)]
+    wts = torch.softmax(torch.randn(BATCH, 3, generator=gen), dim=1).to(dev)
+    ybf = [y.bfloat16() for y in ys]
+    with torch.inference_mode():
+        ref = blend3_reference(wts, *ys)
+        e32 = max_err(blend3(wts, *ys), ref)
+        ebf = max_err(blend3(wts, *ybf), ref)
+        ms = cuda_ms(lambda: blend3(wts, *ys))
+        plain = cuda_ms(lambda: blend3_reference(wts, *ys))
+    log(f"[K5 blend3] {tuple(ys[0].shape)}: fp32 err {e32:.3e}, bf16 err {ebf:.3e}; "
+        f"fp32 kernel {ms:.3f} ms, plain {plain:.3f} ms")
+    check(e32 <= FP32_ATOL and ebf <= BF16_ATOL, "K5 disagrees with its plain version")
+    results["blend3"] = dict(max_abs_err=e32, max_abs_err_bf16=ebf, ms=ms,
+                             plain_ms=plain, library_ms=None, shape=list(ys[0].shape),
+                             **bound(5 * ys[0].numel(), 4 * nbytes(ys[0]) + nbytes(wts),
+                                     PEAK_F32_FLOPS))
+    del ys, ybf, ref
+    results["spatial_gate"] = check_k2_prime(dev, gen, SIZE)
+
+    # Its own generator: the draws of the other phases, and with them the
+    # router's weights and where it routes the batch, stay as they were.
+    conv_layers = phase_conv_layers(dev, torch.Generator().manual_seed(SEED + 1))
+    results.update(phase_tail_kernels(dev, gen))
+    results["res_attn_chain"] = phase_res_chain_kernels(dev, gen)
+    results["probe_ops"] = phase_probe_kernels(dev)
+    return results, conv_layers
+
+
+def check_k1(dev, gen, size, tag=""):
+    """K1 at (16, size, size, 3), c=32, 3 residual blocks: fp32 and bf16
+    against the fp32 plain version, the fused bf16 body against the bf16
+    plain version at c=32 and c=48 (alpha 1); times and bound."""
     low = perturb_bn_(init_params_(LightweightDehazeModel(32, 3), gen), gen).eval()
-    x = torch.rand(BATCH, SIZE, SIZE, 3, generator=gen).to(dev)
+    x = torch.rand(BATCH, size, size, 3, generator=gen).to(dev)
     c32 = fold_lightweight(low.to(dev), torch.float32)
     cbf = fold_lightweight(low, torch.bfloat16)
     with torch.inference_mode():
@@ -602,7 +667,7 @@ def phase_kernels(dev, gen):
         ms = cuda_ms(lambda: lightweight_chain(x, cbf))
         plain = cuda_ms(lambda: lightweight_chain_reference(x, cbf))
     plan = chain_plan(32, 3, torch.bfloat16)
-    log(f"[K1 lightweight_chain] {tuple(x.shape)} c=32: fp32 err {e32:.3e}, "
+    log(f"[{tag}K1 lightweight_chain] {tuple(x.shape)} c=32: fp32 err {e32:.3e}, "
         f"bf16 vs fp32 plain err {ebf:.3e}; bf16 kernel {ms:.3f} ms, plain {plain:.3f} ms; "
         f"bf16 body {plan.body}, tile {plan.tile}, launches {plan.groups}, shared memory "
         f"{plan.smem_bytes}")
@@ -617,26 +682,27 @@ def phase_kernels(dev, gen):
         with torch.inference_mode():
             tight[c] = max_err(lightweight_chain(x, chain),
                                lightweight_chain_reference(x, chain))
-    log(f"[K1 lightweight_chain] bf16 vs bf16 plain, alpha 1: c=32 err {tight[32]:.3e}, "
+    log(f"[{tag}K1 lightweight_chain] bf16 vs bf16 plain, alpha 1: c=32 err {tight[32]:.3e}, "
         f"c=48 err {tight[48]:.3e} (bound {K1_BF16_ATOL})")
     check(max(tight.values()) <= K1_BF16_ATOL,
           "K1's fused wgmma body disagrees with the bf16 plain version")
     px = x.numel() // 3
     k1_flops = sum(conv_flops(px, 9, w.shape[2], w.shape[3]) for w, _ in cbf.layers)
-    results["lightweight_chain"] = dict(
+    return dict(
         max_abs_err=max(tight.values()), max_abs_err_bf16_vs_fp32=ebf,
         max_abs_err_fp32=e32, ms=ms, plain_ms=plain, library_ms=None,
         shape=list(x.shape),
         **bound(k1_flops, 2 * nbytes(x) + nbytes(*weight_tensors(cbf.layers)),
                 PEAK_BF16_FLOPS))
-    del x, ref
 
-    # K2 at every AttentionBlock shape; ms per high-branch call = the sum
-    # over its six blocks.
+
+def check_k2(dev, gen, size, tag=""):
+    """K2 at every AttentionBlock shape of the high branch on size^2 images;
+    ms per high-branch call = the sum over its six blocks."""
     tot = dict(ms=0.0, plain_ms=0.0, kernel_only_ms=0.0, maps_ms=0.0, maps_plain_ms=0.0)
     k2_bytes = k2_flops = 0
     errs, errs32, errs_maps, shapes = [], [], [], []
-    for shape, calls in K2_SHAPES.items():
+    for shape, calls in k2_shapes(size).items():
         x = torch.rand(shape, generator=gen).to(dev)
         g = torch.sigmoid(torch.randn(shape[0], shape[3], generator=gen)).to(dev)
         w = (torch.randn(7, 7, 2, 1, generator=gen) * 0.1).to(dev)
@@ -657,7 +723,7 @@ def phase_kernels(dev, gen):
             wf = wb.contiguous()
             kernel_only = cuda_ms(lambda: launch_cbam_gate(xb, g, mean_p, max_p, wf, out))
         gbs = 2 * xb.numel() * 2 / (kernel_only * 1e-3) / 1e9
-        log(f"[K2 cbam_gate] {shape}: fp32 err {e32:.3e}, bf16 err {ebf:.3e}, maps err "
+        log(f"[{tag}K2 cbam_gate] {shape}: fp32 err {e32:.3e}, bf16 err {ebf:.3e}, maps err "
             f"{emaps:.3e}; bf16 wrapper {ms:.3f} ms (statistics pass {maps:.3f} ms, "
             f"{nbytes(xb) / (maps * 1e-3) / 1e9:.0f} GB/s of x read; its plain version "
             f"{maps_plain:.3f} ms; gate kernel alone {kernel_only:.3f} ms, "
@@ -679,36 +745,18 @@ def phase_kernels(dev, gen):
         k2_bytes += calls * (2 * nbytes(xb) + nbytes(g, wb))
         k2_flops += calls * (4 * xb.numel() + conv_flops(xb.numel() // shape[3], 49, 2, 1))
         del x, ref, out, mean_p, max_p, xb
-    log(f"[K2 cbam_gate] per high-branch call (6 blocks): wrapper {tot['ms']:.3f} ms "
+    log(f"[{tag}K2 cbam_gate] per high-branch call (6 blocks): wrapper {tot['ms']:.3f} ms "
         f"(statistics pass {tot['maps_ms']:.3f} ms, gate kernel {tot['kernel_only_ms']:.3f} "
         f"ms), plain {tot['plain_ms']:.3f} ms")
-    results["cbam_gate"] = dict(max_abs_err=max(errs), max_abs_err_fp32=max(errs32),
-                                max_abs_err_maps=max(errs_maps),
-                                shapes=shapes, per="high-branch call (6 blocks)",
-                                library_ms=None,
-                                **bound(k2_flops, k2_bytes, PEAK_F32_FLOPS), **tot)
+    return dict(max_abs_err=max(errs), max_abs_err_fp32=max(errs32),
+                max_abs_err_maps=max(errs_maps), shapes=shapes,
+                per="high-branch call (6 blocks)", library_ms=None,
+                **bound(k2_flops, k2_bytes, PEAK_F32_FLOPS), **tot)
 
-    # K5 at (16, 256, 256, 3).
-    ys = [torch.rand(BATCH, SIZE, SIZE, 3, generator=gen).to(dev) for _ in range(3)]
-    wts = torch.softmax(torch.randn(BATCH, 3, generator=gen), dim=1).to(dev)
-    ybf = [y.bfloat16() for y in ys]
-    with torch.inference_mode():
-        ref = blend3_reference(wts, *ys)
-        e32 = max_err(blend3(wts, *ys), ref)
-        ebf = max_err(blend3(wts, *ybf), ref)
-        ms = cuda_ms(lambda: blend3(wts, *ys))
-        plain = cuda_ms(lambda: blend3_reference(wts, *ys))
-    log(f"[K5 blend3] {tuple(ys[0].shape)}: fp32 err {e32:.3e}, bf16 err {ebf:.3e}; "
-        f"fp32 kernel {ms:.3f} ms, plain {plain:.3f} ms")
-    check(e32 <= FP32_ATOL and ebf <= BF16_ATOL, "K5 disagrees with its plain version")
-    results["blend3"] = dict(max_abs_err=e32, max_abs_err_bf16=ebf, ms=ms,
-                             plain_ms=plain, library_ms=None, shape=list(ys[0].shape),
-                             **bound(5 * ys[0].numel(), 4 * nbytes(ys[0]) + nbytes(wts),
-                                     PEAK_F32_FLOPS))
-    del ys, ybf, ref
 
-    # K2' at the high tail's shape, where K4 launches it.
-    shape = (BATCH, SIZE, SIZE, 96)
+def check_k2_prime(dev, gen, size, tag=""):
+    """K2' at the high tail's shape on size^2 images, where K4 launches it."""
+    shape = (BATCH, size, size, 96)
     x = torch.rand(shape, generator=gen).to(dev)
     w = (torch.randn(7, 7, 2, 1, generator=gen) * 0.1).to(dev)
     xb, wb = x.bfloat16(), w.bfloat16().float()
@@ -725,28 +773,19 @@ def phase_kernels(dev, gen):
         out = torch.empty_like(xb)
         wf = wb.reshape(7, 7, 2).contiguous()
         kernel_only = cuda_ms(lambda: launch_spatial_gate(xb, mean_p, max_p, wf, out))
-    log(f"[K2' spatial_gate] {shape}: fp32 err {e32:.3e}, bf16 err {ebf:.3e}, maps err "
+    log(f"[{tag}K2' spatial_gate] {shape}: fp32 err {e32:.3e}, bf16 err {ebf:.3e}, maps err "
         f"{emaps:.3e}; bf16 wrapper {ms:.3f} ms (statistics pass {maps:.3f} ms, its plain "
         f"version {maps_plain:.3f} ms; gate kernel alone {kernel_only:.3f} ms, "
         f"{2 * nbytes(xb) / (kernel_only * 1e-3) / 1e9:.0f} GB/s of x read+write), "
         f"plain {plain:.3f} ms")
     check(e32 <= FP32_ATOL and ebf <= BF16_ATOL, "K2' disagrees with its plain version")
     check(emaps <= MAPS_ATOL, "K2''s statistics pass disagrees with padded_stats")
-    results["spatial_gate"] = dict(
+    return dict(
         max_abs_err=ebf, max_abs_err_fp32=e32, max_abs_err_maps=emaps, ms=ms, plain_ms=plain,
         kernel_only_ms=kernel_only, maps_ms=maps, maps_plain_ms=maps_plain,
         library_ms=None, shape=list(shape),
         **bound(3 * xb.numel() + conv_flops(xb.numel() // 96, 49, 2, 1),
                 2 * nbytes(xb) + nbytes(wb), PEAK_F32_FLOPS))
-    del x, xb, ref, out, mean_p, max_p
-
-    # Its own generator: the draws of the other phases, and with them the
-    # router's weights and where it routes the batch, stay as they were.
-    conv_layers = phase_conv_layers(dev, torch.Generator().manual_seed(SEED + 1))
-    results.update(phase_tail_kernels(dev, gen))
-    results["res_attn_chain"] = phase_res_chain_kernels(dev, gen)
-    results["probe_ops"] = phase_probe_kernels(dev)
-    return results, conv_layers
 
 
 def phase_conv_layers(dev, gen):
@@ -844,9 +883,10 @@ def canonical_tail(model, high):
     return run
 
 
-def phase_tail_kernels(dev, gen):
-    """K3 and K4 alone at the main path's shapes: d1 (16, 128, 128, 4c) and
-    f0 (16, 256, 256, c) drawn non-negative like the real decoder state."""
+def phase_tail_kernels(dev, gen, size=SIZE, tag=""):
+    """K3 and K4 alone at the main path's shapes on size^2 images: d1 (16,
+    size/2, size/2, 4c) and f0 (16, size, size, c) drawn non-negative like
+    the real decoder state."""
     results = {}
     for name, label, cls, c, fold_fn, tail, reference, n_launch in (
             ("medium_tail_chain", "K3", MediumIntensityDehazeModel, 64, fold_medium_tail,
@@ -855,9 +895,9 @@ def phase_tail_kernels(dev, gen):
              high_tail_chain, high_tail_chain_reference, HIGH_TAIL_LAUNCHES)):
         high = name == "high_tail_chain"
         model = perturb_bn_(init_params_(cls(c), gen), gen).eval().to(dev)
-        d1 = torch.relu(torch.randn(BATCH, SIZE // 2, SIZE // 2, 4 * c, generator=gen)).to(dev)
-        f0 = torch.relu(torch.randn(BATCH, SIZE, SIZE, c, generator=gen)).to(dev)
-        x = torch.rand(BATCH, SIZE, SIZE, 3, generator=gen).to(dev)
+        d1 = torch.relu(torch.randn(BATCH, size // 2, size // 2, 4 * c, generator=gen)).to(dev)
+        f0 = torch.relu(torch.randn(BATCH, size, size, c, generator=gen)).to(dev)
+        x = torch.rand(BATCH, size, size, 3, generator=gen).to(dev)
         w32, wbf = fold_fn(model, torch.float32), fold_fn(model, torch.bfloat16)
         d1b, f0b = d1.bfloat16(), f0.bfloat16()
         serving = cast_for_serving(model, torch.bfloat16)
@@ -875,15 +915,15 @@ def phase_tail_kernels(dev, gen):
             ms32 = cuda_ms(lambda: tail(d1, f0, x, w32), iters=3, warmup=1)
             plain = cuda_ms(lambda: reference(d1b, f0b, x, wbf), iters=5, warmup=1)
             can_ms = cuda_ms(lambda: canonical(d1b, f0b, x), iters=10)
-        flops = tail_flops(BATCH, SIZE, SIZE, c, high)
+        flops = tail_flops(BATCH, size, size, c, high)
         moved = nbytes(d1b, f0b, x, got) + weights_nbytes(wbf)
         bd = bound(flops, moved, PEAK_BF16_FLOPS)
         if not high:
             plan = medium_tail_plan(c, torch.bfloat16)
-            log(f"[{label} {name}] bf16 plan: head {plan.head}, tile {plan.tile}, "
+            log(f"[{tag}{label} {name}] bf16 plan: head {plan.head}, tile {plan.tile}, "
                 f"{plan.smem_bytes} B of shared memory a block, {plan.launches} launches")
             check(plan.head == "group", "K3's head did not take the fused group")
-        log(f"[{label} {name}] d1 {tuple(d1.shape)}, f0 {tuple(f0.shape)}, c={c}: fp32 err "
+        log(f"[{tag}{label} {name}] d1 {tuple(d1.shape)}, f0 {tuple(f0.shape)}, c={c}: fp32 err "
             f"{e32:.3e}, bf16 vs fp32 plain {ebf:.3e}, bf16 vs bf16 plain {tight:.3e} "
             f"(bound {TAIL_BF16_ATOL}), bf16 vs the canonical bf16 tail {ecan:.3e}; "
             f"launches per call {launched[0]} (+{launched[1]} of K2'); bf16 kernel "
@@ -911,16 +951,16 @@ def scaled_err(a, ref):
     return max_err(a, ref) / max(1.0, float(ref.float().abs().max()))
 
 
-def phase_res_chain_kernels(dev, gen):
-    """K6 alone at the six main-path segments, batch 16, inputs drawn
-    non-negative like the activation after a ConvBlock. Returns the sums
-    over the six segments and each segment's readings."""
+def phase_res_chain_kernels(dev, gen, size=SIZE, tag=""):
+    """K6 alone at the six main-path segments on size^2 images, batch 16,
+    inputs drawn non-negative like the activation after a ConvBlock.
+    Returns the sums over the six segments and each segment's readings."""
     segments = {}
     for name, (c, down, kinds) in RES_SEGMENTS.items():
         blocks = torch.nn.Sequential(*[ResidualBlock(c) if k == "res" else AttentionBlock(c)
                                        for k in kinds])
         blocks = perturb_bn_(init_params_(blocks, gen), gen).eval().to(dev)
-        side = SIZE // down
+        side = size // down
         x = torch.relu(torch.randn(BATCH, side, side, c, generator=gen)).to(dev)
         xb = x.bfloat16()
         w32 = fold_res_attn_chain(blocks, torch.float32)
@@ -952,7 +992,7 @@ def phase_res_chain_kernels(dev, gen):
         moved = 2 * nbytes(xb) + weights_nbytes(wbf)
         bd = bound(flops, moved, PEAK_BF16_FLOPS)
         scale = float(ref.abs().max())
-        log(f"[K6 res_attn_chain] {name} {tuple(x.shape)} {list(kinds)}: errors in units of "
+        log(f"[{tag}K6 res_attn_chain] {name} {tuple(x.shape)} {list(kinds)}: errors in units of "
             f"max|plain| = {scale:.2f}: fp32 {e32:.3e}, bf16 vs fp32 plain {ebf:.3e}, bf16 vs "
             f"bf16 plain {tight:.3e} (bound {RES_BF16_RTOL}), bf16 vs the canonical bf16 "
             f"blocks {ecan:.3e}; launches per call {launched[0]} (+{launched[1]} of K2); "
@@ -975,7 +1015,7 @@ def phase_res_chain_kernels(dev, gen):
              for k in ("ms", "fp32_ms", "plain_ms", "canonical_ms", "bound_ms", "bytes", "flops")}
     for level in ("medium", "high"):
         own = [seg for name, seg in segments.items() if name.startswith(level)]
-        log(f"[K6 res_attn_chain] the {level} branch's three segments: bf16 kernel "
+        log(f"[{tag}K6 res_attn_chain] the {level} branch's three segments: bf16 kernel "
             f"{sum(s['ms'] for s in own):.3f} ms, canonical blocks "
             f"{sum(s['canonical_ms'] for s in own):.3f} ms, bound "
             f"{sum(s['bound_ms'] for s in own):.3f} ms")
@@ -1464,6 +1504,7 @@ def phase_vs_plain(router, dev, rng, tmp):
         log(f"[slice vs plain] fp32, labels {labels.tolist()}, {SIZE}^2, {tag}: max abs "
             f"err vs CPU {err:.3e} (bound {SLICE_ATOL})")
         check(err <= SLICE_ATOL, f"the card's slice ({tag}) disagrees with the plain path")
+    return tail_cache, res_cache
 
 
 def phase_gate_grad(dev, gen):
@@ -2446,7 +2487,224 @@ def phase_cli(dev, smi, tmp):
     path = {k: sum(r[k] for r in runs.values()) for k in runs["evaluate"]}
     log(f"[cli] demo wrote {len(demo)} files; preprocess split {len(done)} train files; "
         f"launches on the cli path {nonzero(path)}")
-    return path, readings
+    return path, readings, exp
+
+
+# The half-resolution dial on every branch, and the kernels its paths must
+# launch: K1 and K2 under the default dispatch, K3, K4, K2' and K6 under
+# the kernel dispatches (the tuned winners and phase 5's two forced ones).
+LOWRES = ("low", "medium", "high")
+LOWRES_PATH_KERNELS = ("lightweight_chain", "cbam_gate", "spatial_gate", "medium_tail_chain",
+                       "high_tail_chain", "res_attn_chain")
+# The guided lift divides differences of box means of float32 integral
+# images by var + 1e-4, and the corpus's sky is flat: var is near 0 there,
+# so float32 rounding (and a 1e-6 difference of the branch outputs) moves
+# the lifted output by 1e-3 to 1e-2 (PERF.md). The lift is held on the card
+# against float64 within LIFT_K times the CPU's own float32 error: the
+# card's scan sums the integral images in another order than the CPU's
+# sequential cumsum, and read 2.7 times the CPU's error (4.4e-3 against
+# 1.6e-3 at radius 4; NVIDIA H100 80GB HBM3, 700.00 W).
+LIFT_K = 8.0
+
+
+def phase_lowres_kernels(dev, gen):
+    """The kernels of the half-resolution path alone at its shapes: each
+    branch at half the image side (128^2 of 256^2), batch 16, against the
+    plain versions at phase 3's bounds (launches not counted on any path)."""
+    size, tag = SIZE // 2, "lowres "
+    results = {"lightweight_chain": check_k1(dev, gen, size, tag),
+               "cbam_gate": check_k2(dev, gen, size, tag),
+               "spatial_gate": check_k2_prime(dev, gen, size, tag)}
+    results.update(phase_tail_kernels(dev, gen, size, tag))
+    results["res_attn_chain"] = phase_res_chain_kernels(dev, gen, size, tag)
+    return results
+
+
+def phase_lowres(dev, smi, exp, forced_caches, fp32_caches):
+    """16. The half-resolution dial (ops/resolution.py) on phase 15's
+    experiment, served through `AdaptiveDehazer.from_experiment` (see the
+    docstring). Returns the path's launch counts, the kernels' readings at
+    128^2 and the phase's readings."""
+    from adam_dehaze_tpu_torch import cli
+    from adam_dehaze_tpu_torch.data.dataset import _imread_rgb
+    from adam_dehaze_tpu_torch.resolution_autotune import policy_to_lowres
+    from adam_dehaze_tpu_torch.tools import autotune_resolution
+
+    kernels = phase_lowres_kernels(dev, torch.Generator().manual_seed(SEED + 7))
+    readings = {}
+
+    # (a) from_experiment with the experiment's tuned cache, beside phase
+    # 15's dehazer (the default dispatch) on the same test images.
+    tuned = AdaptiveDehazer.from_experiment(exp, autotune=True, device=dev)
+    cfg = tuned.config
+    check(all(r["cached"] for r in tuned.autotune_report.values()),
+          f"lowres: from_experiment did not read the tuned cache: {tuned.autotune_report}")
+    winners = {lvl: r["best"] for lvl, r in tuned.autotune_report.items()}
+    phase15 = AdaptiveDehazer(det_eval._load_joint(cfg, dev), None, cfg, device=dev)
+    files = cli.serve_inputs(cfg)
+    x = np.stack([_imread_rgb(f, SIZE) for f in files[:BATCH]])
+    got, got_i = tuned.route_hard(x)
+    want, want_i = phase15.route_hard(x)
+    err = float(np.abs(got - want).max())
+    log(f"[lowres] from_experiment(autotune=True), winners {winners}: route_hard labels "
+        f"{np.bincount(got_i, minlength=3).tolist()} equal phase 15's dehazer's: "
+        f"{bool((got_i == want_i).all())}; max abs diff {err:.3e} (bound {BF16_ATOL})")
+    check((got_i == want_i).all() and err <= BF16_ATOL,
+          "lowres: from_experiment's route_hard disagrees with phase 15's dehazer")
+
+    # (b) the resolution tool on the val split, through the tuned winners.
+    t0 = time.perf_counter()
+    policy = autotune_resolution.main(["--experiment", exp])
+    tool_s = time.perf_counter() - t0
+    per_branch = {}
+    for level, entry in policy["levels"].items():
+        table = entry.get("table", {})
+        check(set(table) == {"full", "guided_r4_s2", "guided_r2_s2"}
+              and all("error" not in row and "psnr" in row and "ms" in row
+                      for row in table.values()),
+              f"lowres: the tuner's {level} table {table}")
+        per_branch[level] = {name: dict(psnr=row["psnr"], ms_per_image=row["ms"] / policy["batch"])
+                             for name, row in table.items()}
+        log(f"[lowres tune] {level}: choice {entry['choice']} on {entry['n_probe']} val images; "
+            + "; ".join(f"{name} {row['psnr']:.3f} dB, {row['ms'] / policy['batch']:.4f} "
+                        f"ms/image" for name, row in table.items())
+            + f" (batch {policy['batch']}, bf16, {SIZE}^2; {smi})")
+    readings["tune"] = dict(seconds=tool_s, branches=per_branch,
+                            choice={k: v["choice"] for k, v in policy["levels"].items()})
+
+    # (c) the lowres path, counters at 0 just before it and read just after.
+    labels = np.arange(BATCH) % 3
+    default = AdaptiveDehazer.from_experiment(exp, device=dev)
+    forced = {tag: AdaptiveDehazer(det_eval._load_joint(cfg, dev), None, cfg, device=dev,
+                                   autotune=True, autotune_cache=cache)
+              for tag, cache in zip(("tail-chain", "res-chain"), forced_caches)}
+    dehazers = {"default": default, "tuned": tuned, **forced}
+    xd = torch.from_numpy(x).to(dev)
+    served = {}
+    reset_launch_counts()
+    with torch.inference_mode():
+        for tag, d in dehazers.items():
+            served[tag] = d._binned_engine(LOWRES).dispatch(xd, labels)
+    auto, auto_i = tuned.route_hard(x, lowres="auto")
+    stream = list(tuned.route_hard_stream([x[:BATCH // 2], x[BATCH // 2:]], lowres=("high",)))
+    cli_runs = {}
+    for mode, lowres in (("hard", "high"), ("stream", "auto")):
+        out = os.path.join(exp, f"served_lowres_{lowres}")
+        t0 = time.perf_counter()
+        cli.main(["--mode", "serve", "--experiment_dir", exp, "--serve_mode", mode,
+                  "--lowres", lowres, "--out", out])
+        with open(os.path.join(out, "routing.json")) as f:
+            cli_runs[lowres] = (json.load(f), time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    path = counts()
+    log(f"[lowres] launches on the lowres path: {nonzero(path)}")
+    check(all(path[k] > 0 for k in LOWRES_PATH_KERNELS),
+          f"lowres: a kernel of the lowres path never ran: {path}")
+
+    for tag, y in served.items():
+        check(y.device.type == "cuda", f"lowres: the {tag} dispatch served off the card")
+        y = y.cpu().numpy()
+        check_images(y, BATCH, f"lowres {tag}")
+        err = float(np.abs(y - served["default"].cpu().numpy()).max())
+        dispatch = {lvl: r["best"] for lvl, r in dehazers[tag].autotune_report.items()}
+        log(f"[lowres] forced labels 0/1/2, every branch at {SIZE // 2}^2, {tag} dispatch "
+            f"{dispatch or 'chain / canonical / canonical'}: max abs diff to the default "
+            f"dispatch {err:.3e} (bound {BF16_ATOL})")
+        check(err <= BF16_ATOL, f"lowres: the {tag} dispatch disagrees with the default")
+    check_images(auto, BATCH, "lowres auto")
+    check((auto_i == want_i).all(), "lowres: route_hard(lowres='auto') labels differ")
+    check("binned_lowres_high-2-guided-4" in tuned._engines,
+          f"lowres: route_hard_stream built no high-only engine: {sorted(tuned._engines)}")
+    for (y, i), part in zip(stream, (x[:BATCH // 2], x[BATCH // 2:])):
+        direct, direct_i = tuned.route_hard(part, lowres=("high",))
+        check((i == direct_i).all() and float(np.abs(y - direct).max()) <= BF16_ATOL,
+              "lowres: route_hard_stream(lowres=('high',)) differs from route_hard")
+    bs = cfg["dataset"]["batch_size"]
+    cli_labels = np.concatenate([phase15.route_hard(
+        np.stack([_imread_rgb(f, SIZE) for f in files[i:i + bs]]))[1]
+        for i in range(0, len(files), bs)]).tolist()
+    for lowres, (manifest, wall) in cli_runs.items():
+        labels_cli = [manifest["images"][os.path.basename(f)]["intensity"] for f in files]
+        check(manifest["lowres"] == ("auto" if lowres == "auto" else [lowres]),
+              f"lowres: routing.json says lowres {manifest['lowres']!r}")
+        check(labels_cli == cli_labels, f"lowres: serve --lowres {lowres} labels differ")
+        readings[f"cli_{lowres}_ms_per_image"] = wall * 1e3 / len(files)
+    log(f"[lowres cli] serve --lowres high (hard) and --lowres auto (stream, policy "
+        f"{policy_to_lowres(policy)}): routing.json's lowres field and labels as route_hard's; "
+        f"{readings['cli_high_ms_per_image']:.2f} and {readings['cli_auto_ms_per_image']:.2f} "
+        f"ms/image with the process's set-up and PNG I/O")
+
+    # (d) full against half resolution, forced labels, warm ms/image (host
+    # clock around a synchronize), under the default and the tuned dispatch.
+    timing = {}
+    for tag in ("default", "tuned"):
+        d = dehazers[tag]
+        for dial, eng in (("full", d.engine), ("lowres", d._binned_engine(LOWRES))):
+            def run(eng=eng):
+                with torch.inference_mode():
+                    eng.dispatch(xd, labels)
+            timing[f"{tag}_{dial}"] = route_ms(run, BATCH)[0]
+        log(f"[lowres timing] {tag} dispatch, forced labels 0/1/2, {BATCH} images at {SIZE}^2 "
+            f"bf16: full {timing[f'{tag}_full']:.3f} ms/image, every branch at {SIZE // 2}^2 "
+            f"{timing[f'{tag}_lowres']:.3f} ms/image; {smi}")
+    readings["forced_ms_per_image"] = timing
+    del dehazers, default, tuned, forced, phase15, xd, served
+    torch.cuda.empty_cache()
+
+    # (e) fp32, forced labels 0, 1, 2, every branch at half resolution, on
+    # the card under the default, the tail-chain and the res-chain dispatch
+    # against the CPU, in its two parts (LIFT_K): the shrink, and the branches
+    # at 128^2 on the same shrunk images, at SLICE_ATOL; the lift on the same
+    # corrections against float64.
+    from adam_dehaze_tpu_torch.ops import resolution
+    cfg32 = copy.deepcopy(cfg)
+    cfg32["cuda"]["compute_dtype"] = "float32"
+    x3 = torch.from_numpy(x[:3])
+    x_lo = resolution._resize_nhwc(x3, (SIZE // 2, SIZE // 2))
+    shrink_err = max_err(resolution._resize_nhwc(x3.to(dev), (SIZE // 2, SIZE // 2)).cpu(), x_lo)
+    log(f"[lowres vs plain] the antialiased shrink {SIZE}^2 -> {SIZE // 2}^2, fp32, card vs "
+        f"CPU: {shrink_err:.3e} (bound {FP32_ATOL})")
+    check(shrink_err <= FP32_ATOL, "lowres: the shrink on the card disagrees with the CPU")
+    lows, ends = {}, {}
+    for tag, device, cache in (("CPU", "cpu", None), ("card, default", dev, None),
+                               ("card, tail-chain", dev, fp32_caches[0]),
+                               ("card, res-chain", dev, fp32_caches[1])):
+        kwargs = dict(autotune=True, autotune_cache=cache) if cache else {}
+        d = AdaptiveDehazer(det_eval._load_joint(cfg32, device), None, cfg32, device=device,
+                            **kwargs)
+        check(all(r["cached"] for r in d.autotune_report.values()),
+              f"lowres fp32 {tag}: the cache was not read")
+        with torch.inference_mode():
+            lows[tag] = d.engine.dispatch(x_lo.to(device), np.arange(3)).cpu()
+            ends[tag] = d._binned_engine(LOWRES).dispatch(x3.to(device), np.arange(3)).cpu()
+        del d
+    errs = {}
+    for tag in list(lows)[1:]:
+        errs[tag] = max_err(lows["CPU"], lows[tag])
+        log(f"[lowres vs plain] fp32, labels [0, 1, 2], the branches at {SIZE // 2}^2, {tag}: "
+            f"max abs err vs CPU {errs[tag]:.3e} (bound {SLICE_ATOL}); with the lift, a "
+            f"reading: {max_err(ends['CPU'], ends[tag]):.3e}")
+        check(errs[tag] <= SLICE_ATOL,
+              f"lowres: the card's fp32 branches at half resolution ({tag}) disagree with the CPU")
+
+    def lift(xx, xx_lo, y_lo):
+        corr = resolution.guided_upsample(resolution._gray(xx), resolution._gray(xx_lo),
+                                          y_lo - xx_lo)
+        return torch.clamp(xx + corr, 0.0, 1.0)
+
+    ref = lift(x3.double(), x_lo.double(), lows["CPU"].double())
+    cpu_err = max_err(lift(x3, x_lo, lows["CPU"]), ref)
+    card_err = max_err(lift(x3.to(dev), x_lo.to(dev), lows["CPU"].to(dev)).cpu(), ref)
+    lift_bound = max(FP32_ATOL, LIFT_K * cpu_err)
+    log(f"[lowres vs plain] the guided lift {SIZE // 2}^2 -> {SIZE}^2 (radius 4) of the CPU's "
+        f"corrections, fp32 against float64: card {card_err:.3e}, CPU {cpu_err:.3e} (bound "
+        f"{lift_bound:.3e}, {LIFT_K:g}x the CPU's or {FP32_ATOL})")
+    check(card_err <= lift_bound, "lowres: the guided lift on the card disagrees with float64")
+    readings["fp32_vs_cpu"] = dict(shrink=shrink_err, branches=errs, lift_card=card_err,
+                                   lift_cpu=cpu_err,
+                                   end_to_end={t: max_err(ends["CPU"], ends[t])
+                                               for t in list(ends)[1:]})
+    return path, kernels, readings
 
 
 def main():
@@ -2484,7 +2742,7 @@ def main():
         res, res_ms = timed("res slice", phase_forced_slice, router, dev, x, labels, outs,
                             res_cache, RES_FORCED, "res slice", RES_PATH_KERNELS)
         probes = timed("probe tool", phase_probe_tool, dev)
-        timed("slice vs plain", phase_vs_plain, router, dev, rng, tmp)
+        fp32_caches = timed("slice vs plain", phase_vs_plain, router, dev, rng, tmp)
         del router
         torch.cuda.empty_cache()
         k2_train = timed("K2 gradient", phase_gate_grad, dev,
@@ -2501,7 +2759,9 @@ def main():
             os.path.join(tmp, "checkpoints"))
         detection, det_readings = timed("detection", phase_detection, dev, smi, tmp,
                                         os.path.join(tmp, "joint"))
-        cli_path, cli_readings = timed("cli", phase_cli, dev, smi, tmp)
+        cli_path, cli_readings, exp = timed("cli", phase_cli, dev, smi, tmp)
+        lowres_path, lowres_kernels, lowres_readings = timed(
+            "lowres", phase_lowres, dev, smi, exp, (tail_cache, res_cache), fp32_caches)
     for name in ("route_hard", "forced_labels", "soft"):
         log(f"[slices] {name}: default dispatch {default_ms[name]:.3f} ms/image, "
             f"tail-chain dispatch {tail_ms[name]:.3f} ms/image, res-chain dispatch "
@@ -2510,11 +2770,14 @@ def main():
 
     paths = {"default": default, "engines": engines, "tail_chain": tail, "res_chain": res,
              "probe_tool": probes, "training": training, "classifier_training": classifier,
-             "joint_training": joint, "detection": detection, "cli": cli_path}
+             "joint_training": joint, "detection": detection, "cli": cli_path,
+             "lowres": lowres_path}
     kernels["cbam_gate"].update(training_forward_ms_per_step=k2_train["forward_ms"],
                                 training_backward_ms_per_step=k2_train["backward_ms"])
     for name, rec in grad_fns.items():
         kernels[name].update(function=rec)
+    for name, rec in lowres_kernels.items():
+        kernels[name].update(lowres=rec)
     line = {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
          "launches": sum(path[name] for path in paths.values()),
@@ -2529,7 +2792,7 @@ def main():
         "training": {"branches": train_readings, "k2": k2_train,
                      "fp32_step_card_vs_cpu": step_errs, "classifier": cls_readings,
                      "joint": joint_readings},
-        "detection": det_readings, "cli": cli_readings,
+        "detection": det_readings, "cli": cli_readings, "lowres": lowres_readings,
         "phase_seconds": seconds}
     check(all(k["launches"] > 0 for k in line["kernels"]),
           f"a kernel was launched no time on any path: {line['kernels']}")

@@ -1146,3 +1146,77 @@ def test_detection_evaluation_launches_k2_and_k5_per_batch(cuda_device, tmp_path
     for side in ("hazy", "dehazed"):
         assert set(out[side]) == {"overall", "low_intensity", "medium_intensity",
                                   "high_intensity"}
+
+
+# --- the half-resolution dial (ops/resolution.py) on the card -------------
+
+# The tuned winners and the other kernel candidates, by branch, at the
+# widths of the default config: the dial serves them at 128^2 (a 256^2
+# image halved), a shape the serving autotune never timed.
+# (level, candidate) -> the kernels it must launch.
+LOWRES_CANDIDATES = {
+    ("low", "chain"): ("lightweight_chain",),
+    ("medium", "tail_chain"): ("medium_tail_chain",),
+    ("medium", "chain_hybrid"): ("res_attn_chain",),
+    ("high", "tail_chain"): ("high_tail_chain", "spatial_gate"),
+    ("high", "res_chain_e2b"): ("res_attn_chain", "cbam_gate"),
+    ("high", "res_e2b_tail_chain"): ("res_attn_chain", "high_tail_chain", "spatial_gate")}
+# The guided lift divides differences of box means by var + 1e-4, which
+# can scale a difference of the branch outputs up: the lifted outputs are
+# held at the fp32 slice's 1e-3, the branch outputs themselves at 1e-4.
+LOWRES_LIFT_ATOL = 1e-3
+
+
+@pytest.mark.parametrize("level,name", sorted(LOWRES_CANDIDATES),
+                         ids=[f"{lvl}-{n}" for lvl, n in sorted(LOWRES_CANDIDATES)])
+def test_lowres_apply_of_each_kernel_candidate_matches_plain_branch(cuda_device, level, name):
+    """make_lowres_apply over a kernel candidate, on 256^2 images (the branch
+    at 128^2), against the same dial over the canonical branch, fp32 on the
+    card with TF32 off; the candidate's kernels launch inside the dial."""
+    from adam_dehaze_tpu_torch.models.branches import (
+        HighIntensityDehazeModel,
+        LightweightDehazeModel,
+        MediumIntensityDehazeModel,
+    )
+    from adam_dehaze_tpu_torch.ops import resolution
+    from adam_dehaze_tpu_torch.ops.kernels import launch_counters
+    from adam_dehaze_tpu_torch.serving_autotune import candidate_builders
+    model = {"low": lambda: LightweightDehazeModel(32, 3),
+             "medium": lambda: MediumIntensityDehazeModel(64),
+             "high": lambda: HighIntensityDehazeModel(96)}[level]()
+    model = _seeded(model, 61).to(cuda_device)
+    cands = candidate_builders(model, torch.float32, (2, 256, 256, 3))
+    fast, plain = cands[name](), cands["canonical"]()
+    x = torch.rand(2, 256, 256, 3, generator=torch.Generator().manual_seed(62)).to(cuda_device)
+    x_lo = resolution._resize_nhwc(x, (128, 128))
+    counters = launch_counters()
+    with torch.inference_mode():
+        got_lo, want_lo = fast(x_lo), plain(x_lo)
+        before = {k: counters[k].launches for k in LOWRES_CANDIDATES[(level, name)]}
+        got = resolution.make_lowres_apply(fast)(x)
+        want = resolution.make_lowres_apply(plain)(x)
+    torch.cuda.synchronize()
+    for kernel, n in before.items():
+        assert counters[kernel].launches > n, (name, kernel)
+    torch.testing.assert_close(got_lo, want_lo, rtol=0, atol=FP32_ATOL)
+    torch.testing.assert_close(got, want, rtol=0, atol=LOWRES_LIFT_ATOL)
+    assert tuple(got.shape) == (2, 256, 256, 3)
+
+
+@pytest.mark.parametrize("radius", [2, 4])
+def test_guided_upsample_on_card_matches_cpu(cuda_device, radius):
+    """The guided lift from 128^2 to 256^2 on the card and on the CPU, each
+    in fp32 against float64 on the CPU: the card within 1e-4 or 4 times the
+    CPU's own fp32 error (the integral images sum in another order there)."""
+    from adam_dehaze_tpu_torch.ops.resolution import guided_upsample
+    gen = torch.Generator().manual_seed(63 + radius)
+    g_hi = torch.rand(2, 256, 256, generator=gen)
+    g_lo = torch.nn.functional.avg_pool2d(g_hi[:, None], 2)[:, 0]
+    src = torch.rand(2, 128, 128, 3, generator=gen) * 0.2 - 0.1
+    ref = guided_upsample(g_hi.double(), g_lo.double(), src.double(), radius=radius)
+    cpu = guided_upsample(g_hi, g_lo, src, radius=radius)
+    card = guided_upsample(g_hi.to(cuda_device), g_lo.to(cuda_device), src.to(cuda_device),
+                           radius=radius).cpu()
+    cpu_err = float((cpu.double() - ref).abs().max())
+    card_err = float((card.double() - ref).abs().max())
+    assert card_err <= max(FP32_ATOL, 4 * cpu_err), (card_err, cpu_err)
