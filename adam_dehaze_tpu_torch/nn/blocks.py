@@ -148,6 +148,24 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
                          align_corners=False, antialias=True)
 
 
+def resize_bilinear_align_corners(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Bilinear resize of an NCHW tensor to (H, W) on the align-corners grid
+    (output i samples input i * (in - 1) / (out - 1)): torch's
+    nn.UpsamplingBilinear2d at a given size, the counterpart of the JAX
+    package's `resize_bilinear_align_corners`. That one rounds its lerp
+    weights to the compute dtype; torch computes them in float32."""
+    return F.interpolate(x, size=tuple(size), mode="bilinear", align_corners=True)
+
+
+class UpsampleAlignCorners(nn.Module):
+    """`resize_bilinear_align_corners` as a module: the reference's
+    nn.UpsamplingBilinear2d, at the size the caller passes with each call
+    (the input's size times a scale where the sizes divide)."""
+
+    def forward(self, x, size):
+        return resize_bilinear_align_corners(x, size)
+
+
 @torch.no_grad()
 def init_params_(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Seeded init in place, drawn only from `generator`: conv and linear

@@ -12,8 +12,11 @@ Weights from the JAX package:
 
 `load_flax_variables(module, variables)` fills a port module from the JAX
 package's `{"params", "batch_stats"}` tree (nested dicts of arrays): a
-block, a branch, the classifier, a whole router (subtrees `classifier` and
-`models_{low,medium,high}`, and a GatedRouter's gate `Dense_{0,1,2}`), or
+block, a branch of any model type, the classifier on any backbone (ResNet;
+MobileNetV2/V3 and EfficientNet, whose convs and BNs flax names in call
+order), the DenseFeatureExtractor (`ResNet_0`), a whole router (subtrees
+`classifier` and `models_{low,medium,high}`, and a GatedRouter's gate
+`Dense_{0,1,2}`), or
 the FCOS detector (`ResNet_0`, `FPN_0`: lateral{i}, smooth{i}, p6, p7;
 `FCOSHead_0`: cls{i}, reg{i}, cls_gn{i}, reg_gn{i}, cls_out, reg_out,
 ctr_out), or the evaluation's QualityHead (`Conv_{0..3}`, `Dense_0`). It
@@ -31,6 +34,7 @@ keys. orbax checkpoints, which only JAX reads, are not read here.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import re
@@ -43,11 +47,18 @@ from torch import nn
 from adam_dehaze_tpu_torch.evaluation.no_reference import QualityHead
 from adam_dehaze_tpu_torch.losses.lpips import LPIPS
 from adam_dehaze_tpu_torch.models.branches import (
+    COrunInspiredModel,
+    DualBranchAttentionModel,
+    EncoderDecoder,
     HighIntensityDehazeModel,
     LightweightDehazeModel,
+    LowIntensityUNet,
     MediumIntensityDehazeModel,
 )
-from adam_dehaze_tpu_torch.models.classifier import FogIntensityClassifier
+from adam_dehaze_tpu_torch.models.classifier import (
+    DenseFeatureExtractor,
+    FogIntensityClassifier,
+)
 from adam_dehaze_tpu_torch.models.detection import FCOSDetector
 from adam_dehaze_tpu_torch.models.routing import (
     INTENSITY_ORDER,
@@ -55,6 +66,7 @@ from adam_dehaze_tpu_torch.models.routing import (
     HardRouter,
     SoftRouter,
 )
+from adam_dehaze_tpu_torch.nn import efficientnet, mobilenet
 from adam_dehaze_tpu_torch.nn.alexnet import AlexNetFeatures
 from adam_dehaze_tpu_torch.nn.blocks import (
     AttentionBlock,
@@ -62,7 +74,7 @@ from adam_dehaze_tpu_torch.nn.blocks import (
     ResidualBlock,
     UpBlock,
 )
-from adam_dehaze_tpu_torch.nn.resnet import Bottleneck
+from adam_dehaze_tpu_torch.nn.resnet import Bottleneck, ResNet
 from adam_dehaze_tpu_torch.nn.vgg import _STAGES as _VGG_STAGES
 from adam_dehaze_tpu_torch.nn.vgg import VGG16Features
 
@@ -237,6 +249,59 @@ def _branch_table(model: nn.Module) -> list:
             ("CB", "output_conv.1", "ConvBlock_6"),
             ("CONV", "output_conv.2", "Conv_1"),
         ]
+    if isinstance(model, LowIntensityUNet):
+        t = [("CB", "init_conv", "ConvBlock_0"), ("CB", "down1.0", "ConvBlock_1"),
+             ("RES", "down1.1", "ResidualBlock_0")]
+        t += [("RES", f"bottleneck.{i}", f"ResidualBlock_{i + 1}")
+              for i in range(model.n_blocks - 1)]
+        return t + [("UP", "up1", "UpBlock_0"), ("CB", "output_conv.0", "ConvBlock_2"),
+                    ("CB", "output_conv.1", "ConvBlock_3"), ("CONV", "output_conv.2", "Conv_0")]
+    if isinstance(model, COrunInspiredModel):
+        t = [("CB", "init_conv", "ConvBlock_0"), ("CB", "scale1_conv", "ConvBlock_1"),
+             ("CB", "scale2_conv.1", "ConvBlock_2"), ("CB", "scale3_conv.1", "ConvBlock_3"),
+             ("CB", "fusion_conv", "ConvBlock_4")]
+        t += [("RES", f"residual_blocks.{i}", f"ResidualBlock_{i}")
+              for i in range(model.n_blocks)]
+        return t + [("CB", "output_conv.0", "ConvBlock_5"), ("CONV", "output_conv.1", "Conv_0")]
+    if isinstance(model, DualBranchAttentionModel):
+        return [
+            ("CB", "global_branch.0", "ConvBlock_0"),
+            ("RES", "global_branch.2", "ResidualBlock_0"),
+            ("ATT", "global_branch.3", "AttentionBlock_0"),
+            ("RES", "global_branch.5", "ResidualBlock_1"),
+            ("ATT", "global_branch.6", "AttentionBlock_1"),
+            ("RES", "global_branch.7", "ResidualBlock_2"),
+            ("RES", "global_branch.9", "ResidualBlock_3"),
+            ("CB", "global_branch.11", "ConvBlock_1"),
+            ("CB", "local_branch.0", "ConvBlock_2"),
+            ("RES", "local_branch.1", "ResidualBlock_4"),
+            ("RES", "local_branch.2", "ResidualBlock_5"),
+            ("CB", "local_branch.3", "ConvBlock_3"),
+            ("CB", "transmission_branch.0", "ConvBlock_4"),
+            ("CB", "transmission_branch.1", "ConvBlock_5"),
+            ("CONV", "transmission_branch.2", "Conv_0"),
+            ("CB", "fusion_conv.0", "ConvBlock_6"),
+            ("CONV", "fusion_conv.1", "Conv_1"),
+        ]
+    if isinstance(model, EncoderDecoder):
+        # flax's call order: the stem, each encoder level's strided
+        # ConvBlock and ResidualBlocks, the bottleneck, each decoder level's
+        # ResidualBlocks, UpBlock and fusion ConvBlock, the output.
+        per, res = model.per, itertools.count()
+        t = [("CB", "init_conv", "ConvBlock_0")]
+        for lvl in range(3):
+            t.append(("CB", f"encoder.{lvl}.0", f"ConvBlock_{lvl + 1}"))
+            t += [("RES", f"encoder.{lvl}.{i + 1}", f"ResidualBlock_{next(res)}")
+                  for i in range(per)]
+        t += [("RES", f"bottleneck.{i}", f"ResidualBlock_{next(res)}") for i in range(2)]
+        if model.use_attention:
+            t.append(("ATT", "bottleneck.2", "AttentionBlock_0"))
+        for lvl in range(3):
+            t += [("RES", f"decoder.{lvl}.{i}", f"ResidualBlock_{next(res)}")
+                  for i in range(per)]
+            t += [("UP", f"decoder.{lvl}.{per}", f"UpBlock_{lvl}"),
+                  ("CB", f"fusion.{lvl}", f"ConvBlock_{lvl + 4}")]
+        return t + [("CB", "output_conv.0", "ConvBlock_7"), ("CONV", "output_conv.1", "Conv_0")]
     raise TypeError(f"no weight layout for {type(model).__name__}")
 
 
@@ -283,14 +348,71 @@ def _resnet(tp: str, resnet, fp: tuple, keys, out: List[Assign]) -> None:
             idx += 1
 
 
+# Port modules that flax builds as named submodules of their own.
+_FLAX_SUBMODULES = {mobilenet.InvertedResidual: "InvertedResidual",
+                    mobilenet.InvertedResidualV3: "InvertedResidualV3",
+                    mobilenet.SqueezeExcite: "SqueezeExcite",
+                    efficientnet.MBConv: "MBConv",
+                    efficientnet.SqueezeExcite: "SqueezeExcite"}
+
+
+def _call_order(module: nn.Module, tp: str, fp: tuple, out: List[Assign]) -> None:
+    """A MobileNet or EfficientNet (sub)module at torch prefix `tp` and flax
+    path `fp`. flax auto-names its convs, BNs and blocks in call order
+    (`Conv_i`, `BatchNorm_i`, `MBConv_i`, ...), which is the order in which
+    the port registers them; MobileNetV3's SE gate names its Dense layers
+    `fc1` and `fc2` (1x1 convs here)."""
+    counters = dict.fromkeys(("Conv", "BatchNorm", *_FLAX_SUBMODULES.values()), 0)
+
+    def walk(m: nn.Module, prefix: str) -> None:
+        for name, child in m.named_children():
+            cp = f"{prefix}.{name}"
+            if isinstance(child, mobilenet.SqueezeExcite):
+                sp = fp + (f"SqueezeExcite_{counters['SqueezeExcite']}",)
+                counters["SqueezeExcite"] += 1
+                for fc in ("fc1", "fc2"):
+                    out.extend([(f"{cp}.{fc}.weight", "params", sp + (fc, "kernel"),
+                                 _dense_as_1x1),
+                                (f"{cp}.{fc}.bias", "params", sp + (fc, "bias"), None)])
+            elif type(child) in _FLAX_SUBMODULES:
+                kind = _FLAX_SUBMODULES[type(child)]
+                _call_order(child, cp, fp + (f"{kind}_{counters[kind]}",), out)
+                counters[kind] += 1
+            elif isinstance(child, nn.Conv2d):
+                cf = fp + (f"Conv_{counters['Conv']}",)
+                counters["Conv"] += 1
+                out.append((f"{cp}.weight", "params", cf + ("kernel",), _conv))
+                if child.bias is not None:
+                    out.append((f"{cp}.bias", "params", cf + ("bias",), None))
+            elif isinstance(child, nn.BatchNorm2d):
+                _bn(cp, fp + (f"BatchNorm_{counters['BatchNorm']}",), out)
+                counters["BatchNorm"] += 1
+            else:
+                walk(child, cp)
+
+    walk(module, tp)
+
+
+# The flax name of a classifier backbone, by its port class.
+_BACKBONE_FLAX = {ResNet: "ResNet", mobilenet.MobileNetV2: "MobileNetV2",
+                  mobilenet.MobileNetV3: "MobileNetV3", efficientnet.EfficientNet: "EfficientNet"}
+
+
 def _assigns(module: nn.Module, variables) -> List[Assign]:
     keys = set(module.state_dict())
     out: List[Assign] = []
     if isinstance(module, (VGG16Features, AlexNetFeatures, LPIPS)):
         return _feature_net_assigns(module)
+    if isinstance(module, DenseFeatureExtractor):
+        _resnet("backbone", module.backbone, ("ResNet_0",), keys, out)
+        return out
     if isinstance(module, FogIntensityClassifier):
-        bb = next(k for k in variables["params"] if k.startswith("ResNet"))
-        _resnet("backbone", module.backbone, (bb,), keys, out)
+        kind = _BACKBONE_FLAX[type(module.backbone)]
+        bb = next(k for k in variables["params"] if k.startswith(f"{kind}_"))
+        if kind == "ResNet":
+            _resnet("backbone", module.backbone, (bb,), keys, out)
+        else:
+            _call_order(module.backbone, "backbone", (bb,), out)
         for ti, fi in ((1, 0), (4, 1)):
             out += [(f"classifier.{ti}.weight", "params", (f"Dense_{fi}", "kernel"),
                      _linear),

@@ -202,12 +202,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    every branch at half resolution, forced labels 0/1/2, on the card under
    the default, the tail-chain and the res-chain dispatch against the CPU
    at 1e-3.
-17. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
+17. The alternate branches and backbones, at the default config's widths,
+   256^2, batch 16, bf16, seeded weights (ALT_ROUTERS). First K2 alone at
+   the shapes these branches give it (dual_branch: c = 96 at 128^2 and
+   64^2; the high encoder_decoder: 768 channels at 32^2), against its plain
+   version at phase 3's bounds (its statistics pass at MAPS_ATOL), timed
+   beside its bound (launches not counted on any path). Then router A
+   (low unet c=32, medium corun c=64 x 6, high dual_branch c=96,
+   mobilenet_v3_small) and router B (default low, medium and high
+   encoder_decoder c=64 and c=96, efficientnet_b0) each behind an
+   AdaptiveDehazer: route_hard, forced labels 0/1/2 and soft, the counters
+   at 0 before them: outputs finite and in [0, 1], K2 launched once per
+   AttentionBlock of each high bucket (two in dual_branch, one in the high
+   encoder_decoder), K1 per low bucket of router B, K5 once per soft call.
+   Prints each router's warm ms/image (route_hard, forced labels, soft).
+   Last, fp32 with TF32 off: each alternate branch and each new backbone on
+   the card against the CPU at 1e-3 (2 images).
+18. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
    with "training", "classifier_training", "joint_training", "detection",
-   "cli" and "lowres"; K5's and K2''s Function readings under "function";
-   each lowres kernel's readings at 128^2 under "lowres"; the CLI's and the
-   dial's readings under "cli" and "lowres") and, last,
-   {"ok": true, "device": ...}.
+   "cli", "lowres" and "alternate"; K5's and K2''s Function readings under
+   "function"; each lowres kernel's readings at 128^2 under "lowres", K2's
+   at the alternate branches' shapes under "alternate"; the CLI's, the
+   dial's and the alternates' readings under "cli", "lowres" and
+   "alternate") and, last, {"ok": true, "device": ...}.
 """
 import collections
 import copy
@@ -696,13 +713,16 @@ def check_k1(dev, gen, size, tag=""):
                 PEAK_BF16_FLOPS))
 
 
-def check_k2(dev, gen, size, tag=""):
-    """K2 at every AttentionBlock shape of the high branch on size^2 images;
-    ms per high-branch call = the sum over its six blocks."""
+def check_k2(dev, gen, size, tag="", shapes=None, branch="high-branch"):
+    """K2 at every AttentionBlock shape of a high branch on size^2 images
+    (`shapes`: shape -> calls per branch call; the canonical high branch's
+    by default); ms per branch call = the sum over its blocks."""
+    shapes = shapes or k2_shapes(size)
+    blocks = sum(shapes.values())
     tot = dict(ms=0.0, plain_ms=0.0, kernel_only_ms=0.0, maps_ms=0.0, maps_plain_ms=0.0)
     k2_bytes = k2_flops = 0
-    errs, errs32, errs_maps, shapes = [], [], [], []
-    for shape, calls in k2_shapes(size).items():
+    errs, errs32, errs_maps, done = [], [], [], []
+    for shape, calls in shapes.items():
         x = torch.rand(shape, generator=gen).to(dev)
         g = torch.sigmoid(torch.randn(shape[0], shape[3], generator=gen)).to(dev)
         w = (torch.randn(7, 7, 2, 1, generator=gen) * 0.1).to(dev)
@@ -736,7 +756,7 @@ def check_k2(dev, gen, size, tag=""):
         tot["maps_plain_ms"] += calls * maps_plain
         errs.append(ebf)
         errs32.append(e32)
-        shapes.append(list(shape))
+        done.append(list(shape))
         tot["ms"] += calls * ms
         tot["plain_ms"] += calls * plain
         tot["kernel_only_ms"] += calls * kernel_only
@@ -745,12 +765,12 @@ def check_k2(dev, gen, size, tag=""):
         k2_bytes += calls * (2 * nbytes(xb) + nbytes(g, wb))
         k2_flops += calls * (4 * xb.numel() + conv_flops(xb.numel() // shape[3], 49, 2, 1))
         del x, ref, out, mean_p, max_p, xb
-    log(f"[{tag}K2 cbam_gate] per high-branch call (6 blocks): wrapper {tot['ms']:.3f} ms "
+    per = f"{branch} call ({blocks} blocks)"
+    log(f"[{tag}K2 cbam_gate] per {per}: wrapper {tot['ms']:.3f} ms "
         f"(statistics pass {tot['maps_ms']:.3f} ms, gate kernel {tot['kernel_only_ms']:.3f} "
         f"ms), plain {tot['plain_ms']:.3f} ms")
     return dict(max_abs_err=max(errs), max_abs_err_fp32=max(errs32),
-                max_abs_err_maps=max(errs_maps), shapes=shapes,
-                per="high-branch call (6 blocks)", library_ms=None,
+                max_abs_err_maps=max(errs_maps), shapes=done, per=per, library_ms=None,
                 **bound(k2_flops, k2_bytes, PEAK_F32_FLOPS), **tot)
 
 
@@ -2707,6 +2727,121 @@ def phase_lowres(dev, smi, exp, forced_caches, fp32_caches):
     return path, kernels, readings
 
 
+# Phase 17's two routers at the default config's widths: level -> (model_type,
+# channels, blocks), and the classifier's backbone. Router B keeps the
+# default low branch (K1).
+ALT_ROUTERS = {
+    "A": ({"low": ("unet", 32, 3), "medium": ("corun", 64, 6),
+           "high": ("dual_branch", 96, 9)}, "mobilenet_v3_small"),
+    "B": ({"medium": ("encoder_decoder", 64, 6), "high": ("encoder_decoder", 96, 9)},
+          "efficientnet_b0"),
+}
+# K2 in the alternate high branches at 256^2, batch 16: shape -> calls per
+# branch call. dual_branch: c = 96 at 128^2 and 64^2; encoder_decoder: 8c =
+# 768 at 32^2.
+ALT_K2_SHAPES = {
+    "dual_branch": {(BATCH, SIZE // 2, SIZE // 2, 96): 1, (BATCH, SIZE // 4, SIZE // 4, 96): 1},
+    "encoder_decoder": {(BATCH, SIZE // 8, SIZE // 8, 768): 1},
+}
+ALTERNATE_PATH_KERNELS = ("lightweight_chain", "cbam_gate", "blend3")
+
+
+def alternate_config(name, dtype="bfloat16"):
+    branches, backbone = ALT_ROUTERS[name]
+    cfg = load_config(overrides={"cuda": {"compute_dtype": dtype}})
+    for level, (model_type, channels, blocks) in branches.items():
+        cfg["dehazing"][level].update(model_type=model_type, channels=channels, blocks=blocks)
+    cfg["classifier"]["model"] = backbone
+    return cfg
+
+
+def forward_gflops(module, x):
+    """module(x) and the GFLOP per image of its convolutions, transposed
+    convolutions and linear layers, counted from their shapes by forward
+    hooks (a multiply-add is two operations)."""
+    total = [0]
+
+    def count(mod, inp, out):
+        if isinstance(mod, torch.nn.Linear):
+            total[0] += 2 * out.numel() * mod.in_features
+        elif isinstance(mod, torch.nn.ConvTranspose2d):   # weight (in, out, k, k)
+            total[0] += 2 * inp[0].numel() * mod.weight[0].numel()
+        else:                                             # weight (out, in / groups, k, k)
+            total[0] += 2 * out.numel() * mod.weight[0].numel()
+
+    hooks = [m.register_forward_hook(count) for m in module.modules()
+             if isinstance(m, (torch.nn.Conv2d, torch.nn.ConvTranspose2d, torch.nn.Linear))]
+    try:
+        out = module(x)
+    finally:
+        for h in hooks:
+            h.remove()
+    return out, total[0] / x.shape[0] / 1e9
+
+
+def phase_alternate(dev, smi, x, labels):
+    """17. The alternate branches and backbones (see the docstring): K2 at
+    their shapes, routers A and B through an AdaptiveDehazer with the
+    counters at 0, fp32 card vs CPU. Returns the path's launch counts, K2's
+    readings at the new shapes and the phase's readings."""
+    gen = torch.Generator().manual_seed(SEED + 8)
+    kernels = {branch: check_k2(dev, gen, SIZE, f"alternate {branch} ", shapes, branch)
+               for branch, shapes in ALT_K2_SHAPES.items()}
+    readings, path, routers = {}, collections.Counter(), {}
+    for name in ALT_ROUTERS:
+        cfg = alternate_config(name)
+        routers[name] = make_router(cfg, gen)
+        d = AdaptiveDehazer(copy.deepcopy(routers[name]), None, cfg, device=dev)
+        kinds = {lvl: type(m).__name__ for lvl, m in d.router.models.items()}
+        per_class = buckets_per_class(d.engine, labels)
+        outs, intensity, (hard, forced_d, soft_d), main = drive(d, x, labels, dev)
+        path.update(main)
+        log(f"[alternate {name}] {kinds}, classifier {cfg['classifier']['model']}: route_hard "
+            f"intensities {np.bincount(intensity, minlength=3).tolist()}; launches: route_hard "
+            f"{nonzero(hard)}, forced labels {nonzero(forced_d)}, soft {nonzero(soft_d)}")
+        for y, what in zip(outs, ("route_hard", "forced-label engine", "soft")):
+            check_images(y, BATCH, f"alternate {name} {what}")
+        k2 = sum(isinstance(m, AttentionBlock) for m in d.router.models["high"].modules())
+        k1 = K1_LAUNCHES[torch.bfloat16] if kinds["low"] == "LightweightDehazeModel" else 0
+        check(nonzero(forced_d) == nonzero({"lightweight_chain": k1 * per_class[0],
+                                            "cbam_gate": k2 * per_class[2]}),
+              f"alternate {name}, forced run: launches {forced_d} vs buckets {per_class}")
+        check(nonzero(soft_d) == nonzero({"lightweight_chain": k1, "cbam_gate": k2,
+                                          "blend3": 1}),
+              f"alternate {name}, soft run launches {soft_d}")
+        readings[name] = dict(branches=kinds, classifier=cfg["classifier"]["model"],
+                              ms_per_image=time_slice(d, x, labels, f"alternate {name}"))
+        del d
+    check(all(path[k] > 0 for k in ALTERNATE_PATH_KERNELS),
+          f"alternate: a kernel of the path never ran: {dict(path)}")
+    torch.cuda.empty_cache()
+
+    # fp32 with TF32 off: each alternate branch and each new backbone on the
+    # card against the CPU, the same weights, 2 images at 256^2.
+    xs = torch.from_numpy(x[:2])
+    errs, gflops = {}, {}
+    for name, router in routers.items():
+        branches, backbone = ALT_ROUTERS[name]
+        modules = {f"{lvl} {branches[lvl][0]}": router.models[lvl] for lvl in branches}
+        modules[backbone] = router.classifier
+        for what, module in modules.items():
+            module = module.eval()
+            with torch.inference_mode():
+                want, gflops[what] = forward_gflops(module, xs)
+                got = copy.deepcopy(module).to(dev)(xs.to(dev))
+            if isinstance(want, tuple):   # the classifier: logits, features
+                errs[what] = max(max_err(a.cpu(), b) for a, b in zip(got, want))
+            else:
+                errs[what] = max_err(got.cpu(), want)
+            log(f"[alternate vs plain] fp32, {SIZE}^2, {what} ({gflops[what]:.2f} GFLOP/image): "
+                f"max abs err card vs CPU {errs[what]:.3e} (bound {SLICE_ATOL})")
+            check(errs[what] <= SLICE_ATOL, f"alternate: the card's fp32 {what} disagrees "
+                  "with the CPU")
+    readings.update(fp32_card_vs_cpu=errs, gflop_per_image=gflops)
+    log(f"[alternate] {smi}")
+    return dict(path), kernels, readings
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
@@ -2762,6 +2897,7 @@ def main():
         cli_path, cli_readings, exp = timed("cli", phase_cli, dev, smi, tmp)
         lowres_path, lowres_kernels, lowres_readings = timed(
             "lowres", phase_lowres, dev, smi, exp, (tail_cache, res_cache), fp32_caches)
+    alt_path, alt_k2, alt_readings = timed("alternate", phase_alternate, dev, smi, x, labels)
     for name in ("route_hard", "forced_labels", "soft"):
         log(f"[slices] {name}: default dispatch {default_ms[name]:.3f} ms/image, "
             f"tail-chain dispatch {tail_ms[name]:.3f} ms/image, res-chain dispatch "
@@ -2771,13 +2907,14 @@ def main():
     paths = {"default": default, "engines": engines, "tail_chain": tail, "res_chain": res,
              "probe_tool": probes, "training": training, "classifier_training": classifier,
              "joint_training": joint, "detection": detection, "cli": cli_path,
-             "lowres": lowres_path}
+             "lowres": lowres_path, "alternate": alt_path}
     kernels["cbam_gate"].update(training_forward_ms_per_step=k2_train["forward_ms"],
                                 training_backward_ms_per_step=k2_train["backward_ms"])
     for name, rec in grad_fns.items():
         kernels[name].update(function=rec)
     for name, rec in lowres_kernels.items():
         kernels[name].update(lowres=rec)
+    kernels["cbam_gate"].update(alternate=alt_k2)
     line = {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
          "launches": sum(path[name] for path in paths.values()),
@@ -2793,6 +2930,7 @@ def main():
                      "fp32_step_card_vs_cpu": step_errs, "classifier": cls_readings,
                      "joint": joint_readings},
         "detection": det_readings, "cli": cli_readings, "lowres": lowres_readings,
+        "alternate": alt_readings,
         "phase_seconds": seconds}
     check(all(k["launches"] > 0 for k in line["kernels"]),
           f"a kernel was launched no time on any path: {line['kernels']}")

@@ -211,7 +211,11 @@ def test_k1_takes_a_strided_input(cuda_device):
 
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, FP32_ATOL),
                                         (torch.bfloat16, BF16_ATOL)])
-@pytest.mark.parametrize("shape", [(2, 13, 24, 96), (1, 5, 300, 8)])
+@pytest.mark.parametrize("shape", [(2, 13, 24, 96), (1, 5, 300, 8),
+                                   # the alternate high branches at 256^2:
+                                   # dual_branch's two blocks, encoder_decoder's
+                                   (16, 128, 128, 96), (16, 64, 64, 96),
+                                   (16, 32, 32, 768)])
 def test_k2_kernel_matches_plain(cuda_device, dtype, atol, shape):
     gen = torch.Generator().manual_seed(6)
     x = torch.rand(shape, generator=gen)
@@ -246,12 +250,12 @@ def test_k2prime_kernel_matches_plain(cuda_device, dtype, atol, shape):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("gated", [True, False], ids=["k2", "k2prime"])
 @pytest.mark.parametrize("shape", [(2, 13, 24, 96), (2, 9, 11, 192), (1, 7, 5, 384),
-                                   (1, 5, 300, 8), (2, 6, 10, 40)])
+                                   (1, 5, 300, 8), (2, 6, 10, 40), (2, 9, 11, 768)])
 def test_gated_maps_match_padded_stats(cuda_device, dtype, gated, shape):
     """The statistics pass against its plain version on the same input (a
     bf16 input is reduced in f32 on both sides): f32 sums in another order,
-    1e-5. The channel counts give sub-groups of 4, 8, 16 and 1 lanes a
-    pixel, and 5 vectors a lane at C = 40."""
+    1e-5. The channel counts give sub-groups of 4, 8, 16, 1 and 32 lanes a
+    pixel, and 5 vectors a lane at C = 40, 3 at C = 768."""
     gen = torch.Generator().manual_seed(12)
     x = (torch.randn(shape, generator=gen)).to(cuda_device, dtype)
     g = torch.rand(shape[0], shape[3], generator=gen).to(cuda_device) if gated else None
@@ -1220,3 +1224,45 @@ def test_guided_upsample_on_card_matches_cpu(cuda_device, radius):
     cpu_err = float((cpu.double() - ref).abs().max())
     card_err = float((card.double() - ref).abs().max())
     assert card_err <= max(FP32_ATOL, 4 * cpu_err), (card_err, cpu_err)
+
+
+# The alternate branches (model_type -> level) and the new backbones.
+ALT_BRANCHES = {"unet": "low", "corun": "medium", "dual_branch": "high",
+                "encoder_decoder": "high"}
+NEW_BACKBONES = ("mobilenet_v2", "mobilenet_v3_small", "mobilenet_v3_large", "efficientnet_b0")
+
+
+@pytest.mark.parametrize("model_type", sorted(ALT_BRANCHES))
+def test_alternate_branch_on_card_matches_cpu(cuda_device, model_type):
+    """An alternate branch at small widths, eval, fp32 (TF32 off) on the
+    card against the CPU at 1e-4; the high ones run K2 once an
+    AttentionBlock (dual_branch two, encoder_decoder one at 8c)."""
+    from adam_dehaze_tpu_torch.config import load_config
+    from adam_dehaze_tpu_torch.models import branches
+    level = ALT_BRANCHES[model_type]
+    cfg = load_config()
+    cfg["dehazing"][level].update(model_type=model_type, channels=16, blocks=3)
+    model = _seeded(getattr(branches, f"create_{level}_intensity_model")(cfg), 71)
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(72))
+    want = model(x)
+    before = channel_spatial_gate.launches
+    with torch.inference_mode():
+        got = copy.deepcopy(model).to(cuda_device)(x.to(cuda_device)).cpu()
+    attention = sum(isinstance(m, branches.AttentionBlock) for m in model.modules())
+    assert channel_spatial_gate.launches - before == attention
+    assert attention == {"dual_branch": 2, "encoder_decoder": 1}.get(model_type, 0)
+    torch.testing.assert_close(got, want.detach(), rtol=0, atol=FP32_ATOL)
+
+
+@pytest.mark.parametrize("name", NEW_BACKBONES)
+def test_new_backbone_on_card_matches_cpu(cuda_device, name):
+    """A MobileNet or EfficientNet classifier, eval, fp32 (TF32 off): logits
+    and features on the card against the CPU at 1e-4."""
+    from adam_dehaze_tpu_torch.models.classifier import FogIntensityClassifier
+    model = _seeded(FogIntensityClassifier(name), 73)
+    x = torch.rand(2, 64, 64, 3, generator=torch.Generator().manual_seed(74))
+    with torch.inference_mode():
+        want = model(x)
+        got = copy.deepcopy(model).to(cuda_device)(x.to(cuda_device))
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=FP32_ATOL)

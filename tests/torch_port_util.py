@@ -258,3 +258,31 @@ def one_torch_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def seeded_variables(init, seed):
+    """flax variables on the shapes of `init()` (a flax init, traced by
+    jax.eval_shape and never compiled: flax's own init runs op by op for
+    seconds), drawn with numpy from `seed`: kernels lecun-normal, BN scales
+    and variances in [0.8, 1.3], every other leaf (biases, BN shifts and
+    means, the CBAM stencil) in [-0.1, 0.1]."""
+    shapes = jax.eval_shape(init)
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name = path[-1].key
+        if name == "kernel":
+            fan_in = int(np.prod(leaf.shape[:-1]))
+            return rng.normal(0, fan_in ** -0.5, leaf.shape).astype(np.float32)
+        if name in ("scale", "var"):
+            return rng.uniform(0.8, 1.3, leaf.shape).astype(np.float32)
+        return rng.uniform(-0.1, 0.1, leaf.shape).astype(np.float32)
+
+    return {c: jax.tree_util.tree_map_with_path(draw, dict(t)) for c, t in shapes.items()}
+
+
+def zeros_like_variables(init):
+    """flax variables of the shapes of `init()`, all zero (a converter's
+    template)."""
+    return jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype),
+                                  dict(jax.eval_shape(init)))
