@@ -5,17 +5,18 @@ defaults and choices:
 
   python3 main_torch.py --mode {preprocess, train_classifier, train_dehazing,
                                 train_joint, train_all, train_detection,
-                                evaluate, demo, serve}
+                                evaluate, demo, serve, export}
        [--config PATH] [--exp_name NAME] [--data_dir DIR] [--device DEV]
        [--resume] [--seed N] [--batch_size N] [--experiment_dir DIR]
        [--serve_mode soft|hard|spill|spill_up|stream|queued|device]
        [--queue_bucket N] [--max_wait_batches W] [--out DIR] [--detect]
-       [--lowres high[,medium] | auto]
+       [--lowres high[,medium] | auto] [--precompiled DIR | auto]
 
 Everything runs on the card (the config's `device`, "cuda" by default);
 `--device cpu` runs on the CPU. Without a card and without `--device cpu`
-the command stops at once. `--mode export`, `--mode bench` and
-`--precompiled` are parsed, for the JAX package's surface, and stop with a
+the command stops at once. `--mode export` writes a precompiled serving
+bundle (serving_export.py) and `serve --precompiled` serves through one.
+`--mode bench` is parsed, for the JAX package's surface, and stops with a
 message that names what the port lacks.
 """
 from __future__ import annotations
@@ -47,12 +48,11 @@ SERVE_MODES = ("soft", "hard", "spill", "spill_up", "stream", "queued",
 
 # What the port does not have yet, by the option that asks for it.
 NOT_PORTED = {
-    "export": "--mode export is not ported yet: the PyTorch port has no precompiled "
-              "serving bundle (the JAX package's serving_export.py)",
     "bench": "--mode bench is not ported yet: the PyTorch port has no benchmark script "
              "(bench.py times the JAX package only)",
-    "precompiled": "--precompiled is not ported yet: the PyTorch port has no "
-                   "precompiled serving bundle (the JAX package's serving_export.py)",
+    "serving_quant": "cuda.serving_quant is not ported yet: the PyTorch port has no "
+                     "quantized serving (the JAX package's ops/quant.py); unset it to "
+                     "serve in cuda.compute_dtype",
 }
 
 
@@ -85,8 +85,9 @@ def parse_args(argv=None):
                    help="serve: run the trained detector on the dehazed outputs "
                         "and write detections.json (boxes/scores/labels per image)")
     p.add_argument("--precompiled", type=str, default=None,
-                   help="the JAX package's precompiled XLA bundles: not ported "
-                        "(any value stops with a message)")
+                   help="serve: precompiled serving bundle dir, or 'auto' "
+                        "for <experiment_dir>/precompiled; export: output "
+                        "dir (default <experiment_dir>/precompiled)")
     p.add_argument("--lowres", type=str, default="",
                    help="serve hard/spill/stream: comma-separated branch "
                         "levels (low,medium,high) to run at half resolution "
@@ -96,20 +97,10 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def _not_ported(args):
-    """The message for what args ask of the JAX package alone, or None."""
-    if args.mode in ("export", "bench"):
-        return NOT_PORTED[args.mode]
-    if args.precompiled is not None:
-        return NOT_PORTED["precompiled"]
-    return None
-
-
 def main(argv=None):
     args = parse_args(argv)
-    missing = _not_ported(args)
-    if missing:
-        raise SystemExit(missing)
+    if args.mode == "bench":
+        raise SystemExit(NOT_PORTED["bench"])
     cfg_path = args.config
     if cfg_path is None and args.experiment_dir:
         # An existing experiment without --config: its own config, whose
@@ -185,6 +176,9 @@ def main(argv=None):
 
     elif args.mode == "serve":
         run_serve(config, exp_dir, args, device=device)
+
+    elif args.mode == "export":
+        run_export(config, exp_dir, args, device=device)
 
     print(f"All tasks completed successfully! Results are available in: {exp_dir}")
 
@@ -278,10 +272,12 @@ def run_serve(config, exp_dir: str, args, device="cuda"):
       python3 main_torch.py --mode serve --experiment_dir experiments/X \\
           [--data_dir DIR] [--serve_mode hard|spill|spill_up|stream|queued|device|soft]
           [--queue_bucket N] [--max_wait_batches W] [--out DIR] [--detect]
-          [--lowres high[,medium] | auto]
+          [--lowres high[,medium] | auto] [--precompiled DIR | auto]
 
     --lowres serves the named branches at half resolution (hard, spill,
     spill_up and stream only); "auto" reads <exp_dir>/resolution_policy.json.
+    --precompiled serves through a bundle of `--mode export` ("auto":
+    <exp_dir>/precompiled when it exists).
     """
     from adam_dehaze_tpu_torch.data.dataset import _imread_rgb
     from adam_dehaze_tpu_torch.data.preprocessing import _write_rgb
@@ -299,7 +295,8 @@ def run_serve(config, exp_dir: str, args, device="cuda"):
     out_dir = args.out or os.path.join(exp_dir, "served")
     os.makedirs(out_dir, exist_ok=True)
     dehazer = AdaptiveDehazer(_load_joint(config, device), None, config, device=device,
-                              resolution_policy=os.path.join(exp_dir, "resolution_policy.json"))
+                              resolution_policy=os.path.join(exp_dir, "resolution_policy.json"),
+                              precompiled=_resolve_bundle(args, exp_dir))
 
     def batches():
         for i in range(0, len(files), batch):
@@ -353,6 +350,37 @@ def run_serve(config, exp_dir: str, args, device="cuda"):
         hist[v["branch"]] = hist.get(v["branch"], 0) + 1
     print(f"Served {len(results)} images via '{mode}' -> {out_dir} "
           f"(routing: {hist if hist else 'soft blend'})")
+
+
+def _resolve_bundle(args, exp_dir: str):
+    """--precompiled PATH|auto -> the bundle directory (None when absent)."""
+    if args.precompiled == "auto":
+        cand = os.path.join(exp_dir, "precompiled")
+        return cand if os.path.isdir(cand) else None
+    return args.precompiled
+
+
+def run_export(config, exp_dir: str, args, device="cuda"):
+    """Write a precompiled serving bundle of the experiment
+    (serving_export.py), at the config's batch size:
+
+      python3 main_torch.py --mode export --experiment_dir experiments/X \\
+          [--precompiled OUTDIR] [--batch_size N] [--queue_bucket B]
+
+    Afterwards `--mode serve --precompiled auto` (or
+    `AdaptiveDehazer.from_experiment(..., precompiled=...)`) serves through
+    the bundle: CUDA graphs on the card and no nvcc."""
+    from adam_dehaze_tpu_torch.evaluation.evaluate import _load_joint
+    from adam_dehaze_tpu_torch.serving import AdaptiveDehazer
+
+    out = (args.precompiled if args.precompiled not in (None, "auto")
+           else os.path.join(exp_dir, "precompiled"))
+    dehazer = AdaptiveDehazer(_load_joint(config, device), None, config, device=device)
+    batch = config["dataset"]["batch_size"]
+    written = dehazer.export_precompiled(
+        out, batch_sizes=(batch,), queue_buckets=(args.queue_bucket,),
+        device_buckets=(16, batch), progress=lambda m: print(f"  {m}"))
+    print(f"Exported {len(written)} serving programs -> {out}")
 
 
 def parse_lowres(value: str):

@@ -15,10 +15,13 @@ Counterparts of adam_dehaze_tpu/models/routing.py:
   pure Python, as in the JAX package.
 - `BinnedAdaptiveEngine`: classify, bin images by class on the host, pad
   each bin to planned bucket sizes, run one branch per bucket, scatter back.
-  A bucket step is `index_select` -> branch -> `index_copy_` into a
-  preallocated output; `set_chunk_costs` feeds the planner measured
+  A bucket step (`bucket_step`) is `index_select` -> branch -> `index_copy_`
+  into a preallocated output; `set_chunk_costs` feeds the planner measured
   costs. `run_stream` pipelines the classifier over a stream of batches,
-  `run_queued` queues images per class across batches.
+  `run_queued` queues images per class across batches. The engine's
+  programs, as the JAX engine's, are attributes a precompiled bundle
+  replaces (serving_export.py:attach_engine): `_classify`, `_logits`, each
+  class's `_bucket_steps[c]` and `branch_applies[c]`.
 - `make_device_binned_infer`: the binning on the device (stable argsort by
   class, chunk-aligned segments), with `_device_capacity_labels` for the
   capacity spill; `make_sharded_binned_infer` runs it on one shard per
@@ -237,6 +240,17 @@ class _HostRead:
         return self._host.numpy()
 
 
+def bucket_step(branch: Callable) -> Callable:
+    """One bucket of a branch, the JAX engine's fused step: step(x, idx,
+    out) runs `branch` on the rows idx[0] of x and copies its output into
+    the rows idx[1] of out (in place), returning out. Static shapes: x (N,
+    H, W, 3), idx (2, b) int64, out (N + 1, H, W, 3)."""
+    def step(x: torch.Tensor, idx: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+        y = branch(x.index_select(0, idx[0]))
+        return out.index_copy_(0, idx[1], y.to(out.dtype))
+    return step
+
+
 class BinnedAdaptiveEngine:
     """Host-binned hard routing: each image pays only its own branch.
 
@@ -260,6 +274,12 @@ class BinnedAdaptiveEngine:
             program_overhead_rows = [float(program_overhead_rows)] * len(
                 self.branch_applies)
         self.program_overhead_rows = [float(v) for v in program_overhead_rows]
+        # Each step calls its branch through branch_applies, so that a
+        # branch put there later serves the steps too.
+        self._bucket_steps = [bucket_step(lambda x, c=c: self.branch_applies[c](x))
+                              for c in range(len(self.branch_applies))]
+        self._classify = lambda x: torch.argmax(self.classifier_apply(x)[0], dim=1)
+        self._logits = lambda x: self.classifier_apply(x)[0]
 
     def _bucket(self, n: int) -> int:
         return bucket_for(n, self.buckets)
@@ -326,35 +346,36 @@ class BinnedAdaptiveEngine:
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         """The classifier's logits of x, on the device."""
-        return self.classifier_apply(x)[0]
+        return self._logits(x)
 
     def dispatch(self, x: torch.Tensor, intensity: np.ndarray) -> torch.Tensor:
         """Serve one batch with the given labels (numpy, on the host): each
         image through its label's branch, in the planned buckets. The
-        padded indices of every bucket go up in one copy."""
-        buckets, index = [], []   # (class, real rows, bucket size)
+        (source, destination) rows of every bucket go up in one copy; a pad
+        slot repeats the bucket's last image and writes the trash row N of
+        an (N + 1, ...) output."""
+        n = x.shape[0]
+        buckets, index = [], []   # (class, bucket size); (2, size) rows
         for cls in range(len(self.branch_applies)):
             idxs = np.nonzero(intensity == cls)[0]
             pos = 0
             for b in plan_chunks(int(idxs.size), self.buckets,
                                  self.program_overhead_rows[cls]):
                 chunk = idxs[pos:pos + b]
-                index.append(np.concatenate(
-                    [chunk, np.repeat(chunk[-1:], b - chunk.size)]))
-                buckets.append((cls, chunk.size, b))
+                pad = b - chunk.size
+                index.append(np.stack([
+                    np.concatenate([chunk, np.repeat(chunk[-1:], pad)]),
+                    np.concatenate([chunk, np.full(pad, n, chunk.dtype)])]))
+                buckets.append((cls, b))
                 pos += chunk.size
-        out = torch.zeros_like(x)
-        if not buckets:
-            return out
-        index = _upload(np.concatenate(index), x.device)
-        start = 0
-        for cls, rows, b in buckets:
-            idx = index[start:start + b]
-            y = self.branch_applies[cls](x.index_select(0, idx))
-            # Only the real rows: pad rows duplicate an index.
-            out.index_copy_(0, idx[:rows], y[:rows].to(out.dtype))
-            start += b
-        return out
+        out = x.new_zeros((n + 1,) + tuple(x.shape[1:]))
+        if buckets:
+            index = _upload(np.concatenate(index, axis=1), x.device)
+            start = 0
+            for cls, b in buckets:
+                out = self._bucket_steps[cls](x, index[:, start:start + b], out)
+                start += b
+        return out[:n]
 
     def __call__(self, x: torch.Tensor, intensity=None, spill=False):
         """x: (N, H, W, 3) on the serving device. intensity: optional labels
@@ -363,17 +384,17 @@ class BinnedAdaptiveEngine:
         neighbouring branch (`plan_capacity_spill`); spill="up" only moves
         overflow to stronger branches. Returns (dehazed, the classifier's
         labels or the given ones as numpy)."""
-        logits = self.logits(x)
         # As in the JAX engine, spill ranks by logits only for predicted
         # labels; given labels spill without them.
-        spill_logits = None
+        logits = self._logits(x) if spill and intensity is None else None
         if intensity is None:
-            intensity = torch.argmax(logits, dim=1).cpu().numpy()
-            if spill:
-                spill_logits = logits.cpu().numpy()
+            pred = torch.argmax(logits, dim=1) if logits is not None else self._classify(x)
+            intensity = pred.cpu().numpy()
         else:
+            self._classify(x)
             intensity = np.asarray(intensity)
-        serve = (self.plan_capacity_spill(intensity, spill_logits,
+        serve = (self.plan_capacity_spill(intensity,
+                                          None if logits is None else logits.cpu().numpy(),
                                           up_only=(spill == "up"))
                  if spill else intensity)
         return self.dispatch(x, serve), intensity
@@ -382,9 +403,8 @@ class BinnedAdaptiveEngine:
         """Enqueue the classifier on x and the copy of its argmax to the
         host; with labels given (the classifier still runs, for the same
         serving cost) the read holds those instead."""
-        logits, _ = self.classifier_apply(x)
-        return _HostRead(torch.argmax(logits, dim=1) if given is None
-                         else torch.from_numpy(np.asarray(given)))
+        pred = self._classify(x)
+        return _HostRead(pred if given is None else torch.from_numpy(np.asarray(given)))
 
     def run_stream(self, batches, intensities=None, spill=False):
         """Steady-state serving over a stream of batches (tensors on the
@@ -609,8 +629,20 @@ class DeviceBinnedInfer:
         self.branch_applies = list(branch_applies)
         self.chunk = chunk
         self.spill = spill
+        # The binning of predicted labels, x -> (intensity, logits, src,
+        # dst, chunk classes): a program a precompiled bundle replaces.
+        self.bin_program = self.bin_arrays
 
     def bin(self, x: torch.Tensor, intensity=None) -> _Binning:
+        """Enqueue the binning of x and the copy of its chunk classes to
+        the host (see the class's docstring)."""
+        arrays = self.bin_program(x) if intensity is None else self.bin_arrays(x, intensity)
+        intensity, logits, src, dst, chunk_cls = arrays
+        return _Binning(x, intensity, logits, src, dst, _HostRead(chunk_cls))
+
+    def bin_arrays(self, x: torch.Tensor, intensity=None):
+        """The binning on the device, in fixed shapes and without a read:
+        (intensity, logits, src (K, b), dst (K, b), chunk classes (K,))."""
         n_cls = len(self.branch_applies)
         n = x.shape[0]
         b = min(self.chunk, n)
@@ -645,8 +677,7 @@ class DeviceBinnedInfer:
         src = torch.where(valid, order.index_select(0, pick), 0)
         dst = torch.where(valid, src, n)               # n: the trash row
         chunk_cls = cls_of_slot.view(k_chunks, b)[:, 0].contiguous()
-        return _Binning(x, intensity, logits, src.view(k_chunks, b),
-                        dst.view(k_chunks, b), _HostRead(chunk_cls))
+        return intensity, logits, src.view(k_chunks, b), dst.view(k_chunks, b), chunk_cls
 
     def serve(self, binning: _Binning):
         """Wait for the chunk classes, launch every chunk's branch, and

@@ -3,8 +3,11 @@
 Every module holds a wrapper that launches its kernel on a CUDA tensor (or
 raises), the plain PyTorch version of the same function (`*_reference`),
 which the wrapper takes for a CPU tensor, and a launch counter on the
-wrapper (`wrapper.launches`, one per kernel launch).
+wrapper (`wrapper.launches`, one per kernel launch). A CUDA graph replays
+its kernels without passing through their wrappers: `captured_launches`
+reads what a capture enqueued, and the replay adds it (serving_export.py).
 """
+from contextlib import contextmanager
 
 
 def launch_counters() -> dict:
@@ -37,3 +40,27 @@ def reset_launch_counts() -> None:
     """Set every kernel's launch counter to 0."""
     for fn in launch_counters().values():
         fn.launches = 0
+
+
+@contextmanager
+def captured_launches():
+    """Around a CUDA graph capture: yields a list that is filled, on exit,
+    with (wrapper, launches) for every kernel the capture enqueued, and
+    sets the counters back, since a capture runs nothing. Each replay of
+    the graph adds those launches (`add_launches`)."""
+    counters = launch_counters()
+    before = {name: fn.launches for name, fn in counters.items()}
+    captured = []
+    try:
+        yield captured
+    finally:
+        for name, fn in counters.items():
+            if fn.launches > before[name]:
+                captured.append((fn, fn.launches - before[name]))
+            fn.launches = before[name]
+
+
+def add_launches(captured) -> None:
+    """Count the launches of one replay of a captured graph."""
+    for fn, n in captured:
+        fn.launches += n

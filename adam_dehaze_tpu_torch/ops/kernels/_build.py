@@ -14,6 +14,10 @@ its kernel on that stream (PyTorch's current stream) and returns
 `cudaGetLastError()`; `check()` raises on anything but 0. A failed build
 raises with the compiler's own message. Nothing here falls back to plain
 PyTorch.
+
+A precompiled serving bundle (serving_export.py) carries a copy of the
+library; `use_prebuilt` points `library()` at it when its source hash is
+this checkout's, and then no `nvcc` runs.
 """
 from __future__ import annotations
 
@@ -156,10 +160,32 @@ def build() -> tuple:
     return lib, seconds, text
 
 
+# A built library of these sources to load in place of a build.
+_prebuilt = None
+
+
+def use_prebuilt(path, source_hash: str) -> None:
+    """Have `library()` load the library at `path` (a bundle's copy) in
+    place of a build. Raises ValueError unless `source_hash` is this
+    checkout's: a library of other sources is never loaded. No effect once
+    the library is loaded: it was built from the same sources."""
+    global _prebuilt
+    if source_hash != _source_hash():
+        raise ValueError(f"kernel library {path} was built from sources {source_hash}, "
+                         f"this checkout's are {_source_hash()}")
+    _prebuilt = Path(path)
+
+
+def library_path() -> Path:
+    """The library `library()` loads: the prebuilt one of `use_prebuilt`,
+    else this checkout's build (built here if there is none yet)."""
+    return _prebuilt if _prebuilt is not None else build()[0]
+
+
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use (one per process)."""
-    path, _, _ = build()
+    """The loaded kernel library, one per process (`library_path`)."""
+    path = library_path()
     lib = ctypes.CDLL(str(path))
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)

@@ -45,13 +45,28 @@ dial has an engine of its own, over the same serving applies.
 Images go in and come out as numpy NHWC float32 in [0, 1] (`route_hard_queued`
 yields device tensors, as the JAX route yields device arrays). Everything
 runs in eval mode, under torch.inference_mode, in the config's
-`cuda.compute_dtype`. The JAX package's precompiled XLA bundles
-(`precompiled=`, `export_precompiled`) have no counterpart here.
+`cuda.compute_dtype`. A config with `cuda.serving_quant` set (the JAX
+package's int8 serving) is refused: the port has no quantized serving yet.
+
+Precompiled serving (serving_export.py), as in the JAX package:
+
+    d.export_precompiled("experiments/x/precompiled")
+    d2 = AdaptiveDehazer.from_experiment("experiments/x", precompiled="auto")
+
+`export_precompiled` writes the bundle of the full-resolution binned
+engine's programs (classify, logits, each class's bucket step over the
+bucket ladder, each branch at the queue buckets) and of the device-binned
+engine's (its binning, its chunks' branch calls). A dehazer given a bundle
+attaches it to those engines as they are built, never to a half-resolution
+one; on the card each program is a CUDA graph captured at attach. A bundle
+exported under another quant mode or autotune setting, or on another
+runtime, is refused with a warning and serving goes on eagerly.
 """
 from __future__ import annotations
 
 import copy
 import os
+import warnings
 from collections import deque
 from typing import Callable, Dict, Optional, Tuple
 
@@ -62,6 +77,7 @@ from adam_dehaze_tpu_torch.config import compute_dtype, load_config, update_chec
 from adam_dehaze_tpu_torch.models.routing import (
     INTENSITY_ORDER,
     BinnedAdaptiveEngine,
+    DeviceBinnedInfer,
     _HostRead,
     bucket_for,
     make_adaptive_infer,
@@ -87,7 +103,10 @@ class AdaptiveDehazer:
     JSON file that keeps the winners between processes), and feed the
     winners' times to the full-resolution engine's chunk planner.
     resolution_policy: the tuned policy file that lowres="auto" reads;
-    lowres: the default dial of route_hard and route_hard_stream."""
+    lowres: the default dial of route_hard and route_hard_stream.
+    precompiled: a bundle directory written by `export_precompiled`, whose
+    programs back the full-resolution binned engine and the device-binned
+    engines (see the module's docstring)."""
 
     # What one more bucket of each branch costs, in ms: the part of a branch
     # call that does not grow with its rows (mostly the host's enqueue of
@@ -102,12 +121,24 @@ class AdaptiveDehazer:
 
     def __init__(self, router, variables, config, device="cuda",
                  autotune: bool = False, autotune_cache: Optional[str] = None,
-                 resolution_policy: Optional[str] = None, lowres=()):
+                 resolution_policy: Optional[str] = None, lowres=(),
+                 precompiled: Optional[str] = None):
+        if config.get("cuda", {}).get("serving_quant"):
+            from adam_dehaze_tpu_torch.cli import NOT_PORTED
+            raise NotImplementedError(NOT_PORTED["serving_quant"])
         if variables is not None:
             load_flax_variables(router, variables)
         self.device = torch.device(device)
-        self.router = router.to(self.device).eval()
         self.config = config
+        self._autotune = autotune
+        # The bundle's programs (serving_export.py), attached to the engines
+        # as they are built; their dispatchers by program name, and the pool
+        # their graphs share. Loaded first: on the card it points the kernel
+        # library at the bundle's copy.
+        self._bundle_table = self._load_bundle(precompiled) if precompiled else None
+        self._dispatches: Dict[str, Callable] = {}
+        self._graph_pool = None
+        self.router = router.to(self.device).eval()
         self.dtype = compute_dtype(config)
         self._serving = make_router_serving_apply(self.router, self.dtype)
         self._engines: Dict[str, Callable] = {}
@@ -129,15 +160,11 @@ class AdaptiveDehazer:
         autotune cache `serving_autotune.json` and the resolution policy
         `resolution_policy.json` in it. lowres="auto" makes the tuned policy
         the default dial of route_hard and route_hard_stream. precompiled:
-        the JAX package's XLA bundles have no counterpart in the port; any
-        bundle (or "auto" when `<experiment_dir>/precompiled` exists) stops
-        with a message."""
+        a bundle written by `export_precompiled`, or "auto" for
+        `<experiment_dir>/precompiled` when it exists."""
         if precompiled == "auto":
             cand = os.path.join(experiment_dir, "precompiled")
             precompiled = cand if os.path.isdir(cand) else None
-        if precompiled is not None:
-            from adam_dehaze_tpu_torch.cli import NOT_PORTED
-            raise NotImplementedError(NOT_PORTED["precompiled"])
         cfg_file = config_path or os.path.join(experiment_dir, "config.yaml")
         config = load_config(cfg_file if os.path.exists(cfg_file) else None)
         config = update_checkpoint_paths(config, experiment_dir)
@@ -146,7 +173,41 @@ class AdaptiveDehazer:
                    autotune=autotune,
                    autotune_cache=os.path.join(experiment_dir, "serving_autotune.json"),
                    resolution_policy=os.path.join(experiment_dir, "resolution_policy.json"),
-                   lowres=lowres)
+                   lowres=lowres, precompiled=precompiled)
+
+    def _load_bundle(self, bundle_dir: str):
+        """The bundle's programs, or None (with a warning) for a bundle of
+        another quant mode, autotune setting or runtime: the JAX package's
+        refusal rules. (A config with serving_quant was refused before.)"""
+        from adam_dehaze_tpu_torch.serving_export import load_bundle_programs, read_manifest
+        extra = (read_manifest(bundle_dir) or {}).get("extra", {})
+        try:
+            if extra.get("quant") is not None:
+                raise ValueError(f"bundle quant={extra['quant']!r} != config quant=None "
+                                 "(results would differ)")
+            if bool(extra.get("autotune", False)) != bool(self._autotune):
+                raise ValueError(f"bundle autotune={extra.get('autotune')!r} != requested "
+                                 f"autotune={self._autotune!r} (the tuned dispatch may "
+                                 "differ from the exported programs)")
+            return load_bundle_programs(bundle_dir, self.device)
+        except (ValueError, OSError) as e:
+            warnings.warn(f"ignoring precompiled bundle {bundle_dir}: {e}")
+            return None
+
+    def _attach(self, engine) -> None:
+        """Back `engine`'s programs by the bundle's (attach_engine), each
+        program bound to the serving module it runs."""
+        from adam_dehaze_tpu_torch.serving_export import GraphPool, attach_engine
+        clf = (self._serving.classifier,)
+        binds = {"classify": clf, "logits": clf}
+        for i, lvl in enumerate(INTENSITY_ORDER):
+            binds[f"step{i}"] = binds[f"branch{i}"] = (self._serving.models[lvl],)
+        if isinstance(engine, DeviceBinnedInfer):
+            binds[f"device{engine.chunk}_{int(engine.spill)}"] = clf
+        if self._graph_pool is None and self.device.type == "cuda":
+            self._graph_pool = GraphPool(self.device)
+        attach_engine(engine, self._bundle_table, binds, device=self.device,
+                      pool=self._graph_pool, shared=self._dispatches)
 
     def _tuned_applies(self, cache_path: Optional[str]) -> Dict[str, torch.nn.Module]:
         """The tuned serving apply of every branch, by level; fills
@@ -239,6 +300,10 @@ class AdaptiveDehazer:
             costs = self._chunk_costs()
             if costs is not None and not lowres:
                 engine.set_chunk_costs(*costs)
+            # Only the full-resolution engine: a half-resolution one computes
+            # other math behind the same input signatures.
+            if self._bundle_table and key == "binned":
+                self._attach(engine)
             self._engines[key] = engine
         return self._engines[key]
 
@@ -289,10 +354,13 @@ class AdaptiveDehazer:
     def _device_binned_fn(self, chunk: int, spill: bool):
         key = f"device_binned_{chunk}_{spill}"
         if key not in self._engines:
-            self._engines[key] = make_device_binned_infer(
+            fn = make_device_binned_infer(
                 self._serving.classifier,
                 [self._serving.models[lvl] for lvl in INTENSITY_ORDER],
                 chunk=chunk, spill=spill)
+            if self._bundle_table:
+                self._attach(fn)
+            self._engines[key] = fn
         return self._engines[key]
 
     @torch.inference_mode()
@@ -412,6 +480,57 @@ class AdaptiveDehazer:
             serving.models[level] = candidate_builders(
                 router.models[level], self.dtype, (16, img, img, 3))[report["best"]]()
         return serving
+
+    @torch.inference_mode()
+    def export_precompiled(self, bundle_dir: str, batch_sizes=(16,), queue_buckets=(16,),
+                           device_buckets=(16,), device_chunk: int = 16,
+                           device_spill: bool = False, buckets=None, progress=None) -> dict:
+        """Write a precompiled serving bundle (serving_export.py) of this
+        dehazer's serving programs, under the JAX package's program names:
+        at each batch size in `batch_sizes`, `classify`, `logits` and every
+        class's bucket step `step{c}` over the bucket ladder (`buckets`, the
+        engine's by default); each branch `branch{c}` at `queue_buckets`
+        and at the device-binned chunk (min(device_chunk, n) for n in
+        `device_buckets`); the device-binned binning
+        `device{device_chunk}_{device_spill}` at `device_buckets`. Records
+        the quant mode and autotune setting the bundle is pinned to.
+        Returns {program key: name}."""
+        from adam_dehaze_tpu_torch.serving_export import export_program, set_manifest_extra
+        img = self.config["dataset"]["img_size"]
+        engine = self._binned_engine()
+        buckets = tuple(buckets if buckets is not None else engine.buckets)
+        clf = self._serving.classifier
+        branches = [self._serving.models[lvl] for lvl in INTENSITY_ORDER]
+        written = {}
+
+        def export(args, name, what):
+            if progress:
+                progress(f"export {name} {what}")
+            written[export_program(args, name, bundle_dir, n_bound=1)] = name
+
+        def images(n):
+            return torch.zeros((n, img, img, 3), device=self.device)
+
+        for n in batch_sizes:
+            x = images(n)
+            for name in ("classify", "logits"):
+                export((clf, x), name, f"n={n}")
+            out = images(n + 1)
+            for cls, branch in enumerate(branches):
+                for b in buckets:
+                    if b <= max(engine.buckets):
+                        idx = torch.zeros((2, b), dtype=torch.long, device=self.device)
+                        export((branch, x, idx, out), f"step{cls}", f"n={n} b={b}")
+        branch_sizes = dict.fromkeys([*queue_buckets,
+                                      *(min(device_chunk, n) for n in device_buckets)])
+        for cls, branch in enumerate(branches):
+            for b in branch_sizes:
+                export((branch, images(b)), f"branch{cls}", f"b={b}")
+        for n in dict.fromkeys(device_buckets):
+            export((clf, images(n)), f"device{device_chunk}_{int(device_spill)}", f"n={n}")
+        # quant: a config with serving_quant is refused at construction.
+        set_manifest_extra(bundle_dir, quant=None, autotune=self._autotune)
+        return written
 
     @torch.inference_mode()
     def classify(self, images) -> np.ndarray:

@@ -10,6 +10,10 @@ orbax directory.
 
 Weights from the JAX package:
 
+`load_torch_fcos(state_dict, detector)` fills the torchvision-geometry
+detector from a torchvision `fcos_resnet50_fpn` state dict, as the JAX
+package's load_torch_fcos fills its tree.
+
 `load_flax_variables(module, variables)` fills a port module from the JAX
 package's `{"params", "batch_stats"}` tree (nested dicts of arrays): a
 block, a branch of any model type, the classifier on any backbone (ResNet;
@@ -496,3 +500,75 @@ def load_flax_variables(module: nn.Module, variables) -> nn.Module:
         raise ValueError(f"not filled from the flax tree: {missing[:8]}"
                          f"{' ...' if len(missing) > 8 else ''}")
     return module
+
+
+def _tv_fcos_keys(sd) -> Dict[str, str]:
+    """{port key: torchvision key} of a torchvision `fcos_resnet50_fpn`
+    state dict, after the JAX package's load_torch_fcos (its docstring gives
+    the layout). The FPN convs come flat (`p.weight`) or nested in
+    Conv2dNormActivation (`p.0.weight`), the head towers nested (`conv.{i}.0`
+    conv, `conv.{i}.1` GroupNorm) or flat interleaved (`conv.{3i}`,
+    `conv.{3i+1}`): torchvision has shipped both."""
+    keys = {}
+    for k in sd:
+        if k.startswith("backbone.body."):
+            keys["backbone." + k[len("backbone.body."):]] = k
+
+    def conv(port, tv):
+        nested = f"{tv}.0.weight" in sd
+        for p in ("weight", "bias"):
+            keys[f"{port}.{p}"] = f"{tv}.0.{p}" if nested else f"{tv}.{p}"
+
+    for i in range(3):
+        conv(f"fpn.lateral{i}", f"backbone.fpn.inner_blocks.{i}")
+        conv(f"fpn.smooth{i}", f"backbone.fpn.layer_blocks.{i}")
+    for lvl in ("p6", "p7"):
+        conv(f"fpn.{lvl}", f"backbone.fpn.extra_blocks.{lvl}")
+    for branch, tv in (("cls", "head.classification_head"), ("reg", "head.regression_head")):
+        nested = f"{tv}.conv.0.0.weight" in sd
+        for i in range(4):
+            cw = f"{tv}.conv.{i}.0" if nested else f"{tv}.conv.{3 * i}"
+            gn = f"{tv}.conv.{i}.1" if nested else f"{tv}.conv.{3 * i + 1}"
+            for p in ("weight", "bias"):
+                keys[f"head.{branch}{i}.{p}"] = f"{cw}.{p}"
+                keys[f"head.{branch}_gn{i}.{p}"] = f"{gn}.{p}"
+    for port, tv in (("cls_out", "head.classification_head.cls_logits"),
+                     ("reg_out", "head.regression_head.bbox_reg"),
+                     ("ctr_out", "head.regression_head.bbox_ctrness")):
+        for p in ("weight", "bias"):
+            keys[f"head.{port}.{p}"] = f"{tv}.{p}"
+    return keys
+
+
+@torch.no_grad()
+def load_torch_fcos(pth_path_or_sd, detector: FCOSDetector) -> FCOSDetector:
+    """Fill the port's torchvision-geometry detector (FCOSDetector with
+    `torchvision_compat`, the `tv_fcos_resnet50_fpn` backbone) in place from
+    a torchvision `fcos_resnet50_fpn` state dict, or a .pth holding one (or
+    {"model_state_dict": ...}); returns it. The port's modules carry
+    torchvision's layouts, so the weights go over as they are; torchvision's
+    raw offsets times the level's stride are the port's pixel offsets, so
+    nothing is rescaled. Raises on a shape mismatch and on any parameter or
+    buffer left unset (BN's num_batches_tracked aside: torchvision's frozen
+    BNs have none)."""
+    sd = pth_path_or_sd
+    if isinstance(sd, str):
+        sd = torch.load(sd, map_location="cpu", weights_only=False)
+        sd = sd.get("model_state_dict", sd)
+    target = detector.state_dict()
+    keys = _tv_fcos_keys(sd)
+    done = set()
+    for port, tv in keys.items():
+        if port not in target:
+            continue
+        value = torch.as_tensor(np.asarray(sd[tv]))
+        if tuple(target[port].shape) != tuple(value.shape):
+            raise ValueError(f"Shape mismatch at {port} <- {tv}: "
+                             f"{tuple(target[port].shape)} vs {tuple(value.shape)}")
+        target[port].copy_(value)
+        done.add(port)
+    missing = [k for k in target if k not in done and not k.endswith("num_batches_tracked")]
+    if missing:
+        raise KeyError(f"not filled from the torchvision state dict: {missing[:8]}"
+                       f"{' ...' if len(missing) > 8 else ''}")
+    return detector

@@ -218,13 +218,34 @@ Phases, in order; any failure raises and the script exits non-zero:
    Prints each router's warm ms/image (route_hard, forced labels, soft).
    Last, fp32 with TF32 off: each alternate branch and each new backbone on
    the card against the CPU at 1e-3 (2 images).
-18. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
+18. Precompiled serving (serving_export.py) on phase 15's experiment: the
+   CLI's `--mode export` at batch 48 (the default dispatch; the bundle must
+   hold the kernel library) and `export_precompiled` of the tuned dehazer
+   (phase 5's winners from the experiment's cache). Cold start in a fresh
+   process each, from_experiment and one route_hard of 48 images, without
+   the bundle (the library built on disk) and with it (an empty kernel
+   build directory: the process must load the bundle's library), beside
+   phase 2's nvcc seconds. The engines built (the attach: warm-ups and
+   captures, timed, with the graphs' peak memory), then counters at 0:
+   forced labels (16 a class), route_hard and route_device_binned of the 48
+   images through the graphs must launch K1 and K2 (default bundle) and K3,
+   K4, K2' and K6 (tuned bundle) by replays alone; every dispatcher shows
+   hits and no miss. Graphs against eager dehazers on the same
+   inputs (labels equal; outputs within GRAPH_FP32_ATOL in fp32, BF16_ATOL
+   in bf16; the error is printed) and warm ms/image of each, eager and
+   graphs, under both dispatches (forced labels also on 3 images, one a
+   class, exported through the API: buckets of one image, where the host's
+   launches weigh most). A copy of the
+   bundle whose manifest names another device is refused with a warning
+   naming the field, and route_hard serves the eager output.
+19. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
    with "training", "classifier_training", "joint_training", "detection",
-   "cli", "lowres" and "alternate"; K5's and K2''s Function readings under
-   "function"; each lowres kernel's readings at 128^2 under "lowres", K2's
-   at the alternate branches' shapes under "alternate"; the CLI's, the
-   dial's and the alternates' readings under "cli", "lowres" and
-   "alternate") and, last, {"ok": true, "device": ...}.
+   "cli", "lowres", "alternate" and "precompiled"; K5's and K2''s Function
+   readings under "function"; each lowres kernel's readings at 128^2 under
+   "lowres", K2's at the alternate branches' shapes under "alternate"; the
+   CLI's, the dial's, the alternates' and precompiled serving's readings
+   under "cli", "lowres", "alternate" and "precompiled") and, last, {"ok":
+   true, "device": ...}.
 """
 import collections
 import copy
@@ -634,6 +655,7 @@ def phase_build():
     for line in nvcc_log.splitlines():
         if "registers" in line or "Compiling entry" in line:
             log(f"[build] {line.strip()}")
+    return nvcc_s
 
 
 def phase_kernels(dev, gen):
@@ -2842,6 +2864,218 @@ def phase_alternate(dev, smi, x, labels):
     return dict(path), kernels, readings
 
 
+# Precompiled serving (serving_export.py): the experiment of phase 15
+# exported through the CLI (default dispatch) and the API (its tuned
+# cache), 48 images, 16 a class; and 3 images, one a class, where a
+# bucket is one image and the host's launches weigh most.
+PRE_BATCH = 48
+PRE_SMALL = 3
+# The kernels its graphs must replay: K1 and K2 under the default dispatch,
+# K3, K4, K2' and K6 under the tuned one (phase 5's winners).
+PRECOMPILED_PATH_KERNELS = ("lightweight_chain", "cbam_gate", "medium_tail_chain",
+                            "high_tail_chain", "spatial_gate", "res_attn_chain")
+# Graph against eager on the same inputs: the same kernels on the same data.
+GRAPH_FP32_ATOL = 1e-6
+# Cold start in a fresh process: from_experiment, then one route_hard of the
+# batch in argv[2]; argv[1] is the bundle ("" for none). With a bundle the
+# kernel build directory is an empty one: a build there would show.
+COLD_START = """
+import json, sys, time
+t0 = time.perf_counter()
+from pathlib import Path
+import numpy as np, torch
+from adam_dehaze_tpu_torch.ops.kernels import _build
+from adam_dehaze_tpu_torch.serving import AdaptiveDehazer
+exp, bundle, images, empty = sys.argv[1:5]
+if bundle:
+    _build.BUILD_ROOT = Path(empty)
+x = np.load(images)
+torch.cuda.init()
+t1 = time.perf_counter()
+d = AdaptiveDehazer.from_experiment(exp, precompiled=bundle or None)
+t2 = time.perf_counter()
+out, labels = d.route_hard(x)
+torch.cuda.synchronize()
+t3 = time.perf_counter()
+print(json.dumps({"import_s": t1 - t0, "from_experiment_s": t2 - t1, "first_batch_s": t3 - t2,
+                  "in_process_s": t3 - t0, "library": str(_build.library_path()),
+                  "built_here": any(Path(empty).rglob(_build.LIB_NAME)),
+                  "bundle": d._bundle_table is not None, "finite": bool(np.isfinite(out).all())}))
+"""
+
+
+def dispatches(d):
+    """Every bundle-backed dispatcher of dehazer d, by program name."""
+    return dict(d._dispatches)
+
+
+def phase_precompiled(dev, smi, exp, nvcc_s):
+    """18. Precompiled serving (see the docstring): export through the CLI
+    and the API, cold start with and without the bundle in fresh processes,
+    graphs against eager at 48 images under both dispatches, a bundle of
+    another device refused. Returns the path's launch counts and readings."""
+    import subprocess as sp
+    import sys
+    import warnings
+
+    from adam_dehaze_tpu_torch import cli
+    from adam_dehaze_tpu_torch.serving_export import MANIFEST, read_manifest
+
+    default_dir = os.path.join(exp, "precompiled")
+    tuned_dir = os.path.join(exp, "precompiled_tuned")
+    t0 = time.perf_counter()
+    cli.main(["--mode", "export", "--experiment_dir", exp, "--batch_size", str(PRE_BATCH)])
+    export_s = time.perf_counter() - t0
+    eager = {"default": AdaptiveDehazer.from_experiment(exp, device=dev),
+             "tuned": AdaptiveDehazer.from_experiment(exp, autotune=True, device=dev)}
+    eager["default"].export_precompiled(default_dir, batch_sizes=(PRE_SMALL,),
+                                        queue_buckets=(), device_buckets=())
+    eager["tuned"].export_precompiled(tuned_dir, batch_sizes=(PRE_BATCH, PRE_SMALL),
+                                      device_buckets=(16, PRE_BATCH))
+    manifest = read_manifest(default_dir)
+    log(f"[precompiled] export: CLI {export_s:.1f} s, {len(manifest['programs'])} programs + "
+        f"{manifest.get('library')}; tuned {len(read_manifest(tuned_dir)['programs'])} programs; "
+        f"tuned dispatch {({k: r['best'] for k, r in eager['tuned'].autotune_report.items()})}")
+    check(manifest.get("library") and os.path.exists(os.path.join(default_dir,
+                                                                    manifest["library"])),
+          "precompiled: the bundle holds no kernel library")
+
+    # Cold start: a fresh process each, no bundle (the library built on
+    # disk) and the bundle (an empty build directory).
+    rng = np.random.default_rng(SEED + 18)
+    x = rng.random((PRE_BATCH, SIZE, SIZE, 3), dtype=np.float32)
+    images = os.path.join(exp, "precompiled_images.npy")
+    np.save(images, x)
+    cold = {}
+    for tag, bundle in (("eager", ""), ("bundle", default_dir)):
+        empty = tempfile.mkdtemp(dir=exp)
+        t0 = time.perf_counter()
+        proc = sp.run([sys.executable, "-c", COLD_START, exp, bundle, images, empty],
+                      capture_output=True, text=True, timeout=300,
+                      cwd=os.path.dirname(os.path.abspath(__file__)))
+        wall = time.perf_counter() - t0
+        check(proc.returncode == 0, f"precompiled: cold start {tag} failed:\n{proc.stderr}")
+        cold[tag] = dict(json.loads(proc.stdout.strip().splitlines()[-1]), wall_s=wall)
+        check(cold[tag]["finite"] and cold[tag]["bundle"] == bool(bundle),
+              f"precompiled: cold start {tag}: {cold[tag]}")
+    check(not cold["bundle"]["built_here"]
+          and cold["bundle"]["library"].startswith(default_dir),
+          f"precompiled: the bundle's process did not load the bundle's library: {cold['bundle']}")
+    log(f"[precompiled cold start] fresh process to the first batch of {PRE_BATCH} served "
+        f"(from_experiment + route_hard): no bundle {cold['eager']['wall_s']:.2f} s (in the "
+        f"process {cold['eager']['in_process_s']:.2f}: import "
+        f"{cold['eager']['import_s']:.2f}, from_experiment {cold['eager']['from_experiment_s']:.2f}"
+        f", first batch {cold['eager']['first_batch_s']:.2f}), the library already built; "
+        f"bundle {cold['bundle']['wall_s']:.2f} s (in the process "
+        f"{cold['bundle']['in_process_s']:.2f}: import {cold['bundle']['import_s']:.2f}, "
+        f"from_experiment {cold['bundle']['from_experiment_s']:.2f}, first batch with the "
+        f"captures {cold['bundle']['first_batch_s']:.2f}), the bundle's library, no nvcc; "
+        f"phase 2's nvcc {nvcc_s:.1f} s is what a checkout without a build adds; {smi}")
+
+    # Warm: graphs against eager. The engines are built first (the attach:
+    # warm-ups and captures), then the counters go to 0, so that the path's
+    # launches are the replays'.
+    labels = np.repeat(np.arange(3), PRE_BATCH // 3)
+    xd = torch.from_numpy(x).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    graphs = {"default": AdaptiveDehazer.from_experiment(exp, precompiled="auto", device=dev),
+              "tuned": AdaptiveDehazer.from_experiment(exp, autotune=True, device=dev,
+                                                       precompiled=tuned_dir)}
+    t0 = time.perf_counter()
+    for d in graphs.values():
+        d._binned_engine()
+        d._device_binned_fn(16, False)
+    torch.cuda.synchronize()
+    attach_s = time.perf_counter() - t0
+    pool_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    reset_launch_counts()
+    outs, path = {}, collections.Counter()
+    for kind, d in graphs.items():
+        before = counts()
+        with torch.inference_mode():
+            forced = d.engine(xd, intensity=labels)[0].cpu()
+        outs[kind] = (forced, d.route_hard(x), d.route_device_binned(x))
+        torch.cuda.synchronize()
+        ran = delta(before)
+        path.update(ran)
+        for y, what in ((forced.numpy(), "forced labels"), (outs[kind][1][0], "route_hard"),
+                        (outs[kind][2][0], "route_device_binned")):
+            check_images(y, PRE_BATCH, f"precompiled {kind} {what}")
+        want = PRECOMPILED_PATH_KERNELS[:2] if kind == "default" else PRECOMPILED_PATH_KERNELS
+        check(all(ran[k] > 0 for k in want),
+              f"precompiled {kind}: a kernel of the path never ran: {nonzero(ran)}")
+        log(f"[precompiled {kind}] launches of forced labels, route_hard and "
+            f"route_device_binned through the graphs {nonzero(ran)}")
+    readings = {"cold_start": cold, "nvcc_s": nvcc_s, "export_s": export_s,
+                "attach_s": attach_s, "graphs_peak_gb": pool_gb}
+    for kind, d in graphs.items():
+        table = dispatches(d)
+        hm = {name: (p.hits, p.misses) for name, p in table.items()}
+        check(table and all(m == 0 for _, m in hm.values())
+              and all(hm[n][0] > 0 for n in ("classify", "device16_0", "step0", "step1", "step2")),
+              f"precompiled {kind}: hits and misses {hm}")
+        e = eager[kind]
+        dtype_atol = GRAPH_FP32_ATOL if e.dtype == torch.float32 else BF16_ATOL
+        with torch.inference_mode():
+            want = e.engine(xd, intensity=labels)[0].cpu()
+        errs = {"forced": max_err(outs[kind][0], want)}
+        for name, (got, lab), (ref, ref_lab) in (
+                ("route_hard", outs[kind][1], e.route_hard(x)),
+                ("route_device_binned", outs[kind][2], e.route_device_binned(x))):
+            check(np.array_equal(lab, ref_lab), f"precompiled {kind} {name}: labels differ")
+            errs[name] = float(np.abs(got - ref).max())
+        check(max(errs.values()) <= dtype_atol,
+              f"precompiled {kind}: graphs against eager {errs} (bound {dtype_atol})")
+
+        def forced_run(dd, n=PRE_BATCH):
+            with torch.inference_mode():
+                dd.engine(torch.from_numpy(x[:n]).to(dev), intensity=labels[::PRE_BATCH // n]
+                          )[0].cpu().numpy()
+
+        ms = {}
+        for name, run, n in (
+                ("forced_labels", forced_run, PRE_BATCH),
+                ("forced_labels_3", lambda dd: forced_run(dd, PRE_SMALL), PRE_SMALL),
+                ("route_hard", lambda dd: dd.route_hard(x), PRE_BATCH),
+                ("route_device_binned", lambda dd: dd.route_device_binned(x), PRE_BATCH)):
+            ms[name] = {tag: route_ms(lambda: run(dd), n) for tag, dd in (("eager", e),
+                                                                          ("graphs", d))}
+        readings[kind] = dict(max_abs_err=errs, hits_misses=hm, ms_per_image=ms)
+        log(f"[precompiled {kind}] graphs vs eager max abs err {errs} (bound {dtype_atol}); "
+            f"hits/misses {hm}")
+        for name, v in ms.items():
+            log(f"[precompiled {kind}] {name} ({PRE_SMALL if name.endswith('_3') else PRE_BATCH}"
+                f" images; forced labels one third a class): eager {v['eager'][0]:.3f} ms/image "
+                f"(min {v['eager'][1]:.3f}), graphs {v['graphs'][0]:.3f} (min "
+                f"{v['graphs'][1]:.3f}); {smi}")
+    log(f"[precompiled] the two dehazers' attach (warm-ups and captures of "
+        f"{sum(len(p._programs) for d in graphs.values() for p in d._dispatches.values())} "
+        f"graphs): {attach_s:.2f} s, {pool_gb:.2f} GB peak")
+
+    # A bundle of another device: refused with the warning, served eagerly.
+    other = os.path.join(exp, "precompiled_other")
+    shutil.copytree(default_dir, other)
+    m = read_manifest(other)
+    m["meta"]["device_name"] = "NVIDIA A100-SXM4-80GB"
+    with open(os.path.join(other, MANIFEST), "w") as f:
+        json.dump(m, f)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        refused = AdaptiveDehazer.from_experiment(exp, precompiled=other, device=dev)
+    said = [str(w.message) for w in caught if "device_name" in str(w.message)]
+    got, lab = refused.route_hard(x)
+    want, want_lab = eager["default"].route_hard(x)
+    check(said and refused._bundle_table is None and not refused._dispatches
+          and np.array_equal(lab, want_lab) and np.array_equal(got, want),
+          f"precompiled: a bundle of another device was not refused as it should be: {said}")
+    log(f"[precompiled] a bundle naming another device: refused ({said[0]}); route_hard served "
+        f"eagerly, equal to the eager dehazer's")
+    del eager, graphs, refused
+    torch.cuda.empty_cache()
+    return dict(path), readings
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
@@ -2854,7 +3088,7 @@ def main():
         log(f"[phase] {name}: {seconds[name]:.1f} s")
         return out
 
-    timed("build", phase_build)
+    nvcc_s = timed("build", phase_build)
     gen = torch.Generator().manual_seed(SEED)
     kernels, conv_layers = timed("kernels", phase_kernels, dev, gen)
     router = make_router(load_config(), gen)
@@ -2897,7 +3131,8 @@ def main():
         cli_path, cli_readings, exp = timed("cli", phase_cli, dev, smi, tmp)
         lowres_path, lowres_kernels, lowres_readings = timed(
             "lowres", phase_lowres, dev, smi, exp, (tail_cache, res_cache), fp32_caches)
-    alt_path, alt_k2, alt_readings = timed("alternate", phase_alternate, dev, smi, x, labels)
+        alt_path, alt_k2, alt_readings = timed("alternate", phase_alternate, dev, smi, x, labels)
+        pre_path, pre_readings = timed("precompiled", phase_precompiled, dev, smi, exp, nvcc_s)
     for name in ("route_hard", "forced_labels", "soft"):
         log(f"[slices] {name}: default dispatch {default_ms[name]:.3f} ms/image, "
             f"tail-chain dispatch {tail_ms[name]:.3f} ms/image, res-chain dispatch "
@@ -2907,7 +3142,7 @@ def main():
     paths = {"default": default, "engines": engines, "tail_chain": tail, "res_chain": res,
              "probe_tool": probes, "training": training, "classifier_training": classifier,
              "joint_training": joint, "detection": detection, "cli": cli_path,
-             "lowres": lowres_path, "alternate": alt_path}
+             "lowres": lowres_path, "alternate": alt_path, "precompiled": pre_path}
     kernels["cbam_gate"].update(training_forward_ms_per_step=k2_train["forward_ms"],
                                 training_backward_ms_per_step=k2_train["backward_ms"])
     for name, rec in grad_fns.items():
@@ -2930,7 +3165,7 @@ def main():
                      "fp32_step_card_vs_cpu": step_errs, "classifier": cls_readings,
                      "joint": joint_readings},
         "detection": det_readings, "cli": cli_readings, "lowres": lowres_readings,
-        "alternate": alt_readings,
+        "alternate": alt_readings, "precompiled": pre_readings,
         "phase_seconds": seconds}
     check(all(k["launches"] > 0 for k in line["kernels"]),
           f"a kernel was launched no time on any path: {line['kernels']}")

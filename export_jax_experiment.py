@@ -11,8 +11,10 @@ own `evaluation/evaluate.py:_load_joint`, fills the port's router from that
 and writes, under --out:
 
 - config.yaml: the JAX config with its `tpu` section replaced by the
-  port's `cuda` section (`tpu.compute_dtype` becomes `cuda.compute_dtype`),
-  every other key kept, the checkpoint and result paths pointed into --out;
+  port's `cuda` section (`tpu.compute_dtype` becomes `cuda.compute_dtype`,
+  `tpu.serving_quant` becomes `cuda.serving_quant`: the port refuses to
+  serve such an experiment rather than serve it unquantized), every other
+  key kept, the checkpoint and result paths pointed into --out;
 - checkpoints/joint/best_model.pth (+ best_model.metrics.json when the JAX
   checkpoint has metrics): {"step", "model": the router's state_dict},
   written by the port's `save_checkpoint`.
@@ -33,13 +35,17 @@ import os
 
 
 def port_config(jax_config: dict, out_dir: str) -> dict:
-    """The port's config of a JAX config: `tpu.compute_dtype` as
-    `cuda.compute_dtype` over the port's defaults, every other key kept,
-    paths pointed into `out_dir`."""
+    """The port's config of a JAX config: `tpu.compute_dtype` and
+    `tpu.serving_quant` as `cuda.compute_dtype` and `cuda.serving_quant`
+    over the port's defaults, every other key kept, paths pointed into
+    `out_dir`."""
     from adam_dehaze_tpu_torch.config import load_config, update_checkpoint_paths
     keep = {k: v for k, v in jax_config.items() if k != "tpu" and not k.startswith("_")}
-    dtype = jax_config.get("tpu", {}).get("compute_dtype", "bfloat16")
-    config = load_config(overrides={**keep, "cuda": {"compute_dtype": dtype}})
+    tpu = jax_config.get("tpu", {})
+    cuda = {"compute_dtype": tpu.get("compute_dtype", "bfloat16")}
+    if tpu.get("serving_quant"):
+        cuda["serving_quant"] = tpu["serving_quant"]
+    config = load_config(overrides={**keep, "cuda": cuda})
     return update_checkpoint_paths(config, out_dir)
 
 

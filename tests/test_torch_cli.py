@@ -293,9 +293,7 @@ def test_train_detection_takes_the_jax_positional_order(experiment, monkeypatch,
 
 
 @pytest.mark.parametrize("argv, needle", [
-    (["--mode", "export"], "--mode export is not ported yet"),
     (["--mode", "bench"], "--mode bench is not ported yet"),
-    (["--mode", "serve", "--precompiled", "auto"], "--precompiled is not ported yet"),
 ])
 def test_unported_surfaces_stop_with_their_message(argv, needle, tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
@@ -314,12 +312,12 @@ def test_default_device_without_a_card_stops_at_once(tmp_path, monkeypatch):
 
 
 def test_main_torch_runs_the_port_cli(tmp_path):
-    """The root entry point: `--mode export` stops with the port's message
+    """The root entry point: `--mode bench` stops with the port's message
     (exit 1), and the JAX package is not imported."""
     import subprocess
     import sys
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    probe = ("import runpy, sys; sys.argv = ['main_torch.py', '--mode', 'export'];\n"
+    probe = ("import runpy, sys; sys.argv = ['main_torch.py', '--mode', 'bench'];\n"
              "try:\n    runpy.run_path('main_torch.py', run_name='__main__')\n"
              "finally:\n    print(sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'adam_dehaze_tpu')))")
@@ -327,5 +325,5 @@ def test_main_torch_runs_the_port_cli(tmp_path):
     proc = subprocess.run([sys.executable, "-c", probe], cwd=repo, capture_output=True,
                           text=True, env=env, timeout=300)
     assert proc.returncode == 1
-    assert "--mode export is not ported yet" in proc.stderr
+    assert "--mode bench is not ported yet" in proc.stderr
     assert proc.stdout.strip().endswith("[]")

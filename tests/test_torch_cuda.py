@@ -8,7 +8,9 @@ one bf16 train step of each default branch, a bf16 soft joint step, and the
 serving kernels' refusal of a gradient; and detection: the default detector
 in fp32 on the card against the CPU (level outputs, top-k candidates,
 detections), in bf16 against fp32, and the launches of K2 and K5 per batch
-of `evaluate_object_detection`.
+of `evaluate_object_detection`; and precompiled serving: a bundle's CUDA
+graphs against the eager dehazer (exactly), and the launch counters across
+replays.
 
 This file imports neither JAX nor the JAX package, so that it also runs on
 a machine that has only PyTorch:
@@ -762,9 +764,9 @@ def test_small_slice_on_card_matches_cpu(cuda_device):
     torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=1e-4)
 
 
-def _small_dehazer(device, seed=2):
+def _small_dehazer(device, seed=2, **kwargs):
     """The serving slice at small widths, fp32, seeded (as
-    test_small_slice_on_card_matches_cpu)."""
+    test_small_slice_on_card_matches_cpu); kwargs go to AdaptiveDehazer."""
     from adam_dehaze_tpu_torch.config import load_config
     from adam_dehaze_tpu_torch.models.branches import create_branch_models
     from adam_dehaze_tpu_torch.models.classifier import create_classifier
@@ -775,7 +777,7 @@ def _small_dehazer(device, seed=2):
     for level, ch in (("low", 8), ("medium", 8), ("high", 16)):
         cfg["dehazing"][level]["channels"] = ch
     router = _seeded(create_router(create_branch_models(cfg), create_classifier(cfg), cfg), seed)
-    return AdaptiveDehazer(router, None, cfg, device=device)
+    return AdaptiveDehazer(router, None, cfg, device=device, **kwargs)
 
 
 @pytest.mark.parametrize("spill", [False, True], ids=["fidelity", "spill"])
@@ -1266,3 +1268,86 @@ def test_new_backbone_on_card_matches_cpu(cuda_device, name):
         got = copy.deepcopy(model).to(cuda_device)(x.to(cuda_device))
     for a, b in zip(got, want):
         torch.testing.assert_close(a.cpu(), b, rtol=0, atol=FP32_ATOL)
+
+
+# --- precompiled serving: CUDA graphs ----------------------------------------
+
+def _bundle_pair(device, tmp_path, **export):
+    """(an eager dehazer, one served through its bundle) on the same seeded
+    weights, the bundle exported at 32^2."""
+    ref = _small_dehazer(device)
+    ref.config["dataset"]["img_size"] = 32
+    path = str(tmp_path / "precompiled")
+    ref.export_precompiled(path, **export)
+    return ref, _small_dehazer(device, precompiled=path)
+
+
+# Graph against eager, fp32: the same kernels on the same data. On an
+# NVIDIA H100 80GB HBM3 the small slice reads up to 6e-8 (a last bit), the
+# default slice in bf16 0 (chip_smoke.py phase 18).
+GRAPH_FP32_ATOL = 1e-6
+
+
+def test_graph_replay_matches_eager(cuda_device, tmp_path):
+    """The bundle's graphs replay the eager programs' kernels: forced labels
+    through the bucket steps, route_hard, the queued branch graphs and the
+    device-binned binning give the eager dehazer's labels and, within
+    GRAPH_FP32_ATOL, its output; every exported shape hits, and the bundle
+    carries the kernel library."""
+    from adam_dehaze_tpu_torch.serving_export import GraphProgram, read_manifest
+    x = np.random.default_rng(7).random((9, 32, 32, 3), dtype=np.float32)
+    labels = np.arange(9) % 3
+    ref, d = _bundle_pair(cuda_device, tmp_path, batch_sizes=(9,), queue_buckets=(3,),
+                          device_buckets=(9,), device_chunk=4)
+    assert read_manifest(str(tmp_path / "precompiled"))["library"]
+    with torch.inference_mode():
+        xd = torch.from_numpy(x).to(cuda_device)
+        for _ in range(2):   # a replay does not disturb the next one
+            got = d.engine(xd, intensity=labels)[0]
+            torch.testing.assert_close(got, ref.engine(xd, intensity=labels)[0], rtol=0,
+                                       atol=GRAPH_FP32_ATOL)
+    for got, want in ((d.route_hard(x), ref.route_hard(x)),
+                      (d.route_device_binned(x, chunk=4), ref.route_device_binned(x, chunk=4))):
+        np.testing.assert_array_equal(got[1], want[1])
+        np.testing.assert_allclose(got[0], want[0], rtol=0, atol=GRAPH_FP32_ATOL)
+    queued = [(o.cpu(), g) for o, g, _ in d.route_hard_queued([x[:3], x[3:6], x[6:]],
+                                                              queue_bucket=3)]
+    for (o, g), (w, wg, _) in zip(queued, ref.route_hard_queued([x[:3], x[3:6], x[6:]],
+                                                                  queue_bucket=3)):
+        np.testing.assert_array_equal(g, wg)
+        torch.testing.assert_close(o, w.cpu(), rtol=0, atol=GRAPH_FP32_ATOL)
+    for name in ("classify", "step0", "step1", "step2", "device4_0"):
+        p = d._dispatches[name]
+        assert p.hits > 0 and all(isinstance(g, GraphProgram) for g in p._programs.values()), name
+    assert all(d._dispatches[n].misses == 0 for n in ("step0", "step1", "step2", "device4_0"))
+
+
+def test_launch_counts_survive_replay(cuda_device, tmp_path):
+    """A replay passes through no wrapper: the launches a capture enqueued
+    are added on every replay, so a graph-backed route counts as the eager
+    one does, call for call."""
+    from adam_dehaze_tpu_torch.ops.kernels import launch_counters, reset_launch_counts
+
+    def counts():
+        return {k: fn.launches for k, fn in launch_counters().items() if fn.launches}
+
+    x = torch.from_numpy(np.random.default_rng(8).random((9, 32, 32, 3), dtype=np.float32))
+    labels = np.arange(9) % 3
+    ref, d = _bundle_pair(cuda_device, tmp_path, batch_sizes=(9,), queue_buckets=(),
+                          device_buckets=())
+    with torch.inference_mode():
+        xd = x.to(cuda_device)
+        d.engine(xd, intensity=labels)      # attach: warm-ups and captures
+        ref.engine(xd, intensity=labels)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        ref.engine(xd, intensity=labels)
+        torch.cuda.synchronize()
+        eager = counts()
+        assert eager.get("cbam_gate", 0) > 0
+        for replays in (1, 3):
+            reset_launch_counts()
+            for _ in range(replays):
+                d.engine(xd, intensity=labels)
+            torch.cuda.synchronize()
+            assert counts() == {k: v * replays for k, v in eager.items()}

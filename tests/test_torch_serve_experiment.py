@@ -12,7 +12,9 @@ the CPU:
   cases of tests/test_serving.py:102-152 (lowres="auto" loud without a
   policy, low rows equal to the plain engine's, from_experiment(lowres=
   "auto") as the default and () overriding it); the engines' keys;
-- `precompiled` stops with the CLI's message;
+- a precompiled bundle of the port's experiment serves route_hard,
+  route_hard_queued and route_device_binned bit for bit as without it, and
+  route_hard as the JAX package's;
 - the CLI's `serve --lowres`: JAX's SystemExit messages, and routing.json's
   `lowres` field, labels and images beside the JAX CLI's.
 
@@ -27,6 +29,7 @@ checked to be far above fp32 rounding. fp32 against fp32 at ATOL 1e-4: at
 """
 import json
 import os
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -39,7 +42,6 @@ from adam_dehaze_tpu import cli as JCLI
 from adam_dehaze_tpu import config as JCFG
 from adam_dehaze_tpu.serving import AdaptiveDehazer as JaxDehazer
 from adam_dehaze_tpu_torch import cli as PCLI
-from adam_dehaze_tpu_torch.cli import NOT_PORTED
 from adam_dehaze_tpu_torch.data.dataset import _imread_rgb
 from adam_dehaze_tpu_torch.data.preprocessing import _write_rgb
 from adam_dehaze_tpu_torch.models.classifier import create_classifier
@@ -297,19 +299,47 @@ def test_lowres_auto_without_a_policy_path():
         d.route_hard(images((2, 32, 32, 3)), lowres="auto")
 
 
-def test_precompiled_stops_with_the_clis_message(experiments, tmp_path):
+def test_precompiled_bundle_serves_as_jax(pair, experiments, tmp_path):
+    """A bundle exported from the port's experiment: from_experiment(
+    precompiled=...) attaches it and serves route_hard, route_hard_queued
+    and route_device_binned bit for bit as the unbundled dehazer, and
+    route_hard as the JAX package's on the JAX experiment. "auto" attaches
+    <exp>/precompiled only when it exists."""
+    jd, pd = pair
     _, port_exp = experiments
-    with pytest.raises(NotImplementedError) as e:
-        AdaptiveDehazer.from_experiment(port_exp, precompiled=str(tmp_path), device="cpu")
-    assert str(e.value) == NOT_PORTED["precompiled"]
-    # "auto" without <exp>/precompiled serves as usual, with it stops.
-    assert AdaptiveDehazer.from_experiment(port_exp, precompiled="auto", device="cpu")
-    os.makedirs(os.path.join(port_exp, "precompiled"))
+    bundle = str(tmp_path / "precompiled")
+    pd.export_precompiled(bundle, batch_sizes=(N,), queue_buckets=(3,), device_buckets=(N,),
+                          device_chunk=2)
+    d = AdaptiveDehazer.from_experiment(port_exp, precompiled=bundle, device="cpu")
+    got, got_i = d.route_hard(X)
+    want, want_i = pd.route_hard(X)
+    np.testing.assert_array_equal(got_i, want_i)
+    np.testing.assert_array_equal(got, want)
+    jwant, jwant_i = jd.route_hard(X)
+    np.testing.assert_array_equal(got_i, jwant_i)
+    np.testing.assert_allclose(got, jwant, atol=ATOL)
+    for a, b in zip(d.route_device_binned(X, chunk=2), pd.route_device_binned(X, chunk=2)):
+        np.testing.assert_array_equal(a, b)
+    batches = [X[:3], X[3:]]
+    for (a, ga, ca), (b, gb, cb) in zip(d.route_hard_queued(batches, queue_bucket=3),
+                                        pd.route_hard_queued(batches, queue_bucket=3)):
+        np.testing.assert_array_equal(ga, gb)
+        assert ca == cb
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    # The queued route classifies batches of 3, a shape not exported; the
+    # steps and the binning miss nothing.
+    assert d._dispatches["step0"].hits and d._dispatches["device2_0"].hits
+    assert all(d._dispatches[n].misses == 0 for n in ("step0", "step1", "step2", "device2_0"))
+    # "auto" without <exp>/precompiled serves unbundled; with it, attached.
+    assert AdaptiveDehazer.from_experiment(port_exp, precompiled="auto",
+                                           device="cpu")._bundle_table is None
+    auto = os.path.join(port_exp, "precompiled")
+    shutil.copytree(bundle, auto)
     try:
-        with pytest.raises(NotImplementedError):
-            AdaptiveDehazer.from_experiment(port_exp, precompiled="auto", device="cpu")
+        assert AdaptiveDehazer.from_experiment(port_exp, precompiled="auto",
+                                               device="cpu")._bundle_table
     finally:
-        os.rmdir(os.path.join(port_exp, "precompiled"))
+        shutil.rmtree(auto)
 
 
 def test_from_experiment_takes_a_config_path(experiments, tmp_path):
