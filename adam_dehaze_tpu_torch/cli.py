@@ -50,9 +50,6 @@ SERVE_MODES = ("soft", "hard", "spill", "spill_up", "stream", "queued",
 NOT_PORTED = {
     "bench": "--mode bench is not ported yet: the PyTorch port has no benchmark script "
              "(bench.py times the JAX package only)",
-    "serving_quant": "cuda.serving_quant is not ported yet: the PyTorch port has no "
-                     "quantized serving (the JAX package's ops/quant.py); unset it to "
-                     "serve in cuda.compute_dtype",
 }
 
 

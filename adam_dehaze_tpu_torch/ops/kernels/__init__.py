@@ -13,7 +13,8 @@ from contextlib import contextmanager
 def launch_counters() -> dict:
     """Every kernel wrapper that counts its launches, by kernel name: K1
     (low-branch chain), K2 and K2' (CBAM gates), K3 and K4 (tail chains),
-    K5 (three-way blend), K6 (res/attention segment chain) and the
+    K5 (three-way blend), K6 (res/attention segment chain), the int8
+    serving path's Q1 (per-image quantize) and Q2 (int8 conv) and the
     operation probes."""
     from adam_dehaze_tpu_torch.ops.kernels.blend import blend3
     from adam_dehaze_tpu_torch.ops.kernels.cbam import (
@@ -23,6 +24,7 @@ def launch_counters() -> dict:
     from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
         lightweight_chain,
     )
+    from adam_dehaze_tpu_torch.ops.kernels.quant import int8_conv, quantize_images
     from adam_dehaze_tpu_torch.ops.kernels.res_chain import res_attn_chain
     from adam_dehaze_tpu_torch.ops.kernels.tail_chain import (
         high_tail_chain,
@@ -33,7 +35,8 @@ def launch_counters() -> dict:
             "cbam_gate": channel_spatial_gate, "spatial_gate": spatial_gate,
             "medium_tail_chain": medium_tail_chain,
             "high_tail_chain": high_tail_chain, "blend3": blend3,
-            "res_attn_chain": res_attn_chain, "probe_ops": probe_op}
+            "res_attn_chain": res_attn_chain, "int8_quantize": quantize_images,
+            "int8_conv": int8_conv, "probe_ops": probe_op}
 
 
 def reset_launch_counts() -> None:

@@ -45,8 +45,18 @@ dial has an engine of its own, over the same serving applies.
 Images go in and come out as numpy NHWC float32 in [0, 1] (`route_hard_queued`
 yields device tensors, as the JAX route yields device arrays). Everything
 runs in eval mode, under torch.inference_mode, in the config's
-`cuda.compute_dtype`. A config with `cuda.serving_quant` set (the JAX
-package's int8 serving) is refused: the port has no quantized serving yet.
+`cuda.compute_dtype`.
+
+Int8 serving (ops/quant.py), as in the JAX package: with
+`cuda.serving_quant: int8` every hard route (route_hard and its stream and
+queued forms, the device-binned routes, route_switch, route_sharded and its
+replicas) serves each branch's int8 copy: its ConvBlock convolutions on
+kernels Q1 and Q2, everything else in the compute dtype, the low branch
+through its modules (never K1), the high one with K2 in its
+AttentionBlocks. The soft call and the classifier stay unquantized, the
+serving autotune is skipped for the branches, and `export_precompiled`
+refuses. Any other `serving_quant` value is served unquantized, with a
+warning.
 
 Precompiled serving (serving_export.py), as in the JAX package:
 
@@ -68,6 +78,7 @@ import copy
 import os
 import warnings
 from collections import deque
+from types import SimpleNamespace
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -84,6 +95,7 @@ from adam_dehaze_tpu_torch.models.routing import (
     make_device_binned_infer,
     make_sharded_binned_infer,
 )
+from adam_dehaze_tpu_torch.ops.quant import quantize_apply
 from adam_dehaze_tpu_torch.ops.resolution import make_lowres_apply
 from adam_dehaze_tpu_torch.ops.serving_apply import make_router_serving_apply
 from adam_dehaze_tpu_torch.resolution_autotune import load_policy, policy_to_lowres
@@ -97,8 +109,10 @@ class AdaptiveDehazer:
     "batch_stats"} tree to load into it, or None to serve the router's own
     weights. The router is moved to `device` in place; one serving copy of
     it (weights cast, the low branch folded for K1) backs both the soft
-    call and the hard-routing engines. autotune: replace that copy's
-    branches by the timed winners of serving_autotune.load_or_tune
+    call and the hard-routing engines; under `cuda.serving_quant: int8` the
+    hard routes serve int8 copies of the branches beside its classifier
+    (`_hard`). autotune (ignored under int8): replace that copy's branches
+    by the timed winners of serving_autotune.load_or_tune
     (`autotune_report[level]` holds each report; `autotune_cache` is the
     JSON file that keeps the winners between processes), and feed the
     winners' times to the full-resolution engine's chunk planner.
@@ -123,14 +137,17 @@ class AdaptiveDehazer:
                  autotune: bool = False, autotune_cache: Optional[str] = None,
                  resolution_policy: Optional[str] = None, lowres=(),
                  precompiled: Optional[str] = None):
-        if config.get("cuda", {}).get("serving_quant"):
-            from adam_dehaze_tpu_torch.cli import NOT_PORTED
-            raise NotImplementedError(NOT_PORTED["serving_quant"])
         if variables is not None:
             load_flax_variables(router, variables)
         self.device = torch.device(device)
         self.config = config
         self._autotune = autotune
+        # The config's serving_quant; only "int8" quantizes (as in the JAX
+        # package, another value serves unquantized).
+        self.quant = config.get("cuda", {}).get("serving_quant") or None
+        if self.quant not in (None, "int8"):
+            warnings.warn(f"cuda.serving_quant={self.quant!r} is not a quantization mode "
+                          "(only 'int8' is): the branches are served unquantized")
         # The bundle's programs (serving_export.py), attached to the engines
         # as they are built; their dispatchers by program name, and the pool
         # their graphs share. Loaded first: on the card it points the kernel
@@ -140,16 +157,28 @@ class AdaptiveDehazer:
         self._graph_pool = None
         self.router = router.to(self.device).eval()
         self.dtype = compute_dtype(config)
+        # The soft call's serving copy, never quantized; `_hard` is what the
+        # hard routes serve (its branches in int8 under int8 serving).
         self._serving = make_router_serving_apply(self.router, self.dtype)
+        self._hard = self._hard_serving(self._serving, self.router)
         self._engines: Dict[str, Callable] = {}
-        self._replicas: Dict[torch.device, torch.nn.Module] = {}
+        self._replicas: Dict[torch.device, object] = {}
         self._resolution_policy_path = resolution_policy
         # () = full resolution; "auto" = the tuned policy. A route's own
         # `lowres=` overrides it.
         self._default_lowres = lowres
         self.autotune_report: Dict[str, dict] = {}
-        if autotune:
+        if autotune and self.quant != "int8":
             self._serving.models.update(self._tuned_applies(autotune_cache))
+
+    def _hard_serving(self, serving: torch.nn.Module, router: torch.nn.Module):
+        """What the hard routes serve from a serving copy of `router`: the
+        copy itself, or under int8 its classifier beside the int8 copy of
+        each branch (ops/quant.py:quantize_apply)."""
+        if self.quant != "int8":
+            return serving
+        return SimpleNamespace(classifier=serving.classifier, models={
+            lvl: quantize_apply(router.models[lvl], self.dtype) for lvl in INTENSITY_ORDER})
 
     @classmethod
     def from_experiment(cls, experiment_dir: str, config_path: Optional[str] = None,
@@ -178,13 +207,13 @@ class AdaptiveDehazer:
     def _load_bundle(self, bundle_dir: str):
         """The bundle's programs, or None (with a warning) for a bundle of
         another quant mode, autotune setting or runtime: the JAX package's
-        refusal rules. (A config with serving_quant was refused before.)"""
+        refusal rules."""
         from adam_dehaze_tpu_torch.serving_export import load_bundle_programs, read_manifest
         extra = (read_manifest(bundle_dir) or {}).get("extra", {})
         try:
-            if extra.get("quant") is not None:
-                raise ValueError(f"bundle quant={extra['quant']!r} != config quant=None "
-                                 "(results would differ)")
+            if extra.get("quant") != self.quant:
+                raise ValueError(f"bundle quant={extra.get('quant')!r} != config "
+                                 f"quant={self.quant!r} (results would differ)")
             if bool(extra.get("autotune", False)) != bool(self._autotune):
                 raise ValueError(f"bundle autotune={extra.get('autotune')!r} != requested "
                                  f"autotune={self._autotune!r} (the tuned dispatch may "
@@ -198,10 +227,10 @@ class AdaptiveDehazer:
         """Back `engine`'s programs by the bundle's (attach_engine), each
         program bound to the serving module it runs."""
         from adam_dehaze_tpu_torch.serving_export import GraphPool, attach_engine
-        clf = (self._serving.classifier,)
+        clf = (self._hard.classifier,)
         binds = {"classify": clf, "logits": clf}
         for i, lvl in enumerate(INTENSITY_ORDER):
-            binds[f"step{i}"] = binds[f"branch{i}"] = (self._serving.models[lvl],)
+            binds[f"step{i}"] = binds[f"branch{i}"] = (self._hard.models[lvl],)
         if isinstance(engine, DeviceBinnedInfer):
             binds[f"device{engine.chunk}_{int(engine.spill)}"] = clf
         if self._graph_pool is None and self.device.type == "cuda":
@@ -277,11 +306,12 @@ class AdaptiveDehazer:
         return lowres
 
     def _branch_applies(self, lowres=()) -> list:
-        """The serving applies of the branches in INTENSITY_ORDER, those
-        named in `lowres` wrapped by make_lowres_apply (see _norm_lowres)."""
+        """The hard routes' applies of the branches in INTENSITY_ORDER (the
+        int8 copies under int8 serving), those named in `lowres` wrapped by
+        make_lowres_apply (see _norm_lowres)."""
         lowres = self._norm_lowres(lowres)
-        return [make_lowres_apply(self._serving.models[lvl], **lowres[lvl])
-                if lvl in lowres else self._serving.models[lvl]
+        return [make_lowres_apply(self._hard.models[lvl], **lowres[lvl])
+                if lvl in lowres else self._hard.models[lvl]
                 for lvl in INTENSITY_ORDER]
 
     def _binned_engine(self, lowres=()) -> BinnedAdaptiveEngine:
@@ -295,7 +325,7 @@ class AdaptiveDehazer:
             f"{lvl}-{p['scale']}-{p['mode']}-{p['radius']}"
             for lvl, p in sorted(lowres.items())))
         if key not in self._engines:
-            engine = BinnedAdaptiveEngine(self._serving.classifier,
+            engine = BinnedAdaptiveEngine(self._hard.classifier,
                                           self._branch_applies(lowres))
             costs = self._chunk_costs()
             if costs is not None and not lowres:
@@ -354,10 +384,8 @@ class AdaptiveDehazer:
     def _device_binned_fn(self, chunk: int, spill: bool):
         key = f"device_binned_{chunk}_{spill}"
         if key not in self._engines:
-            fn = make_device_binned_infer(
-                self._serving.classifier,
-                [self._serving.models[lvl] for lvl in INTENSITY_ORDER],
-                chunk=chunk, spill=spill)
+            fn = make_device_binned_infer(self._hard.classifier, self._branch_applies(),
+                                          chunk=chunk, spill=spill)
             if self._bundle_table:
                 self._attach(fn)
             self._engines[key] = fn
@@ -422,8 +450,7 @@ class AdaptiveDehazer:
         for one image; make_adaptive_infer "switch")."""
         if "switch" not in self._engines:
             self._engines["switch"] = make_adaptive_infer(
-                self._serving.classifier,
-                [self._serving.models[lvl] for lvl in INTENSITY_ORDER], "switch")
+                self._hard.classifier, self._branch_applies(), "switch")
         out, intensity = self._engines["switch"](self._to_device(images))
         return out.cpu().numpy(), intensity.cpu().numpy()
 
@@ -434,9 +461,10 @@ class AdaptiveDehazer:
         device (models/routing.py:make_sharded_binned_infer; binning and
         spill local to each shard, no collective). devices: a list of
         torch devices; None is every visible CUDA device, or [self.device]
-        on the CPU. Each device serves from its own replica of the serving
-        copy. A ragged batch is padded with its last image to the ladder
-        (n_dev,) + STREAM_BUCKETS * n_dev. Returns (dehazed, intensity)."""
+        on the CPU. Each device serves from its own replica of what the
+        hard routes serve (`_hard`). A ragged batch is padded with its last
+        image to the ladder (n_dev,) + STREAM_BUCKETS * n_dev. Returns
+        (dehazed, intensity)."""
         if devices is None:
             devices = ([torch.device("cuda", i) for i in range(torch.cuda.device_count())]
                        if self.device.type == "cuda" else [self.device])
@@ -458,23 +486,26 @@ class AdaptiveDehazer:
         return out[:n].cpu().numpy(), intensity[:n].cpu().numpy()
 
     def _replicated(self, pick: Callable) -> Callable:
-        """An apply that runs `pick(serving copy)` on the replica of the
-        serving copy that lives on its input's device."""
+        """An apply that runs `pick(hard serving)` on the replica of `_hard`
+        that lives on its input's device."""
         return lambda x: pick(self._serving_on(x.device))(x)
 
-    def _serving_on(self, device: torch.device) -> torch.nn.Module:
+    def _serving_on(self, device: torch.device):
         device = _indexed(device)
         if device == _indexed(self.device):
-            return self._serving
+            return self._hard
         if device not in self._replicas:
             self._replicas[device] = self._replica(device)
         return self._replicas[device]
 
-    def _replica(self, device: torch.device) -> torch.nn.Module:
-        """The serving copy built anew on `device`, with the tuned winners
-        of `autotune_report` where the tuner ran."""
+    def _replica(self, device: torch.device):
+        """`_hard` built anew on `device`: the serving copy with the tuned
+        winners of `autotune_report` where the tuner ran, or its int8
+        branches under int8 serving."""
         router = copy.deepcopy(self.router).to(device)
         serving = make_router_serving_apply(router, self.dtype)
+        if self.quant == "int8":
+            return self._hard_serving(serving, router)
         img = self.config["dataset"]["img_size"]
         for level, report in self.autotune_report.items():
             serving.models[level] = candidate_builders(
@@ -494,8 +525,14 @@ class AdaptiveDehazer:
         `device_buckets`); the device-binned binning
         `device{device_chunk}_{device_spill}` at `device_buckets`. Records
         the quant mode and autotune setting the bundle is pinned to.
-        Returns {program key: name}."""
+        Returns {program key: name}. Raises ValueError under serving_quant,
+        as the JAX package does: the programs are the default serving
+        applies."""
         from adam_dehaze_tpu_torch.serving_export import export_program, set_manifest_extra
+        if self.quant:
+            raise ValueError(f"export_precompiled does not support serving_quant="
+                             f"{self.quant!r}: exported programs are the default serving "
+                             "applies")
         img = self.config["dataset"]["img_size"]
         engine = self._binned_engine()
         buckets = tuple(buckets if buckets is not None else engine.buckets)
@@ -528,8 +565,7 @@ class AdaptiveDehazer:
                 export((branch, images(b)), f"branch{cls}", f"b={b}")
         for n in dict.fromkeys(device_buckets):
             export((clf, images(n)), f"device{device_chunk}_{int(device_spill)}", f"n={n}")
-        # quant: a config with serving_quant is refused at construction.
-        set_manifest_extra(bundle_dir, quant=None, autotune=self._autotune)
+        set_manifest_extra(bundle_dir, quant=self.quant, autotune=self._autotune)
         return written
 
     @torch.inference_mode()

@@ -5,9 +5,10 @@
 
 The bf16 kernels K3 (its head group included) and K4 are held against
 their bf16 plain versions at TAIL_BF16_ATOL, K6 at RES_BF16_RTOL, K1's fused
-body at K1_BF16_ATOL with alpha 1, and K2's statistics pass against `padded_stats` at MAPS_ATOL
-(chip_smoke.py, tests/test_torch_cuda.py). This script shows that the bounds see a broken
-kernel: for each mutation it copies csrc/ to a temporary directory, breaks
+body at K1_BF16_ATOL with alpha 1, K2's statistics pass against `padded_stats` at MAPS_ATOL,
+and the int8 conv Q2 against its plain version on the same int8 operands at Q2_RTOL, one bf16
+step of the largest output (chip_smoke.py, tests/test_torch_cuda.py). This script shows that
+the bounds see a broken kernel: for each mutation it copies csrc/ to a temporary directory, breaks
 the copy by a text substitution, builds it, and measures the broken kernels
 against the same plain versions, beside the unchanged kernels and beside
 the loose bound (bf16 kernel against the fp32 plain version at 3e-2). The
@@ -21,8 +22,10 @@ high branch's 64^2 x 384 segment [res, res, attn, res, attn] at batch 4,
 errors in units of the plain result's largest magnitude; K1 c=32 with 3
 blocks at 4 x 256^2 (tight: alpha 1 against the bf16 plain version; loose:
 the folded alpha against the fp32 plain version); the statistics pass at
-4 x 64^2 x 384 in bf16 with a channel gate; seeded weights with perturbed
-BN, inputs drawn non-negative like the real activations.
+4 x 64^2 x 384 in bf16 with a channel gate; Q2 at the high branch's 384-wide
+3x3 layer, 4 x 64^2, bf16, errors in units of the plain result's largest
+magnitude; seeded weights with perturbed BN, inputs drawn non-negative like
+the real activations.
 """
 import shutil
 import subprocess
@@ -43,6 +46,14 @@ from adam_dehaze_tpu_torch.nn.blocks import (
 )
 from adam_dehaze_tpu_torch.ops.kernels import _build
 from adam_dehaze_tpu_torch.ops.kernels.cbam import gated_maps, padded_stats
+from adam_dehaze_tpu_torch.ops.kernels.quant import (
+    ConvGeometry,
+    int8_conv,
+    int8_conv_packed_reference,
+    pack_int8_weights,
+    quantize_images,
+)
+from adam_dehaze_tpu_torch.ops.quant import quantize_weight_per_channel
 from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
     fold_lightweight,
     lightweight_chain,
@@ -69,8 +80,10 @@ RES_BF16_RTOL = 2e-2      # the tight bound of K6, in units of max|plain|
 BF16_ATOL = 3e-2          # the loose bound: bf16 kernel vs fp32 plain
 K1_BF16_ATOL = 4e-3       # the tight bound of K1: bf16 kernel vs bf16 plain at alpha 1
 MAPS_ATOL = 1e-5          # K2's statistics pass vs padded_stats
+Q2_RTOL = 2.0 ** -7       # Q2 vs its plain version: one bf16 step, in units of max|plain|
 TIGHT = {"K1": K1_BF16_ATOL, "K3": TAIL_BF16_ATOL, "K4": TAIL_BF16_ATOL,
-         "K6": RES_BF16_RTOL, "K2 maps": MAPS_ATOL}
+         "K6": RES_BF16_RTOL, "K2 maps": MAPS_ATOL, "Q2": Q2_RTOL}
+RELATIVE = ("K6", "Q2")
 K6_KINDS = ("res", "res", "attn", "res", "attn")
 
 # name -> (file, text to find, replacement). Every occurrence is replaced.
@@ -156,6 +169,9 @@ MUTATIONS = {
         "cbam_gate.cu", "      for (int k = 0; k < 8; ++k) vals[k] *= gk[k] * gate;",
         "      for (int k = 0; k < 8; ++k)\n"
         "        vals[k] = adam::to_float(adam::from_float<T>(vals[k] * gk[k])) * gate;"),
+    "each pair of output channels dequantised by the even one's scale (Q2's epilogue)": (
+        "int8_conv.cu", "v = round_to<T>(__fmul_rn(v, a.sw[co]));",
+        "v = round_to<T>(__fmul_rn(v, a.sw[co & ~1]));"),
 }
 # Mutations a tight bound is not expected to see: they are measured and
 # reported, and fail the run only if they move nothing at all.
@@ -203,6 +219,17 @@ def make_cases(dev, gen):
     with torch.inference_mode():
         want = torch.stack(padded_stats(xb, g))
     cases.append(("K2 maps", lambda *a: torch.stack(gated_maps(*a)), (xb, g), want, None, want))
+    # Q2 on the int8 operands of Q1 (run once, before any mutation).
+    geo = ConvGeometry.of(384, 384, 3, 3, 1, 1)
+    w = (torch.randn(384, 384, 3, 3, generator=gen) / 58.8).bfloat16().to(dev)
+    qw, sw = quantize_weight_per_channel(w)
+    with torch.inference_mode():
+        q, sx = quantize_images(xb, geo.cin_pad)
+    ops = (q, sx, pack_int8_weights(qw, geo), sw.float(), None, geo)
+    with torch.inference_mode():
+        cases.append(("Q2", lambda *a: int8_conv(*a, torch.bfloat16), ops,
+                      int8_conv_packed_reference(*ops, torch.bfloat16), None,
+                      int8_conv_packed_reference(*ops, torch.float32)))
     # K1 draws last, so that the other kernels' cases stay what they were.
     low = perturb_bn_(init_params_(LightweightDehazeModel(32, 3), gen), gen).eval().to(dev)
     x = torch.rand(BATCH, SIZE, SIZE, 3, generator=gen).to(dev)
@@ -228,7 +255,7 @@ def measure(cases):
         errs = []
         for got, want in ((got, wantbf), (got_loose, want32)):
             e = float((got.float() - want.float()).abs().max())
-            if label == "K6":
+            if label in RELATIVE:
                 e /= max(1.0, float(want.float().abs().max()))
             errs.append(e if e == e else float("inf"))
         out[label] = tuple(errs)
@@ -271,7 +298,8 @@ def main():
           f"{BATCH} x 64^2 x 384, in units of max|plain|, bound {RES_BF16_RTOL}; K2's statistics "
           f"pass at {BATCH} x 64^2 x 384 against padded_stats, bound {MAPS_ATOL}): max abs err "
           f"against the bf16 plain version | against the fp32 plain version (bound {BF16_ATOL}; "
-          f"K1 with its folded alpha)")
+          f"K1 with its folded alpha); Q2 at {BATCH} x 64^2 x 384, 3x3, in units of "
+          f"max|plain|, bound {Q2_RTOL:.3e}")
     unchanged = rows[0][1]
     failed = []
     for name, errs in rows:

@@ -238,9 +238,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    launches weigh most). A copy of the
    bundle whose manifest names another device is refused with a warning
    naming the field, and route_hard serves the eager output.
-19. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
+19. Int8 serving (ops/quant.py; `[int8 ...]` lines). First Q1 and Q2
+   alone (launches not counted on any path) at each of the 20 ConvBlock
+   shapes that the default branches' int8 copies run at 16 x 256^2 (read
+   off forward hooks), bf16: Q1's int8 values and scales bit for bit and
+   Q2 within one ulp of their plain versions on the same inputs, then fp32
+   on each shape's first 2 images; each timed beside its plain version, its
+   bound (Q2's operations over 1,979 TOPS of int8, or its bytes), the cuDNN
+   bf16 conv of the same layer and torch._int_mm on its im2col matrix (the
+   port never calls either); the sums over one bucket of each branch are
+   the kernels' line. Then, counters at 0, `AdaptiveDehazer` with
+   `cuda.serving_quant: int8` on seeded full-width weights: route_hard,
+   forced labels 0/1/2, route_device_binned and route_switch must launch
+   Q1 and Q2 once per Int8Conv2d of every bucket (chunk, image) that ran and
+   K2 six times a high one, and K1, K2', K3, K4, K5 and K6 never; outputs
+   finite in [0, 1], the routes' labels route_hard's. PSNR of int8 against
+   the unquantized bf16 output per branch (forced labels) above 35 dB; each
+   route's warm ms/image beside the bf16 dehazer's, in turns.
+   `export_precompiled` must refuse, phase 15's experiment served in int8
+   must refuse phase 18's default bundle with a warning, the soft call must
+   equal the unquantized one exactly. Last, the fp32 int8 slice (3 images,
+   one a class, 128^2) on the card against the CPU, at INT8_DRAWS.
+20. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
    with "training", "classifier_training", "joint_training", "detection",
-   "cli", "lowres", "alternate" and "precompiled"; K5's and K2''s Function
+   "cli", "lowres", "alternate", "precompiled" and "int8"; K5's and K2''s Function
    readings under "function"; each lowres kernel's readings at 128^2 under
    "lowres", K2's at the alternate branches' shapes under "alternate"; the
    CLI's, the dial's, the alternates' and precompiled serving's readings
@@ -341,6 +362,14 @@ from adam_dehaze_tpu_torch.ops.kernels.tail_chain import (
     medium_tail_plan,
     weight_tensors,
 )
+from adam_dehaze_tpu_torch.ops.kernels.quant import (
+    int8_conv,
+    int8_conv_packed_reference,
+    pack_int8_weights,
+    quantize_images,
+    quantize_images_reference,
+)
+from adam_dehaze_tpu_torch.ops.quant import Int8Conv2d, quantize_weight_per_channel
 from adam_dehaze_tpu_torch.ops.serving_apply import cast_for_serving
 from adam_dehaze_tpu_torch.serving import AdaptiveDehazer
 from adam_dehaze_tpu_torch.serving_autotune import candidate_builders
@@ -416,6 +445,11 @@ KERNELS = {
                        "adam_dehaze_tpu/ops/pallas/res_chain.py:89"),
     "probe_ops": ("cuda", "adam_dehaze_tpu_torch/csrc/probe_ops.cu",
                   "tools/probe_mosaic_ops.py:29"),
+    # The int8 path's kernels replace AQT's int8 conv (XLA, not Pallas).
+    "int8_quantize": ("cuda", "adam_dehaze_tpu_torch/csrc/int8_conv.cu",
+                      "adam_dehaze_tpu/ops/quant.py:34"),
+    "int8_conv": ("cuda", "adam_dehaze_tpu_torch/csrc/int8_conv.cu",
+                  "adam_dehaze_tpu/ops/quant.py:34"),
 }
 # The main-path segments of K6 at 256^2: name -> (channels, downscale, kinds).
 RES_SEGMENTS = {
@@ -3076,6 +3110,321 @@ def phase_precompiled(dev, smi, exp, nvcc_s):
     return dict(path), readings
 
 
+# Int8 serving (ops/quant.py, phase 19). The peak dense int8 tensor-core
+# rate of one H100 SXM at its full power limit.
+PEAK_INT8_OPS = 1979e12
+# The kernels of the int8 path, and those it must never launch: K1 (the low
+# branch runs its modules under int8), K3, K4, K2' and K6 (autotune is off).
+INT8_PATH_KERNELS = ("int8_quantize", "int8_conv", "cbam_gate")
+INT8_IDLE_KERNELS = ("lightweight_chain", "medium_tail_chain", "high_tail_chain",
+                     "spatial_gate", "res_attn_chain", "blend3")
+INT8_ROUTES = ("route_hard", "forced_labels", "route_device_binned", "route_switch")
+# tests/test_quant.py's bar for int8 against the unquantized output.
+INT8_PSNR_DB = 35.0
+# The fp32 int8 slice, card vs CPU (3 images, one a class, at 128^2). Both
+# sides run the same int8 sums, exact; but the layers outside them (the
+# heads, the ConvTransposes, the attention MLPs, BN) are cuDNN's and
+# cuBLAS's float32 sums in another order (the unquantized fp32 slice reads
+# up to 1e-3 apart, SLICE_ATOL), and such a difference moves some values
+# across a rounding boundary of the next quantizer: one int8 level
+# (max|x| / 127.5) at that input. The layers after it see inputs a level
+# apart and flip more, so over some 40 int8 layers the two outputs become
+# two draws of the quantization noise around the fp32 output, and two
+# independent draws differ by about sqrt(2) times the noise. The bound:
+# the card-vs-CPU error's mean within INT8_DRAWS times the mean of the
+# noise (int8 against fp32, both on the CPU) and its max within twice the
+# noise's max. That is looser than the per-layer bound (bit for bit, one
+# ulp) by the whole quantization noise; a wrong scale, layout or tap moves
+# the output by many times the noise.
+INT8_CPU_SIZE = SIZE // 2
+INT8_DRAWS = 1.5
+
+
+def ulps(got, want):
+    """The largest distance between two float32 or bfloat16 tensors in units
+    in the last place of their type."""
+    as_int = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    return int((got.view(as_int).long() - want.view(as_int).long()).abs().max())
+
+
+def int8_layers(d, dev):
+    """The Int8Conv2d calls of one bucket of each int8 branch of dehazer d
+    at (BATCH, SIZE, SIZE, 3): {(geometry, NHWC input shape): calls}, and
+    the Int8Conv2d count of each branch."""
+    layers, per_branch = collections.Counter(), {}
+    x = torch.rand(BATCH, SIZE, SIZE, 3, device=dev)
+    for lvl in INTENSITY_ORDER:
+        model = d._hard.models[lvl]
+        convs = [m for m in model.modules() if isinstance(m, Int8Conv2d)]
+        per_branch[lvl] = len(convs)
+        hooks = [m.register_forward_hook(
+            lambda mod, inp, out: layers.update(
+                {(mod.geometry, tuple(inp[0].permute(0, 2, 3, 1).shape)): 1}))
+            for m in convs]
+        with torch.inference_mode():
+            model(x)
+        for h in hooks:
+            h.remove()
+    return layers, per_branch
+
+
+def im2col_int8(q, geo):
+    """The (M, k_pad) int8 im2col matrix of Q1's output, K ordered as the
+    packed weights (ky, kx, ci): what torch._int_mm multiplies."""
+    n, h, w, c = q.shape
+    p = geo.padding
+    qp = torch.nn.functional.pad(q, (0, 0, p, p, p, p))
+    ho, wo = geo.out_size(h, w)
+    s = qp.stride()
+    cols = qp.as_strided((n, ho, wo, geo.kh, geo.kw, c),
+                         (s[0], s[1] * geo.stride, s[2] * geo.stride, s[1], s[2], s[3]))
+    a = cols.reshape(n * ho * wo, geo.kh * geo.kw * c)
+    return torch.nn.functional.pad(a, (0, geo.k_pad - a.shape[1])).contiguous()
+
+
+def check_int8_layer(dev, gen, geo, shape, dtype, timed):
+    """Q1 and Q2 at one ConvBlock shape against their plain versions: Q1's
+    int8 values and scales bit for bit, Q2 within one ulp of its output
+    type. With `timed`: each timed, beside its plain version, its bound,
+    the cuDNN conv in bf16 and torch._int_mm on the im2col matrix."""
+    x = torch.rand(shape, generator=gen) if shape[-1] == 3 else torch.relu(
+        torch.randn(shape, generator=gen))
+    x = x.to(dtype).to(dev)
+    fan_in = geo.kh * geo.kw * geo.cin
+    w = (torch.randn((geo.cout, geo.cin, geo.kh, geo.kw), generator=gen)
+         * fan_in ** -0.5).to(dtype).to(dev)
+    qw, sw = quantize_weight_per_channel(w)
+    packed, sw = pack_int8_weights(qw, geo), sw.float()
+    with torch.inference_mode():
+        q, sx = quantize_images(x, geo.cin_pad)
+        q0, sx0 = quantize_images_reference(x, geo.cin_pad)
+        q1_equal = bool(torch.equal(q, q0) and torch.equal(sx, sx0))
+        q1_err = max(max_err(q, q0), max_err(sx, sx0))
+        y = int8_conv(q, sx, packed, sw, None, geo, dtype)
+        y0 = int8_conv_packed_reference(q, sx, packed, sw, None, geo, dtype)
+        ulp = ulps(y, y0)
+    rec = dict(shape=list(shape), cin=geo.cin, cout=geo.cout, kernel=geo.kh, stride=geo.stride,
+               q1_bitwise=q1_equal, q1_max_abs_err=q1_err, q2_max_ulp=ulp,
+               q2_max_abs_err=max_err(y, y0))
+    check(q1_equal, f"int8: Q1 differs from its plain version at {shape} {geo} {dtype}")
+    check(ulp <= 1, f"int8: Q2 is {ulp} ulp from its plain version at {shape} {geo} {dtype}")
+    if not timed:
+        return rec
+    n, h, wd, _ = shape
+    ho, wo = geo.out_size(h, wd)
+    m = n * ho * wo
+    xn = x.permute(0, 3, 1, 2)
+    a, bt = im2col_int8(q, geo), packed.t()
+    with torch.inference_mode():
+        rec.update(
+            q1_ms=cuda_ms(lambda: quantize_images(x, geo.cin_pad)),
+            q1_plain_ms=cuda_ms(lambda: quantize_images_reference(x, geo.cin_pad), 3, 1),
+            q2_ms=cuda_ms(lambda: int8_conv(q, sx, packed, sw, None, geo, dtype)),
+            q2_plain_ms=cuda_ms(
+                lambda: int8_conv_packed_reference(q, sx, packed, sw, None, geo, dtype), 2, 1),
+            cudnn_bf16_ms=cuda_ms(lambda: torch.nn.functional.conv2d(
+                xn, w, stride=geo.stride, padding=geo.padding)),
+            int_mm_ms=cuda_ms(lambda: torch._int_mm(a, bt)))
+    rec["q1_bound"] = bound(4 * x.numel(), nbytes(x, sx) + n * h * wd * geo.cin_pad,
+                            PEAK_F32_FLOPS)
+    rec["q2_bound"] = bound(conv_flops(m, geo.kh * geo.kw, geo.cin, geo.cout),
+                            n * h * wd * geo.cin + nbytes(qw, sx, sw) + nbytes(y),
+                            PEAK_INT8_OPS)
+    rec["q2_tops"] = rec["q2_bound"]["flops"] / (rec["q2_ms"] * 1e-3) / 1e12
+    log(f"[int8 layer] {tuple(shape)} {geo.cin}->{geo.cout} {geo.kh}x{geo.kw}/{geo.stride}: "
+        f"Q1 {rec['q1_ms']:.3f} ms (plain {rec['q1_plain_ms']:.3f}, bound "
+        f"{rec['q1_bound']['bound_ms']:.3f} by {rec['q1_bound']['bound_by']}); Q2 "
+        f"{rec['q2_ms']:.3f} ms, {rec['q2_tops']:.0f} TOPS (plain {rec['q2_plain_ms']:.3f}, "
+        f"bound {rec['q2_bound']['bound_ms']:.3f} by {rec['q2_bound']['bound_by']}); "
+        f"cuDNN bf16 {rec['cudnn_bf16_ms']:.3f} ms, _int_mm {rec['int_mm_ms']:.3f} ms; "
+        f"Q1 bitwise, Q2 {ulp} ulp")
+    del a, q, q0, y, y0
+    return rec
+
+
+def int8_kernel_totals(rows, layers):
+    """The per-layer readings summed over one bucket of each branch (each
+    shape times its calls), as the kernels' JSON line takes them."""
+    q1, q2 = collections.Counter(), collections.Counter()
+    b1, b2 = collections.Counter(), collections.Counter()
+    for row, calls in zip(rows, layers.values()):
+        for key in ("ms", "plain_ms"):
+            q1[key] += calls * row[f"q1_{key}"]
+            q2[key] += calls * row[f"q2_{key}"]
+        for key in ("cudnn_bf16_ms", "int_mm_ms"):
+            q2[key] += calls * row[key]
+        for tot, b in ((b1, row["q1_bound"]), (b2, row["q2_bound"])):
+            for key in ("bound_ms", "bytes", "flops"):
+                tot[key] += calls * b[key]
+    per = f"one {BATCH}-image bucket of each int8 branch ({sum(layers.values())} convs)"
+
+    def rec(t, b, tag, peak):
+        return dict(t, bound_ms=b["bound_ms"], bytes=b["bytes"], flops=b["flops"],
+                    bound_by="bytes" if b["bytes"] / PEAK_BYTES_S >= b["flops"] / peak
+                    else "operations",
+                    max_abs_err=max(r[f"{tag}_max_abs_err"] for r in rows), library_ms=None,
+                    per=per, shapes=len(rows))
+    return rec(q1, b1, "q1", PEAK_F32_FLOPS), rec(q2, b2, "q2", PEAK_INT8_OPS)
+
+
+def psnr_db(a, b):
+    mse = ((np.asarray(a, np.float64) - np.asarray(b, np.float64)) ** 2).mean(axis=(1, 2, 3))
+    return 10.0 * np.log10(1.0 / np.maximum(mse, 1e-20))
+
+
+def phase_int8(dev, smi, x, labels, exp):
+    """19. Int8 serving (see the docstring): Q1 and Q2 at every ConvBlock
+    shape of the default branches, the int8 slice through the normal entry
+    points with the counters at 0, the refusals and the soft call, the fp32
+    int8 slice card vs CPU. Returns the path's launch counts, Q1's and Q2's
+    records for the kernels' line and the phase's readings."""
+    gen = torch.Generator().manual_seed(SEED + 9)
+    cfg = load_config()
+    cfg8 = load_config(overrides={"cuda": {"serving_quant": "int8"}})
+    router = make_router(cfg, gen)
+    d16 = AdaptiveDehazer(copy.deepcopy(router), None, cfg, device=dev)
+    d8 = AdaptiveDehazer(copy.deepcopy(router), None, cfg8, device=dev)
+    layers, n_convs = int8_layers(d8, dev)
+    log(f"[int8] Int8Conv2d per branch {n_convs}; {len(layers)} distinct ConvBlock shapes, "
+        f"{sum(layers.values())} calls a bucket of each branch")
+    rows = [check_int8_layer(dev, gen, geo, shape, torch.bfloat16, True)
+            for geo, shape in layers]
+    # fp32 once: each shape's first 2 images (the kernels treat images alike).
+    fp32_ulp = max(check_int8_layer(dev, gen, geo, (2,) + shape[1:], torch.float32,
+                                    False)["q2_max_ulp"] for geo, shape in layers)
+    q1_rec, q2_rec = int8_kernel_totals(rows, layers)
+    q2_rec.update(max_ulp_bf16=max(r["q2_max_ulp"] for r in rows), max_ulp_fp32=fp32_ulp)
+    log(f"[int8 Q1] per {q1_rec['per']}: {q1_rec['ms']:.3f} ms, plain {q1_rec['plain_ms']:.3f} "
+        f"ms, bound {q1_rec['bound_ms']:.3f} ms ({q1_rec['bound_by']})")
+    log(f"[int8 Q2] per {q2_rec['per']}: {q2_rec['ms']:.3f} ms, plain {q2_rec['plain_ms']:.3f} "
+        f"ms, bound {q2_rec['bound_ms']:.3f} ms ({q2_rec['bound_by']}); cuDNN bf16 "
+        f"{q2_rec['cudnn_bf16_ms']:.3f} ms, _int_mm {q2_rec['int_mm_ms']:.3f} ms; max ulp bf16 "
+        f"{q2_rec['max_ulp_bf16']}, fp32 {fp32_ulp}")
+    torch.cuda.empty_cache()
+
+    # The int8 slice through the entry points, counters at 0.
+    xd = torch.from_numpy(x).to(dev)
+    reset_launch_counts()
+    hard, hard_lab = d8.route_hard(x)
+    torch.cuda.synchronize()
+    hard_d = counts()
+    before = counts()
+    with torch.inference_mode():
+        forced = d8.engine(xd, intensity=labels)[0].cpu().numpy()
+    forced_d = delta(before)
+    before = counts()
+    dev_out, dev_lab = d8.route_device_binned(x)
+    dev_d = delta(before)
+    before = counts()
+    sw_out, sw_lab = d8.route_switch(x)
+    sw_d = delta(before)
+    path = counts()
+    n8 = [n_convs[lvl] for lvl in INTENSITY_ORDER]
+
+    def expect(per_class):
+        q = sum(b * n for b, n in zip(per_class, n8))
+        return nonzero({"int8_quantize": q, "int8_conv": q, "cbam_gate": 6 * per_class[2]})
+
+    for what, got, per_class in (
+            ("route_hard", hard_d, buckets_per_class(d8.engine, hard_lab)),
+            ("forced labels", forced_d, buckets_per_class(d8.engine, labels)),
+            ("route_device_binned", dev_d, chunks(dev_lab, 16)),
+            ("route_switch", sw_d, np.bincount(sw_lab, minlength=3).tolist())):
+        check(nonzero(got) == expect(per_class),
+              f"int8 {what}: launches {nonzero(got)}, expected {expect(per_class)}")
+    for y, what in ((hard, "route_hard"), (forced, "forced labels"),
+                    (dev_out, "route_device_binned"), (sw_out, "route_switch")):
+        check_images(y, BATCH, f"int8 {what}")
+    check(np.array_equal(dev_lab, hard_lab) and np.array_equal(sw_lab, hard_lab),
+          "int8: the routes' labels differ from route_hard's")
+    check(all(path[k] > 0 for k in INT8_PATH_KERNELS)
+          and all(path[k] == 0 for k in INT8_IDLE_KERNELS),
+          f"int8: launches on the path {nonzero(path)}")
+    log(f"[int8 slice] route_hard intensities {np.bincount(hard_lab, minlength=3).tolist()}; "
+        f"launches: route_hard {nonzero(hard_d)}, forced labels {nonzero(forced_d)}, "
+        f"device-binned {nonzero(dev_d)}, switch {nonzero(sw_d)}")
+
+    # int8 against the unquantized bf16 output, per branch (forced labels).
+    with torch.inference_mode():
+        ref = d16.engine(xd, intensity=labels)[0].cpu().numpy()
+    psnr = {lvl: psnr_db(forced[labels == c], ref[labels == c])
+            for c, lvl in enumerate(INTENSITY_ORDER)}
+    for lvl, p in psnr.items():
+        log(f"[int8 psnr] {lvl}: int8 vs unquantized bf16, min {p.min():.2f} dB, mean "
+            f"{p.mean():.2f} dB over {len(p)} images (bar {INT8_PSNR_DB} dB)")
+    check(all(p.min() > INT8_PSNR_DB for p in psnr.values()),
+          "int8: a branch's output is within 35 dB of the unquantized one")
+
+    # Each route's ms/image, int8 beside bf16, in turns.
+    def runs(d):
+        def forced_run():
+            with torch.inference_mode():
+                d.engine(torch.from_numpy(x).to(dev), intensity=labels)[0].cpu()
+        return {"route_hard": lambda: d.route_hard(x), "forced_labels": forced_run,
+                "route_device_binned": lambda: d.route_device_binned(x),
+                "route_switch": lambda: d.route_switch(x)}
+    ms = {"int8": {}, "bf16": {}}
+    for route in INT8_ROUTES:
+        for tag, d in (("bf16", d16), ("int8", d8)):
+            ms[tag][route] = route_ms(runs(d)[route], BATCH)[0]
+        log(f"[int8 routes] {route}: int8 {ms['int8'][route]:.3f} ms/image, bf16 "
+            f"{ms['bf16'][route]:.3f} ms/image ({BATCH} images at {SIZE}^2; {smi})")
+
+    # The refusals and the soft call.
+    try:
+        d8.export_precompiled(os.path.join(exp, "int8_bundle"))
+        refused = False
+    except ValueError:
+        refused = True
+    check(refused, "int8: export_precompiled did not refuse")
+    cfg_exp = load_config(os.path.join(exp, "config.yaml"))
+    cfg_exp["cuda"]["serving_quant"] = "int8"
+    int8_cfg = os.path.join(exp, "config_int8.yaml")
+    with open(int8_cfg, "w") as f:
+        json.dump({k: v for k, v in cfg_exp.items() if not k.startswith("_")}, f)
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        bundled = AdaptiveDehazer.from_experiment(exp, config_path=int8_cfg,
+                                                  precompiled="auto", device=dev)
+    said = [str(w.message) for w in caught if "quant" in str(w.message)]
+    check(said and bundled._bundle_table is None and bundled.quant == "int8",
+          f"int8: the default bundle was not refused: {said}")
+    check(np.array_equal(d8(x), d16(x)), "int8: the soft call is not the unquantized one")
+    log(f"[int8] export_precompiled refused; a default bundle refused ({said[0]}); the soft "
+        "call equals the unquantized soft call")
+    del bundled, d16, d8
+    torch.cuda.empty_cache()
+
+    # The fp32 int8 slice, card vs CPU, 3 images (one a class) at 128^2.
+    xs = np.ascontiguousarray(x[:3, ::2, ::2])
+    lab = np.arange(3)
+    outs = {}
+    for tag, device, quant in (("card", dev, "int8"), ("cpu", "cpu", "int8"),
+                               ("cpu_f32", "cpu", None)):
+        c = load_config(overrides={"cuda": {"compute_dtype": "float32", "serving_quant": quant}})
+        d = AdaptiveDehazer(copy.deepcopy(router), None, c, device=device)
+        with torch.inference_mode():
+            outs[tag] = d.engine(torch.from_numpy(xs).to(device), intensity=lab)[0].cpu()
+        del d
+    err = (outs["card"] - outs["cpu"]).abs()
+    noise = (outs["cpu"] - outs["cpu_f32"]).abs()
+    log(f"[int8 fp32 card vs CPU] {INT8_CPU_SIZE}^2: max {float(err.max()):.3e}, mean "
+        f"{float(err.mean()):.3e}; the int8 noise (int8 vs fp32 on the CPU) max "
+        f"{float(noise.max()):.3e}, mean {float(noise.mean()):.3e}")
+    check(float(err.mean()) <= INT8_DRAWS * float(noise.mean())
+          and float(err.max()) <= 2 * float(noise.max()),
+          "int8: the fp32 slice on the card disagrees with the CPU")
+    readings = dict(layers=rows, int8_convs_per_branch=n_convs, ms_per_image=ms,
+                    psnr_db={k: dict(min=float(p.min()), mean=float(p.mean()))
+                             for k, p in psnr.items()},
+                    fp32_card_vs_cpu=dict(max=float(err.max()), mean=float(err.mean()),
+                                          noise_max=float(noise.max()),
+                                          noise_mean=float(noise.mean())))
+    log(f"[int8] {smi}")
+    return dict(path), {"int8_quantize": q1_rec, "int8_conv": q2_rec}, readings
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
@@ -3133,6 +3482,8 @@ def main():
             "lowres", phase_lowres, dev, smi, exp, (tail_cache, res_cache), fp32_caches)
         alt_path, alt_k2, alt_readings = timed("alternate", phase_alternate, dev, smi, x, labels)
         pre_path, pre_readings = timed("precompiled", phase_precompiled, dev, smi, exp, nvcc_s)
+        int8_path, int8_kernels, int8_readings = timed("int8", phase_int8, dev, smi, x, labels,
+                                                       exp)
     for name in ("route_hard", "forced_labels", "soft"):
         log(f"[slices] {name}: default dispatch {default_ms[name]:.3f} ms/image, "
             f"tail-chain dispatch {tail_ms[name]:.3f} ms/image, res-chain dispatch "
@@ -3142,7 +3493,8 @@ def main():
     paths = {"default": default, "engines": engines, "tail_chain": tail, "res_chain": res,
              "probe_tool": probes, "training": training, "classifier_training": classifier,
              "joint_training": joint, "detection": detection, "cli": cli_path,
-             "lowres": lowres_path, "alternate": alt_path, "precompiled": pre_path}
+             "lowres": lowres_path, "alternate": alt_path, "precompiled": pre_path,
+             "int8": int8_path}
     kernels["cbam_gate"].update(training_forward_ms_per_step=k2_train["forward_ms"],
                                 training_backward_ms_per_step=k2_train["backward_ms"])
     for name, rec in grad_fns.items():
@@ -3150,6 +3502,7 @@ def main():
     for name, rec in lowres_kernels.items():
         kernels[name].update(lowres=rec)
     kernels["cbam_gate"].update(alternate=alt_k2)
+    kernels.update(int8_kernels)
     line = {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
          "launches": sum(path[name] for path in paths.values()),
@@ -3165,7 +3518,7 @@ def main():
                      "fp32_step_card_vs_cpu": step_errs, "classifier": cls_readings,
                      "joint": joint_readings},
         "detection": det_readings, "cli": cli_readings, "lowres": lowres_readings,
-        "alternate": alt_readings, "precompiled": pre_readings,
+        "alternate": alt_readings, "precompiled": pre_readings, "int8": int8_readings,
         "phase_seconds": seconds}
     check(all(k["launches"] > 0 for k in line["kernels"]),
           f"a kernel was launched no time on any path: {line['kernels']}")

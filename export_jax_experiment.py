@@ -12,8 +12,8 @@ and writes, under --out:
 
 - config.yaml: the JAX config with its `tpu` section replaced by the
   port's `cuda` section (`tpu.compute_dtype` becomes `cuda.compute_dtype`,
-  `tpu.serving_quant` becomes `cuda.serving_quant`: the port refuses to
-  serve such an experiment rather than serve it unquantized), every other
+  `tpu.serving_quant` becomes `cuda.serving_quant`, so that an experiment
+  served in int8 is served in int8 by the port too), every other
   key kept, the checkpoint and result paths pointed into --out;
 - checkpoints/joint/best_model.pth (+ best_model.metrics.json when the JAX
   checkpoint has metrics): {"step", "model": the router's state_dict},

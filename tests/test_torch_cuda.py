@@ -764,16 +764,17 @@ def test_small_slice_on_card_matches_cpu(cuda_device):
     torch.testing.assert_close(outs[1], outs[0], rtol=0, atol=1e-4)
 
 
-def _small_dehazer(device, seed=2, **kwargs):
+def _small_dehazer(device, seed=2, quant=None, **kwargs):
     """The serving slice at small widths, fp32, seeded (as
-    test_small_slice_on_card_matches_cpu); kwargs go to AdaptiveDehazer."""
+    test_small_slice_on_card_matches_cpu), served in `quant`
+    (cuda.serving_quant); kwargs go to AdaptiveDehazer."""
     from adam_dehaze_tpu_torch.config import load_config
     from adam_dehaze_tpu_torch.models.branches import create_branch_models
     from adam_dehaze_tpu_torch.models.classifier import create_classifier
     from adam_dehaze_tpu_torch.models.routing import create_router
     from adam_dehaze_tpu_torch.serving import AdaptiveDehazer
 
-    cfg = load_config(overrides={"cuda": {"compute_dtype": "float32"}})
+    cfg = load_config(overrides={"cuda": {"compute_dtype": "float32", "serving_quant": quant}})
     for level, ch in (("low", 8), ("medium", 8), ("high", 16)):
         cfg["dehazing"][level]["channels"] = ch
     router = _seeded(create_router(create_branch_models(cfg), create_classifier(cfg), cfg), seed)
@@ -1351,3 +1352,108 @@ def test_launch_counts_survive_replay(cuda_device, tmp_path):
                 d.engine(xd, intensity=labels)
             torch.cuda.synchronize()
             assert counts() == {k: v * replays for k, v in eager.items()}
+
+
+def _ulps(got: torch.Tensor, want: torch.Tensor) -> int:
+    """The largest distance, in units in the last place of their type,
+    between two float32 or bfloat16 tensors of one sign pattern."""
+    as_int = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
+    return int((got.view(as_int).long() - want.view(as_int).long()).abs().max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(4, 64, 64, 3), (2, 37, 30, 96), (3, 16, 16, 12),
+                                   (2, 32, 32, 384)])
+def test_int8_quantize_matches_plain(cuda_device, dtype, shape):
+    """Q1 against its plain version: the int8 values, their zero padding and
+    the per-image scales equal, bit for bit; an all-zero image included."""
+    from adam_dehaze_tpu_torch.ops.kernels.quant import (
+        ConvGeometry, quantize_images, quantize_images_reference)
+    g = torch.Generator().manual_seed(shape[-1])
+    x = (torch.randn(shape, generator=g) * torch.rand((shape[0], 1, 1, 1), generator=g) * 8)
+    x[-1] = 0.0
+    x = x.to(dtype).to(cuda_device)
+    pad = ConvGeometry.of(shape[-1], 8, 3, 3, 1, 1).cin_pad
+    q, s = quantize_images(x, pad)
+    q0, s0 = quantize_images_reference(x, pad)
+    assert torch.equal(q, q0) and torch.equal(s, s0)
+
+
+# (cin, cout, kernel, stride, padding, bias): K = 147 (7x7 on RGB), 27,
+# stride 2, 1x1 with a bias, the widest 3x3 and ragged M and Cout tiles.
+INT8_CONVS = [(3, 96, 7, 1, 3, False), (3, 16, 3, 1, 1, False), (64, 128, 4, 2, 1, False),
+              (56, 24, 1, 1, 0, True), (384, 384, 3, 1, 1, False), (16, 48, 3, 1, 1, True)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("conv", INT8_CONVS, ids=lambda c: "x".join(map(str, c[:4])))
+def test_int8_conv_matches_plain(cuda_device, dtype, conv):
+    """Q2 against its plain version (the same int8 operands): the int32 sums
+    are exact, the epilogue rounds at the same points, so at most one unit
+    in the last place of the output type apart."""
+    from adam_dehaze_tpu_torch.ops.kernels.quant import (
+        ConvGeometry, int8_conv, int8_conv_packed_reference, pack_int8_weights,
+        quantize_images)
+    from adam_dehaze_tpu_torch.ops.quant import quantize_weight_per_channel
+    cin, cout, k, stride, pad, has_bias = conv
+    g = torch.Generator().manual_seed(cin + cout)
+    x = torch.relu(torch.randn((3, 19, 23, cin), generator=g)).to(dtype).to(cuda_device)
+    w = (torch.randn((cout, cin, k, k), generator=g) * 0.1).to(dtype).to(cuda_device)
+    bias = (torch.randn((cout,), generator=g).to(dtype).float().to(cuda_device)
+            if has_bias else None)
+    geo = ConvGeometry.of(cin, cout, k, k, stride, pad)
+    qw, sw = quantize_weight_per_channel(w)
+    packed = pack_int8_weights(qw, geo)
+    q, sx = quantize_images(x, geo.cin_pad)
+    got = int8_conv(q, sx, packed, sw.float(), bias, geo, dtype)
+    want = int8_conv_packed_reference(q, sx, packed, sw.float(), bias, geo, dtype)
+    assert got.shape == want.shape == (3, *geo.out_size(19, 23), cout)
+    assert _ulps(got, want) <= 1
+
+
+def test_int8_route_hard_launches_q1_q2_and_k2(cuda_device):
+    """An int8 route_hard over forced labels 0, 1, 2: Q1 and Q2 once per
+    ConvBlock of every branch that ran, K2 in the high bucket (its six
+    AttentionBlocks), and neither K1 nor the tail or segment chains."""
+    from adam_dehaze_tpu_torch.ops.kernels import launch_counters, reset_launch_counts
+    from adam_dehaze_tpu_torch.ops.quant import Int8Conv2d
+    d = _small_dehazer(cuda_device, quant="int8")
+    x = torch.from_numpy(np.random.default_rng(9).random((6, 32, 32, 3), dtype=np.float32))
+    n_convs = sum(isinstance(m, Int8Conv2d) for lvl in ("low", "medium", "high")
+                  for m in d._hard.models[lvl].modules())
+    with torch.inference_mode():
+        d.engine(x.to(cuda_device), intensity=np.arange(6) % 3)   # first call: the build
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        d.engine(x.to(cuda_device), intensity=np.arange(6) % 3)
+        torch.cuda.synchronize()
+    counts = {k: fn.launches for k, fn in launch_counters().items()}
+    assert counts["int8_quantize"] == counts["int8_conv"] == n_convs
+    assert counts["cbam_gate"] == 6
+    for name in ("lightweight_chain", "medium_tail_chain", "high_tail_chain",
+                 "res_attn_chain", "spatial_gate"):
+        assert counts[name] == 0, name
+
+
+def test_int8_slice_on_card_matches_cpu(cuda_device):
+    """The fp32 int8 slice, forced labels 0, 1, 2: the card against the
+    CPU's plain versions. The heads, the ConvTransposes and the attention
+    MLPs are cuDNN's and cuBLAS's sums in another order, which moves some
+    values across an int8 rounding boundary of the next quantizer, and the
+    layers after it flip more: the two outputs are two draws of the
+    quantization noise around the fp32 output. So the card-vs-CPU error's
+    mean within 1.5 times that noise's mean (int8 against fp32 on the CPU)
+    and its max within twice the noise's max (chip_smoke.py's INT8_DRAWS)."""
+    x = np.random.default_rng(10).random((6, 32, 32, 3), dtype=np.float32)
+    labels = np.arange(6) % 3
+    card = _small_dehazer(cuda_device, quant="int8")
+    cpu = _small_dehazer("cpu", quant="int8")
+    fp32 = _small_dehazer("cpu")
+    with torch.inference_mode():
+        got = card.engine(torch.from_numpy(x).to(cuda_device), intensity=labels)[0].cpu()
+        want = cpu.engine(torch.from_numpy(x), intensity=labels)[0]
+        ref = fp32.engine(torch.from_numpy(x), intensity=labels)[0]
+    err, noise = (got - want).abs(), (want - ref).abs()
+    assert float(noise.max()) > 0
+    assert float(err.mean()) <= 1.5 * float(noise.mean())
+    assert float(err.max()) <= 2 * float(noise.max())

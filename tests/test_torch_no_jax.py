@@ -86,3 +86,37 @@ def test_chip_smoke_fails_alone(tmp_path):
     assert proc.returncode != 0
     assert "ModuleNotFoundError" in proc.stderr
     assert '"ok": true' not in proc.stdout
+
+
+_DEVICE_DEFAULTS = """
+import importlib, inspect, pkgutil
+import adam_dehaze_tpu_torch as pkg
+found = []
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    mod = importlib.import_module(m.name)
+    for name, obj in vars(mod).items():
+        if getattr(obj, "__module__", None) != mod.__name__:
+            continue
+        fns = [(name, obj)] if inspect.isfunction(obj) else []
+        if inspect.isclass(obj):
+            fns = [(f"{name}.{k}", v) for k, v in vars(obj).items()
+                   if inspect.isfunction(v) or isinstance(v, (classmethod, staticmethod))]
+        for qual, fn in fns:
+            fn = getattr(fn, "__func__", fn)
+            p = inspect.signature(fn).parameters.get("device")
+            if p is not None and str(p.default) == "cpu":
+                found.append(f"{mod.__name__}.{qual}")
+print(sorted(found))
+"""
+
+
+def test_no_public_entry_point_defaults_to_the_cpu():
+    """Entry points run on the card unless the caller asks for the CPU: no
+    function or method of the port defaults its `device` to the CPU, but
+    the loss nets' `init` helpers, which the trainers call with their
+    device (train_dehazing.py, train_joint.py)."""
+    proc = subprocess.run([sys.executable, "-c", _DEVICE_DEFAULTS], cwd=REPO,
+                          capture_output=True, text=True, env=_clean_env(), timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == str(["adam_dehaze_tpu_torch.losses.dehazing.DehazingLoss.init",
+                                       "adam_dehaze_tpu_torch.losses.dehazing.JointLoss.init"])

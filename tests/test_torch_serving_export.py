@@ -26,7 +26,6 @@ import torch
 from torch import nn
 
 from adam_dehaze_tpu_torch import cli as PCLI
-from adam_dehaze_tpu_torch.cli import NOT_PORTED
 from adam_dehaze_tpu_torch.config import load_config
 from adam_dehaze_tpu_torch.models.branches import create_branch_models
 from adam_dehaze_tpu_torch.models.classifier import create_classifier
@@ -317,13 +316,22 @@ def test_jax_bundle_refused(weights, bundle, tmp_path):
 
 
 def test_serving_quant_refused_and_carried_over(weights, tmp_path):
-    """A config with cuda.serving_quant is refused (the port has no
-    quantized serving), and export_jax_experiment carries the JAX config's
-    tpu.serving_quant into it."""
+    """A config with cuda.serving_quant: int8 builds an int8 dehazer (its
+    hard routes serve int8 copies of the branches, its soft call the
+    unquantized serving copy), whose export_precompiled is refused as in
+    the JAX package; export_jax_experiment carries the JAX config's
+    tpu.serving_quant into the port's config."""
     import export_jax_experiment
-    with pytest.raises(NotImplementedError) as e:
-        _dehazer(weights, cfg=_config(serving_quant="int8"))
-    assert str(e.value) == NOT_PORTED["serving_quant"]
+    from adam_dehaze_tpu_torch.ops.quant import Int8Conv2d
+    d = _dehazer(weights, cfg=_config(serving_quant="int8"))
+    assert d.quant == "int8"
+    for lvl in ("low", "medium", "high"):
+        assert any(isinstance(m, Int8Conv2d) for m in d._hard.models[lvl].modules())
+        assert not any(isinstance(m, Int8Conv2d) for m in d._serving.models[lvl].modules())
+    out, _ = d.route_hard(X)
+    assert out.shape == X.shape and np.isfinite(out).all()
+    with pytest.raises(ValueError, match="serving_quant='int8'"):
+        d.export_precompiled(str(tmp_path / "refused"))
     jax_cfg = {"tpu": {"compute_dtype": "float32", "serving_quant": "int8"}}
     cfg = export_jax_experiment.port_config(jax_cfg, str(tmp_path))
     assert cfg["cuda"]["serving_quant"] == "int8" and cfg["cuda"]["compute_dtype"] == "float32"
