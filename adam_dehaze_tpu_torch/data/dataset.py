@@ -171,11 +171,21 @@ class DataLoader:
             t.join(timeout=10)
 
 
-def get_dataloader(config, split: str = "train",
-                   seed: Optional[int] = None) -> DataLoader:
-    """The loader of one split under the config's dataset section
-    (single process: the JAX package's per-host sharding waits for the
-    port's data-parallel trainer)."""
+def get_dataloader(config, split: str = "train", seed: Optional[int] = None,
+                   shard_per_host: bool = True) -> DataLoader:
+    """The loader of one split under the config's dataset section.
+
+    `shard_per_host` is the JAX signature's. In one process it changes
+    nothing, as in the JAX package (a single host's shard is the whole
+    split). The port has no per-host sharding yet (the `parallel/` port):
+    under an initialized torch.distributed group of more than one process,
+    `shard_per_host=True` raises NotImplementedError rather than hand every
+    process the whole split."""
+    if shard_per_host and _world_size() > 1:
+        raise NotImplementedError(
+            "get_dataloader(shard_per_host=True) across processes needs the per-host "
+            "sharding of the parallel/ port, which adam_dehaze_tpu_torch does not have "
+            "yet; pass shard_per_host=False to give every process the whole split")
     key = {"train": "train_path", "val": "val_path"}.get(split, "test_path")
     ds = HazyImageDataset(
         root_dir=config["dataset"][key], split=split,
@@ -190,3 +200,9 @@ def get_dataloader(config, split: str = "train",
         ds, batch_size=config["dataset"]["batch_size"], shuffle=(split == "train"),
         num_workers=config["dataset"]["num_workers"],
         seed=config["seed"] if seed is None else seed)
+
+
+def _world_size() -> int:
+    """Processes of the default torch.distributed group, 1 without one."""
+    import torch.distributed as dist
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1

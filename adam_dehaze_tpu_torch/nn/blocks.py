@@ -26,9 +26,10 @@ from adam_dehaze_tpu_torch.ops.kernels.cbam import channel_spatial_gate
 class ConvBlock(nn.Module):
     """Conv -> optional BatchNorm -> optional ReLU. The conv has a bias
     only when there is no BN. Under int8 serving the conv of a serving
-    copy's ConvBlock (`block.0`) becomes an Int8Conv2d
+    copy's ConvBlock (`block.0`) becomes an Int8Conv2d that also applies
+    the block's eval BN and ReLU, which become `nn.Identity`
     (ops/quant.py:quantized_inference, the counterpart of the JAX block's
-    `conv_kwargs()` hook); BN and ReLU stay as they are."""
+    `conv_kwargs()` hook)."""
 
     def __init__(self, in_channels: int, out_channels: int,
                  kernel_size: int = 3, stride: int = 1,

@@ -40,9 +40,11 @@ def launch_counters() -> dict:
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch counter to 0."""
+    """Set every kernel's launch counter to 0 (and Q2's per body)."""
     for fn in launch_counters().values():
         fn.launches = 0
+        for body in getattr(fn, "body_launches", {}):
+            fn.body_launches[body] = 0
 
 
 @contextmanager

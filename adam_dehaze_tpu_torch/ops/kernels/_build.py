@@ -85,11 +85,11 @@ _SIGNATURES = {
     "cbam_gated_maps": (P, P, P, P, I, I, I, I, I, P),
     # which, x, w, wrep, out, flat, stream
     "probe_op": (I, P, P, P, P, I, P),
-    # x, amax, q, scale, N, HW, C, cin_pad, is_bf16, stream
+    # x, scratch, q, scale, N, HW, C, cin_pad, is_bf16, stream
     "int8_quantize": (P, P, P, P, I, I, I, I, I, P),
-    # q, w, sx, sw, bias, out, N, H, W, cin_pad, Ho, Wo, cout, cout_pad, k_pad, kh, kw,
-    # stride, pad, is_bf16, stream
-    "int8_conv": (P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, I, I, I, I, P),
+    # q, w, sx, sw, bias, bn, relu, out, N, H, W, cin_pad, Ho, Wo, cout, cout_pad, k_pad,
+    # kh, kw, stride, pad, body, n_chunk, is_bf16, stream
+    "int8_conv": (P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, I, I, I, I, I, I, I, I, I, P),
 }
 
 

@@ -30,8 +30,9 @@ where the ConvBlock has no BN.
 `quantize_per_image`, `quantize_weight_per_channel` and
 `int8_conv_reference` are the plain versions of that arithmetic. The
 kernels (ops/kernels/quant.py: Q1 quantizes activations into the conv's
-layout, Q2 is the int8 tensor-core conv with the dequantising epilogue)
-take them for CPU tensors.
+layout, Q2 is the int8 tensor-core conv whose epilogue dequantises and
+applies the ConvBlock's eval BN and ReLU) take them, followed by the BN and
+ReLU ops the unfused block runs, for CPU tensors.
 
 The JAX package quantizes the weights on every trace; the port does it
 once, when the int8 serving copy is built (`quantize_apply`), from the same
@@ -108,21 +109,32 @@ def int8_conv_reference(qx: torch.Tensor, sx: torch.Tensor, qw: torch.Tensor,
 
 
 class Int8Conv2d(nn.Module):
-    """A ConvBlock's nn.Conv2d (weights in the compute dtype) served in int8:
-    its weights quantized once, per output channel, and packed for Q2; each
-    call quantizes its input per image (Q1) and runs Q2, whose output is in
-    the input's dtype. NCHW in channels_last memory in and out, like the
-    conv it stands for. `weight` keeps the compute-dtype weights: the
-    branches read their compute dtype from it."""
+    """A ConvBlock's nn.Conv2d (weights in the compute dtype) served in int8,
+    with the block's eval BatchNorm2d `bn` and its ReLU after it: the
+    weights quantized once, per output channel, and packed for Q2's body
+    (ConvGeometry); each call quantizes its input per image (Q1) and runs
+    Q2, whose epilogue dequantises, applies the BN (`bn_stats`, taken from
+    `bn`'s parameters and running statistics) and the ReLU, and writes the
+    input's dtype. NCHW in channels_last memory in and out, like the block
+    it stands for.
+    `weight` keeps the compute-dtype weights: the branches read their
+    compute dtype from it."""
 
-    def __init__(self, conv: nn.Conv2d):
+    def __init__(self, conv: nn.Conv2d, bn: Optional[nn.BatchNorm2d] = None,
+                 relu: bool = False):
         super().__init__()
-        from adam_dehaze_tpu_torch.ops.kernels.quant import ConvGeometry, pack_int8_weights
+        from adam_dehaze_tpu_torch.ops.kernels.quant import (
+            ConvGeometry,
+            eval_bn_stats,
+            pack_int8_weights,
+        )
         if conv.groups != 1 or conv.dilation != (1, 1) or conv.padding_mode != "zeros":
             raise ValueError(f"Int8Conv2d takes a plain conv, got {conv}")
         kh, kw = conv.kernel_size
         if conv.stride[0] != conv.stride[1] or conv.padding[0] != conv.padding[1]:
             raise ValueError(f"Int8Conv2d takes equal strides and paddings, got {conv}")
+        if bn is not None and (bn.training or not bn.track_running_stats):
+            raise ValueError("Int8Conv2d folds an eval-mode BatchNorm2d with running statistics")
         w = conv.weight.detach()
         qw, sw = quantize_weight_per_channel(w)
         self.geometry = ConvGeometry.of(w.shape[1], w.shape[0], kh, kw,
@@ -132,28 +144,39 @@ class Int8Conv2d(nn.Module):
         self.register_buffer("wscale", sw.float())
         bias = conv.bias
         self.register_buffer("bias", None if bias is None else bias.detach().to(w.dtype).float())
+        self.bn = bn
+        self.register_buffer("bn_stats", None if bn is None else eval_bn_stats(bn))
+        self.relu = relu
 
     def forward(self, x):
         from adam_dehaze_tpu_torch.ops.kernels.quant import int8_conv, quantize_images
         # A no-op for the branches' channels_last activations: the NHWC view is free.
         xh = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
         q, sx = quantize_images(xh, self.geometry.cin_pad)
-        y = int8_conv(q, sx, self.qweight, self.wscale, self.bias, self.geometry, x.dtype)
+        y = int8_conv(q, sx, self.qweight, self.wscale, self.bias, self.geometry, x.dtype,
+                      self.bn, self.bn_stats, self.relu)
         return y.permute(0, 3, 1, 2)
 
 
 def quantized_inference(module: nn.Module, bits: int = 8) -> nn.Module:
     """Route every ConvBlock convolution of `module` through int8, in place:
-    each ConvBlock's conv becomes an Int8Conv2d (the counterpart of the JAX
-    package's `quantized_inference` context, which swaps AQT's conv into
-    every ConvBlock while tracing). Give it a serving copy; its conv weights
-    must already be in the compute dtype. Returns `module`."""
+    each ConvBlock's conv becomes an Int8Conv2d that also applies the
+    block's BN and ReLU (Q2's epilogue), and `nn.Identity` takes their
+    places in `block` (the counterpart of the JAX package's
+    `quantized_inference` context, which swaps AQT's conv into every
+    ConvBlock while tracing). Give it a serving copy in eval mode; its conv
+    weights must already be in the compute dtype. Returns `module`."""
     from adam_dehaze_tpu_torch.nn.blocks import ConvBlock
     if bits not in (8,):
         raise ValueError(f"Unsupported quantization bits: {bits}")
     for m in module.modules():
         if isinstance(m, ConvBlock) and isinstance(m.block[0], nn.Conv2d):
-            m.block[0] = Int8Conv2d(m.block[0])
+            layers = list(m.block)
+            bn = layers[1] if m.use_bn else None
+            relu = isinstance(layers[-1], nn.ReLU)
+            m.block[0] = Int8Conv2d(layers[0], bn, relu)
+            for i in range(1, len(layers)):
+                m.block[i] = nn.Identity()
     return module
 
 

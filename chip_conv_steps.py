@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
-"""What each part of the wgmma conv body, of K1's fused groups and of K3's
-head group and trunk plan gives, on one GPU.
+"""What each part of the wgmma conv body, of K1's fused groups, of K3's
+head group and trunk plan, and of the int8 conv Q2 gives, on one GPU.
 
-    python3 chip_conv_steps.py [conv] [k1] [k3]
+    python3 chip_conv_steps.py [conv] [k1] [k3] [q2]
 
 With no argument every section runs.
 
@@ -46,6 +46,15 @@ and K3 whole under the plan as it is (two blocks an SM: three slots for the
 3x3 64-wide layers) and under four slots at every width (one block of the
 3x3 64-wide layers an SM, the plan before the three-slot ring). Each plan
 prints the blocks an SM the occupancy API gives each layer's kernel.
+
+The Q2 section times the int8 tile body (csrc/int8_conv.cu, bf16, eval BN
+and ReLU in its epilogue, batch 16) at the main path's wide layers: as it is
+(two blocks an SM, chunks of at most 96 output channels), with every chunk
+built ("128", and 96 at 4x4 stride 2: one block an SM) to time each chunk
+that divides a layer's width, and without its epilogue (its sums never
+leave shared memory: wrong results, timed only); and the high branch's
+16 -> 16 conv at 256^2 on each body (the tile body pads its 16 input
+channels to 32; its shape takes the tile body).
 """
 import shutil
 import sys
@@ -344,8 +353,102 @@ def k3_section(dev, gen):
 _ORIGINAL = _build.CSRC
 
 
+# Q2: (cin, cout, kernel, stride, input side) of the main path's wide layers.
+Q2_LAYERS = ((128, 128, 3, 1, 128), (256, 256, 3, 1, 64), (384, 384, 3, 1, 64),
+             (192, 192, 3, 1, 128), (96, 96, 3, 1, 256), (64, 64, 3, 1, 256),
+             (64, 128, 4, 2, 256), (192, 384, 4, 2, 128))
+Q2_ALL_CHUNKS = [
+    ("  return (n == 96 && ks == 3) || n == 64 || n == 48 || n == 32 || n == 16;",
+     "  return n == 128 || n == 96 || n == 64 || n == 48 || n == 32 || n == 16;"),
+    ("    case 96: return launch_tile<96, 3, T>(a, e, batch, s);",
+     "    case 128: return launch_tile_n<128, T>(a, e, ks, batch, s);\n"
+     "    case 96: return launch_tile_n<96, T>(a, e, ks, batch, s);"),
+]
+# The thin layer timed on both bodies: (cin, cout, kernel, stride, input side).
+Q2_THIN = (16, 16, 3, 1, 256)
+Q2_NO_EPILOGUE = [
+    ("  // Epilogue: the sums through shared memory (the ring is drained), then",
+     "  if (e.cout > 0) return;\n"
+     "  // Epilogue: the sums through shared memory (the ring is drained), then")]
+
+
+def q2_section(dev, gen):
+    from adam_dehaze_tpu_torch.ops.kernels import quant as qk
+    layers = []
+    for cin, cout, k, stride, side in Q2_LAYERS:
+        x = torch.relu(torch.randn(cs.BATCH, side, side, cin, generator=gen)).bfloat16().to(dev)
+        w = (torch.randn(cout, cin, k, k, generator=gen) * (k * k * cin) ** -0.5)
+        qw, sw = cs.quantize_weight_per_channel(w.bfloat16().to(dev))
+        bn = cs.random_eval_bn(cout, gen, dev)
+        geo = qk.ConvGeometry.of(cin, cout, k, k, stride, 1)
+        with torch.inference_mode():
+            q, sx = qk.quantize_images(x, geo.cin_pad)
+        ops = dict(q=q, sx=sx, qw=qw, sw=sw.float(), bn=bn, stats=qk.eval_bn_stats(bn))
+        layers.append((f"{cin}->{cout} {k}x{k}/{stride} at {side}^2", geo, ops))
+
+    def gather_geometry(geo):
+        """The gather body's geometry of a conv whose shape takes the tile
+        body, padded as ConvGeometry.of pads the gather body's layers."""
+        cin_pad = -(-geo.cin // 16) * 16
+        return geo._replace(cin_pad=cin_pad, cout_pad=-(-geo.cout // qk.TILE_N) * qk.TILE_N,
+                            k_pad=-(-geo.kh * geo.kw * cin_pad // qk.K_STEP) * qk.K_STEP,
+                            body="gather", n_chunk=qk.TILE_N)
+
+    def thin_layer():
+        cin, cout, k, stride, side = Q2_THIN
+        x = torch.relu(torch.randn(cs.BATCH, side, side, cin, generator=gen)).bfloat16().to(dev)
+        w = (torch.randn(cout, cin, k, k, generator=gen) * (k * k * cin) ** -0.5)
+        qw, sw = cs.quantize_weight_per_channel(w.bfloat16().to(dev))
+        bn = cs.random_eval_bn(cout, gen, dev)
+        tile = qk.ConvGeometry.of(cin, cout, k, k, stride, 1)
+        for geo in (tile, gather_geometry(tile)):
+            with torch.inference_mode():
+                q, sx = qk.quantize_images(x, geo.cin_pad)
+                o = dict(q=q, sx=sx, qw=qw, sw=sw.float(), bn=bn, stats=qk.eval_bn_stats(bn))
+                ms = cs.cuda_ms(run(geo, o))
+                err = cs.max_err(run(geo, o)(), qk.int8_conv_fused_reference(
+                    q, sx, qk.pack_int8_weights(qw, geo), o["sw"], None, geo, torch.bfloat16,
+                    bn, True))
+            cs.check(err == 0.0, f"q2 {geo.body} body at {cin}->{cout}: differs from its plain "
+                     "version")
+            cs.log(f"[q2 steps] {cin}->{cout} {k}x{k}/{stride} at {side}^2 on the {geo.body} "
+                   f"body: {ms:.3f} ms, bit for bit")
+
+    def run(geo, o):
+        packed = qk.pack_int8_weights(o["qw"], geo)
+        return lambda: qk.int8_conv(o["q"], o["sx"], packed, o["sw"], None, geo,
+                                    torch.bfloat16, o["bn"], o["stats"], True)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (variant, edits, chunks) in enumerate((
+                ("as it is", [], None),
+                ("every chunk built", Q2_ALL_CHUNKS, (128, 96, 64)),
+                ("no epilogue (timed only)", Q2_NO_EPILOGUE, None))):
+            built_from({"int8_conv.cu": edits}, tmp, f"q2_{i}")
+            if not edits:
+                thin_layer()
+            for name, geo, o in layers:
+                for n in chunks or (geo.n_chunk,):
+                    if geo.cout % n:
+                        continue
+                    g = geo._replace(n_chunk=n)
+                    with torch.inference_mode():
+                        ms = cs.cuda_ms(run(g, o))
+                        err = (cs.max_err(run(g, o)(), qk.int8_conv_fused_reference(
+                            o["q"], o["sx"], qk.pack_int8_weights(o["qw"], g), o["sw"], None, g,
+                            torch.bfloat16, o["bn"], True)) if "timed only" not in variant
+                            else float("nan"))
+                    flops = cs.conv_flops(cs.BATCH * g.out_size(o["q"].shape[1],
+                                                                o["q"].shape[2])[0] ** 2,
+                                          g.kh * g.kw, g.cin, g.cout)
+                    cs.log(f"[q2 steps] {variant}: {name}, N={n}: {ms:.3f} ms "
+                           f"({flops / (ms * 1e-3) / 1e12:.0f} TOPS), err vs plain {err:.3e}")
+    _build.CSRC = _ORIGINAL
+    _build.library.cache_clear()
+
+
 def main():
-    sections = sys.argv[1:] or ["conv", "k1", "k3"]
+    sections = sys.argv[1:] or ["conv", "k1", "k3", "q2"]
     cs.phase_device()
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(cs.SEED)
@@ -355,6 +458,8 @@ def main():
         conv_section(dev, gen)
     if "k3" in sections:
         k3_section(dev, gen)
+    if "q2" in sections:
+        q2_section(dev, gen)
 
 
 def conv_section(dev, gen):

@@ -7,7 +7,9 @@ The bf16 kernels K3 (its head group included) and K4 are held against
 their bf16 plain versions at TAIL_BF16_ATOL, K6 at RES_BF16_RTOL, K1's fused
 body at K1_BF16_ATOL with alpha 1, K2's statistics pass against `padded_stats` at MAPS_ATOL,
 and the int8 conv Q2 against its plain version on the same int8 operands at Q2_RTOL, one bf16
-step of the largest output (chip_smoke.py, tests/test_torch_cuda.py). This script shows that
+step of the largest output (chip_smoke.py, tests/test_torch_cuda.py): its tile body without BN,
+with a ResidualBlock conv2's BN and no ReLU, and at a 4x4 stride-2 layer with BN and ReLU (the
+parity planes). This script shows that
 the bounds see a broken kernel: for each mutation it copies csrc/ to a temporary directory, breaks
 the copy by a text substitution, builds it, and measures the broken kernels
 against the same plain versions, beside the unchanged kernels and beside
@@ -23,9 +25,11 @@ errors in units of the plain result's largest magnitude; K1 c=32 with 3
 blocks at 4 x 256^2 (tight: alpha 1 against the bf16 plain version; loose:
 the folded alpha against the fp32 plain version); the statistics pass at
 4 x 64^2 x 384 in bf16 with a channel gate; Q2 at the high branch's 384-wide
-3x3 layer, 4 x 64^2, bf16, errors in units of the plain result's largest
-magnitude; seeded weights with perturbed BN, inputs drawn non-negative like
-the real activations.
+3x3 layer, 4 x 64^2, bf16, without BN ("Q2") and with an eval BN and no ReLU
+("Q2 bn"), and at its 192 -> 384 4x4 stride-2 layer, 4 x 128^2, with BN and
+ReLU ("Q2 4x4"), errors in units of the plain result's largest magnitude;
+seeded weights with perturbed BN, inputs drawn non-negative like the real
+activations.
 """
 import shutil
 import subprocess
@@ -48,8 +52,9 @@ from adam_dehaze_tpu_torch.ops.kernels import _build
 from adam_dehaze_tpu_torch.ops.kernels.cbam import gated_maps, padded_stats
 from adam_dehaze_tpu_torch.ops.kernels.quant import (
     ConvGeometry,
+    eval_bn_stats,
     int8_conv,
-    int8_conv_packed_reference,
+    int8_conv_fused_reference,
     pack_int8_weights,
     quantize_images,
 )
@@ -82,8 +87,9 @@ K1_BF16_ATOL = 4e-3       # the tight bound of K1: bf16 kernel vs bf16 plain at 
 MAPS_ATOL = 1e-5          # K2's statistics pass vs padded_stats
 Q2_RTOL = 2.0 ** -7       # Q2 vs its plain version: one bf16 step, in units of max|plain|
 TIGHT = {"K1": K1_BF16_ATOL, "K3": TAIL_BF16_ATOL, "K4": TAIL_BF16_ATOL,
-         "K6": RES_BF16_RTOL, "K2 maps": MAPS_ATOL, "Q2": Q2_RTOL}
-RELATIVE = ("K6", "Q2")
+         "K6": RES_BF16_RTOL, "K2 maps": MAPS_ATOL, "Q2": Q2_RTOL, "Q2 bn": Q2_RTOL,
+         "Q2 4x4": Q2_RTOL}
+RELATIVE = ("K6", "Q2", "Q2 bn", "Q2 4x4")
 K6_KINDS = ("res", "res", "attn", "res", "attn")
 
 # name -> (file, text to find, replacement). Every occurrence is replaced.
@@ -170,8 +176,19 @@ MUTATIONS = {
         "      for (int k = 0; k < 8; ++k)\n"
         "        vals[k] = adam::to_float(adam::from_float<T>(vals[k] * gk[k])) * gate;"),
     "each pair of output channels dequantised by the even one's scale (Q2's epilogue)": (
-        "int8_conv.cu", "v = round_to<T>(__fmul_rn(v, a.sw[co]));",
-        "v = round_to<T>(__fmul_rn(v, a.sw[co & ~1]));"),
+        "int8_conv.cu", "    ch[k].sw = e.sw[co];", "    ch[k].sw = e.sw[co & ~1];"),
+    "a 3x3 tap read one pixel off (Q2's A descriptor offset)": (
+        "int8_conv.cu",
+        "  static __device__ __forceinline__ int tap_offset(int i) { return (i / 3) * tw + i % 3; }",
+        "  static __device__ __forceinline__ int tap_offset(int i) {\n"
+        "    return (i / 3) * tw + (i % 3 == 2 ? 1 : i % 3);\n  }"),
+    "the other column-parity plane (Q2's 4x4 stride-2 taps)": (
+        "int8_conv.cu", "    return ((i & 3) & 1) * plane + (i >> 2) * tw + ((i & 3) >> 1);",
+        "    return (1 - ((i & 3) & 1)) * plane + (i >> 2) * tw + ((i & 3) >> 1);"),
+    "BN shift dropped (Q2's epilogue)": (
+        "int8_conv.cu", "      ch[k].b = e.bn[e.cout + co];", "      ch[k].b = 0.f;"),
+    "ReLU after every BN, a ResidualBlock's conv2 included (Q2's epilogue)": (
+        "int8_conv.cu", "  return relu && !(y > 0.f) ? 0.f : y;", "  return !(y > 0.f) ? 0.f : y;"),
 }
 # Mutations a tight bound is not expected to see: they are measured and
 # reported, and fail the run only if they move nothing at all.
@@ -219,17 +236,40 @@ def make_cases(dev, gen):
     with torch.inference_mode():
         want = torch.stack(padded_stats(xb, g))
     cases.append(("K2 maps", lambda *a: torch.stack(gated_maps(*a)), (xb, g), want, None, want))
-    # Q2 on the int8 operands of Q1 (run once, before any mutation).
+    # Q2 on the int8 operands of Q1 (run once, before any mutation): the
+    # 384-wide 3x3 layer without BN and with a ResidualBlock conv2's BN (no
+    # ReLU), then the 192 -> 384 4x4 stride-2 layer with BN and ReLU.
     geo = ConvGeometry.of(384, 384, 3, 3, 1, 1)
     w = (torch.randn(384, 384, 3, 3, generator=gen) / 58.8).bfloat16().to(dev)
     qw, sw = quantize_weight_per_channel(w)
     with torch.inference_mode():
         q, sx = quantize_images(xb, geo.cin_pad)
     ops = (q, sx, pack_int8_weights(qw, geo), sw.float(), None, geo)
+    bn = perturb_bn_(torch.nn.BatchNorm2d(384), gen).eval()
+    with torch.no_grad():
+        bn.weight.copy_(1.0 + 0.5 * torch.randn(384, generator=gen))
+        bn.bias.copy_(0.5 * torch.randn(384, generator=gen))
+    bn = bn.requires_grad_(False).to(dev)
     with torch.inference_mode():
         cases.append(("Q2", lambda *a: int8_conv(*a, torch.bfloat16), ops,
-                      int8_conv_packed_reference(*ops, torch.bfloat16), None,
-                      int8_conv_packed_reference(*ops, torch.float32)))
+                      int8_conv_fused_reference(*ops, torch.bfloat16), None,
+                      int8_conv_fused_reference(*ops, torch.float32)))
+        cases.append(("Q2 bn",
+                      lambda *a: int8_conv(*a, torch.bfloat16, bn, eval_bn_stats(bn), False),
+                      ops, int8_conv_fused_reference(*ops, torch.bfloat16, bn, False), None,
+                      int8_conv_fused_reference(*ops, torch.float32, bn, False)))
+    geo4 = ConvGeometry.of(192, 384, 4, 4, 2, 1)
+    w4 = (torch.randn(384, 192, 4, 4, generator=gen) / 55.4).bfloat16().to(dev)
+    qw4, sw4 = quantize_weight_per_channel(w4)
+    x4 = torch.relu(torch.randn(BATCH, SIZE // 2, SIZE // 2, 192, generator=gen)).bfloat16().to(dev)
+    with torch.inference_mode():
+        q4, sx4 = quantize_images(x4, geo4.cin_pad)
+    ops4 = (q4, sx4, pack_int8_weights(qw4, geo4), sw4.float(), None, geo4)
+    with torch.inference_mode():
+        cases.append(("Q2 4x4",
+                      lambda *a: int8_conv(*a, torch.bfloat16, bn, eval_bn_stats(bn), True),
+                      ops4, int8_conv_fused_reference(*ops4, torch.bfloat16, bn, True), None,
+                      int8_conv_fused_reference(*ops4, torch.float32, bn, True)))
     # K1 draws last, so that the other kernels' cases stay what they were.
     low = perturb_bn_(init_params_(LightweightDehazeModel(32, 3), gen), gen).eval().to(dev)
     x = torch.rand(BATCH, SIZE, SIZE, 3, generator=gen).to(dev)
@@ -298,8 +338,9 @@ def main():
           f"{BATCH} x 64^2 x 384, in units of max|plain|, bound {RES_BF16_RTOL}; K2's statistics "
           f"pass at {BATCH} x 64^2 x 384 against padded_stats, bound {MAPS_ATOL}): max abs err "
           f"against the bf16 plain version | against the fp32 plain version (bound {BF16_ATOL}; "
-          f"K1 with its folded alpha); Q2 at {BATCH} x 64^2 x 384, 3x3, in units of "
-          f"max|plain|, bound {Q2_RTOL:.3e}")
+          f"K1 with its folded alpha); Q2 at {BATCH} x 64^2 x 384, 3x3, without BN and with BN "
+          f"(no ReLU), and at {BATCH} x {SIZE // 2}^2 x 192 -> 384, 4x4 stride 2, BN + ReLU, in "
+          f"units of max|plain|, bound {Q2_RTOL:.3e}")
     unchanged = rows[0][1]
     failed = []
     for name, errs in rows:

@@ -241,16 +241,23 @@ Phases, in order; any failure raises and the script exits non-zero:
 19. Int8 serving (ops/quant.py; `[int8 ...]` lines). First Q1 and Q2
    alone (launches not counted on any path) at each of the 20 ConvBlock
    shapes that the default branches' int8 copies run at 16 x 256^2 (read
-   off forward hooks), bf16: Q1's int8 values and scales bit for bit and
-   Q2 within one ulp of their plain versions on the same inputs, then fp32
-   on each shape's first 2 images; each timed beside its plain version, its
-   bound (Q2's operations over 1,979 TOPS of int8, or its bytes), the cuDNN
-   bf16 conv of the same layer and torch._int_mm on its im2col matrix (the
-   port never calls either); the sums over one bucket of each branch are
-   the kernels' line. Then, counters at 0, `AdaptiveDehazer` with
+   off forward hooks), bf16, with the Q2 body each takes (tile or gather):
+   Q1's int8 values and scales bit for bit; Q2's dequant without BN, with
+   and without a bias, bit for bit; Q2 with an eval BN (+ ReLU, as the
+   layer has it) in its epilogue within one ulp of its plain version (the
+   plain dequant, F.batch_norm, ReLU; the share of elements one ulp off
+   and whether all are equal printed); then the same in fp32 on each
+   shape's first 2 images. Each timed, Q2 with its epilogue as the path
+   runs it, beside its plain version, its bound (Q2's operations over
+   1,979 TOPS of int8, or its bytes), the cuDNN bf16 conv of the same
+   layer and torch._int_mm on its im2col matrix (the port never calls
+   either); the sums over one bucket of each branch are the kernels'
+   line. Then,
+   counters at 0, `AdaptiveDehazer` with
    `cuda.serving_quant: int8` on seeded full-width weights: route_hard,
    forced labels 0/1/2, route_device_binned and route_switch must launch
-   Q1 and Q2 once per Int8Conv2d of every bucket (chunk, image) that ran and
+   Q1 and Q2 once per Int8Conv2d of every bucket (chunk, image) that ran,
+   each layer on its body, and
    K2 six times a high one, and K1, K2', K3, K4, K5 and K6 never; outputs
    finite in [0, 1], the routes' labels route_hard's. PSNR of int8 against
    the unquantized bf16 output per branch (forced labels) above 35 dB; each
@@ -363,7 +370,9 @@ from adam_dehaze_tpu_torch.ops.kernels.tail_chain import (
     weight_tensors,
 )
 from adam_dehaze_tpu_torch.ops.kernels.quant import (
+    eval_bn_stats,
     int8_conv,
+    int8_conv_fused_reference,
     int8_conv_packed_reference,
     pack_int8_weights,
     quantize_images,
@@ -3140,32 +3149,58 @@ INT8_CPU_SIZE = SIZE // 2
 INT8_DRAWS = 1.5
 
 
+def ulp_steps(got, want):
+    """Per element, the distance between two float32 or bfloat16 tensors in
+    units in the last place of their type (the bit patterns mapped to
+    integers in the order of the values, so that -0 and +0 coincide)."""
+    as_int, low = ((torch.int16, -(1 << 15)) if got.dtype == torch.bfloat16
+                   else (torch.int32, -(1 << 31)))
+
+    def ordered(t):
+        i = t.view(as_int).long()
+        return torch.where(i < 0, low - i, i)
+    return (ordered(got) - ordered(want)).abs()
+
+
 def ulps(got, want):
-    """The largest distance between two float32 or bfloat16 tensors in units
-    in the last place of their type."""
-    as_int = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
-    return int((got.view(as_int).long() - want.view(as_int).long()).abs().max())
+    """The largest of `ulp_steps`."""
+    return int(ulp_steps(got, want).max())
 
 
 def int8_layers(d, dev):
     """The Int8Conv2d calls of one bucket of each int8 branch of dehazer d
-    at (BATCH, SIZE, SIZE, 3): {(geometry, NHWC input shape): calls}, and
-    the Int8Conv2d count of each branch."""
-    layers, per_branch = collections.Counter(), {}
+    at (BATCH, SIZE, SIZE, 3): {(geometry, NHWC input shape): calls}, which
+    of those layers have a ReLU after their BN, and the Int8Conv2d count of
+    each branch by body."""
+    layers, relus, per_branch = collections.Counter(), {}, {}
     x = torch.rand(BATCH, SIZE, SIZE, 3, device=dev)
+
+    def seen(mod, inp, out):
+        key = (mod.geometry, tuple(inp[0].permute(0, 2, 3, 1).shape))
+        layers.update({key: 1})
+        relus[key] = relus.get(key, False) or mod.relu
     for lvl in INTENSITY_ORDER:
         model = d._hard.models[lvl]
         convs = [m for m in model.modules() if isinstance(m, Int8Conv2d)]
-        per_branch[lvl] = len(convs)
-        hooks = [m.register_forward_hook(
-            lambda mod, inp, out: layers.update(
-                {(mod.geometry, tuple(inp[0].permute(0, 2, 3, 1).shape)): 1}))
-            for m in convs]
+        per_branch[lvl] = collections.Counter(m.geometry.body for m in convs)
+        hooks = [m.register_forward_hook(seen) for m in convs]
         with torch.inference_mode():
             model(x)
         for h in hooks:
             h.remove()
-    return layers, per_branch
+    return layers, relus, per_branch
+
+
+def int_mm_operands(x, qw, geo):
+    """torch._int_mm's operands for one layer: the (M, K) im2col matrix of
+    Q1's output and the (K, N) weights in its K order (a column-major
+    view), N padded to 64 on the gather body as its packing is."""
+    q = quantize_images_reference(x, geo.cin_pad)[0]
+    a = im2col_int8(q, geo)
+    if geo.body == "gather":
+        return a, pack_int8_weights(qw, geo).t()
+    ohwi = torch.nn.functional.pad(qw, (0, 0, 0, 0, 0, geo.cin_pad - geo.cin)).permute(0, 2, 3, 1)
+    return a, ohwi.reshape(geo.cout, -1).t()
 
 
 def im2col_int8(q, geo):
@@ -3182,17 +3217,35 @@ def im2col_int8(q, geo):
     return torch.nn.functional.pad(a, (0, geo.k_pad - a.shape[1])).contiguous()
 
 
-def check_int8_layer(dev, gen, geo, shape, dtype, timed):
+def random_eval_bn(cout, gen, dev):
+    """An eval BatchNorm2d with seeded statistics and affine parameters."""
+    bn = torch.nn.BatchNorm2d(cout).eval().requires_grad_(False)
+    with torch.no_grad():
+        bn.weight.copy_(torch.randn(cout, generator=gen))
+        bn.bias.copy_(torch.randn(cout, generator=gen) * 0.5)
+        bn.running_mean.copy_(torch.randn(cout, generator=gen) * 0.2)
+        bn.running_var.copy_(torch.rand(cout, generator=gen) + 0.1)
+    return bn.to(dev)
+
+
+def check_int8_layer(dev, gen, geo, shape, relu, dtype, timed):
     """Q1 and Q2 at one ConvBlock shape against their plain versions: Q1's
-    int8 values and scales bit for bit, Q2 within one ulp of its output
-    type. With `timed`: each timed, beside its plain version, its bound,
-    the cuDNN conv in bf16 and torch._int_mm on the im2col matrix."""
+    int8 values and scales bit for bit; Q2's dequant (no BN, with and
+    without a bias) bit for bit; Q2 with an eval BN (+ ReLU where the layer
+    has one) within one ulp of its plain version (`int8_conv_fused_reference`:
+    the plain dequant, F.batch_norm, ReLU), the share of elements one ulp
+    off recorded. With `timed`: each timed (Q2 with its epilogue) beside its
+    plain version, its bound, the cuDNN conv in bf16 and torch._int_mm on
+    the im2col matrix."""
     x = torch.rand(shape, generator=gen) if shape[-1] == 3 else torch.relu(
         torch.randn(shape, generator=gen))
     x = x.to(dtype).to(dev)
     fan_in = geo.kh * geo.kw * geo.cin
     w = (torch.randn((geo.cout, geo.cin, geo.kh, geo.kw), generator=gen)
          * fan_in ** -0.5).to(dtype).to(dev)
+    bias = (torch.randn(geo.cout, generator=gen) * 0.1).to(dtype).float().to(dev)
+    bn = random_eval_bn(geo.cout, gen, dev)
+    stats = eval_bn_stats(bn)
     qw, sw = quantize_weight_per_channel(w)
     packed, sw = pack_int8_weights(qw, geo), sw.float()
     with torch.inference_mode():
@@ -3200,45 +3253,64 @@ def check_int8_layer(dev, gen, geo, shape, dtype, timed):
         q0, sx0 = quantize_images_reference(x, geo.cin_pad)
         q1_equal = bool(torch.equal(q, q0) and torch.equal(sx, sx0))
         q1_err = max(max_err(q, q0), max_err(sx, sx0))
-        y = int8_conv(q, sx, packed, sw, None, geo, dtype)
-        y0 = int8_conv_packed_reference(q, sx, packed, sw, None, geo, dtype)
-        ulp = ulps(y, y0)
-    rec = dict(shape=list(shape), cin=geo.cin, cout=geo.cout, kernel=geo.kh, stride=geo.stride,
-               q1_bitwise=q1_equal, q1_max_abs_err=q1_err, q2_max_ulp=ulp,
-               q2_max_abs_err=max_err(y, y0))
-    check(q1_equal, f"int8: Q1 differs from its plain version at {shape} {geo} {dtype}")
-    check(ulp <= 1, f"int8: Q2 is {ulp} ulp from its plain version at {shape} {geo} {dtype}")
+        dequant_equal = True
+        for b in (bias, None):      # y0 ends as the plain dequant without a bias
+            y = int8_conv(q, sx, packed, sw, b, geo, dtype)
+            y0 = int8_conv_packed_reference(q, sx, packed, sw, b, geo, dtype)
+            dequant_equal = dequant_equal and bool(torch.equal(y, y0))
+        # A ConvBlock with BN has no conv bias.
+        fused = int8_conv(q, sx, packed, sw, None, geo, dtype, bn, stats, relu)
+        plain = int8_conv_fused_reference(q, sx, packed, sw, None, geo, dtype, bn, relu)
+        steps = ulp_steps(fused, plain)
+        rec = dict(shape=list(shape), cin=geo.cin, cout=geo.cout, kernel=geo.kh,
+                   stride=geo.stride, body=geo.body, n_chunk=geo.n_chunk, relu=relu,
+                   q1_bitwise=q1_equal, q1_max_abs_err=q1_err, q2_dequant_bitwise=dequant_equal,
+                   q2_fused_bitwise=bool(torch.equal(fused, plain)),
+                   q2_fused_max_ulp=int(steps.max()),
+                   q2_fused_share_one_ulp=float((steps == 1).float().mean()),
+                   q2_max_abs_err=max_err(fused, plain))
+        del y, steps, plain
+    what = f"{shape} {geo.cin}->{geo.cout} {geo.kh}x{geo.kw}/{geo.stride} {geo.body} {dtype}"
+    check(q1_equal, f"int8: Q1 differs from its plain version at {what}")
+    check(dequant_equal, f"int8: Q2's dequant differs from its plain version at {what}")
+    check(rec["q2_fused_max_ulp"] <= 1,
+          f"int8: Q2's BN epilogue is {rec['q2_fused_max_ulp']} ulp from its plain version "
+          f"at {what}")
     if not timed:
         return rec
     n, h, wd, _ = shape
     ho, wo = geo.out_size(h, wd)
     m = n * ho * wo
     xn = x.permute(0, 3, 1, 2)
-    a, bt = im2col_int8(q, geo), packed.t()
     with torch.inference_mode():
+        a, bt = int_mm_operands(x, qw, geo)
         rec.update(
             q1_ms=cuda_ms(lambda: quantize_images(x, geo.cin_pad)),
             q1_plain_ms=cuda_ms(lambda: quantize_images_reference(x, geo.cin_pad), 3, 1),
-            q2_ms=cuda_ms(lambda: int8_conv(q, sx, packed, sw, None, geo, dtype)),
-            q2_plain_ms=cuda_ms(
-                lambda: int8_conv_packed_reference(q, sx, packed, sw, None, geo, dtype), 2, 1),
+            q2_ms=cuda_ms(lambda: int8_conv(q, sx, packed, sw, None, geo, dtype, bn, stats,
+                                            relu)),
+            q2_plain_ms=cuda_ms(lambda: int8_conv_fused_reference(
+                q, sx, packed, sw, None, geo, dtype, bn, relu), 2, 1),
             cudnn_bf16_ms=cuda_ms(lambda: torch.nn.functional.conv2d(
                 xn, w, stride=geo.stride, padding=geo.padding)),
             int_mm_ms=cuda_ms(lambda: torch._int_mm(a, bt)))
     rec["q1_bound"] = bound(4 * x.numel(), nbytes(x, sx) + n * h * wd * geo.cin_pad,
                             PEAK_F32_FLOPS)
     rec["q2_bound"] = bound(conv_flops(m, geo.kh * geo.kw, geo.cin, geo.cout),
-                            n * h * wd * geo.cin + nbytes(qw, sx, sw) + nbytes(y),
+                            n * h * wd * geo.cin + nbytes(qw, sx, sw) + nbytes(fused),
                             PEAK_INT8_OPS)
     rec["q2_tops"] = rec["q2_bound"]["flops"] / (rec["q2_ms"] * 1e-3) / 1e12
-    log(f"[int8 layer] {tuple(shape)} {geo.cin}->{geo.cout} {geo.kh}x{geo.kw}/{geo.stride}: "
+    log(f"[int8 layer] {tuple(shape)} {geo.cin}->{geo.cout} {geo.kh}x{geo.kw}/{geo.stride} "
+        f"{geo.body} N={geo.n_chunk}{' relu' if relu else ''}: "
         f"Q1 {rec['q1_ms']:.3f} ms (plain {rec['q1_plain_ms']:.3f}, bound "
         f"{rec['q1_bound']['bound_ms']:.3f} by {rec['q1_bound']['bound_by']}); Q2 "
         f"{rec['q2_ms']:.3f} ms, {rec['q2_tops']:.0f} TOPS (plain {rec['q2_plain_ms']:.3f}, "
         f"bound {rec['q2_bound']['bound_ms']:.3f} by {rec['q2_bound']['bound_by']}); "
         f"cuDNN bf16 {rec['cudnn_bf16_ms']:.3f} ms, _int_mm {rec['int_mm_ms']:.3f} ms; "
-        f"Q1 bitwise, Q2 {ulp} ulp")
-    del a, q, q0, y, y0
+        f"Q1 bitwise, dequant bitwise; BN epilogue at most {rec['q2_fused_max_ulp']} ulp from "
+        f"its plain version, one ulp off on {100 * rec['q2_fused_share_one_ulp']:.4f} % of "
+        f"elements, bitwise {rec['q2_fused_bitwise']}")
+    del a, bt, q, q0, y0, fused
     return rec
 
 
@@ -3251,6 +3323,7 @@ def int8_kernel_totals(rows, layers):
         for key in ("ms", "plain_ms"):
             q1[key] += calls * row[f"q1_{key}"]
             q2[key] += calls * row[f"q2_{key}"]
+        q2[f"{row['body']}_ms"] += calls * row["q2_ms"]
         for key in ("cudnn_bf16_ms", "int_mm_ms"):
             q2[key] += calls * row[key]
         for tot, b in ((b1, row["q1_bound"]), (b2, row["q2_bound"])):
@@ -3264,6 +3337,8 @@ def int8_kernel_totals(rows, layers):
                     else "operations",
                     max_abs_err=max(r[f"{tag}_max_abs_err"] for r in rows), library_ms=None,
                     per=per, shapes=len(rows))
+    for body in ("tile", "gather"):
+        q2.setdefault(f"{body}_ms", 0.0)
     return rec(q1, b1, "q1", PEAK_F32_FLOPS), rec(q2, b2, "q2", PEAK_INT8_OPS)
 
 
@@ -3284,22 +3359,42 @@ def phase_int8(dev, smi, x, labels, exp):
     router = make_router(cfg, gen)
     d16 = AdaptiveDehazer(copy.deepcopy(router), None, cfg, device=dev)
     d8 = AdaptiveDehazer(copy.deepcopy(router), None, cfg8, device=dev)
-    layers, n_convs = int8_layers(d8, dev)
-    log(f"[int8] Int8Conv2d per branch {n_convs}; {len(layers)} distinct ConvBlock shapes, "
-        f"{sum(layers.values())} calls a bucket of each branch")
-    rows = [check_int8_layer(dev, gen, geo, shape, torch.bfloat16, True)
+    layers, relus, bodies = int8_layers(d8, dev)
+    n_convs = {lvl: sum(c.values()) for lvl, c in bodies.items()}
+    log(f"[int8] Int8Conv2d per branch {n_convs}, by body "
+        f"{ {lvl: dict(c) for lvl, c in bodies.items()} }; {len(layers)} distinct ConvBlock "
+        f"shapes, {sum(layers.values())} calls a bucket of each branch")
+    rows = [check_int8_layer(dev, gen, geo, shape, relus[(geo, shape)], torch.bfloat16, True)
             for geo, shape in layers]
     # fp32 once: each shape's first 2 images (the kernels treat images alike).
-    fp32_ulp = max(check_int8_layer(dev, gen, geo, (2,) + shape[1:], torch.float32,
-                                    False)["q2_max_ulp"] for geo, shape in layers)
+    fp32 = [check_int8_layer(dev, gen, geo, (2,) + shape[1:], relus[(geo, shape)],
+                             torch.float32, False) for geo, shape in layers]
+    for r in fp32:
+        log(f"[int8 fp32] {tuple(r['shape'])} {r['cin']}->{r['cout']} {r['kernel']}x"
+            f"{r['kernel']}/{r['stride']} {r['body']}: Q1 bitwise, dequant bitwise; BN epilogue "
+            f"at most {r['q2_fused_max_ulp']} ulp from its plain version, one ulp off on "
+            f"{100 * r['q2_fused_share_one_ulp']:.4f} % of elements, bitwise "
+            f"{r['q2_fused_bitwise']}")
     q1_rec, q2_rec = int8_kernel_totals(rows, layers)
-    q2_rec.update(max_ulp_bf16=max(r["q2_max_ulp"] for r in rows), max_ulp_fp32=fp32_ulp)
+    q2_rec.update(
+        bodies={f"{r['cin']}->{r['cout']} {r['kernel']}x{r['kernel']}/{r['stride']} at "
+                f"{r['shape'][1]}^2": r["body"] for r in rows},
+        fused_max_ulp_bf16=max(r["q2_fused_max_ulp"] for r in rows),
+        fused_share_one_ulp_bf16=max(r["q2_fused_share_one_ulp"] for r in rows),
+        fused_max_ulp_fp32=max(r["q2_fused_max_ulp"] for r in fp32),
+        fused_share_one_ulp_fp32=max(r["q2_fused_share_one_ulp"] for r in fp32),
+        fused_bitwise=all(r["q2_fused_bitwise"] for r in rows + fp32))
     log(f"[int8 Q1] per {q1_rec['per']}: {q1_rec['ms']:.3f} ms, plain {q1_rec['plain_ms']:.3f} "
         f"ms, bound {q1_rec['bound_ms']:.3f} ms ({q1_rec['bound_by']})")
     log(f"[int8 Q2] per {q2_rec['per']}: {q2_rec['ms']:.3f} ms, plain {q2_rec['plain_ms']:.3f} "
         f"ms, bound {q2_rec['bound_ms']:.3f} ms ({q2_rec['bound_by']}); cuDNN bf16 "
-        f"{q2_rec['cudnn_bf16_ms']:.3f} ms, _int_mm {q2_rec['int_mm_ms']:.3f} ms; max ulp bf16 "
-        f"{q2_rec['max_ulp_bf16']}, fp32 {fp32_ulp}")
+        f"{q2_rec['cudnn_bf16_ms']:.3f} ms, _int_mm {q2_rec['int_mm_ms']:.3f} ms; tile body "
+        f"{q2_rec['tile_ms']:.3f} ms, gather body {q2_rec['gather_ms']:.3f} ms; BN epilogue "
+        f"against its plain version: bf16 at most {q2_rec['fused_max_ulp_bf16']} ulp (one ulp "
+        f"off on at most {100 * q2_rec['fused_share_one_ulp_bf16']:.4f} % of a layer's "
+        f"elements), fp32 at most {q2_rec['fused_max_ulp_fp32']} ulp (at most "
+        f"{100 * q2_rec['fused_share_one_ulp_fp32']:.4f} %), all bitwise "
+        f"{q2_rec['fused_bitwise']}")
     torch.cuda.empty_cache()
 
     # The int8 slice through the entry points, counters at 0.
@@ -3319,19 +3414,30 @@ def phase_int8(dev, smi, x, labels, exp):
     sw_out, sw_lab = d8.route_switch(x)
     sw_d = delta(before)
     path = counts()
+    path_bodies = dict(int8_conv.body_launches)
     n8 = [n_convs[lvl] for lvl in INTENSITY_ORDER]
 
     def expect(per_class):
         q = sum(b * n for b, n in zip(per_class, n8))
         return nonzero({"int8_quantize": q, "int8_conv": q, "cbam_gate": 6 * per_class[2]})
 
-    for what, got, per_class in (
-            ("route_hard", hard_d, buckets_per_class(d8.engine, hard_lab)),
-            ("forced labels", forced_d, buckets_per_class(d8.engine, labels)),
-            ("route_device_binned", dev_d, chunks(dev_lab, 16)),
-            ("route_switch", sw_d, np.bincount(sw_lab, minlength=3).tolist())):
-        check(nonzero(got) == expect(per_class),
-              f"int8 {what}: launches {nonzero(got)}, expected {expect(per_class)}")
+    def expect_bodies(per_class):
+        return {body: sum(b * bodies[lvl][body] for b, lvl in zip(per_class, INTENSITY_ORDER))
+                for body in int8_conv.body_launches}
+
+    classes = {"route_hard": buckets_per_class(d8.engine, hard_lab),
+               "forced labels": buckets_per_class(d8.engine, labels),
+               "route_device_binned": chunks(dev_lab, 16),
+               "route_switch": np.bincount(sw_lab, minlength=3).tolist()}
+    for what, got in (("route_hard", hard_d), ("forced labels", forced_d),
+                      ("route_device_binned", dev_d), ("route_switch", sw_d)):
+        check(nonzero(got) == expect(classes[what]),
+              f"int8 {what}: launches {nonzero(got)}, expected {expect(classes[what])}")
+    want_bodies = collections.Counter()
+    for per_class in classes.values():
+        want_bodies.update(expect_bodies(per_class))
+    check(path_bodies == dict(want_bodies),
+          f"int8: Q2's launches by body {path_bodies}, expected {dict(want_bodies)}")
     for y, what in ((hard, "route_hard"), (forced, "forced labels"),
                     (dev_out, "route_device_binned"), (sw_out, "route_switch")):
         check_images(y, BATCH, f"int8 {what}")
@@ -3342,7 +3448,8 @@ def phase_int8(dev, smi, x, labels, exp):
           f"int8: launches on the path {nonzero(path)}")
     log(f"[int8 slice] route_hard intensities {np.bincount(hard_lab, minlength=3).tolist()}; "
         f"launches: route_hard {nonzero(hard_d)}, forced labels {nonzero(forced_d)}, "
-        f"device-binned {nonzero(dev_d)}, switch {nonzero(sw_d)}")
+        f"device-binned {nonzero(dev_d)}, switch {nonzero(sw_d)}; Q2 by body over the four "
+        f"routes {path_bodies} (one per Int8Conv2d call on its layer's body)")
 
     # int8 against the unquantized bf16 output, per branch (forced labels).
     with torch.inference_mode():
@@ -3415,13 +3522,16 @@ def phase_int8(dev, smi, x, labels, exp):
     check(float(err.mean()) <= INT8_DRAWS * float(noise.mean())
           and float(err.max()) <= 2 * float(noise.max()),
           "int8: the fp32 slice on the card disagrees with the CPU")
-    readings = dict(layers=rows, int8_convs_per_branch=n_convs, ms_per_image=ms,
+    readings = dict(layers=rows, layers_fp32=fp32, int8_convs_per_branch=n_convs,
+                    int8_convs_by_body={lvl: dict(c) for lvl, c in bodies.items()},
+                    q2_launches_by_body=path_bodies, ms_per_image=ms,
                     psnr_db={k: dict(min=float(p.min()), mean=float(p.mean()))
                              for k, p in psnr.items()},
                     fp32_card_vs_cpu=dict(max=float(err.max()), mean=float(err.mean()),
                                           noise_max=float(noise.max()),
                                           noise_mean=float(noise.mean())))
     log(f"[int8] {smi}")
+    q2_rec["launches_by_body"] = path_bodies
     return dict(path), {"int8_quantize": q1_rec, "int8_conv": q2_rec}, readings
 
 

@@ -1356,44 +1356,77 @@ def test_launch_counts_survive_replay(cuda_device, tmp_path):
 
 def _ulps(got: torch.Tensor, want: torch.Tensor) -> int:
     """The largest distance, in units in the last place of their type,
-    between two float32 or bfloat16 tensors of one sign pattern."""
-    as_int = torch.int16 if got.dtype == torch.bfloat16 else torch.int32
-    return int((got.view(as_int).long() - want.view(as_int).long()).abs().max())
+    between two float32 or bfloat16 tensors (the bit patterns mapped to
+    integers in the order of the values, so that -0 and +0 coincide)."""
+    as_int, low = ((torch.int16, -(1 << 15)) if got.dtype == torch.bfloat16
+                   else (torch.int32, -(1 << 31)))
+
+    def ordered(t):
+        i = t.view(as_int).long()
+        return torch.where(i < 0, low - i, i)
+    return int((ordered(got) - ordered(want)).abs().max())
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
 @pytest.mark.parametrize("shape", [(4, 64, 64, 3), (2, 37, 30, 96), (3, 16, 16, 12),
-                                   (2, 32, 32, 384)])
+                                   (2, 32, 32, 384), (2, 20, 20, 40), (3, 256, 192, 96)])
 def test_int8_quantize_matches_plain(cuda_device, dtype, shape):
     """Q1 against its plain version: the int8 values, their zero padding and
-    the per-image scales equal, bit for bit; an all-zero image included."""
+    the per-image scales equal, bit for bit; an all-zero image included;
+    40 channels padded to the tile body's 64; the last shape at a serving
+    size (9.4 MB an image in bf16)."""
     from adam_dehaze_tpu_torch.ops.kernels.quant import (
         ConvGeometry, quantize_images, quantize_images_reference)
     g = torch.Generator().manual_seed(shape[-1])
     x = (torch.randn(shape, generator=g) * torch.rand((shape[0], 1, 1, 1), generator=g) * 8)
     x[-1] = 0.0
     x = x.to(dtype).to(cuda_device)
-    pad = ConvGeometry.of(shape[-1], 8, 3, 3, 1, 1).cin_pad
+    pad = ConvGeometry.of(shape[-1], 16, 3, 3, 1, 1).cin_pad
+    q, s = quantize_images(x, pad)
+    q0, s0 = quantize_images_reference(x, pad)
+    assert torch.equal(q, q0) and torch.equal(s, s0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(65, 8, 8, 16), (130, 6, 10, 3)])
+def test_int8_quantize_groups_of_images_match_plain(cuda_device, dtype, shape):
+    """Q1 on batches of more than 64 images, which it walks in groups of at
+    most 64 (one counter and one wait over the grid a group): bit for bit
+    with its plain version, all-zero images at the groups' ends and starts
+    and last."""
+    from adam_dehaze_tpu_torch.ops.kernels.quant import (
+        ConvGeometry, quantize_images, quantize_images_reference)
+    g = torch.Generator().manual_seed(shape[0])
+    x = (torch.randn(shape, generator=g) * torch.rand((shape[0], 1, 1, 1), generator=g) * 8)
+    x[[0, 63, 64, -1]] = 0.0
+    x = x.to(dtype).to(cuda_device)
+    pad = ConvGeometry.of(shape[-1], 16, 3, 3, 1, 1).cin_pad
     q, s = quantize_images(x, pad)
     q0, s0 = quantize_images_reference(x, pad)
     assert torch.equal(q, q0) and torch.equal(s, s0)
 
 
 # (cin, cout, kernel, stride, padding, bias): K = 147 (7x7 on RGB), 27,
-# stride 2, 1x1 with a bias, the widest 3x3 and ragged M and Cout tiles.
+# stride 2, 1x1 with a bias, the widest 3x3 and ragged M and Cout tiles; the
+# tile body at 3x3 and 4x4 stride 2 (chunks 96, 64, 48, 16 and channels
+# padded to 32), the gather body on the rest.
 INT8_CONVS = [(3, 96, 7, 1, 3, False), (3, 16, 3, 1, 1, False), (64, 128, 4, 2, 1, False),
-              (56, 24, 1, 1, 0, True), (384, 384, 3, 1, 1, False), (16, 48, 3, 1, 1, True)]
+              (56, 24, 1, 1, 0, True), (384, 384, 3, 1, 1, False), (16, 48, 3, 1, 1, True),
+              (96, 192, 4, 2, 1, True), (40, 16, 3, 1, 1, False), (16, 16, 3, 1, 1, False)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
-@pytest.mark.parametrize("conv", INT8_CONVS, ids=lambda c: "x".join(map(str, c[:4])))
-def test_int8_conv_matches_plain(cuda_device, dtype, conv):
-    """Q2 against its plain version (the same int8 operands): the int32 sums
-    are exact, the epilogue rounds at the same points, so at most one unit
-    in the last place of the output type apart."""
+def _gather_geometry(cin, cout, k, stride, pad):
+    """The gather body's geometry of a conv whose shape takes the tile body,
+    padded as ConvGeometry.of pads the gather body's layers."""
+    from adam_dehaze_tpu_torch.ops.kernels.quant import K_STEP, TILE_N, ConvGeometry
+    cin_pad = -(-cin // 16) * 16
+    return ConvGeometry(cin, cin_pad, cout, -(-cout // TILE_N) * TILE_N, k, k, stride, pad,
+                        -(-k * k * cin_pad // K_STEP) * K_STEP)
+
+
+def _int8_operands(cuda_device, dtype, conv, geo=None):
     from adam_dehaze_tpu_torch.ops.kernels.quant import (
-        ConvGeometry, int8_conv, int8_conv_packed_reference, pack_int8_weights,
-        quantize_images)
+        ConvGeometry, pack_int8_weights, quantize_images)
     from adam_dehaze_tpu_torch.ops.quant import quantize_weight_per_channel
     cin, cout, k, stride, pad, has_bias = conv
     g = torch.Generator().manual_seed(cin + cout)
@@ -1401,14 +1434,57 @@ def test_int8_conv_matches_plain(cuda_device, dtype, conv):
     w = (torch.randn((cout, cin, k, k), generator=g) * 0.1).to(dtype).to(cuda_device)
     bias = (torch.randn((cout,), generator=g).to(dtype).float().to(cuda_device)
             if has_bias else None)
-    geo = ConvGeometry.of(cin, cout, k, k, stride, pad)
+    geo = geo or ConvGeometry.of(cin, cout, k, k, stride, pad)
     qw, sw = quantize_weight_per_channel(w)
-    packed = pack_int8_weights(qw, geo)
     q, sx = quantize_images(x, geo.cin_pad)
-    got = int8_conv(q, sx, packed, sw.float(), bias, geo, dtype)
-    want = int8_conv_packed_reference(q, sx, packed, sw.float(), bias, geo, dtype)
-    assert got.shape == want.shape == (3, *geo.out_size(19, 23), cout)
-    assert _ulps(got, want) <= 1
+    return q, sx, pack_int8_weights(qw, geo), sw.float(), bias, geo
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("conv", INT8_CONVS, ids=lambda c: "x".join(map(str, c[:4])))
+def test_int8_conv_matches_plain(cuda_device, dtype, conv):
+    """Q2 against its plain version (the same int8 operands), on the body
+    its shape takes (and the 16 -> 16 layer also on the gather body): the
+    int32 sums are exact and the dequant rounds at the same points, bit for
+    bit; each launch counted once for its body."""
+    from adam_dehaze_tpu_torch.ops.kernels.quant import int8_conv, int8_conv_packed_reference
+    geos = (None, _gather_geometry(*conv[:5])) if conv[:2] == (16, 16) else (None,)
+    for geo in geos:
+        q, sx, packed, sw, bias, geo = _int8_operands(cuda_device, dtype, conv, geo)
+        before = dict(int8_conv.body_launches)
+        got = int8_conv(q, sx, packed, sw, bias, geo, dtype)
+        want = int8_conv_packed_reference(q, sx, packed, sw, bias, geo, dtype)
+        assert got.shape == want.shape == (3, *geo.out_size(19, 23), conv[1])
+        assert torch.equal(got, want), (geo.body, _ulps(got, want))
+        assert int8_conv.body_launches[geo.body] == before[geo.body] + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("relu", [True, False], ids=["bn_relu", "bn"])
+@pytest.mark.parametrize("conv", [INT8_CONVS[0], INT8_CONVS[2], INT8_CONVS[4], INT8_CONVS[5]],
+                         ids=lambda c: "x".join(map(str, c[:4])))
+def test_int8_conv_fused_epilogue_matches_plain(cuda_device, dtype, relu, conv):
+    """Q2 with the ConvBlock's eval BN (+ ReLU) in its epilogue, on both
+    bodies: bit for bit its plain version, the plain dequant then
+    F.batch_norm in the compute dtype (PyTorch's CUDA BN kernel, whose f32
+    rounding the epilogue follows) then ReLU."""
+    from adam_dehaze_tpu_torch.ops.kernels.quant import (
+        eval_bn_stats, int8_conv, int8_conv_fused_reference)
+    q, sx, packed, sw, _, geo = _int8_operands(cuda_device, dtype, conv[:5] + (False,))
+    g = torch.Generator().manual_seed(7)
+    bn = torch.nn.BatchNorm2d(geo.cout).eval().requires_grad_(False)
+    with torch.no_grad():
+        bn.weight.copy_(torch.randn(geo.cout, generator=g))
+        bn.bias.copy_(torch.randn(geo.cout, generator=g) * 0.5)
+        bn.running_mean.copy_(torch.randn(geo.cout, generator=g) * 0.2)
+        bn.running_var.copy_(torch.rand(geo.cout, generator=g) + 0.1)
+    bn = bn.to(cuda_device)
+    with torch.inference_mode():
+        got = int8_conv(q, sx, packed, sw, None, geo, dtype, bn, eval_bn_stats(bn), relu)
+        plain = int8_conv_fused_reference(q, sx, packed, sw, None, geo, dtype, bn, relu)
+    assert torch.equal(got, plain), _ulps(got, plain)
+    if relu:
+        assert float(got.float().min()) >= 0.0
 
 
 def test_int8_route_hard_launches_q1_q2_and_k2(cuda_device):

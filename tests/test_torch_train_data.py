@@ -274,6 +274,37 @@ def test_get_dataloader_and_empty_split(jax_corpus, tmp_path):
         pds.get_dataloader(cfg, "train")
 
 
+@pytest.mark.parametrize("shard", [False, True])
+def test_get_dataloader_shard_per_host_matches_jax(jax_corpus, shard):
+    """`shard_per_host` as the JAX signature takes it: in one process the
+    same batches as JAX's get_dataloader with either value."""
+    from adam_dehaze_tpu_torch.config import load_config
+    cfg = load_config()
+    cfg["dataset"].update(test_path=jax_corpus, img_size=32, batch_size=4, num_workers=1)
+    pb = list(pds.get_dataloader(cfg, "test", shard_per_host=shard))
+    jb = list(jds.get_dataloader(cfg, "test", shard_per_host=shard))
+    assert len(pb) == len(jb) > 0
+    for a, b in zip(pb, jb):
+        assert a["name"] == b["name"]
+        for k in ("hazy", "clear", "dehazed", "intensity", "mask"):
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_get_dataloader_refuses_to_shard_across_processes(jax_corpus, monkeypatch):
+    """Under a torch.distributed group of two processes shard_per_host=True
+    raises (the per-host shard is the parallel/ port's); False still gives
+    the whole split."""
+    import torch.distributed as dist
+    from adam_dehaze_tpu_torch.config import load_config
+    cfg = load_config()
+    cfg["dataset"].update(test_path=jax_corpus, img_size=32, batch_size=4, num_workers=1)
+    monkeypatch.setattr(dist, "is_initialized", lambda: True)
+    monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
+    with pytest.raises(NotImplementedError, match="parallel/"):
+        pds.get_dataloader(cfg, "test")
+    assert len(pds.get_dataloader(cfg, "test", shard_per_host=False)) > 0
+
+
 def test_generate_synthetic_dataset_layout(jax_corpus, tmp_path):
     """The port writes the JAX package's tree: the same names in the same
     splits and the same clear scenes (the fog draws differ)."""
