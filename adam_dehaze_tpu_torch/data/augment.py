@@ -5,13 +5,17 @@ brightness/contrast factors are drawn once and applied identically to the
 hazy, clear and dehazed images of a triplet, inside the train step. The
 draws come from an explicit `torch.Generator` on the batch's device
 (they differ from jax.random's; the tests hold `_flip` and
-`_color_jitter` against the JAX package at given parameters).
+`_color_jitter` against the JAX package at given parameters). Inside a
+data-parallel step they are drawn for the global batch
+(parallel/data_parallel.py:draw_rows).
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
+
+from adam_dehaze_tpu_torch.parallel.data_parallel import rand_rows
 
 _GRAY = (0.299, 0.587, 0.114)
 
@@ -41,10 +45,10 @@ def augment_triplet(generator: torch.Generator, batch: Dict[str, torch.Tensor],
     dev = batch["hazy"].device
 
     def uniform(lo, hi):
-        return lo + (hi - lo) * torch.rand(n, generator=generator, device=dev)
+        return lo + (hi - lo) * rand_rows(n, generator, dev)
 
-    hflip = torch.rand(n, generator=generator, device=dev) < 0.5
-    vflip = torch.rand(n, generator=generator, device=dev) < 0.5
+    hflip = rand_rows(n, generator, dev) < 0.5
+    vflip = rand_rows(n, generator, dev) < 0.5
     bf = uniform(1 - brightness, 1 + brightness)
     cf = uniform(1 - contrast, 1 + contrast)
     out = dict(batch)

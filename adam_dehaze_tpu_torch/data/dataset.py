@@ -27,6 +27,7 @@ from typing import Dict, Iterator, List, Optional
 import numpy as np
 
 from adam_dehaze_tpu_torch.data.native_collate import normalize_u8
+from adam_dehaze_tpu_torch.parallel.multihost import shard_loader_for_host
 
 INTENSITY_MAP = {"low": 0, "medium": 1, "high": 2}
 
@@ -175,17 +176,11 @@ def get_dataloader(config, split: str = "train", seed: Optional[int] = None,
                    shard_per_host: bool = True) -> DataLoader:
     """The loader of one split under the config's dataset section.
 
-    `shard_per_host` is the JAX signature's. In one process it changes
-    nothing, as in the JAX package (a single host's shard is the whole
-    split). The port has no per-host sharding yet (the `parallel/` port):
-    under an initialized torch.distributed group of more than one process,
-    `shard_per_host=True` raises NotImplementedError rather than hand every
-    process the whole split."""
-    if shard_per_host and _world_size() > 1:
-        raise NotImplementedError(
-            "get_dataloader(shard_per_host=True) across processes needs the per-host "
-            "sharding of the parallel/ port, which adam_dehaze_tpu_torch does not have "
-            "yet; pass shard_per_host=False to give every process the whole split")
+    Under a torch.distributed group of more than one process, each process
+    reads only its strided shard (parallel/multihost.py:
+    shard_loader_for_host, seeded `seed + 1000 * rank`), as in the JAX
+    package; `shard_per_host=False` gives every process the whole split. In
+    one process the argument changes nothing."""
     key = {"train": "train_path", "val": "val_path"}.get(split, "test_path")
     ds = HazyImageDataset(
         root_dir=config["dataset"][key], split=split,
@@ -196,13 +191,8 @@ def get_dataloader(config, split: str = "train", seed: Optional[int] = None,
             f"{os.path.join(config['dataset'][key], split)} — expected "
             "{root}/{split}/{low,medium,high}/{hazy,clear,dehazed}/*.png|jpg "
             "with matching names in all three subdirs")
-    return DataLoader(
+    loader = DataLoader(
         ds, batch_size=config["dataset"]["batch_size"], shuffle=(split == "train"),
         num_workers=config["dataset"]["num_workers"],
         seed=config["seed"] if seed is None else seed)
-
-
-def _world_size() -> int:
-    """Processes of the default torch.distributed group, 1 without one."""
-    import torch.distributed as dist
-    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+    return shard_loader_for_host(loader) if shard_per_host else loader

@@ -19,6 +19,7 @@ import numpy as np
 
 from adam_dehaze_tpu_torch.data.dataset import DataLoader
 from adam_dehaze_tpu_torch.data.native_collate import normalize_u8
+from adam_dehaze_tpu_torch.parallel.multihost import shard_loader_for_host
 
 IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
@@ -162,14 +163,15 @@ def get_detection_dataloader(config, split: str = "test", img_size: int = 512,
                              image_source: str = "hazy", shard_per_host: bool = True,
                              augment: bool = False, shuffle: bool = False) -> DataLoader:
     """Batches of `batch_size // 2` from {root}/{split} with annotations
-    under {root}/annotations. `shard_per_host` is the JAX signature's: the
-    port is one process, so every loader sees the whole split."""
-    del shard_per_host
+    under {root}/annotations. Under a torch.distributed group of more than
+    one process each process reads its strided shard unless
+    `shard_per_host` is False (parallel/multihost.py)."""
     key = {"train": "train_path", "val": "val_path"}.get(split, "test_path")
     root = config["dataset"][key]
     ds = DetectionDataset(root_dir=root, annotation_dir=os.path.join(root, "annotations"),
                           split=split, img_size=img_size, image_source=image_source,
                           augment=augment, seed=config.get("seed", 0))
-    return DataLoader(ds, batch_size=max(config["dataset"]["batch_size"] // 2, 1),
-                      shuffle=shuffle, num_workers=config["dataset"]["num_workers"],
-                      drop_remainder=shuffle)
+    loader = DataLoader(ds, batch_size=max(config["dataset"]["batch_size"] // 2, 1),
+                        shuffle=shuffle, num_workers=config["dataset"]["num_workers"],
+                        drop_remainder=shuffle)
+    return shard_loader_for_host(loader) if shard_per_host else loader

@@ -13,8 +13,11 @@ Counterpart of adam_dehaze_tpu/data/synthetic.py, function by function:
 
 Random draws come from an explicit `torch.Generator` on the images' device,
 so a batch of fog variants is a few tensor ops. The draws differ from
-jax.random's; the tests hand both packages the same parameters. Images are
-NHWC in [0, 1]; maps are (..., H, W).
+jax.random's; the tests hand both packages the same parameters. The
+re-fogging's draws are per image of a training batch: inside a
+data-parallel step they are drawn for the global batch
+(parallel/data_parallel.py:draw_rows). Images are NHWC in [0, 1]; maps
+are (..., H, W).
 """
 from __future__ import annotations
 
@@ -25,6 +28,8 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from adam_dehaze_tpu_torch.parallel.data_parallel import rand_rows
 
 # (beta_range, A_range) per intensity class.
 INTENSITY_RANGES: Dict[str, Tuple[Tuple[float, float], Tuple[float, float]]] = {
@@ -110,10 +115,10 @@ def boundary_fog_params(generator: torch.Generator, intensity: torch.Tensor,
         torch.stack([lows_b[1], highs_b[1] - margin]),
         torch.stack([lows_b[2], lows_b[2]]),
     ])
-    ub = torch.rand(batch, generator=generator, device=dev)
-    ua = torch.rand(batch, generator=generator, device=dev)
-    use_strip = torch.rand(batch, generator=generator, device=dev) < boundary_frac
-    edge = (torch.rand(batch, generator=generator, device=dev) < 0.5).long()
+    ub = rand_rows(batch, generator, dev)
+    ua = rand_rows(batch, generator, dev)
+    use_strip = rand_rows(batch, generator, dev) < boundary_frac
+    edge = (rand_rows(batch, generator, dev) < 0.5).long()
     beta_full = lows_b[intensity] + ub * (highs_b[intensity] - lows_b[intensity])
     beta_strip = strip_lo[intensity, edge] + ub * margin
     beta = torch.where(use_strip, beta_strip, beta_full)
@@ -130,7 +135,7 @@ def refog_batch(generator: torch.Generator, batch, prob: float = 0.5,
     beta, A = boundary_fog_params(generator, batch["intensity"], n,
                                   boundary_frac=boundary_frac, margin=margin)
     fresh = apply_fog(batch["clear"], beta, A)
-    take = torch.rand(n, generator=generator, device=generator.device) < prob
+    take = rand_rows(n, generator, generator.device) < prob
     out = dict(batch)
     out["hazy"] = torch.where(take.to(fresh.device)[:, None, None, None], fresh,
                               batch["hazy"])

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from adam_dehaze_tpu_torch.ops.kernels.cbam import channel_spatial_gate
+from adam_dehaze_tpu_torch.parallel.data_parallel import draw_rows
 
 
 class ConvBlock(nn.Module):
@@ -118,7 +119,9 @@ class Dropout(nn.Module):
     """Dropout whose mask is drawn from a `torch.Generator` passed with each
     call, as flax's Dropout draws from the step's dropout key (nn.Dropout
     takes no generator): keep with probability 1 - p, scale the kept values
-    by 1 / (1 - p). The identity in eval mode and at p = 0."""
+    by 1 / (1 - p). The identity in eval mode and at p = 0. Inside a
+    data-parallel step the mask is drawn for the global batch
+    (parallel/data_parallel.py:draw_rows)."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -127,7 +130,9 @@ class Dropout(nn.Module):
     def forward(self, x, generator: Optional[torch.Generator] = None):
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.empty_like(x).bernoulli_(1.0 - self.p, generator=generator)
+        keep = draw_rows(x.shape[0], lambda n: torch.empty(
+            (n, *x.shape[1:]), dtype=x.dtype, device=x.device).bernoulli_(
+                1.0 - self.p, generator=generator))
         return x * keep / (1.0 - self.p)
 
 

@@ -81,6 +81,7 @@ from adam_dehaze_tpu_torch.nn.blocks import (
 from adam_dehaze_tpu_torch.nn.resnet import Bottleneck, ResNet
 from adam_dehaze_tpu_torch.nn.vgg import _STAGES as _VGG_STAGES
 from adam_dehaze_tpu_torch.nn.vgg import VGG16Features
+from adam_dehaze_tpu_torch.parallel.multihost import process_count, process_index
 
 _EPOCH_RE = re.compile(r"checkpoint_epoch_(\d+)\.pth$")
 
@@ -92,14 +93,20 @@ def _metrics_path(path: str) -> str:
 def save_checkpoint(ckpt_dir: str, name: str, state: Dict[str, Any],
                     metrics: Optional[Dict[str, float]] = None) -> str:
     """Save a state tree as {ckpt_dir}/{name}.pth (+ the metrics sidecar);
-    returns the path. The file is replaced atomically."""
-    os.makedirs(ckpt_dir, exist_ok=True)
+    returns the path. The file is replaced atomically. Under a process
+    group of more than one process, process 0 writes and every process
+    waits on a barrier until the file is there, as orbax saves a
+    replicated state once."""
     path = os.path.abspath(os.path.join(ckpt_dir, f"{name}.pth"))
-    torch.save(state, path + ".tmp")
-    os.replace(path + ".tmp", path)
-    if metrics is not None:
-        with open(_metrics_path(path), "w") as f:
-            json.dump({k: float(v) for k, v in metrics.items()}, f, indent=2)
+    if process_index() == 0:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        torch.save(state, path + ".tmp")
+        os.replace(path + ".tmp", path)
+        if metrics is not None:
+            with open(_metrics_path(path), "w") as f:
+                json.dump({k: float(v) for k, v in metrics.items()}, f, indent=2)
+    if process_count() > 1:
+        torch.distributed.barrier()
     return path
 
 

@@ -37,6 +37,7 @@ from adam_dehaze_tpu_torch.data.dataset import get_dataloader
 from adam_dehaze_tpu_torch.data.synthetic import refog_batch
 from adam_dehaze_tpu_torch.models.classifier import create_classifier
 from adam_dehaze_tpu_torch.nn.blocks import init_params_
+from adam_dehaze_tpu_torch.parallel.multihost import all_hosts_mean_tree
 from adam_dehaze_tpu_torch.training import checkpoint as ckpt
 from adam_dehaze_tpu_torch.training.common import (
     autocast,
@@ -205,8 +206,8 @@ def train_classifier(config, resume: bool = False, device="cuda"):
 
 
 def evaluate_classifier_pass(eval_step, state: TrainState, loader, device) -> Dict[str, float]:
-    """Mean loss and accuracy over a loader's valid rows (single process:
-    the JAX package's cross-host mean is the identity there)."""
+    """Mean loss and accuracy over a loader's valid rows, averaged across
+    processes under a process group (the identity in one process)."""
     tot_loss, tot_acc, tot_n = 0.0, 0.0, 0
     for batch in loader:
         m = eval_step(state, device_batch(batch, device))
@@ -214,7 +215,8 @@ def evaluate_classifier_pass(eval_step, state: TrainState, loader, device) -> Di
         tot_loss += float(m["loss"]) * n
         tot_acc += float(m["acc"]) * n
         tot_n += n
-    return {"loss": tot_loss / max(tot_n, 1), "acc": tot_acc / max(tot_n, 1)}
+    return all_hosts_mean_tree({"loss": tot_loss / max(tot_n, 1),
+                                "acc": tot_acc / max(tot_n, 1)})
 
 
 def confusion_matrix(labels: np.ndarray, preds: np.ndarray, n_classes: int = 3) -> np.ndarray:

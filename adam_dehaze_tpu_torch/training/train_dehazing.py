@@ -13,8 +13,10 @@ an epoch checkpoint every 5 epochs; `resume` continues from the latest.
   forward in every train and eval step (`channel_spatial_gate` is an
   autograd Function), and the low branch's eval forward (validation) is
   kernel K1 at the weights' dtype.
-- Validation is single-process (the JAX package's cross-host mean is the
-  identity there).
+- Under a process group each process validates its own shard of the
+  split and the means are averaged across processes
+  (`all_hosts_mean_tree`), so every process makes the same
+  best-checkpoint decision, as in the JAX package.
 - `cuda.remat` (training/remat.py): true checkpoints the branch forward of
   the train step, fullres the branches' full-resolution blocks.
 
@@ -42,6 +44,7 @@ from adam_dehaze_tpu_torch.models.branches import (
 )
 from adam_dehaze_tpu_torch.nn.blocks import init_params_
 from adam_dehaze_tpu_torch.ops.image import psnr, ssim_gray
+from adam_dehaze_tpu_torch.parallel.multihost import all_hosts_mean_tree
 from adam_dehaze_tpu_torch.training import checkpoint as ckpt
 from adam_dehaze_tpu_torch.training.common import (
     autocast,
@@ -245,7 +248,7 @@ def _validate(eval_step, state: TrainState, loader, device) -> Dict[str, float]:
         n_total += n
         if images is None:
             images = m["dehazed"][:4].float().cpu().numpy()
-    out = {k: v / max(n_total, 1) for k, v in tot.items()}
+    out = all_hosts_mean_tree({k: v / max(n_total, 1) for k, v in tot.items()})
     out["images"] = images
     return out
 

@@ -252,7 +252,8 @@ def train_detection(config, epochs: int = None, resume: bool = False, img_size: 
     for epoch in range(start_epoch, epochs):
         if epochs > 1:
             set_learning_rate(state.optimizer, epoch_learning_rate(base_lr, epoch, epochs))
-        loader.dataset.epoch = epoch      # reseeds the augmentation
+        # Reseed the augmentation (through a per-host shard's view).
+        getattr(loader.dataset, "base", loader.dataset).epoch = epoch
         tots: List[torch.Tensor] = [step(state, batch)["total"]
                                     for batch in device_prefetch(loader, device)]
         avg = float(torch.stack(tots).mean()) if tots else float("nan")

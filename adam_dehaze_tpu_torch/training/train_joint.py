@@ -27,9 +27,8 @@ loss, a best-by-PSNR checkpoint of the whole router and one every 5 epochs;
   learning rate. The per-branch states hold the router's own branch
   modules, so their updates are the router's.
 - Mixed precision is autocast in `cuda.compute_dtype` around the forward
-  and the loss, with f32 parameters and BN statistics. Validation is
-  single-process (the JAX package's cross-host mean is the identity
-  there).
+  and the loss, with f32 parameters and BN statistics. Validation is not
+  averaged across processes, as in the JAX package's joint trainer.
 
 Entry points run on the card unless the caller passes device="cpu".
 """

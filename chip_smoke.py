@@ -266,21 +266,41 @@ Phases, in order; any failure raises and the script exits non-zero:
    must refuse phase 18's default bundle with a warning, the soft call must
    equal the unquantized one exactly. Last, the fp32 int8 slice (3 images,
    one a class, 128^2) on the card against the CPU, at INT8_DRAWS.
-20. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
+20. parallel/ (`[parallel]` lines) on one card, counters at 0 before each
+   path: the card holds one H100, so this shows that the paths are right,
+   not that they scale. (a) A gloo group of two processes (this script
+   with `--parallel-rank`), both on cuda:0 (NCCL refuses two ranks on one
+   device): `shard_train_step` around the soft joint step (make_train_step,
+   augmentation and dropout on) of the seeded default router, fp32 with
+   TF32 off, on 16 images at 256^2, 8 a rank. (b) A world of one over NCCL:
+   the same step through the mesh's NCCL group, and all_hosts_mean_tree.
+   Each is held against the single-process step on the same 16 images
+   with the same seed: the loss within STEP_LOSS_RTOL, every gradient
+   before the optimizer within STEP_GRAD_RTOL of the router's largest, the
+   BN running statistics within DP_STATS_RTOL. (c) ExpertParallelRouter on
+   [cuda:0] at the default widths, bf16, 16 images, against the soft
+   router on the same serving copy, and (d) TwoStagePipeline.run over 4
+   batches of 16 against `__call__` on each, at PARALLEL_BF16_ATOL; (c)
+   launches K1, K2 six times and K5 once, (d) that four times. Prints the
+   warm ms/step and ms/image beside the card's name and power limit.
+21. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
    with "training", "classifier_training", "joint_training", "detection",
-   "cli", "lowres", "alternate", "precompiled" and "int8"; K5's and K2''s Function
-   readings under "function"; each lowres kernel's readings at 128^2 under
-   "lowres", K2's at the alternate branches' shapes under "alternate"; the
-   CLI's, the dial's, the alternates' and precompiled serving's readings
-   under "cli", "lowres", "alternate" and "precompiled") and, last, {"ok":
-   true, "device": ...}.
+   "cli", "lowres", "alternate", "precompiled", "int8" and "parallel"; K5's
+   and K2''s Function readings under "function"; each lowres kernel's
+   readings at 128^2 under "lowres", K2's at the alternate branches'
+   shapes under "alternate"; the CLI's, the dial's, the alternates',
+   precompiled serving's and parallel/'s readings under "cli", "lowres",
+   "alternate", "precompiled" and "parallel") and, last, {"ok": true,
+   "device": ...}.
 """
 import collections
 import copy
 import json
 import os
 import shutil
+import socket
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -380,6 +400,11 @@ from adam_dehaze_tpu_torch.ops.kernels.quant import (
 )
 from adam_dehaze_tpu_torch.ops.quant import Int8Conv2d, quantize_weight_per_channel
 from adam_dehaze_tpu_torch.ops.serving_apply import cast_for_serving
+from adam_dehaze_tpu_torch.parallel import multihost
+from adam_dehaze_tpu_torch.parallel.data_parallel import shard_train_step
+from adam_dehaze_tpu_torch.parallel.expert_parallel import ExpertParallelRouter
+from adam_dehaze_tpu_torch.parallel.mesh import make_mesh, replicate
+from adam_dehaze_tpu_torch.parallel.pipeline import TwoStagePipeline
 from adam_dehaze_tpu_torch.serving import AdaptiveDehazer
 from adam_dehaze_tpu_torch.serving_autotune import candidate_builders
 from adam_dehaze_tpu_torch.tools import probe_ops
@@ -3535,6 +3560,261 @@ def phase_int8(dev, smi, x, labels, exp):
     return dict(path), {"int8_quantize": q1_rec, "int8_conv": q2_rec}, readings
 
 
+# The parallel phase (parallel/): the data-parallel joint step on 2 ranks
+# of one card and on a world of one over NCCL, each held against the
+# single-process step on the same 16 images with the same seed (fp32, TF32
+# off); the expert-parallel router and the two-stage pipeline on [cuda:0].
+# One card holds both ranks of (a), so nothing here shows scaling.
+DP_ROWS = 16
+DP_TIMEOUT_S = 300
+# Data-parallel step against the single-process step, fp32 (TF32 off): the
+# same operations with the batch's sums split in two and added (the
+# convolutions' weight gradients, the synchronized BN's statistics, the
+# all_reduce), so they differ by fp32 reordering only. The bounds are the
+# fp32 card checks' of phase 10: the loss within STEP_LOSS_RTOL relative,
+# every gradient within STEP_GRAD_RTOL of the router's largest gradient;
+# the BN running statistics within DP_STATS_RTOL of the BN's scale: the
+# largest sqrt(running_var) for running_mean, the largest running_var for
+# itself. fp32 sums of 16 x 256^2 values a channel taken in another order
+# err by a few eps of the values' magnitude, the spread, not of their mean,
+# which can cancel to near 0 (a CPU rehearsal at 4 x 32^2 read up to
+# 5.8e-5 of a running_mean's own largest magnitude, and up to 5.1e-6 of
+# the BN's scale on any statistic).
+DP_STATS_RTOL = 1e-4
+# ExpertParallelRouter and TwoStagePipeline against the soft router, bf16:
+# the same modules and kernels on the same inputs on one device, so they
+# read 0; the bound allows one bf16 rounding step of a [0, 1] value.
+PARALLEL_BF16_ATOL = 2.0 ** -8
+PARALLEL_PATH_KERNELS = ("lightweight_chain", "cbam_gate", "blend3")
+
+
+def dp_config():
+    """The joint step's config: the default widths in fp32, nothing to
+    graft."""
+    cfg = load_config(overrides={"cuda": {"compute_dtype": "float32"}})
+    cfg["classifier"]["checkpoint_dir"] = cfg["dehazing"]["checkpoint_dir"] = "absent"
+    return cfg
+
+
+def dp_batch(dev):
+    rng = np.random.default_rng(SEED + 20)
+    return {"hazy": torch.from_numpy(rng.random((DP_ROWS, SIZE, SIZE, 3), dtype=np.float32))
+            .to(dev),
+            "clear": torch.from_numpy(rng.random((DP_ROWS, SIZE, SIZE, 3), dtype=np.float32))
+            .to(dev),
+            "intensity": torch.arange(DP_ROWS, device=dev) % 3}
+
+
+def dp_joint_step(dev, mesh=None):
+    """One soft joint step (augmentation and dropout on) of the seeded
+    default router on the 16 images, through shard_train_step when a mesh
+    is given; then 3 more, the last 2 timed. Returns the first step's
+    metrics, gradients and BN statistics (on the CPU), its launches and the
+    warm ms/step."""
+    cfg = dp_config()
+    router, state = tj.build_router_state(cfg, dev)
+    joint_loss = get_joint_loss(cfg)
+    nets = tj._loss_params(joint_loss, dev)
+    batch = dp_batch(dev)
+    step = tj.make_train_step(joint_loss, nets, augmentation=True)
+    if mesh is not None:
+        replicate(mesh, state)
+        step = shard_train_step(step, mesh, batch)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    reset_launch_counts()
+    metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    launches = counts()
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "grads": {n: p.grad.detach().cpu() for n, p in router.named_parameters()
+                     if p.grad is not None},
+           "stats": {k: v.detach().cpu() for k, v in router.state_dict().items()
+                     if "running" in k}}
+    out["warm_ms"] = warm_ms(lambda: step(state, batch, gen), runs=2)[1]
+    return out, launches
+
+
+def parallel_rank(rank, port, out_dir):
+    """One rank of phase 20 (a): `python3 chip_smoke.py --parallel-rank
+    RANK PORT OUT_DIR`."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    # Both ranks drive the one card. NCCL refuses two ranks on one device,
+    # so this group is gloo over CUDA tensors, started here rather than by
+    # multihost.initialize (which takes NCCL for a CUDA device): a choice
+    # made for one card, not a fallback.
+    torch.cuda.set_device(dev)
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                         world_size=2, rank=rank)
+    try:
+        out, launches = dp_joint_step(dev, make_mesh(None, [dev, dev]))
+        out["launches"] = launches
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(tmp):
+    """Phase 20 (a): both ranks in their own processes; what they saved."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--parallel-rank",
+                               str(rank), str(port), tmp],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in (0, 1)]
+    try:
+        logs = [p.communicate(timeout=DP_TIMEOUT_S)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for rank, (p, text) in enumerate(zip(procs, logs)):
+        check(p.returncode == 0, f"parallel rank {rank} failed:\n{text}")
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True) for r in (0, 1)]
+
+
+def dp_errors(got, want, what, smi):
+    """A data-parallel step against the single-process one (see
+    DP_STATS_RTOL): checked, logged, returned."""
+    loss = abs(got["metrics"]["total"] - want["metrics"]["total"]) / abs(want["metrics"]["total"])
+    g_max = max(float(g.abs().max()) for g in want["grads"].values())
+    check(set(got["grads"]) == set(want["grads"]), f"{what}: other tensors have a gradient")
+    grad = {n: max_err(got["grads"][n], g) for n, g in want["grads"].items()}
+    own = {n: grad[n] / float(g.abs().max()) for n, g in want["grads"].items()
+           if float(g.abs().max()) > ZERO_GRAD * g_max}
+    stats = {k: max_err(got["stats"][k], v) / float(
+        want["stats"][k.replace("running_mean", "running_var")].sqrt().max()
+        if k.endswith("running_mean") else v.max()) for k, v in want["stats"].items()}
+    worst = {"grad": max(grad, key=grad.get), "own": max(own, key=own.get),
+             "stats": max(stats, key=stats.get)}
+    errs = dict(loss_rel=loss, grad_of_max=grad[worst["grad"]] / g_max,
+                grad_own_max=own[worst["own"]], stats_rel=stats[worst["stats"]],
+                metrics={k: (got["metrics"][k], want["metrics"][k]) for k in want["metrics"]})
+    log(f"[parallel] {what} vs the single-process step: loss {got['metrics']['total']:.7f} vs "
+        f"{want['metrics']['total']:.7f} (rel err {loss:.2e}, bound {STEP_LOSS_RTOL}); "
+        f"{len(grad)} gradients, largest error {errs['grad_of_max']:.2e} of the router's "
+        f"max|g| ({worst['grad']}; bound {STEP_GRAD_RTOL}), in its own units at most "
+        f"{errs['grad_own_max']:.2e} ({worst['own']}; a reading); {len(stats)} BN "
+        f"statistics, at most {errs['stats_rel']:.2e} of their BN's scale ({worst['stats']}; "
+        f"bound {DP_STATS_RTOL}); {smi}")
+    check(loss <= STEP_LOSS_RTOL, f"{what}: the loss differs from the single-process step's")
+    check(errs["grad_of_max"] <= STEP_GRAD_RTOL,
+          f"{what}: the gradient of {worst['grad']} differs from the single-process step's")
+    check(errs["stats_rel"] <= DP_STATS_RTOL,
+          f"{what}: the BN statistic {worst['stats']} differs from the single-process step's")
+    return errs
+
+
+def phase_parallel(dev, smi, tmp, x):
+    """20. parallel/ on one card (see the docstring). Returns the path's
+    launch counts and the phase's readings."""
+    path = collections.Counter()
+    readings = {}
+    torch.cuda.empty_cache()
+    # (a) 2 ranks of one gloo group, both on cuda:0, each 8 of the 16 rows.
+    dp_dir = os.path.join(tmp, "parallel")
+    os.makedirs(dp_dir)
+    ranks = spawn_ranks(dp_dir)
+    for out in ranks:
+        path.update(out["launches"])
+    # The yardstick: the single-process step (its launches are not the path's).
+    single, single_launches = dp_joint_step(dev)
+    errs = {f"rank{r}": dp_errors(out, single, f"(a) 2 ranks on one card, rank {r}", smi)
+            for r, out in enumerate(ranks)}
+    # (b) a world of one over NCCL.
+    dist = torch.distributed
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}", world_size=1,
+                            rank=0, device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_mesh()
+        check(dist.get_backend(mesh.group("data")) == "nccl", "(b): the mesh's group is not NCCL")
+        one, one_launches = dp_joint_step(dev, mesh)
+        mean = multihost.all_hosts_mean_tree(one["metrics"])
+        check(mean == one["metrics"], f"(b): all_hosts_mean_tree of one process {mean}")
+    finally:
+        dist.destroy_process_group()
+    path.update(one_launches)
+    errs["world_of_one"] = dp_errors(one, single, "(b) a world of one over NCCL", smi)
+    readings["data_parallel"] = dict(
+        errors=errs, launches_per_rank=[nonzero(r["launches"]) for r in ranks],
+        world_of_one_launches=nonzero(one_launches), single_launches=nonzero(single_launches),
+        ms_per_step={"two_ranks_one_card": [r["warm_ms"] for r in ranks],
+                     "world_of_one": one["warm_ms"], "single_process": single["warm_ms"]})
+    log(f"[parallel] joint step, {DP_ROWS} images at {SIZE}^2, fp32, augmentation and dropout "
+        f"on: 2 ranks on one card (gloo) warm {ranks[0]['warm_ms']} / {ranks[1]['warm_ms']} "
+        f"ms/step, a world of one (NCCL) {one['warm_ms']} ms/step, single process "
+        f"{single['warm_ms']} ms/step; launches a rank {[nonzero(r['launches']) for r in ranks]}, "
+        f"world of one {nonzero(one_launches)}; {smi} (readings: both ranks share the card)")
+    del ranks, single, one
+    torch.cuda.empty_cache()
+
+    # (c) and (d): the default widths in bf16 on [cuda:0].
+    cfg = load_config()
+    d = AdaptiveDehazer(make_router(cfg, torch.Generator().manual_seed(SEED + 22)), None, cfg,
+                        device=dev)
+    serving = d._serving
+    levels = INTENSITY_ORDER
+    xd = torch.from_numpy(x).to(dev)
+    ep = ExpertParallelRouter({lvl: serving.models[lvl] for lvl in levels}, serving.classifier,
+                              serving.temperature, devices=[dev])
+    with torch.inference_mode():
+        want = serving(xd)[0]
+        reset_launch_counts()
+        got = ep(xd)[0]
+        torch.cuda.synchronize()
+    ep_launches = counts()
+    path.update(ep_launches)
+    ep_err = max_err(got, want)
+    check(ep_err <= PARALLEL_BF16_ATOL, f"(c) ExpertParallelRouter vs the soft router: {ep_err}")
+    check(nonzero(ep_launches) == nonzero({"lightweight_chain": K1_LAUNCHES[torch.bfloat16],
+                                           "cbam_gate": 6, "blend3": 1}),
+          f"(c) ExpertParallelRouter launched {ep_launches}")
+    with torch.inference_mode():
+        ep_ms, ep_runs = warm_ms(lambda: ep(xd))
+        soft_ms, soft_runs = warm_ms(lambda: serving(xd))
+    pipe = TwoStagePipeline(serving.classifier, [serving.models[lvl] for lvl in levels],
+                            serving.temperature, devices=[dev])
+    xs = [torch.from_numpy(np.random.default_rng(SEED + 23 + i).random(
+        (BATCH, SIZE, SIZE, 3), dtype=np.float32)).to(dev) for i in range(4)]
+    reset_launch_counts()
+    outs = list(pipe.run(xs))
+    torch.cuda.synchronize()
+    pipe_launches = counts()
+    path.update(pipe_launches)
+    check(len(outs) == 4, f"(d) the pipeline yielded {len(outs)} batches")
+    pipe_err = max(max_err(y, pipe(b)) for y, b in zip(outs, xs))
+    check(pipe_err <= PARALLEL_BF16_ATOL, f"(d) TwoStagePipeline.run vs __call__: {pipe_err}")
+    check(nonzero(pipe_launches) == nonzero({"lightweight_chain": 4 * K1_LAUNCHES[torch.bfloat16],
+                                             "cbam_gate": 24, "blend3": 4}),
+          f"(d) TwoStagePipeline.run launched {pipe_launches}")
+    pipe_ms, pipe_runs = warm_ms(lambda: list(pipe.run(xs)))
+    readings.update(
+        expert_parallel=dict(max_abs_err=ep_err, launches=nonzero(ep_launches),
+                             ms_per_image=ep_ms / BATCH, ms_runs=ep_runs,
+                             soft_router_ms_per_image=soft_ms / BATCH, soft_ms_runs=soft_runs),
+        pipeline=dict(max_abs_err=pipe_err, launches=nonzero(pipe_launches),
+                      ms_per_image=pipe_ms / (4 * BATCH), ms_runs=pipe_runs))
+    log(f"[parallel] (c) ExpertParallelRouter on [cuda:0], default widths, bf16, {BATCH} images: "
+        f"max abs err vs the soft router {ep_err:.3e} (bound {PARALLEL_BF16_ATOL:.3e}); launches "
+        f"{nonzero(ep_launches)}; warm {ep_ms / BATCH:.3f} ms/image (the soft router "
+        f"{soft_ms / BATCH:.3f}); {smi}")
+    log(f"[parallel] (d) TwoStagePipeline.run over 4 batches of {BATCH}: max abs err vs "
+        f"__call__ {pipe_err:.3e} (bound {PARALLEL_BF16_ATOL:.3e}); launches "
+        f"{nonzero(pipe_launches)}; warm {pipe_ms / (4 * BATCH):.3f} ms/image (one card: both "
+        f"stages share it, no overlap); {smi}")
+    for name in PARALLEL_PATH_KERNELS:
+        check(path[name] > 0, f"the parallel path launched no {name}")
+    del d, serving, ep, pipe
+    torch.cuda.empty_cache()
+    return dict(path), readings
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
@@ -3594,6 +3874,7 @@ def main():
         pre_path, pre_readings = timed("precompiled", phase_precompiled, dev, smi, exp, nvcc_s)
         int8_path, int8_kernels, int8_readings = timed("int8", phase_int8, dev, smi, x, labels,
                                                        exp)
+        parallel_path, parallel_readings = timed("parallel", phase_parallel, dev, smi, tmp, x)
     for name in ("route_hard", "forced_labels", "soft"):
         log(f"[slices] {name}: default dispatch {default_ms[name]:.3f} ms/image, "
             f"tail-chain dispatch {tail_ms[name]:.3f} ms/image, res-chain dispatch "
@@ -3604,7 +3885,7 @@ def main():
              "probe_tool": probes, "training": training, "classifier_training": classifier,
              "joint_training": joint, "detection": detection, "cli": cli_path,
              "lowres": lowres_path, "alternate": alt_path, "precompiled": pre_path,
-             "int8": int8_path}
+             "int8": int8_path, "parallel": parallel_path}
     kernels["cbam_gate"].update(training_forward_ms_per_step=k2_train["forward_ms"],
                                 training_backward_ms_per_step=k2_train["backward_ms"])
     for name, rec in grad_fns.items():
@@ -3629,7 +3910,7 @@ def main():
                      "joint": joint_readings},
         "detection": det_readings, "cli": cli_readings, "lowres": lowres_readings,
         "alternate": alt_readings, "precompiled": pre_readings, "int8": int8_readings,
-        "phase_seconds": seconds}
+        "parallel": parallel_readings, "phase_seconds": seconds}
     check(all(k["launches"] > 0 for k in line["kernels"]),
           f"a kernel was launched no time on any path: {line['kernels']}")
     print(json.dumps(line), flush=True)
@@ -3639,4 +3920,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--parallel-rank"]:
+        parallel_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    else:
+        main()

@@ -10,7 +10,9 @@ in fp32 on the card against the CPU (level outputs, top-k candidates,
 detections), in bf16 against fp32, and the launches of K2 and K5 per batch
 of `evaluate_object_detection`; and precompiled serving: a bundle's CUDA
 graphs against the eager dehazer (exactly), and the launch counters across
-replays.
+replays; and parallel/: a world of one over NCCL through the data-parallel
+step, the expert-parallel router and the two-stage pipeline on one card
+against the soft router.
 
 This file imports neither JAX nor the JAX package, so that it also runs on
 a machine that has only PyTorch:
@@ -1533,3 +1535,82 @@ def test_int8_slice_on_card_matches_cpu(cuda_device):
     assert float(noise.max()) > 0
     assert float(err.mean()) <= 1.5 * float(noise.mean())
     assert float(err.max()) <= 2 * float(noise.max())
+
+
+# --- parallel/ on one card -------------------------------------------------
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def test_world_of_one_nccl_data_parallel_step(cuda_device):
+    """A process group of one over NCCL: the mesh holds NCCL groups, the
+    data-parallel step runs its collectives (BN statistics, gradients,
+    metrics) through them and gives the plain step's result; the metric
+    mean of one process is `float` of its values."""
+    import torch.distributed as dist
+    from adam_dehaze_tpu_torch.models.branches import LightweightDehazeModel
+    from adam_dehaze_tpu_torch.parallel import multihost
+    from adam_dehaze_tpu_torch.parallel.data_parallel import shard_train_step
+    from adam_dehaze_tpu_torch.parallel.mesh import make_mesh
+    from adam_dehaze_tpu_torch.training.state import TrainState
+
+    def step(state, batch, generator=None):
+        loss = ((state.module(batch["x"]) - batch["y"]) ** 2).mean()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        return {"loss": loss.detach()}
+
+    rng = np.random.default_rng(4)
+    batch = {k: torch.from_numpy(rng.random((4, 32, 32, 3), dtype=np.float32)).to(cuda_device)
+             for k in ("x", "y")}
+    models = [_seeded(LightweightDehazeModel(8, 1), 3).to(cuda_device).train() for _ in range(2)]
+    states = [TrainState(m, torch.optim.SGD(m.parameters(), lr=0.1)) for m in models]
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0,
+                            device_id=torch.device("cuda", torch.cuda.current_device()))
+    try:
+        mesh = make_mesh()
+        assert mesh.shape == {"data": 1, "spatial": 1, "model": 1}
+        assert dist.get_backend(mesh.group("data")) == "nccl"
+        got = shard_train_step(step, mesh, batch)(states[0], batch)
+        assert multihost.all_hosts_mean_tree({"loss": got["loss"]}) == {
+            "loss": float(got["loss"])}
+    finally:
+        dist.destroy_process_group()
+    want = step(states[1], batch)
+    torch.testing.assert_close(got["loss"], want["loss"], rtol=1e-5, atol=0)
+    for (name, a), b in zip(models[0].state_dict().items(), models[1].state_dict().values()):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6, msg=name)
+
+
+def test_expert_parallel_and_pipeline_on_card_match_soft_router(cuda_device):
+    """ExpertParallelRouter and TwoStagePipeline on [cuda:0], on the serving
+    copy of a small soft router (fp32): the soft router's output, through
+    K1 (low branch), K2 (high branch) and K5 (the blend)."""
+    from adam_dehaze_tpu_torch.ops.kernels import launch_counters, reset_launch_counts
+    from adam_dehaze_tpu_torch.parallel.expert_parallel import ExpertParallelRouter
+    from adam_dehaze_tpu_torch.parallel.pipeline import TwoStagePipeline
+
+    serving = _small_dehazer(cuda_device)._serving
+    levels = ("low", "medium", "high")
+    xs = [torch.from_numpy(np.random.default_rng(i).random((3, 32, 32, 3), dtype=np.float32))
+          .to(cuda_device) for i in range(3)]
+    with torch.inference_mode():
+        want = [serving(x)[0] for x in xs]
+    ep = ExpertParallelRouter({lvl: serving.models[lvl] for lvl in levels}, serving.classifier,
+                              serving.temperature, devices=[cuda_device])
+    pipe = TwoStagePipeline(serving.classifier, [serving.models[lvl] for lvl in levels],
+                            serving.temperature, devices=[cuda_device])
+    reset_launch_counts()
+    got = [ep(x)[0] for x in xs] + list(pipe.run(xs))
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in launch_counters().items()}
+    for g, w in zip(got, want + want):
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-6)
+    assert launches["blend3"] == 6 and launches["lightweight_chain"] > 0
+    assert launches["cbam_gate"] > 0

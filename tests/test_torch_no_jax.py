@@ -1,7 +1,8 @@
 """The port stands alone: importing every module of adam_dehaze_tpu_torch
-loads neither JAX nor flax nor the JAX package, and not triton either (the
-Triton kernel imports it only when it launches). `chip_smoke.py` refuses
-to run without a CUDA card and prints no result."""
+(parallel/ among them) loads neither JAX nor flax nor the JAX package,
+and not triton either (the Triton kernel imports it only when it
+launches). `chip_smoke.py` refuses to run without a CUDA card and prints
+no result."""
 import json
 import os
 import subprocess
@@ -19,7 +20,7 @@ for name in names:
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "triton",
                                     "adam_dehaze_tpu"))
-print(len(names), bad)
+print(len(names), sorted(n for n in names if ".parallel." in n), bad)
 """
 
 
@@ -34,8 +35,11 @@ def test_port_imports_no_jax_flax_or_triton():
                           capture_output=True, text=True, env=_clean_env(),
                           timeout=300)
     assert proc.returncode == 0, proc.stderr
-    count, bad = proc.stdout.strip().split(" ", 1)
+    count, rest = proc.stdout.strip().split(" ", 1)
+    parallel, bad = rest.split("] ", 1)
     assert int(count) >= 24, proc.stdout
+    assert parallel + "]" == str([f"adam_dehaze_tpu_torch.parallel.{m}" for m in (
+        "data_parallel", "expert_parallel", "mesh", "multihost", "pipeline")]), proc.stdout
     assert bad == "[]", bad
 
 

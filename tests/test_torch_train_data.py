@@ -292,17 +292,23 @@ def test_get_dataloader_shard_per_host_matches_jax(jax_corpus, shard):
 
 def test_get_dataloader_refuses_to_shard_across_processes(jax_corpus, monkeypatch):
     """Under a torch.distributed group of two processes shard_per_host=True
-    raises (the per-host shard is the parallel/ port's); False still gives
-    the whole split."""
+    gives each process its strided shard of the split (it raised before
+    the parallel/ port existed; tests/test_torch_parallel.py holds the
+    shards against the JAX package's); False still gives the whole
+    split."""
     import torch.distributed as dist
     from adam_dehaze_tpu_torch.config import load_config
     cfg = load_config()
     cfg["dataset"].update(test_path=jax_corpus, img_size=32, batch_size=4, num_workers=1)
+    n = len(pds.get_dataloader(cfg, "test").dataset)
     monkeypatch.setattr(dist, "is_initialized", lambda: True)
     monkeypatch.setattr(dist, "get_world_size", lambda *a, **k: 2)
-    with pytest.raises(NotImplementedError, match="parallel/"):
-        pds.get_dataloader(cfg, "test")
-    assert len(pds.get_dataloader(cfg, "test", shard_per_host=False)) > 0
+    for rank in (0, 1):
+        monkeypatch.setattr(dist, "get_rank", lambda *a, r=rank, **k: r)
+        shard = pds.get_dataloader(cfg, "test")
+        assert shard.dataset.indices == list(range(rank, n, 2))
+        assert shard.seed == cfg["seed"] + 1000 * rank
+    assert len(pds.get_dataloader(cfg, "test", shard_per_host=False).dataset) == n
 
 
 def test_generate_synthetic_dataset_layout(jax_corpus, tmp_path):
