@@ -25,6 +25,10 @@ ConvBlocks, ResidualBlocks, AttentionBlocks and UpBlocks (a default
 branch's last UpBlock with the ResidualBlock and AttentionBlock the port
 keeps inside it).
 
+The medium and high branches call `shard_channels` (parallel/sharding.py)
+after their 4c stem and after their bottleneck, as the JAX branches do: a
+no-op outside `channel_sharding`.
+
 The high branch is the canonical forward with all six AttentionBlocks on
 kernel K2; the JAX package's space-to-depth rewrite of it was a lane-fill
 workaround for the TPU and is not ported. The low branch's eval forward on
@@ -49,6 +53,7 @@ from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
     fold_lightweight,
     lightweight_chain,
 )
+from adam_dehaze_tpu_torch.parallel.sharding import shard_channels
 from adam_dehaze_tpu_torch.training.remat import remat_blocks_, remat_mode
 
 
@@ -145,7 +150,9 @@ class MediumIntensityDehazeModel(nn.Module):
         xin = _nchw(x, dt)
         f0 = self.init_conv(xin)
         e1 = self.encoder[0](f0)
-        b = self.bottleneck(self.encoder[1](e1))
+        # TP hooks (parallel/sharding.py): the widest stage (4c channels).
+        e2 = shard_channels(self.encoder[1][0](e1))
+        b = shard_channels(self.bottleneck(self.encoder[1][1:](e2)))
         d1 = self.decoder[0](b)
         if d1.shape[2:] != e1.shape[2:]:
             d1 = resize_bilinear(d1, e1.shape[2:])
@@ -196,7 +203,9 @@ class HighIntensityDehazeModel(nn.Module):
         guidance = self.detail_branch(xin)
         f0 = self.init_conv(xin)
         e1 = self.encoder[0](f0)
-        b = self.bottleneck(self.encoder[1](e1))
+        # TP hooks (parallel/sharding.py): the widest stage (4c channels).
+        e2 = shard_channels(self.encoder[1][0](e1))
+        b = shard_channels(self.bottleneck(self.encoder[1][1:](e2)))
         d1 = self.decoder[0](b)
         if d1.shape[2:] != e1.shape[2:]:
             d1 = resize_bilinear(d1, e1.shape[2:])

@@ -20,7 +20,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from adam_dehaze_tpu_torch.ops.kernels.cbam import channel_spatial_gate
+from adam_dehaze_tpu_torch.ops.kernels.cbam import (
+    channel_spatial_gate,
+    channel_spatial_gate_sharded,
+)
+from adam_dehaze_tpu_torch.parallel import sharding, spatial
+from adam_dehaze_tpu_torch.parallel.collectives import AllReduceSum, channel_slice
 from adam_dehaze_tpu_torch.parallel.data_parallel import draw_rows
 
 
@@ -72,6 +77,12 @@ class AttentionBlock(nn.Module):
     applied by `channel_spatial_gate` (kernel K2 on a CUDA tensor, its plain
     version on a CPU one), with the stencil weights rounded to the compute
     dtype first, as the JAX block does.
+
+    On a shard (parallel/spatial.py, parallel/sharding.py) the pools span
+    the whole image (`mean_hw`, `amax_hw`); on this process's channels the
+    MLP's first linear takes their columns and adds its partial sums over
+    the group, the second yields their rows of the gate, and K2 runs on them
+    (`channel_spatial_gate_sharded`).
     """
 
     def __init__(self, channels: int, reduction: int = 16):
@@ -104,14 +115,26 @@ class AttentionBlock(nn.Module):
     def forward(self, x):
         w0 = self.fc[0].weight[:, :, 0, 0]
         w1 = self.fc[2].weight[:, :, 0, 0]
+        channels = sharding.channel_axis(x, w0.shape[1])
+        if channels is not None:
+            part = channel_slice(w0.shape[1], channels)
+            w0, w1 = w0[:, part], w1[part]
+            sharding.used(self.fc[0].weight, self.fc[2].weight, self.conv_spatial.weight)
 
         def mlp(v):
-            return F.linear(torch.relu(F.linear(v, w0)), w1)
+            h = F.linear(v, w0)
+            if channels is not None:
+                h = AllReduceSum.apply(h, (channels.group,))
+            return F.linear(torch.relu(h), w1)
 
-        gate = torch.sigmoid(mlp(x.mean(dim=(2, 3))) + mlp(x.amax(dim=(2, 3))))
+        gate = torch.sigmoid(mlp(spatial.mean_hw(x)) + mlp(spatial.amax_hw(x)))
         # A no-op for the branches' channels_last activations.
-        x = x.contiguous(memory_format=torch.channels_last)
-        y = channel_spatial_gate(x.permute(0, 2, 3, 1), gate, self.stencil(x.dtype))
+        x = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
+        rows = spatial.axis()
+        if rows is None and channels is None:
+            y = channel_spatial_gate(x, gate, self.stencil(x.dtype))
+        else:
+            y = channel_spatial_gate_sharded(x, gate, self.stencil(x.dtype), rows, channels)
         return y.permute(0, 3, 1, 2)
 
 

@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from adam_dehaze_tpu_torch.parallel.spatial import mean_hw
+
 # (expansion, channels, repeats, stride, kernel): the EfficientNet-B0 table.
 _B0_CONFIG = [
     (1, 16, 1, 1, 3),
@@ -74,7 +76,7 @@ class SqueezeExcite(nn.Module):
         self.conv_expand = nn.Conv2d(hidden, channels, 1)
 
     def forward(self, x):
-        s = self.conv_expand(F.silu(self.conv_reduce(x.mean(dim=(2, 3), keepdim=True))))
+        s = self.conv_expand(F.silu(self.conv_reduce(mean_hw(x, keepdim=True))))
         return x * torch.sigmoid(s)
 
 
@@ -144,4 +146,4 @@ class EfficientNet(nn.Module):
     def forward(self, x):
         x = F.silu(self.bn1(self.conv_stem(x)))
         x = F.silu(self.bn2(self.conv_head(self.blocks(x))))
-        return x.mean(dim=(2, 3)).float()
+        return mean_hw(x).float()

@@ -23,6 +23,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from adam_dehaze_tpu_torch.parallel.spatial import mean_hw
+
 # (expansion t, out channels c, repeats n, first stride s): MobileNetV2.
 _V2_CONFIG = [
     (1, 16, 1, 1),
@@ -141,7 +143,7 @@ class MobileNetV2(nn.Module):
         self.features = nn.Sequential(*layers)
 
     def forward(self, x):
-        return self.features(x).mean(dim=(2, 3)).float()
+        return mean_hw(self.features(x)).float()
 
 
 class SqueezeExcite(nn.Module):
@@ -156,7 +158,7 @@ class SqueezeExcite(nn.Module):
         self.fc2 = nn.Conv2d(squeeze, channels, 1)
 
     def forward(self, x):
-        s = self.fc2(torch.relu(self.fc1(x.mean(dim=(2, 3), keepdim=True))))
+        s = self.fc2(torch.relu(self.fc1(mean_hw(x, keepdim=True))))
         return x * hardsigmoid(s)
 
 
@@ -201,4 +203,4 @@ class MobileNetV3(nn.Module):
         self.features = nn.Sequential(*layers)
 
     def forward(self, x):
-        return self.features(x).mean(dim=(2, 3)).float()
+        return mean_hw(self.features(x)).float()

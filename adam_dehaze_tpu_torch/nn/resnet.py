@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from adam_dehaze_tpu_torch.parallel.spatial import mean_hw
+
 
 def _bn(c: int) -> nn.BatchNorm2d:
     return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
@@ -93,7 +95,7 @@ class ResNet(nn.Module):
         for i in range(len(self.stage_sizes)):
             x = getattr(self, f"layer{i + 1}")(x)
             stages.append(x)
-        pooled = x.mean(dim=(2, 3)).float()
+        pooled = mean_hw(x).float()
         return (pooled, stages) if return_stages else pooled
 
 

@@ -39,6 +39,10 @@ import torch
 import torch.nn.functional as F
 
 from adam_dehaze_tpu_torch.ops.kernels import _build
+from adam_dehaze_tpu_torch.parallel import spatial
+from adam_dehaze_tpu_torch.parallel.collectives import AllReduceMax, AllReduceSum, Halo
+from adam_dehaze_tpu_torch.parallel.mesh import Axis
+from adam_dehaze_tpu_torch.parallel.sharded_ops import local_ops
 
 _HALO = 3
 
@@ -64,10 +68,11 @@ def spatial_gate_reference(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 def padded_stats(x: torch.Tensor, g: Optional[torch.Tensor] = None):
     """Plain PyTorch version of the statistics pass: the f32 (mean, max)
     maps of x * g (of x when g is None) over channels, zero-padded by the
-    stencil's halo on every side: (B, H+6, W+6) each."""
-    gated = x.float()
+    stencil's halo on every side: (B, H+6, W+6) each (f64 for an f64 x)."""
+    dt = torch.promote_types(x.dtype, torch.float32)
+    gated = x.to(dt)
     if g is not None:
-        gated = gated * g.float()[:, None, None, :]
+        gated = gated * g.to(dt)[:, None, None, :]
     pad = (_HALO, _HALO, _HALO, _HALO)
     return (F.pad(gated.mean(dim=-1), pad).contiguous(),
             F.pad(gated.amax(dim=-1), pad).contiguous())
@@ -80,6 +85,19 @@ def gated_maps(x: torch.Tensor, g: Optional[torch.Tensor] = None):
     the kernel, which reads x once and writes only the maps."""
     if x.device.type == "cpu":
         return padded_stats(x, g)
+    maps = _maps_kernel(x, g)
+    return maps[0], maps[1]
+
+
+def _maps_plain(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """`padded_stats` stacked: (2, B, H+6, W+6) f32."""
+    with local_ops():
+        return torch.stack(padded_stats(x, g))
+
+
+def _maps_kernel(x: torch.Tensor, g: Optional[torch.Tensor]) -> torch.Tensor:
+    """The statistics pass on a CUDA tensor: the (mean, max) maps stacked,
+    (2, B, H+6, W+6) f32."""
     b, h, wd, c = x.shape
     maps = torch.empty((2, b, h + 2 * _HALO, wd + 2 * _HALO), dtype=torch.float32,
                        device=x.device)
@@ -88,7 +106,7 @@ def gated_maps(x: torch.Tensor, g: Optional[torch.Tensor] = None):
         maps[1].data_ptr(), b, h, wd, c, int(x.dtype == torch.bfloat16),
         _build.stream_ptr(x.device))
     _build.check(err, "cbam_gated_maps")
-    return maps[0], maps[1]
+    return maps
 
 
 def launch_cbam_gate(x, g, mean_p, max_p, w, out) -> None:
@@ -132,6 +150,7 @@ def _spatial_gate_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     name = "spatial_gate"
     _build.require_cuda_inputs(name, x, w)
     _require_gate_input(name, x, w)
+    spatial.refuse("K2' (spatial_gate) alone")
     mean_p, max_p = gated_maps(x)
     out = torch.empty_like(x)
     launch_spatial_gate(x, mean_p, max_p, w.float().contiguous(), out)
@@ -231,3 +250,63 @@ def channel_spatial_gate(x: torch.Tensor, g: torch.Tensor,
 
 
 channel_spatial_gate.launches = 0
+
+
+def _gate_on_maps_reference(x: torch.Tensor, g: torch.Tensor, maps: torch.Tensor,
+                            w: torch.Tensor) -> torch.Tensor:
+    """Plain version of the gate kernel on prepared maps: x * g gated by
+    sigmoid(stencil(maps)), the stencil unpadded over the f32 maps (2, B,
+    H+6, W+6), as the kernel reads them."""
+    with local_ops():
+        gated = x * g.to(x.dtype)[:, None, None, :]
+        s = F.conv2d(maps.transpose(0, 1), w.to(maps.dtype).permute(3, 2, 0, 1))
+        return gated * torch.sigmoid(s).to(x.dtype).permute(0, 2, 3, 1)
+
+
+def _gate_on_maps_kernel(x: torch.Tensor, g: torch.Tensor, maps: torch.Tensor,
+                         w: torch.Tensor) -> torch.Tensor:
+    out = torch.empty_like(x)
+    launch_cbam_gate(x, g, maps[0], maps[1], w.float().contiguous(), out)
+    return out
+
+
+def channel_spatial_gate_sharded(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
+                                 rows: Optional[Axis], channels: Optional[Axis]
+                                 ) -> torch.Tensor:
+    """K2 on this process's shard of a tensor split over H (`rows`, the
+    spatial axis) and/or over channels (`channels`, the model axis, with g
+    this process's channels of the gate): the statistics pass on the shard,
+    then the maps made whole between the two launches, then the gate kernel
+    as it is.
+
+    - Channels split: the local (mean, max) maps are reduced over the
+      group: the means summed and divided by its size (the shards are
+      equal), the maxima maxed.
+    - H split: the 3 padded rows above and below the shard's maps are
+      overwritten by the neighbours' map rows (collectives.Halo); the zeros
+      stay at the image's true edges.
+
+    A CPU tensor takes the same route through the plain versions
+    (`padded_stats`, the fill, the stencil unpadded). Differentiable: each
+    launch, with a gradient to record, runs as `_Gate` over its plain
+    version; the exchanges carry their own backward."""
+    cuda = x.device.type != "cpu"
+    if cuda:
+        name = "channel_spatial_gate"
+        _build.require_cuda_inputs(name, x, g, w)
+        _require_gate_input(name, x, w)
+        _build.require(tuple(g.shape) == tuple(x.shape[::3]), name,
+                       f"g must be {tuple(x.shape[::3])}, got {tuple(g.shape)}")
+        g = g.float().contiguous()
+    grad = torch.is_grad_enabled() and (x.requires_grad or g.requires_grad or w.requires_grad)
+    stats = _maps_kernel if cuda else _maps_plain
+    maps = _Gate.apply(stats, _maps_plain, x, g) if grad else stats(x, g)
+    if channels is not None:
+        mean = AllReduceSum.apply(maps[:1], (channels.group,)) / channels.size
+        maps = torch.cat([mean, AllReduceMax.apply(maps[1:], channels)])
+    if rows is not None:
+        maps = Halo.apply(maps[:, :, _HALO:-_HALO], 2, _HALO, _HALO, 0.0, rows)
+    apply = _gate_on_maps_kernel if cuda else _gate_on_maps_reference
+    if grad:
+        return _Gate.apply(apply, _gate_on_maps_reference, x, g, maps, w)
+    return apply(x, g, maps, w)

@@ -33,6 +33,8 @@ import torch.nn.functional as F
 
 from adam_dehaze_tpu_torch.ops import fold
 from adam_dehaze_tpu_torch.ops.kernels import _build
+from adam_dehaze_tpu_torch.parallel import spatial
+from adam_dehaze_tpu_torch.parallel.sharded_ops import local_ops
 
 # Mirror of csrc/lightweight_chain.cu, so that K1's body is chosen by shape
 # on any device; tests/test_torch_cuda.py holds the two against each other.
@@ -329,7 +331,26 @@ def lightweight_chain(x: torch.Tensor,
     """Run the low branch: x (N, H, W, 3) f32 NHWC in [0, 1] -> same shape
     f32. A CPU tensor takes the plain version; a CUDA tensor launches the
     body `chain_plan` names: `n_blocks + 1` fused groups, or one kernel per
-    layer (`2 * n_blocks + 3`)."""
+    layer (`2 * n_blocks + 3`).
+
+    On an H shard (parallel/spatial.py) the chain cannot exchange rows
+    between its fused layers, so the shard first takes as many rows from
+    each neighbour as the branch's receptive radius (one row for each of its
+    `2 * n_blocks + 3` 3x3 layers; none at the image's true edges, where
+    the kernel's own zero padding is the image's), the chain runs on that
+    taller shard, and its rows are cropped back: the rows the kernel pads at
+    the taller shard's inner edges reach only the rows cropped away."""
+    rows = spatial.axis()
+    with local_ops():
+        if rows is None:
+            return _chain(x, chain)
+        radius = len(chain.layers)
+        taller = spatial.halo(x, 1, radius, radius, fill=None)
+        top = radius if rows.index > 0 else 0
+        return _chain(taller, chain)[:, top:top + x.shape[1]].contiguous()
+
+
+def _chain(x: torch.Tensor, chain: LightweightChainWeights) -> torch.Tensor:
     if x.device.type == "cpu":
         return lightweight_chain_reference(x, chain)
     name = "lightweight_chain"

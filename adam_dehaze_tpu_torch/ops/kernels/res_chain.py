@@ -70,6 +70,7 @@ from adam_dehaze_tpu_torch.ops.kernels.tail_chain import (
     _shift,
     weight_tensors,
 )
+from adam_dehaze_tpu_torch.parallel import spatial
 
 SEGMENTS = ("e1", "e2b", "d1")
 
@@ -220,7 +221,9 @@ def res_attn_chain(x: torch.Tensor, weights: ResChainWeights) -> torch.Tensor:
     """One segment. x (N, H, W, C) NHWC float -> (N, H, W, C) in the
     weights' compute dtype; x is left as it is. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernels (`launches_of(weights.kinds)`
-    launches, the second number counted on K2) or raises."""
+    launches, the second number counted on K2) or raises. H split over a
+    spatial mesh is refused."""
+    spatial.refuse("K6 (res_attn_chain)")
     if x.device.type == "cpu":
         return res_attn_chain_reference(x, weights)
     name = "res_attn_chain"

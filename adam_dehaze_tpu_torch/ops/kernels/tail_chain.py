@@ -51,6 +51,7 @@ from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
     window,
     zero_outside,
 )
+from adam_dehaze_tpu_torch.parallel import spatial
 
 Layer = Tuple[torch.Tensor, torch.Tensor]   # (weight HWIO compute dtype, shift f32)
 
@@ -437,7 +438,8 @@ def medium_tail_chain(d1: torch.Tensor, f0: torch.Tensor, x: torch.Tensor,
     (N, H, W, 3) the input image, all NHWC; returns (N, H, W, 3) f32. CPU
     tensors take the plain version; CUDA tensors launch the kernels
     (`medium_tail_plan`: 5 launches with the head group, 6 without) or
-    raise."""
+    raise. H split over a spatial mesh is refused."""
+    spatial.refuse("K3 (medium_tail_chain)")
     if x.device.type == "cpu":
         return medium_tail_chain_reference(d1, f0, x, weights)
     name = "medium_tail_chain"
@@ -493,7 +495,9 @@ def high_tail_chain(d1: torch.Tensor, f0: torch.Tensor, x: torch.Tensor,
                     weights: HighTailWeights) -> torch.Tensor:
     """The high branch after the d1 concat; arguments as
     `medium_tail_chain`. CUDA tensors launch the kernels: 11 launches
-    counted here and one of K2' (`spatial_gate.launches`)."""
+    counted here and one of K2' (`spatial_gate.launches`). H split over a
+    spatial mesh is refused."""
+    spatial.refuse("K4 (high_tail_chain)")
     if x.device.type == "cpu":
         return high_tail_chain_reference(d1, f0, x, weights)
     name = "high_tail_chain"

@@ -47,6 +47,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from adam_dehaze_tpu_torch.parallel import sharding, spatial
+
 # AQT's int8 numerics (preserve_zero, no preserve_max_val): the scale maps
 # the abs-max onto 127.5, and values are clipped to 127 before rounding.
 QUANT_BOUND = 127.5
@@ -150,6 +152,9 @@ class Int8Conv2d(nn.Module):
 
     def forward(self, x):
         from adam_dehaze_tpu_torch.ops.kernels.quant import int8_conv, quantize_images
+        # Q1's scale is per image: a shard of one (rows or channels) has another.
+        spatial.refuse("int8 serving (kernels Q1 and Q2)")
+        sharding.refuse("int8 serving (kernels Q1 and Q2)")
         # A no-op for the branches' channels_last activations: the NHWC view is free.
         xh = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
         q, sx = quantize_images(xh, self.geometry.cin_pad)

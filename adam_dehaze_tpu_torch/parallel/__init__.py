@@ -2,8 +2,11 @@
 
 Counterpart of adam_dehaze_tpu/parallel/: process groups and per-host
 loading (`multihost`), the device mesh (`mesh`), the data-parallel train
-and eval steps (`data_parallel`), the branches on their own device groups
-(`expert_parallel`) and the classifier and branches as a two-stage
-pipeline (`pipeline`). `spatial.py` and `sharding.py` (the `spatial` and
-`model` mesh axes) are not ported yet.
+and eval steps (`data_parallel`), images split over H (`spatial`), the
+branches' widest stages split over channels (`sharding`), the branches on
+their own device groups (`expert_parallel`) and the classifier and branches
+as a two-stage pipeline (`pipeline`). The exchanges that XLA's sharding
+propagation writes for the JAX package are autograd Functions here
+(`collectives`), and the layers' convolutions, pools and BNs reach them
+through `sharded_ops`.
 """

@@ -4,10 +4,9 @@ Counterpart of adam_dehaze_tpu/parallel/mesh.py. Axes:
 
 - `data`    — batch dimension (data parallelism: the data-parallel step
               averages gradients over this axis's process group);
-- `spatial` — image H dimension (spatial partitioning; not ported yet:
-              the halo exchanges of spatial.py);
-- `model`   — channel parallelism of the widest stages (not ported yet:
-              sharding.py).
+- `spatial` — image H dimension (spatial partitioning: the halo
+              exchanges of spatial.py);
+- `model`   — channel parallelism of the widest stages (sharding.py).
 
 One process drives one device, so a mesh spans the processes of the group:
 under a torch.distributed group its shape multiplies to the world size,
@@ -52,6 +51,15 @@ def mesh_shape(sizes: Optional[Dict[str, int]], n: int) -> Dict[str, int]:
     return {ax: sizes[ax] for ax in AXES}
 
 
+class Axis(NamedTuple):
+    """One mesh axis as this process sees it: its process group, this
+    process's index along it and the axis's size."""
+    name: str
+    group: object
+    index: int
+    size: int
+
+
 class Mesh:
     """A mesh over the group's processes: `shape` {axis: size} as JAX's
     `Mesh.shape`; `device` the device this process drives; `device_mesh`
@@ -72,6 +80,17 @@ class Mesh:
     def coordinate(self, axis: str) -> int:
         """This process's index along `axis`."""
         return 0 if self.device_mesh is None else self.device_mesh.get_local_rank(axis)
+
+    def axis(self, name: str) -> Optional[Axis]:
+        """`name` as an `Axis`; None when the mesh lacks it or it has size
+        1. An axis of more than one needs a process group."""
+        size = self.shape.get(name, 1)
+        if size <= 1:
+            return None
+        if self.device_mesh is None:
+            raise ValueError(f"a {name} axis of {size} needs a process group "
+                             "(parallel/multihost.py:initialize)")
+        return Axis(name, self.group(name), self.coordinate(name), size)
 
 
 def make_mesh(sizes: Optional[Dict[str, int]] = None,

@@ -116,6 +116,19 @@ def all_hosts_mean(value: float) -> float:
     return all_hosts_mean_tree([value])[0]
 
 
+def process_zero_value(value: float) -> float:
+    """Process 0's `value` on every process (a broadcast over the group);
+    `float(value)` in one process. A decision that every process must take
+    alike, such as whether a validation is the best yet (save_checkpoint is
+    collective), is taken on this value: in one process it is the process's
+    own, as in the JAX package."""
+    if process_count() == 1:
+        return float(value)
+    t = torch.tensor([float(value)], dtype=torch.float64, device=group_device())
+    dist.broadcast(t, src=0)
+    return float(t[0])
+
+
 class HostShardedDataset:
     """View of a dataset restricted to this process's strided shard, so no
     process reads the whole corpus. Strided (not contiguous) so every

@@ -264,6 +264,8 @@ class AdaptiveDehazer:
         return dispatch_ms, row_ms
 
     def _to_device(self, images) -> torch.Tensor:
+        if isinstance(images, torch.Tensor):    # a device tensor (parallel/spatial.py)
+            return images.to(self.device, torch.float32)
         return torch.as_tensor(np.asarray(images, np.float32)).to(self.device)
 
     @staticmethod

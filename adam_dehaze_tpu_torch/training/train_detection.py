@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from adam_dehaze_tpu_torch.config import compute_dtype
 from adam_dehaze_tpu_torch.data.detection import get_detection_dataloader
 from adam_dehaze_tpu_torch.models.detection import DetectionModel, create_detection_model
+from adam_dehaze_tpu_torch.parallel.multihost import process_zero_value
 from adam_dehaze_tpu_torch.training import checkpoint as ckpt
 from adam_dehaze_tpu_torch.training.common import (
     autocast,
@@ -261,8 +262,10 @@ def train_detection(config, epochs: int = None, resume: bool = False, img_size: 
         val_loss = float(np.mean(vals)) if vals else float("nan")
         logger.scalars(epoch, {"train/loss": avg, "val/loss": val_loss})
         print(f"[detection] Epoch {epoch + 1}/{epochs}: loss={avg:.4f} val_loss={val_loss:.4f}")
-        if not np.isfinite(best_val) or (np.isfinite(val_loss) and val_loss < best_val):
-            best_val = val_loss
+        # Process 0's validation decides for every process: the save is collective.
+        decided = process_zero_value(val_loss)
+        if not np.isfinite(best_val) or (np.isfinite(decided) and decided < best_val):
+            best_val = decided
             ckpt.save_checkpoint(ckpt_dir, "best_model", state_to_tree(state),
                                  {"epoch": epoch + 1, "loss": avg, "val_loss": val_loss})
     best = ckpt.best_model_path(ckpt_dir)

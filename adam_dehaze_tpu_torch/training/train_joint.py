@@ -50,6 +50,8 @@ from adam_dehaze_tpu_torch.models.classifier import create_classifier
 from adam_dehaze_tpu_torch.models.routing import INTENSITY_ORDER, create_router
 from adam_dehaze_tpu_torch.nn.blocks import init_params_
 from adam_dehaze_tpu_torch.ops.image import psnr, ssim_gray
+from adam_dehaze_tpu_torch.parallel import sharding, spatial
+from adam_dehaze_tpu_torch.parallel.multihost import process_zero_value
 from adam_dehaze_tpu_torch.training import checkpoint as ckpt
 from adam_dehaze_tpu_torch.training.common import (
     autocast,
@@ -107,6 +109,16 @@ def _step_metrics(comps, dehazed, clear):
     return out
 
 
+def _refuse_sharded_mesh() -> None:
+    """The joint steps take no spatial or model mesh yet: the loss nets
+    (VGG, LPIPS, SSIM's window) and the augmentation's flips and crops cross
+    the shards."""
+    what = ("the joint step (its loss nets and augmentation cross the shards; "
+            "the data axis alone is ported)")
+    spatial.refuse(what)
+    sharding.refuse(what)
+
+
 def make_train_step(joint_loss, loss_params, augmentation: bool = True, remat=False,
                     dtype: torch.dtype = torch.float32):
     """step(state, batch, generator) -> {dehazing, classification,
@@ -115,6 +127,7 @@ def make_train_step(joint_loss, loss_params, augmentation: bool = True, remat=Fa
     autocast, backward, one Adam step. `generator` (on the batch's device)
     feeds the augmentation and the dropouts."""
     def step(state: TrainState, batch, generator=None):
+        _refuse_sharded_mesh()
         if augmentation:
             batch = augment_triplet(generator, batch)
         router = state.module
@@ -141,6 +154,7 @@ def make_hard_branch_step(joint_loss, loss_params, augmentation: bool = True,
     own intensity's stream: the dehazing part of the JointLoss (no logits,
     so no CE term); otherwise as `make_train_step`."""
     def step(state: TrainState, batch, generator=None):
+        _refuse_sharded_mesh()
         if augmentation:
             batch = augment_triplet(generator, batch)
         with autocast(batch["hazy"].device, dtype):
@@ -161,6 +175,7 @@ def make_eval_step(joint_loss, loss_params, dtype: torch.dtype = torch.float32):
     over the batch's valid rows, the router in eval mode."""
     @torch.no_grad()
     def step(state: TrainState, batch):
+        _refuse_sharded_mesh()
         state.module.eval()
         dev = batch["hazy"].device
         with autocast(dev, dtype):
@@ -269,8 +284,10 @@ def train_joint_model(config, resume: bool = False, device="cuda", loss_params=N
         print(f"[joint] Epoch {epoch + 1}/{epochs}: loss={train_loss:.4f} "
               f"val_psnr={val['psnr']:.2f} val_ssim={val['ssim']:.4f}")
 
-        if val["psnr"] > best_val_psnr:
-            best_val_psnr = val["psnr"]
+        # Process 0's validation decides for every process: the save is collective.
+        decided = process_zero_value(val["psnr"])
+        if decided > best_val_psnr:
+            best_val_psnr = decided
             ckpt.save_checkpoint(ckpt_dir, "best_model", state_to_tree(state),
                                  {"epoch": epoch + 1, "val_psnr": val["psnr"],
                                   "val_ssim": val["ssim"], "best_val_psnr": best_val_psnr})

@@ -30,9 +30,19 @@ the folded alpha against the fp32 plain version); the statistics pass at
 ReLU ("Q2 4x4"), errors in units of the plain result's largest magnitude;
 seeded weights with perturbed BN, inputs drawn non-negative like the real
 activations.
+
+K2 on an H shard (parallel/spatial.py) fills its maps' halo rows between its two launches, in
+Python (ops/kernels/cbam.py:channel_spatial_gate_sharded). PY_MUTATIONS breaks that line in a copy
+of the package, and two gloo ranks on the card (this script's HALO_RANK, run from the copy) each
+compute K2 on their half of the rows of 4 x 64^2 x 384 in bf16 against the gate kernel on the
+whole image, at HALO_RTOL, beside the same ranks on the unchanged package.
 """
+import json
+import os
 import shutil
+import socket
 import subprocess
+import sys
 import tempfile
 from pathlib import Path
 
@@ -194,6 +204,47 @@ MUTATIONS = {
 # reported, and fail the run only if they move nothing at all.
 BLIND_SPOTS = ("activation rounded before the spatial gate (K2's pass)",)
 
+# name -> (file under adam_dehaze_tpu_torch/, text to find, replacement): lines of the port's
+# Python that the two-rank K2 halo case reads.
+PY_MUTATIONS = {
+    "the maps' halo rows not filled (K2 on an H shard)": (
+        "ops/kernels/cbam.py",
+        "        maps = Halo.apply(maps[:, :, _HALO:-_HALO], 2, _HALO, _HALO, 0.0, rows)\n",
+        "        pass\n"),
+}
+# K2 on two H shards against the kernel on the whole image: they compute the same
+# maps and gates per pixel, so one bf16 step of the largest output at most.
+HALO_RTOL = 2.0 ** -8
+# One rank of the halo case: python3 -c HALO_RANK REPO RANK PORT, from the root of
+# the package to measure; prints its error in units of max|whole|.
+HALO_RANK = """
+import json, sys
+from pathlib import Path
+import torch
+import torch.distributed as dist
+from adam_dehaze_tpu_torch.ops.kernels import _build
+repo, rank, port = Path(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+_build.CSRC, _build.BUILD_ROOT = repo / "adam_dehaze_tpu_torch" / "csrc", repo / "build" / "kernels"
+from adam_dehaze_tpu_torch.ops.kernels.cbam import channel_spatial_gate, channel_spatial_gate_sharded
+from adam_dehaze_tpu_torch.parallel.mesh import make_mesh
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank)
+mesh = make_mesh({"spatial": 2}, [dev, dev])
+gen = torch.Generator().manual_seed(0)
+x = torch.relu(torch.randn(4, 64, 64, 384, generator=gen)).bfloat16().to(dev)
+g = torch.rand(4, 384, generator=gen).to(dev)
+w = (torch.randn(7, 7, 2, 1, generator=gen) * 0.1).to(dev)
+rows = slice(32 * rank, 32 * rank + 32)
+with torch.inference_mode():
+    whole = channel_spatial_gate(x, g, w)
+    part = channel_spatial_gate_sharded(x[:, rows].contiguous(), g, w, mesh.axis("spatial"), None)
+torch.cuda.synchronize()
+dist.destroy_process_group()
+err = float((part.float() - whole[:, rows].float()).abs().max())
+print(json.dumps(err / max(1.0, float(whole.float().abs().max()))))
+"""
+
 
 def perturb_bn_(module, gen):
     with torch.no_grad():
@@ -307,6 +358,56 @@ def use_sources(csrc: Path):
     _build.library.cache_clear()
 
 
+def halo_error(package_root: Path) -> float:
+    """The K2 halo case's error (the larger of its two ranks') with the
+    package under `package_root`."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    repo = Path(__file__).resolve().parent
+    procs = [subprocess.Popen([sys.executable, "-c", HALO_RANK, str(repo), str(rank), str(port)],
+                              cwd=package_root, env={**os.environ, "PYTHONPATH": ""},
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in (0, 1)]
+    try:
+        logs = [p.communicate(timeout=300)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for p, log in zip(procs, logs):
+        if p.returncode != 0:
+            raise SystemExit(f"the K2 halo case failed:\n{log}")
+    return max(json.loads(log.strip().splitlines()[-1]) for log in logs)
+
+
+def python_mutations(failed):
+    """Each of PY_MUTATIONS in a copy of the package, measured by the K2
+    halo case beside the unchanged package."""
+    repo = Path(__file__).resolve().parent
+    unchanged = halo_error(repo)
+    print(f"K2 on two H shards of {BATCH} x 64^2 x 384, bf16, against the gate kernel on the "
+          f"whole image (in units of max|whole|, bound {HALO_RTOL:.3e}): unchanged "
+          f"{unchanged:.3e}", flush=True)
+    if unchanged > HALO_RTOL:
+        failed.append(f"the unchanged K2 halo case exceeds the bound: {unchanged}")
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (name, (fname, old, new)) in enumerate(PY_MUTATIONS.items()):
+            root = Path(tmp) / f"p{i}"
+            shutil.copytree(repo / "adam_dehaze_tpu_torch", root / "adam_dehaze_tpu_torch",
+                            ignore=shutil.ignore_patterns("__pycache__"))
+            path = root / "adam_dehaze_tpu_torch" / fname
+            text = path.read_text()
+            if old not in text:
+                raise AssertionError(f"mutation {name!r}: its text is not in {fname}")
+            path.write_text(text.replace(old, new))
+            err = halo_error(root)
+            print(f"  {name}: {err:.3e}", flush=True)
+            if err <= HALO_RTOL:
+                failed.append(f"{name}: not caught ({err})")
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit("chip_mutation_check: torch.cuda.is_available() is false; "
@@ -331,6 +432,8 @@ def main():
             use_sources(csrc)
             rows.append((name, measure(cases)))
     use_sources(original)
+    py_failed = []
+    python_mutations(py_failed)
 
     labels = [case[0] for case in cases]
     print(f"bf16 kernels (K1 c=32 at {BATCH} x {SIZE}^2, alpha 1, bound {K1_BF16_ATOL}; K3 c=64 "
@@ -362,6 +465,7 @@ def main():
                   f"of {missed})", flush=True)
         elif missed:
             failed.append(f"{name}: not caught for {missed} ({errs})")
+    failed += py_failed
     if failed:
         raise SystemExit("mutation check failed: " + "; ".join(failed))
     print("every mutation outside BLIND_SPOTS is caught by the tight bound of every kernel "

@@ -283,9 +283,27 @@ Phases, in order; any failure raises and the script exits non-zero:
    batches of 16 against `__call__` on each, at PARALLEL_BF16_ATOL; (c)
    launches K1, K2 six times and K5 once, (d) that four times. Prints the
    warm ms/step and ms/image beside the card's name and power limit.
-21. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
+21. parallel/spatial.py and parallel/sharding.py (`[spatial]` and `[tp]`
+   lines) on one card: each part in a gloo group of ranks on cuda:0 (this
+   script with `--sharded-rank`), held against the one-process unsharded
+   call on the same card and inputs. (a) `route_hard` of the seeded default
+   router (its head set so that the 4 images at 512^2 go to low, medium,
+   high, low) through `make_spatial_infer` over {"spatial": 2}, bf16 and
+   fp32: the labels equal on every rank, the joined shards within
+   SHARD_ATOL, each rank's K1 and K2 launches the unsharded call's. (b) The
+   medium and high branches' serving copies, bf16 and fp32, 16 images at
+   256^2, under `channel_sharding` over {"model": 2}: within SHARD_ATOL, K2
+   at 192 local channels in the three 4c AttentionBlocks. (c) The high
+   branch at c=16, fp32, 4 images at 128^2, over {"spatial": 2, "model":
+   2} (4 ranks): within SLICE_ATOL. (d) `shard_train_step` around a seeded
+   low-branch MSE step (fp32, 4 images at 256^2) over {"spatial": 2}
+   against the single-process step, at phase 20's bounds. Prints each
+   error, launch count and warm ms/image beside the card's name and power
+   limit; one card holds every rank, so nothing here shows scaling.
+22. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
    with "training", "classifier_training", "joint_training", "detection",
-   "cli", "lowres", "alternate", "precompiled", "int8" and "parallel"; K5's
+   "cli", "lowres", "alternate", "precompiled", "int8", "parallel",
+   "spatial" and "tp"; K5's
    and K2''s Function readings under "function"; each lowres kernel's
    readings at 128^2 under "lowres", K2's at the alternate branches'
    shapes under "alternate"; the CLI's, the dial's, the alternates',
@@ -294,6 +312,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    "device": ...}.
 """
 import collections
+import contextlib
 import copy
 import json
 import os
@@ -3676,7 +3695,7 @@ def spawn_ranks(tmp):
     return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True) for r in (0, 1)]
 
 
-def dp_errors(got, want, what, smi):
+def dp_errors(got, want, what, smi, tag="parallel"):
     """A data-parallel step against the single-process one (see
     DP_STATS_RTOL): checked, logged, returned."""
     loss = abs(got["metrics"]["total"] - want["metrics"]["total"]) / abs(want["metrics"]["total"])
@@ -3693,7 +3712,7 @@ def dp_errors(got, want, what, smi):
     errs = dict(loss_rel=loss, grad_of_max=grad[worst["grad"]] / g_max,
                 grad_own_max=own[worst["own"]], stats_rel=stats[worst["stats"]],
                 metrics={k: (got["metrics"][k], want["metrics"][k]) for k in want["metrics"]})
-    log(f"[parallel] {what} vs the single-process step: loss {got['metrics']['total']:.7f} vs "
+    log(f"[{tag}] {what} vs the single-process step: loss {got['metrics']['total']:.7f} vs "
         f"{want['metrics']['total']:.7f} (rel err {loss:.2e}, bound {STEP_LOSS_RTOL}); "
         f"{len(grad)} gradients, largest error {errs['grad_of_max']:.2e} of the router's "
         f"max|g| ({worst['grad']}; bound {STEP_GRAD_RTOL}), in its own units at most "
@@ -3815,6 +3834,329 @@ def phase_parallel(dev, smi, tmp, x):
     return dict(path), readings
 
 
+# The sharded phase (parallel/spatial.py, parallel/sharding.py), each part
+# in a gloo group of ranks on cuda:0 (this script with `--sharded-rank`),
+# held against the one-process unsharded call on the same card. One card
+# holds every rank, so nothing here shows scaling.
+SHARD_SIZE = 512
+SHARD_LABELS = (0, 1, 2, 0)
+TP_ROWS = 16
+COMPOSE_WIDTH = 16
+COMPOSE_SIZE = 128
+SHARD_STEP_ROWS = 4
+SHARD_TIMEOUT_S = 240
+# fp32 sharded against unsharded: the port's card bound (SLICE_ATOL); bf16:
+# one bf16 rounding step of a [0, 1] value (PARALLEL_BF16_ATOL).
+SHARD_ATOL = {torch.float32: SLICE_ATOL, torch.bfloat16: PARALLEL_BF16_ATOL}
+SHARDED_PATH_KERNELS = ("lightweight_chain", "cbam_gate")
+
+
+def balance_head_(classifier, x, labels):
+    """Set the classifier's last linear so that image i's logits are 10 at
+    labels[i] and -5 elsewhere: the least-norm weights that map the head's
+    hidden features of `x` onto those logits (seeded weights route every
+    image to one class)."""
+    _, fc0, relu, _, fc1 = classifier.classifier
+    classifier.eval()
+    with torch.no_grad():
+        h = relu(fc0(classifier.backbone(x.permute(0, 3, 1, 2).float()))).double()
+        t = torch.full((len(labels), 3), -5.0, dtype=torch.float64, device=h.device)
+        t[torch.arange(len(labels)), torch.tensor(labels)] = 10.0
+        fc1.weight.copy_((t.T @ torch.linalg.solve(h @ h.T, h)).float())
+        fc1.bias.zero_()
+
+
+def shard_inputs():
+    rng = np.random.default_rng(SEED + 24)
+    return {"route_x": torch.from_numpy(rng.random((len(SHARD_LABELS), SHARD_SIZE, SHARD_SIZE, 3),
+                                                   dtype=np.float32)),
+            "tp_x": torch.from_numpy(rng.random((TP_ROWS, SIZE, SIZE, 3), dtype=np.float32)),
+            "compose_x": torch.from_numpy(rng.random((4, COMPOSE_SIZE, COMPOSE_SIZE, 3),
+                                                     dtype=np.float32)),
+            "step_x": torch.from_numpy(rng.random((SHARD_STEP_ROWS, SIZE, SIZE, 3),
+                                                  dtype=np.float32)),
+            "step_y": torch.from_numpy(rng.random((SHARD_STEP_ROWS, SIZE, SIZE, 3),
+                                                  dtype=np.float32))}
+
+
+def shard_models(state):
+    """The phase's modules from the saved state: the default router, the
+    small high branch of (c) and the low branch of (d)."""
+    router = make_router(load_config(), torch.Generator().manual_seed(SEED + 25))
+    router.load_state_dict(state["router"])
+    small = HighIntensityDehazeModel(COMPOSE_WIDTH)
+    small.load_state_dict(state["small_high"])
+    low = LightweightDehazeModel(32, 3)
+    low.load_state_dict(state["low"])
+    return router, small.eval(), low
+
+
+def shard_step(low, batch, dev, step):
+    """One SGD step (lr 0.1) of the low branch's MSE in train mode, fp32:
+    the loss, the gradients the optimizer took and the BN statistics after
+    it, on the CPU."""
+    model = copy.deepcopy(low).to(dev).train()
+    state = TrainState(model, torch.optim.SGD(model.parameters(), lr=0.1))
+
+    def mse(state, batch, generator=None):
+        loss = ((state.module(batch["x"]) - batch["y"]) ** 2).mean()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        return {"total": loss.detach()}
+
+    metrics = (step or (lambda f: f))(mse)(state, batch)
+    return {"metrics": {"total": float(metrics["total"])},
+            "grads": {n: p.grad.detach().cpu() for n, p in model.named_parameters()},
+            "stats": {k: v.detach().cpu() for k, v in model.state_dict().items()
+                      if "running" in k}}
+
+
+def tp_forward(model, x, dev, dtype, mesh=None, runs=3):
+    """A medium or high branch's serving copy in `dtype` on x; under
+    channel_sharding when a mesh is given. (output, its launches, the
+    widths K2 ran at, warm ms/image over `runs` timed calls)."""
+    from adam_dehaze_tpu_torch.ops.kernels import cbam
+    from adam_dehaze_tpu_torch.parallel.sharding import channel_sharding
+    copy_ = cast_for_serving(model, dtype)
+    widths = []
+    launch = cbam.launch_cbam_gate
+
+    def recorded(x_, *args):
+        widths.append(int(x_.shape[3]))
+        launch(x_, *args)
+
+    def run():
+        with torch.inference_mode(), (channel_sharding(mesh) if mesh is not None
+                                      else contextlib.nullcontext()):
+            return copy_(x)
+
+    cbam.launch_cbam_gate = recorded
+    try:
+        reset_launch_counts()
+        y = run()
+        torch.cuda.synchronize()
+        launches = counts()
+    finally:
+        cbam.launch_cbam_gate = launch
+    ms = warm_ms(run, runs)[0] / x.shape[0]
+    return y.cpu(), launches, widths, ms
+
+
+def route_call(d, x, mesh=None):
+    """route_hard of x, through make_spatial_infer on this rank's rows when
+    a mesh is given: (output, labels, launches, warm ms/image)."""
+    from adam_dehaze_tpu_torch.parallel.spatial import make_spatial_infer, shard_image_batch
+    fn, arg = ((d.route_hard, x) if mesh is None else
+               (make_spatial_infer(d.route_hard, mesh), shard_image_batch(mesh, x)))
+    reset_launch_counts()
+    out, labels = fn(arg)
+    torch.cuda.synchronize()
+    launches = counts()
+    ms = warm_ms(lambda: fn(arg))[0] / x.shape[0]
+    return torch.from_numpy(out), labels.tolist(), launches, ms
+
+
+def sharded_rank(part, rank, world, port, out_dir, dev=None):
+    """One rank of phase 21: `python3 chip_smoke.py --sharded-rank PART
+    RANK WORLD PORT OUT_DIR`. PART "pair" runs (a), (b) and (d) on 2 ranks,
+    "quad" runs (c) on 4; `dev` is cuda:0 (another only to rehearse)."""
+    from adam_dehaze_tpu_torch.parallel.sharding import channel_sharding
+    from adam_dehaze_tpu_torch.parallel.spatial import make_spatial_infer, shard_image_batch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dev or torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    # Every rank drives the one card: gloo over CUDA tensors (NCCL refuses
+    # two ranks on one device), a choice made for one card.
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                         world_size=world, rank=rank)
+    try:
+        state = torch.load(os.path.join(out_dir, "state.pt"), weights_only=True)
+        inputs = state["inputs"]
+        router, small, low = shard_models(state)
+        out = {}
+        if part == "pair":
+            mesh = make_mesh({"data": 1, "spatial": 2}, [dev] * 2)
+            x = inputs["route_x"].to(dev)
+            for name, dtype in (("bf16", "bfloat16"), ("fp32", "float32")):
+                cfg = load_config(overrides={"cuda": {"compute_dtype": dtype}})
+                d = AdaptiveDehazer(router, None, cfg, device=dev)
+                out[f"route_{name}"] = route_call(d, x, mesh)
+                del d
+            model_mesh = make_mesh({"data": 1, "model": 2}, [dev] * 2)
+            for lvl in ("medium", "high"):
+                for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+                    out[f"tp_{lvl}_{name}"] = tp_forward(router.models[lvl],
+                                                         inputs["tp_x"].to(dev), dev, dtype,
+                                                         model_mesh, runs=1)
+            batch = {"x": inputs["step_x"].to(dev), "y": inputs["step_y"].to(dev)}
+            out["step"] = shard_step(low, batch, dev, lambda f: shard_train_step(f, mesh, batch))
+        else:
+            mesh = make_mesh({"data": 1, "spatial": 2, "model": 2}, [dev] * 4)
+            small = small.to(dev)
+            x = shard_image_batch(mesh, inputs["compose_x"].to(dev))
+            reset_launch_counts()
+            with torch.inference_mode(), channel_sharding(mesh):
+                y = make_spatial_infer(small, mesh)(x)
+            torch.cuda.synchronize()
+            out["compose"] = (y.cpu(), counts())
+        torch.save(out, os.path.join(out_dir, f"{part}{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_sharded(parts, out_dir):
+    """The ranks of each part ({part: world size}) in their own processes,
+    the parts side by side; what the ranks saved, by part."""
+    procs = {}
+    for part, world in parts.items():
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        procs[part] = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--sharded-rank", part, str(rank),
+             str(world), str(port), out_dir],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for rank in range(world)]
+    try:
+        logs = {part: [p.communicate(timeout=SHARD_TIMEOUT_S)[0] for p in ps]
+                for part, ps in procs.items()}
+    finally:
+        for p in (p for ps in procs.values() for p in ps):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for part, ps in procs.items():
+        for rank, (p, text) in enumerate(zip(ps, logs[part])):
+            check(p.returncode == 0, f"sharded rank {rank} ({part}) failed:\n{text}")
+    return {part: [torch.load(os.path.join(out_dir, f"{part}{r}.pt"), weights_only=False)
+                   for r in range(world)] for part, world in parts.items()}
+
+
+def phase_sharded(dev, smi, tmp):
+    """21. parallel/spatial.py and parallel/sharding.py on one card (see the
+    docstring). Returns the spatial and tp paths' launch counts and the
+    phase's readings."""
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(tmp, "sharded")
+    os.makedirs(out_dir)
+    inputs = shard_inputs()
+    gen = torch.Generator().manual_seed(SEED + 25)
+    router = make_router(load_config(), gen).to(dev)
+    balance_head_(router.classifier, inputs["route_x"].to(dev), SHARD_LABELS)
+    small = perturb_bn_(init_params_(HighIntensityDehazeModel(COMPOSE_WIDTH), gen), gen).eval()
+    low = perturb_bn_(init_params_(LightweightDehazeModel(32, 3), gen), gen)
+    torch.save({"router": {k: v.cpu() for k, v in router.state_dict().items()},
+                "small_high": small.state_dict(), "low": low.state_dict(), "inputs": inputs},
+               os.path.join(out_dir, "state.pt"))
+    readings, spatial_path, tp_path = {}, collections.Counter(), collections.Counter()
+
+    # The one-process references, first, alone on the card.
+    ref = {}
+    x = inputs["route_x"].to(dev)
+    for name, dtype in (("bf16", "bfloat16"), ("fp32", "float32")):
+        cfg = load_config(overrides={"cuda": {"compute_dtype": dtype}})
+        d = AdaptiveDehazer(router, None, cfg, device=dev)
+        ref[f"route_{name}"] = route_call(d, x)
+        del d
+    for lvl in ("medium", "high"):
+        for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            ref[f"tp_{lvl}_{name}"] = tp_forward(router.models[lvl], inputs["tp_x"].to(dev), dev,
+                                                 dtype)
+    batch = {"x": inputs["step_x"].to(dev), "y": inputs["step_y"].to(dev)}
+    ref_step = shard_step(low, batch, dev, None)
+    with torch.inference_mode():
+        ref_compose = small.to(dev)(inputs["compose_x"].to(dev)).cpu()
+    del router
+    torch.cuda.empty_cache()
+
+    # (c) is short: its 4 ranks are done before (a) starts its timed calls.
+    ranks = spawn_sharded({"pair": 2, "quad": 4}, out_dir)
+    pair, quad = ranks["pair"], ranks["quad"]
+
+    # (a) route_hard over {"spatial": 2} at 512^2.
+    for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        want, labels, launches, ms = ref[f"route_{name}"]
+        check(labels == list(SHARD_LABELS), f"(a) the unsharded route's labels {labels}")
+        got = torch.cat([r[f"route_{name}"][0] for r in pair], 1)
+        err = max_err(got, want)
+        rank_launches = [nonzero(r[f"route_{name}"][2]) for r in pair]
+        for r in pair:
+            spatial_path.update(r[f"route_{name}"][2])
+            check(r[f"route_{name}"][1] == labels,
+                  f"(a) {name}: a rank routed {r[f'route_{name}'][1]}, unsharded {labels}")
+        sharded_ms = [r[f"route_{name}"][3] for r in pair]
+        readings[f"spatial_route_{name}"] = dict(
+            max_abs_err=err, bound=SHARD_ATOL[dtype], launches_per_rank=rank_launches,
+            unsharded_launches=nonzero(launches), ms_per_image_per_rank=sharded_ms,
+            unsharded_ms_per_image=ms)
+        log(f"[spatial] (a) route_hard, default router, {name}, {len(SHARD_LABELS)} images at "
+            f"{SHARD_SIZE}^2 over spatial=2 (2 gloo ranks on cuda:0): labels {labels} on every "
+            f"rank; max abs err vs unsharded {err:.3e} (bound {SHARD_ATOL[dtype]:.3e}); launches "
+            f"a rank {rank_launches}, unsharded {nonzero(launches)}; warm ms/image a rank "
+            f"{sharded_ms[0]:.3f} / {sharded_ms[1]:.3f}, unsharded {ms:.3f}; {smi} (a reading: "
+            "both ranks share the card)")
+        check(err <= SHARD_ATOL[dtype], f"(a) {name}: sharded route_hard differs by {err}")
+        for got_launches in rank_launches:
+            check({k: got_launches.get(k, 0) for k in SHARDED_PATH_KERNELS}
+                  == {k: launches.get(k, 0) for k in SHARDED_PATH_KERNELS},
+                  f"(a) {name}: a rank launched {got_launches}, unsharded {nonzero(launches)}")
+
+    # (b) the medium and high branches over {"model": 2}.
+    for lvl in ("medium", "high"):
+        for name, dtype in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            want, launches, widths, ms = ref[f"tp_{lvl}_{name}"]
+            errs = [max_err(r[f"tp_{lvl}_{name}"][0], want) for r in pair]
+            rank_widths = [r[f"tp_{lvl}_{name}"][2] for r in pair]
+            sharded_ms = [r[f"tp_{lvl}_{name}"][3] for r in pair]
+            for r in pair:
+                tp_path.update(r[f"tp_{lvl}_{name}"][1])
+            readings[f"tp_{lvl}_{name}"] = dict(
+                max_abs_err=max(errs), bound=SHARD_ATOL[dtype], k2_widths_per_rank=rank_widths,
+                unsharded_k2_widths=widths, ms_per_image_per_rank=sharded_ms,
+                unsharded_ms_per_image=ms)
+            log(f"[tp] (b) {lvl} branch, {name}, {TP_ROWS} images at {SIZE}^2 under "
+                f"channel_sharding, model=2: max abs err vs unsharded {max(errs):.3e} (bound "
+                f"{SHARD_ATOL[dtype]:.3e}); K2 widths a rank {rank_widths[0]}, unsharded "
+                f"{widths}; warm ms/image a rank {sharded_ms[0]:.3f} / {sharded_ms[1]:.3f}, "
+                f"unsharded {ms:.3f}; {smi} (a reading)")
+            check(max(errs) <= SHARD_ATOL[dtype], f"(b) {lvl} {name}: differs by {max(errs)}")
+            if lvl == "high":
+                c4 = 4 * load_config()["dehazing"]["high"]["channels"]
+                for got in rank_widths:
+                    check(widths.count(c4) == 3
+                          and got == [w // 2 if w == c4 else w for w in widths],
+                          f"(b) high {name}: K2 ran at widths {got}, unsharded {widths}")
+
+    # (c) both axes, {"spatial": 2, "model": 2}, 4 ranks.
+    got = torch.cat([quad[r]["compose"][0] for r in (0, 2)], 1)
+    err = max(max_err(got, ref_compose),
+              max_err(torch.cat([quad[r]["compose"][0] for r in (1, 3)], 1), ref_compose))
+    for r in quad:
+        tp_path.update(r["compose"][1])
+    compose_launches = [nonzero(r["compose"][1]) for r in quad]
+    readings["spatial_and_tp"] = dict(max_abs_err=err, bound=SLICE_ATOL,
+                                      launches_per_rank=compose_launches)
+    log(f"[tp] (c) high branch c={COMPOSE_WIDTH}, fp32, 4 images at {COMPOSE_SIZE}^2 over "
+        f"spatial=2 x model=2 (4 gloo ranks on cuda:0): max abs err vs unsharded {err:.3e} "
+        f"(bound {SLICE_ATOL:.3e}); launches a rank {compose_launches}; {smi}")
+    check(err <= SLICE_ATOL, f"(c) spatial x model differs by {err}")
+    check(all(c.get("cbam_gate") == 6 for c in compose_launches),
+          f"(c) K2 launches a rank {compose_launches}")
+
+    # (d) the low branch's train step over {"spatial": 2}.
+    errs = {f"rank{r}": dp_errors(out["step"], ref_step,
+                                  f"(d) low-branch MSE step, {SHARD_STEP_ROWS} images at "
+                                  f"{SIZE}^2, fp32, spatial=2, rank {r}", smi, tag="spatial")
+            for r, out in enumerate(pair)}
+    readings["spatial_step"] = errs
+    for name in SHARDED_PATH_KERNELS:
+        check(spatial_path[name] > 0, f"the spatial path launched no {name}")
+    check(tp_path["cbam_gate"] > 0, "the tp path launched no cbam_gate")
+    torch.cuda.empty_cache()
+    return dict(spatial_path), dict(tp_path), readings
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
@@ -3875,6 +4217,7 @@ def main():
         int8_path, int8_kernels, int8_readings = timed("int8", phase_int8, dev, smi, x, labels,
                                                        exp)
         parallel_path, parallel_readings = timed("parallel", phase_parallel, dev, smi, tmp, x)
+        spatial_path, tp_path, sharded_readings = timed("sharded", phase_sharded, dev, smi, tmp)
     for name in ("route_hard", "forced_labels", "soft"):
         log(f"[slices] {name}: default dispatch {default_ms[name]:.3f} ms/image, "
             f"tail-chain dispatch {tail_ms[name]:.3f} ms/image, res-chain dispatch "
@@ -3885,7 +4228,8 @@ def main():
              "probe_tool": probes, "training": training, "classifier_training": classifier,
              "joint_training": joint, "detection": detection, "cli": cli_path,
              "lowres": lowres_path, "alternate": alt_path, "precompiled": pre_path,
-             "int8": int8_path, "parallel": parallel_path}
+             "int8": int8_path, "parallel": parallel_path, "spatial": spatial_path,
+             "tp": tp_path}
     kernels["cbam_gate"].update(training_forward_ms_per_step=k2_train["forward_ms"],
                                 training_backward_ms_per_step=k2_train["backward_ms"])
     for name, rec in grad_fns.items():
@@ -3910,7 +4254,7 @@ def main():
                      "joint": joint_readings},
         "detection": det_readings, "cli": cli_readings, "lowres": lowres_readings,
         "alternate": alt_readings, "precompiled": pre_readings, "int8": int8_readings,
-        "parallel": parallel_readings, "phase_seconds": seconds}
+        "parallel": parallel_readings, "sharded": sharded_readings, "phase_seconds": seconds}
     check(all(k["launches"] > 0 for k in line["kernels"]),
           f"a kernel was launched no time on any path: {line['kernels']}")
     print(json.dumps(line), flush=True)
@@ -3922,5 +4266,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:
         parallel_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
+    elif sys.argv[1:2] == ["--sharded-rank"]:
+        sharded_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5], sys.argv[6])
     else:
         main()

@@ -40,6 +40,8 @@ import torch
 
 from adam_dehaze_tpu_torch.ops.kernels.blend import blend3, blend3_reference
 from adam_dehaze_tpu_torch.ops.kernels.cbam import (
+    _gate_on_maps_kernel,
+    _maps_kernel,
     channel_spatial_gate,
     channel_spatial_gate_reference,
     gated_maps,
@@ -270,6 +272,65 @@ def test_gated_maps_match_padded_stats(cuda_device, dtype, gated, shape):
     for a, b in zip(got, want):
         assert a.shape == b.shape and a.dtype == torch.float32
         torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+
+
+def _gate_inputs(shape, seed, dev, dtype):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.rand(shape, generator=gen)
+    g = torch.rand(shape[0], shape[3], generator=gen)
+    w = torch.randn(7, 7, 2, 1, generator=gen) * 0.1
+    return x, g, w, x.to(dev, dtype), g.to(dev), w.to(dev)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, FP32_ATOL),
+                                        (torch.bfloat16, BF16_ATOL)])
+def test_k2_on_h_shards_with_filled_map_halos(cuda_device, dtype, atol):
+    """K2 as it runs on an H shard (ops/kernels/cbam.py:
+    channel_spatial_gate_sharded): the statistics pass on each of two row
+    shards, the 3 padded map rows at the inner edges overwritten by the
+    neighbour's map rows (zeros left at the image's edges), then the gate
+    kernel: the whole image's kernel output exactly, and its plain version;
+    the unfilled maps give other rows at the inner edge."""
+    x, g, w, xd, gd, wd = _gate_inputs((2, 24, 20, 96), 21, cuda_device, dtype)
+    with torch.inference_mode():
+        whole = channel_spatial_gate(xd, gd, wd)
+        shards = [xd[:, :12].contiguous(), xd[:, 12:].contiguous()]
+        maps = [_maps_kernel(s, gd) for s in shards]
+        filled = [torch.cat([maps[0][:, :, :15], maps[1][:, :, 3:6]], 2),
+                  torch.cat([maps[0][:, :, 12:15], maps[1][:, :, 3:]], 2)]
+        before = channel_spatial_gate.launches
+        got = torch.cat([_gate_on_maps_kernel(s, gd, m, wd) for s, m in zip(shards, filled)], 1)
+        unfilled = _gate_on_maps_kernel(shards[0], gd, maps[0], wd)
+    torch.cuda.synchronize()
+    assert channel_spatial_gate.launches - before == 3
+    assert torch.equal(got, whole)
+    assert not torch.equal(unfilled, whole[:, :12])
+    torch.testing.assert_close(got.float().cpu(), channel_spatial_gate_reference(x, g, w),
+                               rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, FP32_ATOL),
+                                        (torch.bfloat16, BF16_ATOL)])
+def test_k2_on_channel_shards_with_reduced_maps(cuda_device, dtype, atol):
+    """K2 as it runs on a channel shard (parallel/sharding.py): the
+    statistics pass on each half of 384 channels (192, as the high branch's
+    4c blocks under model = 2), the means averaged and the maxima maxed,
+    then the gate kernel on each half: the whole tensor's maps at 1e-5 and
+    the plain version of K2 on the whole."""
+    x, g, w, xd, gd, wd = _gate_inputs((2, 16, 20, 384), 22, cuda_device, dtype)
+    halves = [slice(0, 192), slice(192, 384)]
+    with torch.inference_mode():
+        maps = [_maps_kernel(xd[..., h].contiguous(), gd[:, h].contiguous()) for h in halves]
+        reduced = torch.cat([(maps[0][:1] + maps[1][:1]) / 2,
+                             torch.maximum(maps[0][1:], maps[1][1:])])
+        whole_maps = _maps_kernel(xd, gd)
+        got = torch.cat([_gate_on_maps_kernel(xd[..., h].contiguous(), gd[:, h].contiguous(),
+                                              reduced, wd) for h in halves], 3)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(reduced, whole_maps, rtol=0, atol=1e-5)
+    torch.testing.assert_close(reduced, torch.stack(padded_stats(xd, gd)), rtol=0, atol=1e-5)
+    torch.testing.assert_close(got.float().cpu(), channel_spatial_gate_reference(x, g, w),
+                               rtol=0, atol=atol)
 
 
 def _conv_case(sides, c0, c1, cout, ksize, dtype, seed, residual):

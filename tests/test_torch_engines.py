@@ -11,7 +11,7 @@ be equal; outputs match to 1e-6 (tanh in two libraries).
 
 Route level: the module-scoped `dehazer_pair()` (fp32, 32^2); labels exact,
 outputs at ATOL (1e-4, fp32 after some 40 layers of sums in another order).
-Its seeded classifier routes every image low, so the spill cases are the
+Its seeded classifier routes every image high, so the spill cases are the
 ones that reach all three branches there.
 """
 import jax

@@ -210,6 +210,8 @@ def test_single_process_helpers():
 
 
 def test_step_refuses_the_axes_of_the_next_slice_and_data_without_a_group():
+    """The spatial and model axes are ported (tests/test_torch_spatial.py):
+    like the data axis, above 1 they need a process group."""
     def step(state, batch, generator=None):
         return {}
 
@@ -217,7 +219,7 @@ def test_step_refuses_the_axes_of_the_next_slice_and_data_without_a_group():
     for sizes in ({"data": 1, "spatial": 2}, {"data": 1, "model": 2}):
         mesh = pmesh.make_mesh(sizes, ["cpu"] * 2)
         for wrap in (pdp.shard_train_step, pdp.shard_eval_step):
-            with pytest.raises(NotImplementedError, match="spatial.py.*sharding.py"):
+            with pytest.raises(ValueError, match="process group"):
                 wrap(step, mesh, batch)
     with pytest.raises(ValueError, match="process group"):
         pdp.shard_train_step(step, pmesh.make_mesh({"data": 2}, ["cpu"] * 2), batch)
@@ -523,3 +525,13 @@ def test_checkpoint_from_both_ranks_is_one_file(ranks):
         assert out["ckpt"]["files"] == ["both.metrics.json", "both.pth"]
         state, metrics = out["ckpt"]["read"]
         assert int(state["rank"]) == 0 and metrics == {"m": 0.0}
+
+
+def test_best_checkpoint_is_decided_on_process_zero(ranks):
+    """The joint trainer with validations that differ per process: both
+    processes save the best checkpoint when process 0's PSNR improves (a
+    decision on each process's own would leave one in the save's barrier,
+    and the worker would run out of time)."""
+    for out in ranks:
+        assert out["best_decision"]["saves"] == [("best_model", 1), ("best_model", 2)]
+        assert out["best_decision"]["best"]["val_psnr"] == 12.0

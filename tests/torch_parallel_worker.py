@@ -135,6 +135,55 @@ def joint_steps(mesh, rank):
     return out
 
 
+class _NoLogger:
+    def __init__(self, *args, **kwargs):
+        pass
+
+    def scalars(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
+
+
+def best_checkpoint_decision(inputs, rank, out_dir):
+    """The joint trainer over 2 epochs with each process's validation made
+    to differ: rank 0 reads PSNR 10 then 12, rank 1 10 then 9 (the steps
+    are no-ops). Deciding on its own PSNR, rank 1 would skip the second
+    save and rank 0 would wait in its barrier for ever; decided on process
+    0's, both save twice. Returns the saves (name, epoch) and the best
+    checkpoint's metrics."""
+    cfg = joint_config()
+    cfg["dataset"].update(train_path=inputs["corpus"], val_path=inputs["corpus"], img_size=16,
+                          augmentation=False)
+    ckpt_dir = os.path.join(out_dir, "joint_best")
+    cfg["joint_training"].update(epochs=2, checkpoint_dir=ckpt_dir, hard_finetune_frac=0.0)
+    psnrs = iter([10.0, 12.0] if rank == 0 else [10.0, 9.0])
+    saves = []
+    real_save = ckpt.save_checkpoint
+
+    def save(ckpt_dir, name, state, metrics=None):
+        saves.append((name, int(metrics["epoch"])))
+        return real_save(ckpt_dir, name, state, metrics)
+
+    patches = {"_validate": lambda *a: {"loss": 1.0, "psnr": next(psnrs), "ssim": 0.5},
+               "make_train_step": lambda *a, **k: (lambda state, batch, gen: {
+                   "total": torch.zeros(())}),
+               "MetricsLogger": _NoLogger}
+    saved = {name: getattr(tj, name) for name in patches}
+    for name, fn in patches.items():
+        setattr(tj, name, fn)
+    ckpt.save_checkpoint = save
+    try:
+        tj.train_joint_model(cfg, device="cpu", loss_params={})
+    finally:
+        for name, fn in saved.items():
+            setattr(tj, name, fn)
+        ckpt.save_checkpoint = real_save
+    return {"saves": saves,
+            "best": ckpt.load_checkpoint(os.path.join(ckpt_dir, "best_model.pth"))[1]}
+
+
 def main():
     rank, port, inputs_path, out_dir = (int(sys.argv[1]), sys.argv[2], sys.argv[3],
                                         sys.argv[4])
@@ -178,6 +227,7 @@ def main():
     path = ckpt.save_checkpoint(ckpt_dir, "both", {"rank": torch.tensor(rank)}, {"m": rank})
     out["ckpt"] = {"path": path, "files": sorted(os.listdir(ckpt_dir)),
                    "read": ckpt.load_checkpoint(path)}
+    out["best_decision"] = best_checkpoint_decision(inputs, rank, out_dir)
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
 

@@ -77,10 +77,11 @@ def dehazer_pair(**port_kwargs):
 
     jcfg, pcfg = serving_configs()
     jr = JR.create_router(create_branch_models(jcfg), create_classifier(jcfg), jcfg)
-    vs = jr.init({"params": jax.random.PRNGKey(0),
-                  "dropout": jax.random.PRNGKey(1)},
-                 jnp.asarray(images((1, 32, 32, 3))))
-    vs = jax.tree_util.tree_map(np.asarray, dict(vs))
+    # Drawn with numpy on the init's shapes: flax's init of the router runs
+    # op by op for over a minute (jitted, half of one).
+    vs = seeded_variables(lambda: jr.init({"params": jax.random.PRNGKey(0),
+                                           "dropout": jax.random.PRNGKey(1)},
+                                          jnp.asarray(images((1, 32, 32, 3)))), 0)
     rng = np.random.default_rng(11)
     vs["batch_stats"] = jax.tree_util.tree_map(
         lambda a: (a + rng.uniform(0, 0.3, a.shape)).astype(np.float32),
