@@ -7,7 +7,9 @@ draws come from an explicit `torch.Generator` on the batch's device
 (they differ from jax.random's; the tests hold `_flip` and
 `_color_jitter` against the JAX package at given parameters). Inside a
 data-parallel step they are drawn for the global batch
-(parallel/data_parallel.py:draw_rows).
+(parallel/data_parallel.py:draw_rows). On an H shard (parallel/spatial.py)
+the vertical flip takes the mirrored shard's rows (`flip_h`) and the
+contrast's gray mean is the whole image's (`image_mean`).
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ from typing import Dict
 
 import torch
 
+from adam_dehaze_tpu_torch.parallel import spatial
 from adam_dehaze_tpu_torch.parallel.data_parallel import rand_rows
 
 _GRAY = (0.299, 0.587, 0.114)
@@ -23,7 +26,7 @@ _GRAY = (0.299, 0.587, 0.114)
 def _flip(imgs: torch.Tensor, hflip: torch.Tensor, vflip: torch.Tensor) -> torch.Tensor:
     """imgs: (N, H, W, C); hflip/vflip: (N,) bool."""
     imgs = torch.where(hflip[:, None, None, None], imgs.flip(2), imgs)
-    return torch.where(vflip[:, None, None, None], imgs.flip(1), imgs)
+    return torch.where(vflip[:, None, None, None], spatial.flip_h(imgs), imgs)
 
 
 def _color_jitter(imgs: torch.Tensor, brightness: torch.Tensor,
@@ -32,7 +35,7 @@ def _color_jitter(imgs: torch.Tensor, brightness: torch.Tensor,
     (multiplicative brightness; contrast blends with the mean gray level)."""
     imgs = imgs * brightness[:, None, None, None]
     gray = imgs @ torch.tensor(_GRAY, dtype=imgs.dtype, device=imgs.device)
-    gray_mean = gray.mean(dim=(1, 2))[:, None, None, None]
+    gray_mean = spatial.image_mean(gray, (1, 2))[:, None, None, None]
     c = contrast[:, None, None, None]
     return ((imgs - gray_mean) * c + gray_mean).clamp(0.0, 1.0)
 

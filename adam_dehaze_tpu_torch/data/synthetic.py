@@ -18,6 +18,12 @@ re-fogging's draws are per image of a training batch: inside a
 data-parallel step they are drawn for the global batch
 (parallel/data_parallel.py:draw_rows). Images are NHWC in [0, 1]; maps
 are (..., H, W).
+
+`fog_density_map` takes an H shard (parallel/spatial.py): the erosion is a
+max-pool (its halo rule in parallel/sharded_ops.py), the atmospheric light
+the whole image's maximum, and each box filter runs on the shard with
+`radius` rows of the image above and below it, clipped at the image's true
+top and bottom, then keeps its own rows.
 """
 from __future__ import annotations
 
@@ -29,7 +35,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from adam_dehaze_tpu_torch.parallel import spatial
 from adam_dehaze_tpu_torch.parallel.data_parallel import rand_rows
+from adam_dehaze_tpu_torch.parallel.sharded_ops import local_ops
 
 # (beta_range, A_range) per intensity class.
 INTENSITY_RANGES: Dict[str, Tuple[Tuple[float, float], Tuple[float, float]]] = {
@@ -157,7 +165,17 @@ def _min_filter(x: torch.Tensor, size: int) -> torch.Tensor:
 
 def _box_filter(x: torch.Tensor, radius: int) -> torch.Tensor:
     """Mean over a (2r+1)^2 window clipped to the image, (..., H, W): an
-    integral image, O(1) work a pixel whatever the radius."""
+    integral image, O(1) work a pixel whatever the radius. On an H shard,
+    the same on the shard with `radius` rows of the image around it, whose
+    own rows are kept."""
+    if spatial.axis() is None:
+        return _box_filter_rows(x, radius)
+    taller, top = spatial.taller(x, -2, radius)
+    with local_ops():
+        return _box_filter_rows(taller, radius).narrow(-2, top, x.shape[-2])
+
+
+def _box_filter_rows(x: torch.Tensor, radius: int) -> torch.Tensor:
     h, w = x.shape[-2], x.shape[-1]
     dev = x.device
     r_hi = (torch.arange(h, device=dev) + radius + 1).clamp(0, h)
@@ -196,7 +214,7 @@ def estimate_transmission_dcp(hazy: torch.Tensor, patch_size: int = 15,
     t = 1 - omega * dark / max(A, 0.1), guided-filter refinement."""
     gray = hazy.mean(dim=-1)
     dark = _min_filter(gray, patch_size)
-    A = dark.amax(dim=(-2, -1), keepdim=True)
+    A = spatial.image_amax(dark, (-2, -1), keepdim=True)
     t = 1.0 - omega * dark / A.clamp_min(0.1)
     return guided_filter(gray, t, radius=radius)
 

@@ -6,7 +6,12 @@ adam_dehaze_tpu/losses/dehazing.py:
     total = lambda_l1 * L1 + lambda_content * VGG-MSE + lambda_perceptual * LPIPS
 
 with the optional density-weighted L1 (per-pixel weights 1 + lambda_density
-* fog density of the hazy input, no gradient through the weights). The
+* fog density of the hazy input, no gradient through the weights): a ratio
+of sums over the batch, summed over the processes of a data-parallel step
+(parallel/data_parallel.py:batch_sum), so that it is the global batch's.
+On a shard the other terms are the process's share of the global mean
+(parallel/data_parallel.py) and LPIPS runs on the image gathered whole
+(losses/lpips.py). The
 feature nets are frozen modules made by `init` (seeded, `requires_grad`
 off, eval mode) and passed to `__call__`, as the JAX loss takes its frozen
 parameters; the VGG trunk runs once per call over the concatenated pair.
@@ -29,6 +34,7 @@ from adam_dehaze_tpu_torch.data.synthetic import fog_density_map
 from adam_dehaze_tpu_torch.losses.lpips import LPIPS, lpips_from_unit_range
 from adam_dehaze_tpu_torch.nn.blocks import init_params_
 from adam_dehaze_tpu_torch.nn.vgg import VGG16Features
+from adam_dehaze_tpu_torch.parallel.data_parallel import batch_sum
 
 CONTENT_TAPS = ("relu2_2", "relu3_3", "relu4_3")
 
@@ -93,7 +99,7 @@ class DehazingLoss:
             with torch.no_grad():
                 density = fog_density_map(hazy.float())
             w = 1.0 + self.lambda_density * density[..., None]
-            l1 = (w * err).sum() / (w * torch.ones_like(err)).sum()
+            l1 = batch_sum((w * err).sum()) / batch_sum((w * torch.ones_like(err)).sum())
         else:
             l1 = err.mean()
         content = self.content(loss_params, pred, target)

@@ -5,6 +5,12 @@ channel-unit-normalised, squared differences weighted by per-channel linear
 heads (relu'd, as lpips keeps them >= 0), spatially averaged, summed over
 the five layers. Without calibrated head weights the heads are uniform 1/C:
 a monotone surrogate, not the published LPIPS scale.
+
+On an H shard (parallel/spatial.py) the pair is gathered whole first
+(`gather_h`) and every process of the spatial group computes the same
+distances: AlexNet's strided layers do not split evenly over H (its 11x11/4
+conv gives 63 rows of 256), its maps are small, and the gather's backward
+hands each process its own rows' gradient.
 """
 from __future__ import annotations
 
@@ -12,6 +18,7 @@ import torch
 from torch import nn
 
 from adam_dehaze_tpu_torch.nn.alexnet import AlexNetFeatures
+from adam_dehaze_tpu_torch.parallel import spatial
 
 _SHIFT = (-0.030, -0.088, -0.188)
 _SCALE = (0.458, 0.448, 0.450)
@@ -31,8 +38,10 @@ class LPIPS(nn.Module):
 
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         n = x.shape[0]
-        # One trunk pass over the concatenated pair.
-        feats = self.net((torch.cat([x, y], dim=0) - self.shift) / self.scale)
+        pair = spatial.gather_h(torch.cat([x, y], dim=0))
+        with spatial.whole_image():
+            # One trunk pass over the concatenated pair.
+            feats = self.net((pair - self.shift) / self.scale)
         total = x.new_zeros((n,), dtype=torch.float32)
         for i, f in enumerate(feats):
             a, b = f[:n], f[n:]

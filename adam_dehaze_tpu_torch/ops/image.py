@@ -12,7 +12,11 @@ Everything is computed in float32. The variance term cov_norm*(uxx - ux*ux)
 cancels catastrophically at reduced precision (the JAX package pins its
 filter convolution to HIGHEST for that reason); here the mean filter is an
 average pool, which sums in f32 on every device and never takes TF32.
-Images are NHWC, as in the JAX package.
+Images are NHWC, as in the JAX package. On an H shard (parallel/spatial.py)
+both are the whole image's: PSNR's mean and SSIM's mean over its valid
+region are summed over the spatial group and divided by the unsharded
+counts, and SSIM's window reads the 6 rows below the shard (the average
+pool's rule in parallel/sharded_ops.py).
 """
 from __future__ import annotations
 
@@ -21,12 +25,14 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
+from adam_dehaze_tpu_torch.parallel import spatial
+
 
 def psnr(pred: torch.Tensor, target: torch.Tensor,
          data_range: float = 1.0) -> torch.Tensor:
     """Per-image PSNR in dB. pred/target: (N, H, W, C) or (N, H, W)."""
     dims = tuple(range(1, pred.dim()))
-    mse = ((pred.float() - target.float()) ** 2).mean(dim=dims)
+    mse = spatial.image_mean((pred.float() - target.float()) ** 2, dims)
     return 10.0 * torch.log10((data_range ** 2) / mse.clamp_min(1e-12))
 
 
@@ -63,7 +69,8 @@ def ssim_gray(pred: torch.Tensor, target: torch.Tensor, data_range: float = 1.0,
     num = (2 * ux * uy + c1) * (2 * vxy + c2)
     den = (ux ** 2 + uy ** 2 + c1) * (vx + vy + c2)
     # The VALID filter already left skimage's cropped region.
-    return (num / den).mean(dim=(1, 2))
+    valid = (spatial.rows_total(x.shape[1]) - win_size + 1) * (x.shape[2] - win_size + 1)
+    return spatial.image_mean(num / den, (1, 2), count=valid)
 
 
 def batch_quality(pred: torch.Tensor, target: torch.Tensor) -> Dict[str, torch.Tensor]:

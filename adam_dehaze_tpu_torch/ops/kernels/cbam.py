@@ -23,7 +23,10 @@ source note in csrc/cbam_gate.cu.
 
 through its own entry point of the C library, which never reads a gate. The
 high branch's tail chain (ops/kernels/tail_chain.py) launches it for its
-spatial step through `launch_spatial_gate`.
+spatial step through `launch_spatial_gate`. On an H shard
+(parallel/spatial.py) both run as `channel_spatial_gate_sharded` does: the
+statistics pass on the shard, the maps' 3 padded rows above and below
+filled from the neighbours, the gate kernel as it is.
 
 Both gates are differentiable, as the JAX package's `jax.custom_vjp`s of
 `channel_spatial_gate` and `spatial_gate`: with a gradient to record they
@@ -150,7 +153,6 @@ def _spatial_gate_cuda(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     name = "spatial_gate"
     _build.require_cuda_inputs(name, x, w)
     _require_gate_input(name, x, w)
-    spatial.refuse("K2' (spatial_gate) alone")
     mean_p, max_p = gated_maps(x)
     out = torch.empty_like(x)
     launch_spatial_gate(x, mean_p, max_p, w.float().contiguous(), out)
@@ -172,7 +174,11 @@ def spatial_gate(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     launches the kernel (never the plain version), which takes what
     `channel_spatial_gate` takes. The backward differentiates the plain
     version (see `_Gate`); with no gradient to record the forward runs
-    without the Function."""
+    without the Function. On an H shard: `channel_spatial_gate_sharded`
+    with no channel gate."""
+    rows = spatial.axis()
+    if rows is not None:
+        return channel_spatial_gate_sharded(x, None, w, rows, None)
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         return _Gate.apply(_spatial_gate_forward, spatial_gate_reference, x, w)
     return _spatial_gate_forward(x, w)
@@ -252,32 +258,65 @@ def channel_spatial_gate(x: torch.Tensor, g: torch.Tensor,
 channel_spatial_gate.launches = 0
 
 
-def _gate_on_maps_reference(x: torch.Tensor, g: torch.Tensor, maps: torch.Tensor,
+def _gate_on_maps_reference(x: torch.Tensor, g: Optional[torch.Tensor], maps: torch.Tensor,
                             w: torch.Tensor) -> torch.Tensor:
-    """Plain version of the gate kernel on prepared maps: x * g gated by
-    sigmoid(stencil(maps)), the stencil unpadded over the f32 maps (2, B,
-    H+6, W+6), as the kernel reads them."""
+    """Plain version of the gate kernel on prepared maps: x * g (x for K2')
+    gated by sigmoid(stencil(maps)), the stencil unpadded over the f32 maps
+    (2, B, H+6, W+6), as the kernel reads them."""
     with local_ops():
-        gated = x * g.to(x.dtype)[:, None, None, :]
+        gated = x if g is None else x * g.to(x.dtype)[:, None, None, :]
         s = F.conv2d(maps.transpose(0, 1), w.to(maps.dtype).permute(3, 2, 0, 1))
         return gated * torch.sigmoid(s).to(x.dtype).permute(0, 2, 3, 1)
 
 
-def _gate_on_maps_kernel(x: torch.Tensor, g: torch.Tensor, maps: torch.Tensor,
+def _gate_on_maps_kernel(x: torch.Tensor, g: Optional[torch.Tensor], maps: torch.Tensor,
                          w: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
-    launch_cbam_gate(x, g, maps[0], maps[1], w.float().contiguous(), out)
+    w = w.float().contiguous()
+    if g is None:
+        launch_spatial_gate(x, maps[0], maps[1], w.reshape(7, 7, 2), out)
+    else:
+        launch_cbam_gate(x, g, maps[0], maps[1], w, out)
     return out
 
 
-def channel_spatial_gate_sharded(x: torch.Tensor, g: torch.Tensor, w: torch.Tensor,
+def fill_map_halo(maps: torch.Tensor, rows: Axis) -> torch.Tensor:
+    """Padded (mean, max) maps (2, B, h+6, W+6) of an H shard with their 3
+    padded rows above and below overwritten by the neighbours' map rows
+    (collectives.Halo); the zeros stay at the image's true edges. A new
+    contiguous tensor."""
+    return Halo.apply(maps[:, :, _HALO:-_HALO], 2, _HALO, _HALO, 0.0, rows)
+
+
+def _spatial_maps_kernel(x):
+    return _maps_kernel(x, None)
+
+
+def _spatial_maps_plain(x):
+    return _maps_plain(x, None)
+
+
+def _spatial_on_maps_kernel(x, maps, w):
+    return _gate_on_maps_kernel(x, None, maps, w)
+
+
+def _spatial_on_maps_reference(x, maps, w):
+    return _gate_on_maps_reference(x, None, maps, w)
+
+
+_K2_STAGES = (_maps_kernel, _gate_on_maps_kernel, _maps_plain, _gate_on_maps_reference)
+_K2_PRIME_STAGES = (_spatial_maps_kernel, _spatial_on_maps_kernel, _spatial_maps_plain,
+                    _spatial_on_maps_reference)
+
+
+def channel_spatial_gate_sharded(x: torch.Tensor, g: Optional[torch.Tensor], w: torch.Tensor,
                                  rows: Optional[Axis], channels: Optional[Axis]
                                  ) -> torch.Tensor:
     """K2 on this process's shard of a tensor split over H (`rows`, the
     spatial axis) and/or over channels (`channels`, the model axis, with g
-    this process's channels of the gate): the statistics pass on the shard,
-    then the maps made whole between the two launches, then the gate kernel
-    as it is.
+    this process's channels of the gate); K2' where g is None: the
+    statistics pass on the shard, then the maps made whole between the two
+    launches, then the gate kernel as it is.
 
     - Channels split: the local (mean, max) maps are reduced over the
       group: the means summed and divided by its size (the shards are
@@ -291,22 +330,31 @@ def channel_spatial_gate_sharded(x: torch.Tensor, g: torch.Tensor, w: torch.Tens
     launch, with a gradient to record, runs as `_Gate` over its plain
     version; the exchanges carry their own backward."""
     cuda = x.device.type != "cpu"
+    gated = g is not None
     if cuda:
-        name = "channel_spatial_gate"
-        _build.require_cuda_inputs(name, x, g, w)
+        name = "channel_spatial_gate" if gated else "spatial_gate"
+        # Checked detached: each launch below runs inside `_Gate` when a
+        # gradient is recorded.
+        _build.require_cuda_inputs(name, *(t.detach() for t in (x, w, g) if t is not None))
         _require_gate_input(name, x, w)
-        _build.require(tuple(g.shape) == tuple(x.shape[::3]), name,
-                       f"g must be {tuple(x.shape[::3])}, got {tuple(g.shape)}")
-        g = g.float().contiguous()
-    grad = torch.is_grad_enabled() and (x.requires_grad or g.requires_grad or w.requires_grad)
-    stats = _maps_kernel if cuda else _maps_plain
-    maps = _Gate.apply(stats, _maps_plain, x, g) if grad else stats(x, g)
+        if gated:
+            _build.require(tuple(g.shape) == tuple(x.shape[::3]), name,
+                           f"g must be {tuple(x.shape[::3])}, got {tuple(g.shape)}")
+            g = g.float().contiguous()
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (x, g, w) if t is not None)
+    # (the statistics pass, the gate kernel, their plain versions) over the
+    # inputs there are: (x, g) for K2, (x,) for K2'.
+    stages = _K2_STAGES if gated else _K2_PRIME_STAGES
+    stats, apply = stages[:2] if cuda else stages[2:]
+    plain_stats, plain_apply = stages[2:]
+    head = (x, g) if gated else (x,)
+    maps = _Gate.apply(stats, plain_stats, *head) if grad else stats(*head)
     if channels is not None:
         mean = AllReduceSum.apply(maps[:1], (channels.group,)) / channels.size
         maps = torch.cat([mean, AllReduceMax.apply(maps[1:], channels)])
     if rows is not None:
-        maps = Halo.apply(maps[:, :, _HALO:-_HALO], 2, _HALO, _HALO, 0.0, rows)
-    apply = _gate_on_maps_kernel if cuda else _gate_on_maps_reference
+        maps = fill_map_halo(maps, rows)
     if grad:
-        return _Gate.apply(apply, _gate_on_maps_reference, x, g, maps, w)
-    return apply(x, g, maps, w)
+        return _Gate.apply(apply, plain_apply, *head, maps, w)
+    return apply(*head, maps, w)

@@ -43,6 +43,15 @@ blocks (`segment_blocks` picks a branch's); `res_attn_chain` runs them: on a
 CPU tensor through the plain version (`res_attn_chain_reference`), on a CUDA
 tensor through the kernels. An attention block's last pass is kernel K2
 (`cbam.launch_cbam_gate`, counted there).
+
+On an H shard (parallel/spatial.py) a segment runs as runs of residual
+blocks between its attention blocks, the way K4 does (ops/kernels/
+tail_chain.py): a run of k res blocks (2k 3x3 convs) on the shard made
+taller by 2k rows of the image, cropped back to the shard's own rows; an
+attention block on the shard's own rows, its channel partials reduced over
+the spatial group before the MLP and the maps' padded rows filled from the
+neighbours before K2. The plain version takes the same route on CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -55,7 +64,7 @@ from torch import nn
 from adam_dehaze_tpu_torch.nn.blocks import AttentionBlock, ResidualBlock
 from adam_dehaze_tpu_torch.ops import fold
 from adam_dehaze_tpu_torch.ops.kernels import _build
-from adam_dehaze_tpu_torch.ops.kernels.cbam import launch_cbam_gate
+from adam_dehaze_tpu_torch.ops.kernels.cbam import fill_map_halo, launch_cbam_gate
 from adam_dehaze_tpu_torch.ops.kernels.conv_tile import (
     _conv_ref,
     conv_tile,
@@ -66,11 +75,16 @@ from adam_dehaze_tpu_torch.ops.kernels.tail_chain import (
     _SLAB_MIN_PIXELS,
     Layer,
     _hwio,
+    _rows,
     _sh,
     _shift,
+    reduce_partials,
+    stencil_gate_reference,
     weight_tensors,
 )
 from adam_dehaze_tpu_torch.parallel import spatial
+from adam_dehaze_tpu_torch.parallel.mesh import Axis
+from adam_dehaze_tpu_torch.parallel.sharded_ops import local_ops
 
 SEGMENTS = ("e1", "e2b", "d1")
 
@@ -186,30 +200,41 @@ def fold_res_attn_chain(blocks: Sequence[nn.Module], dtype: torch.dtype
 # Plain version.
 # ---------------------------------------------------------------------------
 
+def _res_block_reference(b: torch.Tensor, first: Layer, second: Layer) -> torch.Tensor:
+    """One res block on b NCHW in the compute dtype (see the module
+    docstring)."""
+    dt = b.dtype
+    (w0, t0), (w1, t1) = first, second
+    a = torch.relu(_conv_ref(b, w0) + _sh(t0)).to(dt)
+    return torch.relu(_conv_ref(a, w1) + _sh(t1) + b.float()).to(dt)
+
+
+def _attn_reference(b: torch.Tensor, at: AttnWeights) -> torch.Tensor:
+    """One attention block on b NCHW in the compute dtype; on an H shard
+    its statistics are the whole image's and its stencil reads the
+    neighbours' map rows."""
+    bf = b.float()
+
+    def mlp(v):
+        return F.linear(torch.relu(F.linear(v, at.fc0)), at.fc1)
+
+    g = torch.sigmoid(mlp(spatial.mean_hw(bf)) + mlp(spatial.amax_hw(bf)))
+    zp = bf * g[:, :, None, None]
+    stats = torch.stack([zp.mean(dim=1), zp.amax(dim=1)], dim=1)
+    return (zp * stencil_gate_reference(stats, at.stencil)).to(b.dtype)
+
+
 def res_attn_chain_reference(x: torch.Tensor, weights: ResChainWeights) -> torch.Tensor:
     """Plain PyTorch version of K6 with the kernels' rounding points (see
     the module docstring). x (N, H, W, C) NHWC -> the same shape in the
     compute dtype."""
-    dt = weights.dtype
-    b = x.to(dt).permute(0, 3, 1, 2)
+    b = x.to(weights.dtype).permute(0, 3, 1, 2)
     convs, attns = iter(weights.convs), iter(weights.attns)
     for kind in weights.kinds:
         if kind == "res":
-            (w0, t0), (w1, t1) = next(convs), next(convs)
-            a = torch.relu(_conv_ref(b, w0) + _sh(t0)).to(dt)
-            b = torch.relu(_conv_ref(a, w1) + _sh(t1) + b.float()).to(dt)
+            b = _res_block_reference(b, next(convs), next(convs))
         else:
-            at = next(attns)
-            bf = b.float()
-
-            def mlp(v, at=at):
-                return F.linear(torch.relu(F.linear(v, at.fc0)), at.fc1)
-
-            g = torch.sigmoid(mlp(bf.mean(dim=(2, 3))) + mlp(bf.amax(dim=(2, 3))))
-            zp = bf * g[:, :, None, None]
-            stats = torch.stack([zp.mean(dim=1), zp.amax(dim=1)], dim=1)
-            gate = torch.sigmoid(F.conv2d(stats, at.stencil.permute(2, 0, 1)[None], padding=3))
-            b = (zp * gate).to(dt)
+            b = _attn_reference(b, next(attns))
     return b.permute(0, 2, 3, 1).contiguous()
 
 
@@ -217,15 +242,118 @@ def res_attn_chain_reference(x: torch.Tensor, weights: ResChainWeights) -> torch
 # The kernels.
 # ---------------------------------------------------------------------------
 
+def _runs(kinds: Sequence[str]) -> List[Tuple[str, int]]:
+    """The segment as ("res", k) for k res blocks in a row and ("attn", 1)."""
+    runs: List[Tuple[str, int]] = []
+    for kind in kinds:
+        if kind == "res" and runs and runs[-1][0] == "res":
+            runs[-1] = ("res", runs[-1][1] + 1)
+        else:
+            runs.append((kind, 1))
+    return runs
+
+
+class _Plain:
+    """K6's runs as plain versions: NHWC in the compute dtype in and out."""
+
+    def __init__(self, weights: ResChainWeights):
+        self.weights = weights
+
+    def res(self, x, convs):
+        b = x.permute(0, 3, 1, 2)
+        for i in range(0, len(convs), 2):
+            b = _res_block_reference(b, convs[i][0], convs[i + 1][0])
+        return b.permute(0, 2, 3, 1)
+
+    def attn(self, x, at, rows):
+        return _attn_reference(x.permute(0, 3, 1, 2), at).permute(0, 2, 3, 1)
+
+
+class _Kernels:
+    """K6's runs as launches on CUDA tensors: NHWC in the compute dtype,
+    contiguous, in and out."""
+
+    def __init__(self, weights: ResChainWeights, device):
+        self.lib = _build.library()
+        self.stream = _build.stream_ptr(device)
+        self.bf16 = int(weights.dtype == torch.bfloat16)
+
+    def done(self, err: int, what: str) -> None:
+        _build.check(err, what)
+        res_attn_chain.launches += 1
+
+    def conv(self, src, layer, dst, residual=None) -> None:
+        (w, shift), packed = layer
+        conv_tile(src, w, shift, residual=residual, out=dst, packed=packed)
+        res_attn_chain.launches += 1
+
+    def res(self, src, convs):
+        """The res blocks of a run; `src` is only read: the first block
+        writes into `b`, which holds the activation from then on, `a` is
+        the other buffer."""
+        a, b = torch.empty_like(src), torch.empty_like(src)
+        for i in range(0, len(convs), 2):
+            self.conv(src, convs[i], a)
+            self.conv(a, convs[i + 1], b, residual=src)     # in place after the first
+            src = b
+        return b
+
+    def attn(self, b, at, rows: Optional[Axis]):
+        n, h, wd, c = b.shape
+        pixels = h * wd
+        slabs = max(1, min(_MAX_SLABS, pixels // _SLAB_MIN_PIXELS))
+        dev = b.device
+        partial = torch.empty((n, slabs, 2, c), dtype=torch.float32, device=dev)
+        gate = torch.empty((n, c), dtype=torch.float32, device=dev)
+        maps = torch.empty((2, n, h + 6, wd + 6), dtype=torch.float32, device=dev)
+        self.done(self.lib.tail_channel_stats(
+            b.data_ptr(), partial.data_ptr(), n, pixels, c, slabs, self.bf16, self.stream),
+            "tail_channel_stats")
+        if rows is not None:
+            partial = reduce_partials(partial, rows)
+            pixels *= rows.size
+        self.done(self.lib.tail_channel_gate(
+            partial.data_ptr(), at.fc0.data_ptr(), at.fc1.data_ptr(), gate.data_ptr(),
+            n, slabs, pixels, c, at.fc0.shape[0], self.stream), "tail_channel_gate")
+        self.done(self.lib.cbam_gated_maps(
+            b.data_ptr(), gate.data_ptr(), maps[0].data_ptr(), maps[1].data_ptr(),
+            n, h, wd, c, self.bf16, self.stream), "cbam_gated_maps")
+        if rows is not None:
+            maps = fill_map_halo(maps, rows)
+        out = torch.empty_like(b)
+        launch_cbam_gate(b, gate, maps[0], maps[1], at.stencil, out)
+        return out
+
+
 def res_attn_chain(x: torch.Tensor, weights: ResChainWeights) -> torch.Tensor:
     """One segment. x (N, H, W, C) NHWC float -> (N, H, W, C) in the
     weights' compute dtype; x is left as it is. A CPU tensor takes the plain
     version; a CUDA tensor launches the kernels (`launches_of(weights.kinds)`
-    launches, the second number counted on K2) or raises. H split over a
-    spatial mesh is refused."""
-    spatial.refuse("K6 (res_attn_chain)")
-    if x.device.type == "cpu":
+    launches, the second number counted on K2) or raises. On an H shard
+    the segment runs as runs between its attention blocks (see the module
+    docstring)."""
+    cuda = x.device.type != "cpu"
+    rows = spatial.axis()
+    if cuda:
+        _require_inputs(x, weights)
+    elif rows is None:
         return res_attn_chain_reference(x, weights)
+    stages = _Kernels(weights, x.device) if cuda else _Plain(weights)
+    convs = list(zip(weights.convs, weights.packed))
+    attns = iter(weights.attns)
+    b = x.to(weights.dtype).contiguous()
+    with local_ops():
+        for kind, count in _runs(weights.kinds):
+            if kind == "res":
+                run, convs = convs[:2 * count], convs[2 * count:]
+                taller, top = spatial.taller(b, 1, 2 * count)
+                b = _rows(stages.res(taller, run), top, x.shape[1])
+            else:
+                b = stages.attn(b, next(attns), rows)
+    return b if cuda else b.contiguous()
+
+
+def _require_inputs(x: torch.Tensor, weights: ResChainWeights) -> None:
     name = "res_attn_chain"
     tensors = weight_tensors(weights)
     _build.require_cuda_inputs(name, x, *tensors)
@@ -238,53 +366,7 @@ def res_attn_chain(x: torch.Tensor, weights: ResChainWeights) -> torch.Tensor:
                    f"width {c} at {h}x{wd} in {dt} is not supported")
     for t in tensors:
         _build.require(t.is_contiguous(), name, "weights must be contiguous")
-    lib = _build.library()
-    stream = _build.stream_ptr(x.device)
-    bf16 = int(dt == torch.bfloat16)
-
-    def done(err: int, what: str) -> None:
-        _build.check(err, what)
-        res_attn_chain.launches += 1
-
-    def conv(src, layer, dst, residual=None) -> None:
-        (w, shift), packed = layer
-        conv_tile(src, w, shift, residual=residual, out=dst, packed=packed)
-        res_attn_chain.launches += 1
-
     _build.require(weights.kinds[0] == "res", name, "a segment starts with a res block")
-    # The caller's x is only read: the first res block writes into `b`, which
-    # holds the activation from then on; `a` is the other buffer.
-    src = x.to(dt).contiguous()
-    a, b = torch.empty_like(src), torch.empty_like(src)
-    if any(k == "attn" for k in weights.kinds):
-        pixels = h * wd
-        slabs = max(1, min(_MAX_SLABS, pixels // _SLAB_MIN_PIXELS))
-        dev = x.device
-        partial = torch.empty((n, slabs, 2, c), dtype=torch.float32, device=dev)
-        gate = torch.empty((n, c), dtype=torch.float32, device=dev)
-        mean_p = torch.empty((n, h + 6, wd + 6), dtype=torch.float32, device=dev)
-        max_p = torch.empty_like(mean_p)
-    convs, attns = iter(zip(weights.convs, weights.packed)), iter(weights.attns)
-    for kind in weights.kinds:
-        if kind == "res":
-            conv(src, next(convs), a)
-            conv(a, next(convs), b, residual=src)     # in place after the first
-            src = b
-        else:
-            at = next(attns)
-            done(lib.tail_channel_stats(
-                b.data_ptr(), partial.data_ptr(), n, pixels, c, slabs, bf16, stream),
-                "tail_channel_stats")
-            done(lib.tail_channel_gate(
-                partial.data_ptr(), at.fc0.data_ptr(), at.fc1.data_ptr(), gate.data_ptr(),
-                n, slabs, pixels, c, at.fc0.shape[0], stream), "tail_channel_gate")
-            done(lib.cbam_gated_maps(
-                b.data_ptr(), gate.data_ptr(), mean_p.data_ptr(), max_p.data_ptr(),
-                n, h, wd, c, bf16, stream), "cbam_gated_maps")
-            launch_cbam_gate(b, gate, mean_p, max_p, at.stencil, a)
-            a, b = b, a
-            src = b
-    return b
 
 
 res_attn_chain.launches = 0

@@ -27,6 +27,24 @@ tensors through the plain versions (`*_reference`), on CUDA tensors through
 the kernels. K4's spatial step is kernel K2' (`cbam.launch_spatial_gate`,
 counted there). `medium_tail_chain_tiled_reference` is K3 with the head
 group's tile, halo and zeroed ring in plain PyTorch, for the CPU tests.
+
+On an H shard (parallel/spatial.py) the layers read rows across the
+shard's edges, and the stages cannot exchange rows inside a launch. So each
+run of convolutions between two global reductions runs on the shard made
+taller by the run's receptive radius (`spatial.taller`: none beyond the
+image's true edges, where the kernels' own zero padding is the image's),
+and its own rows are cropped back: the rows the kernels pad at the taller
+shard's inner edges reach only rows cropped away. The sub-pixel up
+conv's output rows 2m and 2m+1 read d1 rows m-1..m+1, so it and every 3x3
+conv after it spoil one full-resolution row at an inner edge: K3 (the up
+conv and five 3x3 convs) takes `MEDIUM_TAIL_RADIUS` = 3 rows of d1 (six
+of f0 and x); K4 runs its trunk front (up conv, residual block: 3 rows) on
+`HIGH_FRONT_RADIUS` = 2 rows of d1, the attention block on the shard's own
+rows, with the per-image channel partials reduced over the group before
+the MLP and the spatial maps' 3 padded rows filled from the neighbours
+before K2', and its heads and guidance (three 3x3 convs, two for the
+guidance) on `HIGH_HEAD_RADIUS` = 3 rows. The plain versions take the same
+route on CPU tensors, so only the launches differ.
 """
 from __future__ import annotations
 
@@ -37,7 +55,7 @@ import torch.nn.functional as F
 
 from adam_dehaze_tpu_torch.ops import fold
 from adam_dehaze_tpu_torch.ops.kernels import _build
-from adam_dehaze_tpu_torch.ops.kernels.cbam import launch_spatial_gate
+from adam_dehaze_tpu_torch.ops.kernels.cbam import fill_map_halo, launch_spatial_gate
 from adam_dehaze_tpu_torch.ops.kernels.conv_tile import (
     _conv_ref,
     conv_tile,
@@ -52,12 +70,21 @@ from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
     zero_outside,
 )
 from adam_dehaze_tpu_torch.parallel import spatial
+from adam_dehaze_tpu_torch.parallel.collectives import AllReduceMax, AllReduceSum
+from adam_dehaze_tpu_torch.parallel.mesh import Axis
+from adam_dehaze_tpu_torch.parallel.sharded_ops import local_ops
 
 Layer = Tuple[torch.Tensor, torch.Tensor]   # (weight HWIO compute dtype, shift f32)
 
 # Slabs of the per-image channel reduction's first stage.
 _MAX_SLABS = 64
 _SLAB_MIN_PIXELS = 64
+# Rows an H shard takes from each neighbour before a run of layers (see
+# the module docstring): d1 rows for K3 and K4's trunk front, full-
+# resolution rows for K4's heads.
+MEDIUM_TAIL_RADIUS = 3
+HIGH_FRONT_RADIUS = 2
+HIGH_HEAD_RADIUS = 3
 
 
 class TrunkPacked(NamedTuple):
@@ -120,16 +147,25 @@ class HighTailWeights(NamedTuple):
         return self.trunk.channels
 
 
+def _kernel_takes(channels: int, height: int, width: int, dtype: torch.dtype) -> bool:
+    """What the launches themselves take: float32 or bfloat16, a width
+    that is a multiple of 16 (so that c/2 moves in 16-byte vectors), and
+    even sides (d1 has half of them)."""
+    return (dtype in (torch.float32, torch.bfloat16) and channels >= 16
+            and channels % 16 == 0 and height % 2 == 0 and width % 2 == 0
+            and height >= 2 and width >= 2)
+
+
 def tail_supported(channels: int, height: int, width: int,
                    dtype: torch.dtype) -> bool:
     """Shapes the tail kernels take, decided up front: float32 or bfloat16,
     a width that is a multiple of 16 (so that c/2 moves in 16-byte
     vectors), and an image whose sides are multiples of 4, so that the
     decoder's stages are exact halves and the canonical forward's resize
-    steps never run."""
-    return (dtype in (torch.float32, torch.bfloat16) and channels >= 16
-            and channels % 16 == 0 and height % 4 == 0 and width % 4 == 0
-            and height >= 4 and width >= 4)
+    steps never run. On an H shard, the shard's height: the taller shard
+    the launches get (see the module docstring) needs only even sides."""
+    return (_kernel_takes(channels, height, width, dtype) and height % 4 == 0
+            and width % 4 == 0 and height >= 4 and width >= 4)
 
 
 class MediumTailPlan(NamedTuple):
@@ -299,23 +335,33 @@ def medium_tail_chain_tiled_reference(d1, f0, x, wt: MediumTailWeights,
     return out.permute(0, 2, 3, 1).contiguous()
 
 
+def stencil_gate_reference(stats: torch.Tensor, stencil: torch.Tensor) -> torch.Tensor:
+    """sigmoid of the 7x7 stencil (7, 7, 2) over the (mean, max) maps
+    (N, 2, H, W), zero-padded by 3; on an H shard the 3 rows above and
+    below come from the neighbours (spatial.halo)."""
+    k = stencil.permute(2, 0, 1)[None]                    # (1, 2, 7, 7)
+    if spatial.axis() is None:
+        return torch.sigmoid(F.conv2d(stats, k, padding=3))
+    return torch.sigmoid(F.conv2d(spatial.halo(stats, 2, 3, 3), k, padding=(0, 3)))
+
+
 def attention_reference(d2: torch.Tensor, wt: HighTailWeights) -> torch.Tensor:
     """K4's attention block on d2 NCHW in the compute dtype: the channel
     gate from f32 statistics and the f32 MLP; the gated activation rounded
     to the compute dtype; its (mean, max) maps over channels taken from the
     unrounded products and kept f32; the 7x7 stencil and the spatial gate
-    in f32, one rounding at the end."""
+    in f32, one rounding at the end. On an H shard the statistics are the
+    whole image's and the stencil reads the neighbours' map rows."""
     dt = wt.dtype
     xf = d2.float()
 
     def mlp(v):
         return F.linear(torch.relu(F.linear(v, wt.attn_fc0)), wt.attn_fc1)
 
-    g = torch.sigmoid(mlp(xf.mean(dim=(2, 3))) + mlp(xf.amax(dim=(2, 3))))
+    g = torch.sigmoid(mlp(spatial.mean_hw(xf)) + mlp(spatial.amax_hw(xf)))
     zf = xf * g[:, :, None, None]
     stats = torch.stack([zf.mean(dim=1), zf.amax(dim=1)], dim=1)
-    k = wt.attn_stencil.permute(2, 0, 1)[None]            # (1, 2, 7, 7)
-    gate = torch.sigmoid(F.conv2d(stats, k, padding=3))
+    gate = stencil_gate_reference(stats, wt.attn_stencil)
     return (zf.to(dt).float() * gate).to(dt)
 
 
@@ -324,9 +370,15 @@ def high_tail_chain_reference(d1, f0, x, wt: HighTailWeights) -> torch.Tensor:
     the rounding points and `attention_reference` for the attention
     block's)."""
     dt = wt.dtype
-    xin = _nchw(x, dt)
     d2 = attention_reference(_trunk_front_reference(_nchw(d1, dt), wt.trunk), wt)
-    res = _trunk_heads_reference(d2, _nchw(f0, dt), wt.trunk)
+    return _high_heads_reference(d2, _nchw(f0, dt), _nchw(x, dt), wt)
+
+
+def _high_heads_reference(d2, f0, xin, wt: HighTailWeights) -> torch.Tensor:
+    """K4 after its attention block: the heads on [d2, f0], the guidance on
+    xin (all NCHW in the compute dtype) and the blend; NHWC f32."""
+    dt = wt.dtype
+    res = _trunk_heads_reference(d2, f0, wt.trunk)
     g = torch.relu(_conv_ref(xin, wt.guidance1[0]) + _sh(wt.guidance1[1])).to(dt)
     g = torch.relu(_conv_ref(g, wt.guidance2[0]) + _sh(wt.guidance2[1])).to(dt)
     guidance = torch.sigmoid(
@@ -391,13 +443,15 @@ def weight_tensors(weights) -> List[torch.Tensor]:
 
 
 def _require_tail_inputs(name, d1, f0, x, wt) -> Tuple[int, int, int, int]:
+    """Check the inputs of one call's launches (x maybe a taller shard):
+    their device, shapes and the weights' layout."""
     tensors = weight_tensors(wt)
     _build.require_cuda_inputs(name, d1, f0, x, *tensors)
     c = wt.channels
     _build.require(x.dim() == 4 and x.shape[3] == 3, name,
                    f"x must be (N, H, W, 3), got {tuple(x.shape)}")
     n, h, wd, _ = x.shape
-    _build.require(tail_supported(c, h, wd, wt.dtype), name,
+    _build.require(_kernel_takes(c, h, wd, wt.dtype), name,
                    f"width {c} at {h}x{wd} in {wt.dtype} is not supported")
     _build.require(tuple(d1.shape) == (n, h // 2, wd // 2, 4 * c), name,
                    f"d1 must be {(n, h // 2, wd // 2, 4 * c)}, got {tuple(d1.shape)}")
@@ -406,6 +460,23 @@ def _require_tail_inputs(name, d1, f0, x, wt) -> Tuple[int, int, int, int]:
     for t in tensors:
         _build.require(t.is_contiguous(), name, "weights must be contiguous")
     return n, h, wd, c
+
+
+def _require_supported(name, x, wt) -> None:
+    """The call's own image (its H shard on a spatial mesh) is a shape the
+    tail takes (`tail_supported`)."""
+    _, h, wd, _ = x.shape
+    _build.require(tail_supported(wt.channels, h, wd, wt.dtype), name,
+                   f"width {wt.channels} at {h}x{wd} in {wt.dtype} is not supported "
+                   "(tail_supported)")
+
+
+def _rows(t: torch.Tensor, start: int, n: int) -> torch.Tensor:
+    """Rows start .. start + n of an NHWC tensor, contiguous (`t` itself
+    when that is all of it)."""
+    if start == 0 and t.shape[1] == n:
+        return t
+    return t[:, start:start + n].contiguous()
 
 
 def _trunk_front(run: _Launcher, d1, wt: MediumTailWeights, d2, tmp) -> None:
@@ -438,10 +509,24 @@ def medium_tail_chain(d1: torch.Tensor, f0: torch.Tensor, x: torch.Tensor,
     (N, H, W, 3) the input image, all NHWC; returns (N, H, W, 3) f32. CPU
     tensors take the plain version; CUDA tensors launch the kernels
     (`medium_tail_plan`: 5 launches with the head group, 6 without) or
-    raise. H split over a spatial mesh is refused."""
-    spatial.refuse("K3 (medium_tail_chain)")
-    if x.device.type == "cpu":
-        return medium_tail_chain_reference(d1, f0, x, weights)
+    raise. On an H shard the chain runs on the shard made taller by
+    `MEDIUM_TAIL_RADIUS` rows of d1 (see the module docstring)."""
+    cuda = x.device.type != "cpu"
+    if cuda:
+        _require_supported("medium_tail_chain", x, weights)
+    if spatial.axis() is None:
+        return (_medium_tail_kernels if cuda else medium_tail_chain_reference)(
+            d1, f0, x, weights)
+    with local_ops():
+        d1, top = spatial.taller(d1, 1, MEDIUM_TAIL_RADIUS)
+        f0, _ = spatial.taller(f0, 1, 2 * MEDIUM_TAIL_RADIUS)
+        xt, _ = spatial.taller(x, 1, 2 * MEDIUM_TAIL_RADIUS)
+        out = (_medium_tail_kernels if cuda else medium_tail_chain_reference)(
+            d1, f0, xt, weights)
+        return _rows(out, 2 * top, x.shape[1])
+
+
+def _medium_tail_kernels(d1, f0, x, weights: MediumTailWeights) -> torch.Tensor:
     name = "medium_tail_chain"
     n, h, wd, c = _require_tail_inputs(name, d1, f0, x, weights)
     dt = weights.dtype
@@ -467,62 +552,123 @@ def medium_tail_chain(d1: torch.Tensor, f0: torch.Tensor, x: torch.Tensor,
 medium_tail_chain.launches = 0
 
 
-def _attention(run: _Launcher, d2, wt: HighTailWeights, tmp, out) -> None:
+def reduce_partials(partial: torch.Tensor, rows: Axis) -> torch.Tensor:
+    """The per-slab channel (sum, max) partials (N, slabs, 2, C) of every H
+    shard of the spatial group: the sums added, the maxima maxed, so that
+    the MLP's pass over the slabs reads the whole image's."""
+    sums = AllReduceSum.apply(partial[:, :, 0], (rows.group,))
+    maxima = AllReduceMax.apply(partial[:, :, 1], rows)
+    return torch.stack([sums, maxima], 2).contiguous()
+
+
+def _attention(run: _Launcher, d2, wt: HighTailWeights, tmp, out,
+               rows: Optional[Axis] = None) -> None:
     """The attention block: d2 -> out (tmp holds the channel-gated
-    activation). Three launches counted here, the spatial step on K2'."""
+    activation). Three launches counted here, the spatial step on K2'. On
+    an H shard (`rows`) the channel partials are reduced over the group
+    before the MLP, which divides by the whole image's pixels, and the
+    maps' padded rows are filled from the neighbours before K2'."""
     n, h, wd, c = d2.shape
     pixels = h * wd
     slabs = max(1, min(_MAX_SLABS, pixels // _SLAB_MIN_PIXELS))
     dev = d2.device
     partial = torch.empty((n, slabs, 2, c), dtype=torch.float32, device=dev)
     gate = torch.empty((n, c), dtype=torch.float32, device=dev)
-    mean_p = torch.empty((n, h + 6, wd + 6), dtype=torch.float32, device=dev)
-    max_p = torch.empty_like(mean_p)
+    maps = torch.empty((2, n, h + 6, wd + 6), dtype=torch.float32, device=dev)
     run.done(run.lib.tail_channel_stats(
         d2.data_ptr(), partial.data_ptr(), n, pixels, c, slabs, run.bf16,
         run.stream), "tail_channel_stats")
+    if rows is not None:
+        partial = reduce_partials(partial, rows)
+        pixels *= rows.size
     run.done(run.lib.tail_channel_gate(
         partial.data_ptr(), wt.attn_fc0.data_ptr(), wt.attn_fc1.data_ptr(),
         gate.data_ptr(), n, slabs, pixels, c, wt.attn_fc0.shape[0],
         run.stream), "tail_channel_gate")
     run.done(run.lib.tail_gated_stats(
-        d2.data_ptr(), gate.data_ptr(), tmp.data_ptr(), mean_p.data_ptr(),
-        max_p.data_ptr(), n, h, wd, c, run.bf16, run.stream), "tail_gated_stats")
-    launch_spatial_gate(tmp, mean_p, max_p, wt.attn_stencil, out)
+        d2.data_ptr(), gate.data_ptr(), tmp.data_ptr(), maps[0].data_ptr(),
+        maps[1].data_ptr(), n, h, wd, c, run.bf16, run.stream), "tail_gated_stats")
+    if rows is not None:
+        maps = fill_map_halo(maps, rows)
+    launch_spatial_gate(tmp, maps[0], maps[1], wt.attn_stencil, out)
+
+
+class _HighPlain:
+    """K4's three runs as plain versions: NHWC in and out."""
+
+    def __init__(self, wt: HighTailWeights):
+        self.wt = wt
+
+    def front(self, d1):
+        return _trunk_front_reference(_nchw(d1, self.wt.dtype), self.wt.trunk).permute(0, 2, 3, 1)
+
+    def attention(self, d2, rows):
+        return attention_reference(d2.permute(0, 3, 1, 2), self.wt).permute(0, 2, 3, 1)
+
+    def heads(self, d2, f0, x):
+        dt = self.wt.dtype
+        return _high_heads_reference(d2.permute(0, 3, 1, 2), _nchw(f0, dt), _nchw(x, dt),
+                                     self.wt)
+
+
+class _HighKernels:
+    """K4's three runs as launches on CUDA tensors: NHWC in and out."""
+
+    def __init__(self, wt: HighTailWeights, device):
+        self.wt = wt
+        self.run = _Launcher(high_tail_chain, device, wt.dtype == torch.bfloat16)
+
+    def front(self, d1):
+        d1 = d1.to(self.wt.dtype).contiguous()
+        n, h, wd, _ = d1.shape
+        d2 = torch.empty((n, 2 * h, 2 * wd, self.wt.channels), dtype=d1.dtype, device=d1.device)
+        _trunk_front(self.run, d1, self.wt.trunk, d2, torch.empty_like(d2))
+        return d2
+
+    def attention(self, d2, rows):
+        out = torch.empty_like(d2)
+        _attention(self.run, d2, self.wt, torch.empty_like(d2), out, rows)
+        return out
+
+    def heads(self, d2, f0, x):
+        wt, run = self.wt, self.run
+        f0, xin = (t.to(wt.dtype).contiguous() for t in (f0, x))
+        n, h, wd, _ = d2.shape
+        h2 = _trunk_heads(run, d2, f0, wt.trunk, torch.empty_like(d2))
+        gc = wt.guidance1[0].shape[3]
+        g1 = torch.empty((n, h, wd, gc), dtype=wt.dtype, device=d2.device)
+        g2 = torch.empty_like(g1)
+        run.conv(xin, wt.guidance1[0], wt.guidance1[1], g1)
+        run.conv(g1, wt.guidance2[0], wt.guidance2[1], g2, packed=wt.guidance2_packed)
+        out = torch.empty((n, h, wd, 3), dtype=torch.float32, device=d2.device)
+        run.final(h2, wt.trunk.out, xin, out, guidance=g2, guidance_w=wt.guidance_out_w,
+                  guidance_b=wt.guidance_out_b)
+        return out
 
 
 def high_tail_chain(d1: torch.Tensor, f0: torch.Tensor, x: torch.Tensor,
                     weights: HighTailWeights) -> torch.Tensor:
     """The high branch after the d1 concat; arguments as
     `medium_tail_chain`. CUDA tensors launch the kernels: 11 launches
-    counted here and one of K2' (`spatial_gate.launches`). H split over a
-    spatial mesh is refused."""
-    spatial.refuse("K4 (high_tail_chain)")
-    if x.device.type == "cpu":
+    counted here and one of K2' (`spatial_gate.launches`). On an H shard
+    the trunk front and the heads run on taller shards and the attention
+    block reduces over the group (see the module docstring)."""
+    cuda = x.device.type != "cpu"
+    rows = spatial.axis()
+    if cuda:
+        _require_supported("high_tail_chain", x, weights)
+        _require_tail_inputs("high_tail_chain", d1, f0, x, weights)
+    elif rows is None:
         return high_tail_chain_reference(d1, f0, x, weights)
-    name = "high_tail_chain"
-    n, h, wd, c = _require_tail_inputs(name, d1, f0, x, weights)
-    dt = weights.dtype
-    run = _Launcher(high_tail_chain, x.device, dt == torch.bfloat16)
-    d1, f0, xin = (t.to(dt).contiguous() for t in (d1, f0, x))
-    dev = x.device
-    d2 = torch.empty((n, h, wd, c), dtype=dt, device=dev)
-    tmp = torch.empty_like(d2)
-    gated = torch.empty_like(d2)
-    out = torch.empty((n, h, wd, 3), dtype=torch.float32, device=dev)
-    trunk = weights.trunk
-    _trunk_front(run, d1, trunk, d2, tmp)
-    _attention(run, d2, weights, tmp, gated)
-    h2 = _trunk_heads(run, gated, f0, trunk, tmp)
-    gc = weights.guidance1[0].shape[3]
-    g1 = torch.empty((n, h, wd, gc), dtype=dt, device=dev)
-    g2 = torch.empty_like(g1)
-    run.conv(xin, weights.guidance1[0], weights.guidance1[1], g1)
-    run.conv(g1, weights.guidance2[0], weights.guidance2[1], g2,
-             packed=weights.guidance2_packed)
-    run.final(h2, trunk.out, xin, out, guidance=g2, guidance_w=weights.guidance_out_w,
-              guidance_b=weights.guidance_out_b)
-    return out
+    stages = _HighKernels(weights, x.device) if cuda else _HighPlain(weights)
+    n = x.shape[1]
+    with local_ops():
+        d1, top = spatial.taller(d1, 1, HIGH_FRONT_RADIUS)
+        d2 = _rows(stages.front(d1), 2 * top, n)
+        d2, top = spatial.taller(stages.attention(d2, rows), 1, HIGH_HEAD_RADIUS)
+        f0, _ = spatial.taller(f0, 1, HIGH_HEAD_RADIUS)
+        xt, _ = spatial.taller(x, 1, HIGH_HEAD_RADIUS)
+        return _rows(stages.heads(d2, f0, xt), top, n)
 
 
 high_tail_chain.launches = 0

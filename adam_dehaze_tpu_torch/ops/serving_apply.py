@@ -32,6 +32,14 @@ candidates; the default dispatch does not use them.
 the same applies; soft routing calls it and the hard-routing engine takes
 its classifier and branches, so both paths share one fold and one cast.
 
+Under `make_spatial_infer` (parallel/spatial.py) a `BranchChainApply`
+gets this process's H shard of the batch: it judges
+`chain_apply_supported` (and through it `tail_supported` and
+`res_chain_supported`) at the shard's shape, the one its kernels take
+(they run on it, or on it made taller by their halos), and a dehazer
+serves the applies it chose from its tuned cache at construction, keyed
+by the whole image's shape (`AdaptiveDehazer(autotune=True)`).
+
 The JAX package's space-to-depth rewrites are not ported: they fill the
 TPU's 128-wide lanes and have no purpose on the H100.
 """
@@ -153,8 +161,10 @@ class BranchChainApply(nn.Module):
     serving copy's canonical modules (K2 inside the high branch's
     AttentionBlocks that stay canonical). Kernel weights are folded once
     from the float32 parameters. x (N, H, W, 3) float -> (N, H, W, 3)
-    float32. Raises on a shape a chosen kernel does not take, and on a size
-    the canonical forward would resize (`chain_apply_supported`)."""
+    float32, or this process's H shard of them under spatial_sharding.
+    Raises on a shape a chosen kernel does not take, and on a size the
+    canonical forward would resize (`chain_apply_supported`, at the shape
+    of x)."""
 
     def __init__(self, model: nn.Module, dtype: torch.dtype, kind: str,
                  segments=(), tail: bool = False):

@@ -15,7 +15,13 @@ Where the JAX package lets XLA's sharding propagation insert collectives
   the backward adds the halo's gradient into the sender's boundary rows;
 - `ShardChannels` and `GatherChannels`: a replicated tensor cut to this
   process's channels (the gradient is gathered back) and the channels of
-  the group gathered (the gradient is summed, then cut).
+  the group gathered (the gradient is summed, then cut);
+- `GatherRows`: the H shards of the group joined into the whole image on
+  every process (the gradient is summed, then each process keeps its own
+  rows: a reduce-scatter);
+- `FlipRows`: the image reversed along H, shard by shard: process r takes
+  process S-1-r's rows in reverse order (its own inverse, and so is its
+  backward).
 
 Collectives go through the axis's process group as they are: gloo takes
 CUDA tensors for all_reduce and all_gather, NCCL takes them for all.
@@ -144,6 +150,45 @@ class Halo(torch.autograd.Function):
         if bottom and r > 0:        # the previous shard's bottom halo is my first rows
             gx.narrow(dim, 0, bottom).add_(parts[r - 1].narrow(dim, top, bottom))
         return gx, None, None, None, None, None
+
+
+class GatherRows(torch.autograd.Function):
+    """Every process's H shard along `dim`, joined in index order: the whole
+    image on every process. What follows may differ per process, so the
+    gradient of the whole is summed over the axis and each process keeps
+    the rows it holds."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, axis: Axis):
+        ctx.meta = (dim, x.shape[dim], axis)
+        return torch.cat(all_gather(x, axis), dim).contiguous(memory_format=_memory_format(x))
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, n, axis = ctx.meta
+        whole = _all_reduce(g, [axis.group])
+        return whole.narrow(dim, axis.index * n, n).contiguous(), None, None
+
+
+def _flip_rows(x: torch.Tensor, dim: int, axis: Axis) -> torch.Tensor:
+    part = all_gather(x, axis)[axis.size - 1 - axis.index]
+    return part.flip(dim).contiguous(memory_format=_memory_format(x))
+
+
+class FlipRows(torch.autograd.Function):
+    """The shard, along `dim`, of the image reversed along H: process r
+    takes the rows of process S-1-r in reverse order. The gradient goes
+    back the same way."""
+
+    @staticmethod
+    def forward(ctx, x, dim: int, axis: Axis):
+        ctx.meta = (dim, axis)
+        return _flip_rows(x, dim, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        dim, axis = ctx.meta
+        return _flip_rows(g, dim, axis), None, None
 
 
 def channel_slice(channels: int, axis: Axis) -> slice:

@@ -16,16 +16,29 @@ and these things make the result the same:
   The running variance takes torch's unbiased update with the global count.
   A BN inside the channel-parallel region normalises this process's
   channels and updates their slice of its running statistics, which the
-  step gathers back over the `model` group afterwards.
+  step gathers back over the `model` group afterwards; every other BN's
+  statistics are averaged over that group, equal bit for bit across it.
 - The gradients are summed over the `data` and `spatial` groups and
   divided by the number of shards between the step's backward and its
   optimizer step (an optimizer step pre-hook), so the steps run
-  `zero_grad`, `backward` and `step` as they are. The shards are equal, so
-  each one's mean loss is its share of the global mean. Under `model` a
-  parameter used inside the channel-parallel region holds only its part of
-  the gradient (its slice, or a partial sum) and is first summed over the
-  `model` group; every other gradient is already the same across that
-  group and is left as it is.
+  `zero_grad`, `backward` and `step` as they are. What the processes
+  minimise together is the mean of their losses, and every term of a
+  process's loss is one of two kinds. A mean over its own rows and pixels
+  (the L1 and VGG-content terms, the cross-entropy over its rows) is its
+  share: the shards are equal, so the mean of the shares is the global
+  mean. A term reduced over the group in the forward (LPIPS on the image
+  gathered whole, the density-weighted L1's ratio of `batch_sum`s, the
+  cross-entropy of logits pooled over the spatial group) is the global
+  value on every process, so the mean over processes is that value; the
+  reduction's backward (collectives.py) adds every process's gradient of
+  it, and the average's division by the number of shards leaves each
+  term's gradient counted once. Under `model` a parameter used inside the
+  channel-parallel region holds only its part of the gradient (its slice,
+  or a partial sum) and is first summed over the `model` group; every
+  other gradient is the same across that group in exact arithmetic and is
+  averaged over it, so that the replicas stay equal bit for bit where the
+  card's convolution gradients are not deterministic (cuDNN's weight
+  gradients sum in no fixed order).
 - Random draws (the augmentation's flips and jitter, the classifier's
   re-fogging, the dropouts) are drawn for the global batch from the step's
   generator, and each process keeps its rows (`draw_rows`): every process
@@ -33,9 +46,15 @@ and these things make the result the same:
 - The metrics come back as the global batch's: float scalars are averaged
   over the `data` and `spatial` groups, integer scalars (counts) summed
   over `data`, and tensors with the batch's rows gathered in order (image
-  batches, (N, H, W, C), along H as well).
+  batches, (N, H, W, C), along H as well). The eval step's PSNR and SSIM
+  are per image over the whole image already (ops/image.py), its
+  classifier accuracy per row of logits that every process of a spatial
+  group holds alike, so their means over the valid rows are the global
+  batch's when every process holds as many valid rows.
 
-The joint steps refuse a spatial or model mesh (training/train_joint.py).
+The joint steps (training/train_joint.py) run under all three axes with
+their loss nets and augmentation; `cuda.remat` is refused on a spatial or
+model mesh.
 """
 from __future__ import annotations
 
@@ -64,6 +83,17 @@ class _Rows(NamedTuple):
 
 # The global rows of the data-parallel step running in this context.
 _ROWS: contextvars.ContextVar[Optional[_Rows]] = contextvars.ContextVar("rows", default=None)
+# The process groups over which that step's batch is split (rows, H).
+_GROUPS: contextvars.ContextVar[tuple] = contextvars.ContextVar("groups", default=())
+
+
+def batch_sum(t: torch.Tensor) -> torch.Tensor:
+    """`t` summed over the processes that split the batch of the running
+    data-parallel step, its rows over `data` and its H over `spatial`
+    (collectives.AllReduceSum); `t` outside one. For a ratio of sums over
+    the batch, which the mean of the processes' own ratios is not."""
+    groups = _GROUPS.get()
+    return AllReduceSum.apply(t, groups) if groups else t
 
 
 def draw_rows(n: int, draw: Callable[[int], torch.Tensor]) -> torch.Tensor:
@@ -147,6 +177,17 @@ def _gather_split_statistics(bns, model) -> None:
             buf.copy_(torch.cat(all_gather(buf[part], model)))
 
 
+def _average_replicated_statistics(module, split, model) -> None:
+    """The running statistics of the BNs that ran on every channel,
+    averaged over the `model` group: equal in exact arithmetic, they stay
+    equal bit for bit where the card's convolutions are not deterministic."""
+    bufs = [b for m in module.modules() if isinstance(m, _BatchNorm) and m not in split
+            and m.track_running_stats for b in (m.running_mean, m.running_var)]
+    _sum_flat(bufs, model.group)
+    for b in bufs:
+        b /= model.size
+
+
 def _sum_flat(grads, group) -> None:
     """Sum `grads` over `group` in place, one all_reduce per dtype, in the
     order the dtypes first occur (the same on every process)."""
@@ -160,13 +201,18 @@ def _sum_flat(grads, group) -> None:
 
 def _average_gradients(groups, size: int, model=None, used=()):
     """An optimizer step pre-hook: the gradients of the parameters in
-    `used` summed over the `model` axis (when there is one), then every
-    gradient summed over `groups` and divided by `size`."""
+    `used` summed over the `model` axis (when there is one) and the others
+    averaged over it, then every gradient summed over `groups` and divided
+    by `size`."""
     def hook(optimizer, args, kwargs):
         params = [p for g in optimizer.param_groups for p in g["params"]
                   if p.grad is not None]
         if model is not None:
             _sum_flat([p.grad for p in params if p in used], model.group)
+            same = [p.grad for p in params if p not in used]
+            _sum_flat(same, model.group)
+            for g in same:
+                g /= model.size
         grads = [p.grad for p in params]
         for group in groups:
             _sum_flat(grads, group)
@@ -224,7 +270,7 @@ def _wrap(step_fn: Callable, mesh: Mesh, batch_template: Dict, train: bool) -> C
         elif n != local:
             raise ValueError(f"a batch of {n} rows: the step takes the global batch of "
                              f"{total} or this process's {local} rows of it")
-        token = _ROWS.set(rows)
+        token, groups_token = _ROWS.set(rows), _GROUPS.set(groups)
         try:
             with contextlib.ExitStack() as stack:
                 used = stack.enter_context(sharding.recording_used())
@@ -238,9 +284,11 @@ def _wrap(step_fn: Callable, mesh: Mesh, batch_template: Dict, train: bool) -> C
                 out = step_fn(state, batch, *args)
         finally:
             _ROWS.reset(token)
-        if split_bns:
+            _GROUPS.reset(groups_token)
+        if model is not None:
             with torch.no_grad():
                 _gather_split_statistics(split_bns, model)
+                _average_replicated_statistics(state.module, split_bns, model)
         return _replicated(out, rows, data, rows_axis)
 
     return step

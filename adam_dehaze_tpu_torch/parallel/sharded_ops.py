@@ -16,11 +16,20 @@ F.max_pool2d call into this module through torch's function dispatch):
   bias; with H split, the input gains the rows that reach the shard's
   output rows, and the result is cropped to them;
 - max_pool2d: the halo of a conv, filled with -inf at the image's edges;
+- avg_pool2d with stride 1 and no padding along H (a VALID window, SSIM's):
+  the `kernel - 1` rows below the shard, none below the image; the last
+  shard keeps the rows the unsharded output has, `kernel - 1` fewer;
 - batch_norm: on a channel split, the local slice of its parameters and
   running statistics (updated in place); train mode on an H shard is the
   data-parallel step's synchronized BN, so it is refused here;
-- interpolate, a pad of H, the adaptive and average pools: refused on an H
-  shard (their rows mix across shards in ways not ported).
+- interpolate, a pad of H, the adaptive pools and other average pools:
+  refused on an H shard (their rows mix across shards in ways not ported).
+
+A strided conv, transposed conv or max-pool on an H shard must give the
+unsharded layer's rows laid end to end, the shard's rows over the stride
+on every process; a layer whose output rows do not split so (AlexNet's
+11x11/4 conv gives 63 rows of 256, two shards 32 + 32) raises, naming its
+kernel, stride and padding: gather H around such a net (spatial.gather_h).
 
 Every other function passes through. Kernel wrappers run their own plain
 operations under `local_ops()`, which sees no sharding.
@@ -55,12 +64,23 @@ def _pair(v):
     return (v, v) if isinstance(v, int) else tuple(v)
 
 
-def _shard_height(x: torch.Tensor, stride: int) -> int:
+def _shard_height(x: torch.Tensor, what: str, kernel: int, stride: int, padding: int,
+                  out_rows: int) -> int:
+    """The shard's rows, after checking that the unsharded layer, whose
+    output has `out_rows` rows for an image of H rows, gives each shard
+    h // stride of them."""
     h = x.shape[2]
     if h % stride:
         raise ValueError(f"an H shard of {h} rows does not divide by the stride {stride}: "
                          "H must be divisible by the spatial axis size times every stride "
                          "on the path (pad the image)")
+    size = spatial.axis().size
+    if out_rows != h // stride * size:
+        raise ValueError(
+            f"a {what} of kernel {kernel}, stride {stride} and padding {padding} gives "
+            f"{out_rows} rows of an image of {h * size}, not the {size} x {h // stride} of "
+            f"its H shards: it does not split over the spatial axis (run the net on the "
+            f"whole image, spatial.gather_h)")
     return h
 
 
@@ -82,7 +102,8 @@ def _conv2d(input, weight, bias=None, stride=1, padding=0, dilation=1, groups=1)
         raise NotImplementedError(f"a convolution with padding {padding!r} and dilation "
                                   f"{dilation} on an H shard")
     (kh, _), (sh, _), (ph, pw) = weight.shape[2:], stride, _pair(padding)
-    h = _shard_height(input, sh)
+    total = input.shape[2] * rows.size
+    h = _shard_height(input, "convolution", kh, sh, ph, (total + 2 * ph - kh) // sh + 1)
     y = F.conv2d(spatial.halo(input, 2, ph, max(kh - sh - ph, 0)), weight, bias, stride,
                  (0, pw), dilation, groups)
     return y if y.shape[2] == h // sh else y[:, :, :h // sh]
@@ -112,6 +133,12 @@ def _conv_transpose2d(input, weight, bias=None, stride=1, padding=0, output_padd
             raise NotImplementedError("a transposed convolution with an output padding or "
                                       "a dilation on an H shard")
         kh, h = weight.shape[2], input.shape[2]
+        out_rows = (h * rows.size - 1) * sh - 2 * ph + kh
+        if out_rows != sh * h * rows.size:
+            raise ValueError(
+                f"a transposed convolution of kernel {kh}, stride {sh} and padding {ph} gives "
+                f"{out_rows} rows of an image of {h * rows.size}, not the {rows.size} x "
+                f"{sh * h} of its H shards: it does not split over the spatial axis")
         # Output row o reads input rows (o + p - k + 1) / s ... (o + p) / s.
         top, bottom = max((kh - 1 - ph) // sh, 0), max((ph + sh - 1) // sh, 0)
         y = F.conv_transpose2d(spatial.halo(input, 2, top, bottom), weight, bias, (sh, sw),
@@ -138,10 +165,28 @@ def _max_pool2d(input, kernel_size, stride=None, padding=0, dilation=1, ceil_mod
     if ceil_mode or return_indices or _pair(dilation)[0] != 1:
         raise NotImplementedError("a max-pool with ceil_mode, indices or a dilation on an "
                                   "H shard")
-    h = _shard_height(input, s[0])
+    total = input.shape[2] * rows.size
+    h = _shard_height(input, "max-pool", k[0], s[0], p[0], (total + 2 * p[0] - k[0]) // s[0] + 1)
     y = F.max_pool2d(spatial.halo(input, 2, p[0], max(k[0] - s[0] - p[0], 0), -math.inf),
                      k, s, (0, p[1]))
     return y if y.shape[2] == h // s[0] else y[:, :, :h // s[0]]
+
+
+def _avg_pool2d(input, kernel_size, stride=None, padding=0, ceil_mode=False,
+                count_include_pad=True, divisor_override=None):
+    rows = spatial.axis()
+    if rows is None:
+        return F.avg_pool2d(input, kernel_size, stride, padding, ceil_mode, count_include_pad,
+                            divisor_override)
+    k = _pair(kernel_size)
+    s = _pair(stride) if stride else k
+    p = _pair(padding)
+    if s[0] != 1 or p[0] != 0 or ceil_mode:
+        raise NotImplementedError(f"an average pool of stride {s[0]} and padding {p[0]} along "
+                                  "H on an H shard: only a VALID window (stride 1, no "
+                                  "padding) is ported")
+    return F.avg_pool2d(spatial.halo(input, 2, 0, k[0] - 1, fill=None), k, (1, s[1]),
+                        (0, p[1]), ceil_mode, count_include_pad, divisor_override)
 
 
 def _batch_norm(input, running_mean, running_var, weight=None, bias=None, training=False,
@@ -175,9 +220,10 @@ def _pad(input, pad, mode="constant", value=None):
 
 
 _RULES = {F.conv2d: _conv2d, F.conv_transpose2d: _conv_transpose2d,
-          F.max_pool2d: _max_pool2d, F.batch_norm: _batch_norm, F.pad: _pad}
+          F.max_pool2d: _max_pool2d, F.avg_pool2d: _avg_pool2d, F.batch_norm: _batch_norm,
+          F.pad: _pad}
 _SPATIAL_REFUSED = {f: _refused(f.__name__) for f in (
-    F.interpolate, F.adaptive_avg_pool2d, F.adaptive_max_pool2d, F.avg_pool2d)}
+    F.interpolate, F.adaptive_avg_pool2d, F.adaptive_max_pool2d)}
 
 
 class ShardedOps(TorchFunctionMode):

@@ -29,6 +29,14 @@ loss, a best-by-PSNR checkpoint of the whole router and one every 5 epochs;
 - Mixed precision is autocast in `cuda.compute_dtype` around the forward
   and the loss, with f32 parameters and BN statistics. Validation is not
   averaged across processes, as in the JAX package's joint trainer.
+- The three steps run as they are through parallel/data_parallel.py's
+  `shard_train_step` and `shard_eval_step` on a mesh with `data`,
+  `spatial` (H split) and `model` (the branches' 4c stages split) axes, as
+  the JAX package's jitted steps run over theirs: the augmentation's flip
+  and gray mean, the loss nets and the metrics take the shards
+  (data/augment.py, losses/, ops/image.py). `cuda.remat` is refused there:
+  a checkpointed forward recomputes in the backward, outside the sharding
+  contexts on the card's autograd thread.
 
 Entry points run on the card unless the caller passes device="cpu".
 """
@@ -109,14 +117,14 @@ def _step_metrics(comps, dehazed, clear):
     return out
 
 
-def _refuse_sharded_mesh() -> None:
-    """The joint steps take no spatial or model mesh yet: the loss nets
-    (VGG, LPIPS, SSIM's window) and the augmentation's flips and crops cross
-    the shards."""
-    what = ("the joint step (its loss nets and augmentation cross the shards; "
-            "the data axis alone is ported)")
-    spatial.refuse(what)
-    sharding.refuse(what)
+def _refuse_remat_on_a_mesh(remat) -> None:
+    """A checkpointed forward recomputes in the backward, which the card's
+    autograd engine runs on a thread of its own, outside the sharding
+    contexts: refused on a spatial or model mesh."""
+    if remat:
+        what = f"the joint step with cuda.remat {remat!r}"
+        spatial.refuse(what)
+        sharding.refuse(what)
 
 
 def make_train_step(joint_loss, loss_params, augmentation: bool = True, remat=False,
@@ -127,7 +135,7 @@ def make_train_step(joint_loss, loss_params, augmentation: bool = True, remat=Fa
     autocast, backward, one Adam step. `generator` (on the batch's device)
     feeds the augmentation and the dropouts."""
     def step(state: TrainState, batch, generator=None):
-        _refuse_sharded_mesh()
+        _refuse_remat_on_a_mesh(remat)
         if augmentation:
             batch = augment_triplet(generator, batch)
         router = state.module
@@ -154,7 +162,6 @@ def make_hard_branch_step(joint_loss, loss_params, augmentation: bool = True,
     own intensity's stream: the dehazing part of the JointLoss (no logits,
     so no CE term); otherwise as `make_train_step`."""
     def step(state: TrainState, batch, generator=None):
-        _refuse_sharded_mesh()
         if augmentation:
             batch = augment_triplet(generator, batch)
         with autocast(batch["hazy"].device, dtype):
@@ -175,7 +182,6 @@ def make_eval_step(joint_loss, loss_params, dtype: torch.dtype = torch.float32):
     over the batch's valid rows, the router in eval mode."""
     @torch.no_grad()
     def step(state: TrainState, batch):
-        _refuse_sharded_mesh()
         state.module.eval()
         dev = batch["hazy"].device
         with autocast(dev, dtype):

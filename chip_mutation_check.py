@@ -32,10 +32,17 @@ seeded weights with perturbed BN, inputs drawn non-negative like the real
 activations.
 
 K2 on an H shard (parallel/spatial.py) fills its maps' halo rows between its two launches, in
-Python (ops/kernels/cbam.py:channel_spatial_gate_sharded). PY_MUTATIONS breaks that line in a copy
-of the package, and two gloo ranks on the card (this script's HALO_RANK, run from the copy) each
-compute K2 on their half of the rows of 4 x 64^2 x 384 in bf16 against the gate kernel on the
-whole image, at HALO_RTOL, beside the same ranks on the unchanged package.
+Python (ops/kernels/cbam.py:channel_spatial_gate_sharded); K3, K4 and K6 on an H shard take their
+halos, reduce their channel partials over the group and fill their maps' halo rows between their
+launches (ops/kernels/tail_chain.py, res_chain.py). PY_MUTATIONS breaks one such line at a time in
+a copy of the package, and two gloo ranks on the card, run from the copy, measure it beside the
+same ranks on the unchanged package: HALO_RANK computes K2 on their half of the rows of 4 x 64^2 x
+384 in bf16 against the gate kernel on the whole image, at HALO_RTOL; TUNED_RANK runs the medium
+branch's tail_chain apply (K3) and the high branch's res_e2b_tail_chain apply (K6, K4 and K2') at
+the default widths, fp32, on 2 x 256^2 through make_spatial_infer against the same apply on the
+whole image, and K6 alone on the high e2b segment (2 x 64^2 x 384, in units of max|whole|), at
+TUNED_ATOL (chip_smoke.py phase 22 (c)'s fp32 bound, which holds the same two readings). `python3
+chip_mutation_check.py python` runs these alone.
 """
 import json
 import os
@@ -208,9 +215,33 @@ BLIND_SPOTS = ("activation rounded before the spatial gate (K2's pass)",)
 # Python that the two-rank K2 halo case reads.
 PY_MUTATIONS = {
     "the maps' halo rows not filled (K2 on an H shard)": (
-        "ops/kernels/cbam.py",
-        "        maps = Halo.apply(maps[:, :, _HALO:-_HALO], 2, _HALO, _HALO, 0.0, rows)\n",
-        "        pass\n"),
+        "halo", "ops/kernels/cbam.py",
+        "        maps = fill_map_halo(maps, rows)\n    if grad:", "        pass\n    if grad:"),
+    "a halo row short before K3's convolutions": (
+        "tuned", "ops/kernels/tail_chain.py", "MEDIUM_TAIL_RADIUS = 3\n",
+        "MEDIUM_TAIL_RADIUS = 2\n"),
+    "a halo row short before K4's trunk front": (
+        "tuned", "ops/kernels/tail_chain.py", "HIGH_FRONT_RADIUS = 2\n",
+        "HIGH_FRONT_RADIUS = 1\n"),
+    "a halo row short before K4's heads and guidance": (
+        "tuned", "ops/kernels/tail_chain.py", "HIGH_HEAD_RADIUS = 3\n", "HIGH_HEAD_RADIUS = 2\n"),
+    "a halo row short before a run of K6's res blocks": (
+        "tuned", "ops/kernels/res_chain.py", "spatial.taller(b, 1, 2 * count)",
+        "spatial.taller(b, 1, 2 * count - 1)"),
+    "K4's attention partials left unreduced": (
+        "tuned", "ops/kernels/tail_chain.py",
+        "        partial = reduce_partials(partial, rows)\n        pixels *= rows.size\n",
+        "        pixels *= rows.size\n"),
+    "K2''s map halo left unfilled inside K4": (
+        "tuned", "ops/kernels/tail_chain.py",
+        "        maps = fill_map_halo(maps, rows)\n    launch_spatial_gate",
+        "        pass\n    launch_spatial_gate"),
+    "K6's attention partials left unreduced": (
+        "tuned", "ops/kernels/res_chain.py",
+        "            partial = reduce_partials(partial, rows)\n", "            pass\n"),
+    "K2's map halo left unfilled inside K6": (
+        "tuned", "ops/kernels/res_chain.py",
+        "            maps = fill_map_halo(maps, rows)\n", "            pass\n"),
 }
 # K2 on two H shards against the kernel on the whole image: they compute the same
 # maps and gates per pixel, so one bf16 step of the largest output at most.
@@ -244,6 +275,65 @@ dist.destroy_process_group()
 err = float((part.float() - whole[:, rows].float()).abs().max())
 print(json.dumps(err / max(1.0, float(whole.float().abs().max()))))
 """
+
+
+# The tuned applies on two H shards against the whole image, fp32: chip_smoke.py
+# phase 22 (c)'s bound.
+TUNED_ATOL = 1e-5
+# One rank of the tuned case: python3 -c TUNED_RANK REPO RANK PORT, from the root of
+# the package to measure; prints its largest absolute error.
+TUNED_RANK = """
+import json, sys
+from pathlib import Path
+import torch
+import torch.distributed as dist
+from adam_dehaze_tpu_torch.ops.kernels import _build
+repo, rank, port = Path(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+_build.CSRC, _build.BUILD_ROOT = repo / "adam_dehaze_tpu_torch" / "csrc", repo / "build" / "kernels"
+from adam_dehaze_tpu_torch.models.branches import HighIntensityDehazeModel, MediumIntensityDehazeModel
+from adam_dehaze_tpu_torch.nn.blocks import init_params_
+from adam_dehaze_tpu_torch.ops.serving_apply import make_high_chain_apply, make_medium_tail_apply
+from adam_dehaze_tpu_torch.parallel.mesh import make_mesh
+from adam_dehaze_tpu_torch.parallel.spatial import make_spatial_infer, shard_image_batch
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank)
+mesh = make_mesh({"spatial": 2}, [dev, dev])
+gen = torch.Generator().manual_seed(0)
+medium, high = (init_params_(cls(c), gen).eval() for cls, c in
+                ((MediumIntensityDehazeModel, 64), (HighIntensityDehazeModel, 96)))
+with torch.no_grad():
+    for m in list(medium.modules()) + list(high.modules()):
+        if isinstance(m, torch.nn.BatchNorm2d):
+            m.running_mean.uniform_(-0.2, 0.2, generator=gen)
+            m.running_var.uniform_(0.8, 1.3, generator=gen)
+x = torch.rand(2, 256, 256, 3, generator=gen).to(dev)
+err = 0.0
+for apply in (make_medium_tail_apply(medium.to(dev), torch.float32),
+              make_high_chain_apply(high.to(dev), torch.float32, res_chain=("e2b",),
+                                    tail_chain=True)):
+    with torch.inference_mode():
+        whole = apply(x)
+        part = make_spatial_infer(apply, mesh)(shard_image_batch(mesh, x))
+    err = max(err, float((part - whole[:, 128 * rank:128 * rank + 128]).abs().max()))
+# K6 alone on the high branch's e2b segment, in units of max|whole|.
+from adam_dehaze_tpu_torch.ops.kernels.res_chain import fold_res_attn_chain, res_attn_chain, segment_blocks
+from adam_dehaze_tpu_torch.parallel.spatial import spatial_sharding
+weights = fold_res_attn_chain(segment_blocks(high, "e2b"), torch.float32)
+seg = torch.relu(torch.randn(2, 64, 64, 384, generator=gen)).to(dev)
+with torch.inference_mode():
+    whole = res_attn_chain(seg, weights)
+    with spatial_sharding(mesh):
+        part = res_attn_chain(seg[:, 32 * rank:32 * rank + 32].contiguous(), weights)
+err = max(err, float((part - whole[:, 32 * rank:32 * rank + 32]).abs().max())
+          / float(whole.abs().max()))
+torch.cuda.synchronize()
+dist.destroy_process_group()
+print(json.dumps(err))
+"""
+CASES = {"halo": (HALO_RANK, HALO_RTOL), "tuned": (TUNED_RANK, TUNED_ATOL)}
 
 
 def perturb_bn_(module, gen):
@@ -358,14 +448,15 @@ def use_sources(csrc: Path):
     _build.library.cache_clear()
 
 
-def halo_error(package_root: Path) -> float:
-    """The K2 halo case's error (the larger of its two ranks') with the
+def case_error(case: str, package_root: Path) -> float:
+    """The error of a two-rank case (the larger of its ranks') with the
     package under `package_root`."""
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
     repo = Path(__file__).resolve().parent
-    procs = [subprocess.Popen([sys.executable, "-c", HALO_RANK, str(repo), str(rank), str(port)],
+    procs = [subprocess.Popen([sys.executable, "-c", CASES[case][0], str(repo), str(rank),
+                               str(port)],
                               cwd=package_root, env={**os.environ, "PYTHONPATH": ""},
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
              for rank in (0, 1)]
@@ -378,33 +469,35 @@ def halo_error(package_root: Path) -> float:
                 p.wait()
     for p, log in zip(procs, logs):
         if p.returncode != 0:
-            raise SystemExit(f"the K2 halo case failed:\n{log}")
+            raise SystemExit(f"the {case} case failed:\n{log}")
     return max(json.loads(log.strip().splitlines()[-1]) for log in logs)
 
 
 def python_mutations(failed):
-    """Each of PY_MUTATIONS in a copy of the package, measured by the K2
-    halo case beside the unchanged package."""
+    """Each of PY_MUTATIONS in a copy of the package, measured by its case
+    beside the unchanged package."""
     repo = Path(__file__).resolve().parent
-    unchanged = halo_error(repo)
-    print(f"K2 on two H shards of {BATCH} x 64^2 x 384, bf16, against the gate kernel on the "
-          f"whole image (in units of max|whole|, bound {HALO_RTOL:.3e}): unchanged "
-          f"{unchanged:.3e}", flush=True)
-    if unchanged > HALO_RTOL:
-        failed.append(f"the unchanged K2 halo case exceeds the bound: {unchanged}")
+    for case, (_, bound) in CASES.items():
+        unchanged = case_error(case, repo)
+        print(f"{case} case unchanged: {unchanged:.3e} (bound {bound:.3e}); K2 on two H shards "
+              f"of {BATCH} x 64^2 x 384, bf16, in units of max|whole| (halo); the tuned applies "
+              "on two H shards of 2 x 256^2, fp32, max abs err, and K6 alone on 2 x 64^2 x 384 "
+              "in units of max|whole| (tuned)", flush=True)
+        if unchanged > bound:
+            failed.append(f"the unchanged {case} case exceeds its bound: {unchanged}")
     with tempfile.TemporaryDirectory() as tmp:
-        for i, (name, (fname, old, new)) in enumerate(PY_MUTATIONS.items()):
+        for i, (name, (case, fname, old, new)) in enumerate(PY_MUTATIONS.items()):
             root = Path(tmp) / f"p{i}"
             shutil.copytree(repo / "adam_dehaze_tpu_torch", root / "adam_dehaze_tpu_torch",
                             ignore=shutil.ignore_patterns("__pycache__"))
             path = root / "adam_dehaze_tpu_torch" / fname
             text = path.read_text()
-            if old not in text:
-                raise AssertionError(f"mutation {name!r}: its text is not in {fname}")
+            if text.count(old) != 1:
+                raise AssertionError(f"mutation {name!r}: its text is not once in {fname}")
             path.write_text(text.replace(old, new))
-            err = halo_error(root)
-            print(f"  {name}: {err:.3e}", flush=True)
-            if err <= HALO_RTOL:
+            err = case_error(case, root)
+            print(f"  {name} ({case}): {err:.3e}", flush=True)
+            if err <= CASES[case][1]:
                 failed.append(f"{name}: not caught ({err})")
 
 
@@ -417,6 +510,14 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0], flush=True)
+    if sys.argv[1:] == ["python"]:
+        _build.library()
+        py_failed = []
+        python_mutations(py_failed)
+        if py_failed:
+            raise SystemExit("mutation check failed: " + "; ".join(py_failed))
+        print("every Python mutation is caught by its case's bound", flush=True)
+        return
     dev = torch.device("cuda")
     cases = make_cases(dev, torch.Generator().manual_seed(SEED))
     original = _build.CSRC

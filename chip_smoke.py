@@ -300,20 +300,42 @@ Phases, in order; any failure raises and the script exits non-zero:
    against the single-process step, at phase 20's bounds. Prints each
    error, launch count and warm ms/image beside the card's name and power
    limit; one card holds every rank, so nothing here shows scaling.
-22. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
+22. The joint steps and the tuned kernels on shards (`[joint sharded]`,
+   `[dryrun]` and `[tuned spatial]` lines) on one card, each part's ranks
+   in gloo groups on cuda:0, held against the one-process call on the same
+   card. (a) The soft joint step (augmentation off, dropout on) of the
+   seeded default router, 16 images at 256^2, through `shard_train_step`
+   over {"spatial": 2} (this script with `--joint-rank joint`), fp32 with
+   TF32 off and bf16 autocast, against the unsharded step (JOINT_BOUNDS:
+   fp32 at phase 20's bounds), then its eval step's PSNR and SSIM
+   (EVAL_ATOL); K2 and K5 launch on each rank as often as unsharded. (b)
+   `python -m adam_dehaze_tpu_torch.parallel.dryrun --devices 8`: data 2 x
+   spatial 2 x model 2 on 8 ranks, every section OK on every rank, K2's
+   and K5's launches in each rank's step. (c) `route_hard` of the seeded
+   default router (its head set so that 4 images at 512^2 go to low,
+   medium, high, low) under the tuned dispatch TUNED_FORCED, from a cache
+   keyed by the whole image's shape, through `make_spatial_infer` over
+   {"spatial": 2} (`--joint-rank tuned`), bf16 and fp32, and K6 alone on
+   the high e2b segment on the same shards: within TUNED_ATOL, the labels
+   equal, K1, K2, K2', K3, K4 and K6 launched on each rank as often as
+   unsharded. (a) runs alone, then (b) beside (c). Prints each error,
+   launch count and warm ms/image beside the card's name and power limit;
+   one card holds every rank, so nothing here shows scaling.
+23. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
    with "training", "classifier_training", "joint_training", "detection",
    "cli", "lowres", "alternate", "precompiled", "int8", "parallel",
-   "spatial" and "tp"; K5's
+   "spatial", "tp", "joint_sharded", "dryrun" and "tuned_spatial"; K5's
    and K2''s Function readings under "function"; each lowres kernel's
    readings at 128^2 under "lowres", K2's at the alternate branches'
    shapes under "alternate"; the CLI's, the dial's, the alternates',
-   precompiled serving's and parallel/'s readings under "cli", "lowres",
-   "alternate", "precompiled" and "parallel") and, last, {"ok": true,
-   "device": ...}.
+   precompiled serving's, parallel/'s and phase 22's readings under "cli",
+   "lowres", "alternate", "precompiled", "parallel", "sharded" and
+   "joint_sharded") and, last, {"ok": true, "device": ...}.
 """
 import collections
 import contextlib
 import copy
+import gc
 import json
 import os
 import shutil
@@ -396,6 +418,7 @@ from adam_dehaze_tpu_torch.ops.kernels.res_chain import (
     launches_of,
     res_attn_chain,
     res_attn_chain_reference,
+    segment_blocks,
 )
 from adam_dehaze_tpu_torch.ops.kernels.tail_chain import (
     HIGH_TAIL_LAUNCHES,
@@ -420,7 +443,7 @@ from adam_dehaze_tpu_torch.ops.kernels.quant import (
 from adam_dehaze_tpu_torch.ops.quant import Int8Conv2d, quantize_weight_per_channel
 from adam_dehaze_tpu_torch.ops.serving_apply import cast_for_serving
 from adam_dehaze_tpu_torch.parallel import multihost
-from adam_dehaze_tpu_torch.parallel.data_parallel import shard_train_step
+from adam_dehaze_tpu_torch.parallel.data_parallel import shard_eval_step, shard_train_step
 from adam_dehaze_tpu_torch.parallel.expert_parallel import ExpertParallelRouter
 from adam_dehaze_tpu_torch.parallel.mesh import make_mesh, replicate
 from adam_dehaze_tpu_torch.parallel.pipeline import TwoStagePipeline
@@ -3695,9 +3718,12 @@ def spawn_ranks(tmp):
     return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True) for r in (0, 1)]
 
 
-def dp_errors(got, want, what, smi, tag="parallel"):
+def dp_errors(got, want, what, smi, tag="parallel",
+              bounds=(STEP_LOSS_RTOL, STEP_GRAD_RTOL, DP_STATS_RTOL)):
     """A data-parallel step against the single-process one (see
-    DP_STATS_RTOL): checked, logged, returned."""
+    DP_STATS_RTOL; `bounds` the loss's, the gradients' and the BN
+    statistics'): checked, logged, returned."""
+    loss_rtol, grad_rtol, stats_rtol = bounds
     loss = abs(got["metrics"]["total"] - want["metrics"]["total"]) / abs(want["metrics"]["total"])
     g_max = max(float(g.abs().max()) for g in want["grads"].values())
     check(set(got["grads"]) == set(want["grads"]), f"{what}: other tensors have a gradient")
@@ -3713,16 +3739,16 @@ def dp_errors(got, want, what, smi, tag="parallel"):
                 grad_own_max=own[worst["own"]], stats_rel=stats[worst["stats"]],
                 metrics={k: (got["metrics"][k], want["metrics"][k]) for k in want["metrics"]})
     log(f"[{tag}] {what} vs the single-process step: loss {got['metrics']['total']:.7f} vs "
-        f"{want['metrics']['total']:.7f} (rel err {loss:.2e}, bound {STEP_LOSS_RTOL}); "
+        f"{want['metrics']['total']:.7f} (rel err {loss:.2e}, bound {loss_rtol}); "
         f"{len(grad)} gradients, largest error {errs['grad_of_max']:.2e} of the router's "
-        f"max|g| ({worst['grad']}; bound {STEP_GRAD_RTOL}), in its own units at most "
+        f"max|g| ({worst['grad']}; bound {grad_rtol}), in its own units at most "
         f"{errs['grad_own_max']:.2e} ({worst['own']}; a reading); {len(stats)} BN "
         f"statistics, at most {errs['stats_rel']:.2e} of their BN's scale ({worst['stats']}; "
-        f"bound {DP_STATS_RTOL}); {smi}")
-    check(loss <= STEP_LOSS_RTOL, f"{what}: the loss differs from the single-process step's")
-    check(errs["grad_of_max"] <= STEP_GRAD_RTOL,
+        f"bound {stats_rtol}); {smi}")
+    check(loss <= loss_rtol, f"{what}: the loss differs from the single-process step's")
+    check(errs["grad_of_max"] <= grad_rtol,
           f"{what}: the gradient of {worst['grad']} differs from the single-process step's")
-    check(errs["stats_rel"] <= DP_STATS_RTOL,
+    check(errs["stats_rel"] <= stats_rtol,
           f"{what}: the BN statistic {worst['stats']} differs from the single-process step's")
     return errs
 
@@ -4157,6 +4183,341 @@ def phase_sharded(dev, smi, tmp):
     return dict(spatial_path), dict(tp_path), readings
 
 
+# The joint phase on shards (training/train_joint.py over parallel/): (a)
+# the soft joint step at full width over {"spatial": 2}, (b) the port's
+# dryrun_multichip(8), (c) the tuned route over {"spatial": 2}; every part's
+# ranks in gloo groups on cuda:0 (this script with `--joint-rank`, the
+# dryrun's own launcher), held against the one-process call on the same
+# card. One card holds every rank, so nothing here shows scaling.
+JOINT_ROWS = 16
+TUNED_SIZE = 512
+TUNED_LABELS = (0, 1, 2, 0)
+# The tuned dispatch of (c): every tuned kernel on the path, K3 (medium
+# tail_chain), K6, K4 and K2' (high res_e2b_tail_chain), K1 (low chain).
+TUNED_FORCED = {"low": "chain", "medium": "tail_chain", "high": "res_e2b_tail_chain"}
+TUNED_PATH_KERNELS = ("lightweight_chain", "cbam_gate", "spatial_gate", "medium_tail_chain",
+                      "high_tail_chain", "res_attn_chain")
+JOINT_SHARDED_PATH_KERNELS = ("cbam_gate", "blend3")
+# (c) sharded against unsharded: fp32 as the tuned kernels' plain versions
+# on shards meet on the CPU (the same sums a pixel) with room for the
+# channel reductions' other order; bf16 two bf16 steps of a [0, 1] value:
+# the shards' canonical layers (cuDNN picks its algorithms by shape) and
+# K4's and K6's channel sums in another order each move a bf16 rounding (an
+# H100 80GB HBM3 at 700 W read 4.216e-3, 1.08 steps, on this route).
+TUNED_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# (a): fp32 at phase 20's bounds (loss, gradients of the largest, BN
+# statistics of their scale). bf16 autocast sums in other orders on a
+# shard (cuDNN picks its algorithms by shape), so each bf16 result may move
+# by a bf16 rounding: the loss within 1e-3, the gradients within GRAD_TOL's
+# bf16 3e-2 of the largest, the BN statistics within one bf16 step (2^-8)
+# of their scale.
+JOINT_BOUNDS = {"float32": (STEP_LOSS_RTOL, STEP_GRAD_RTOL, DP_STATS_RTOL),
+                "bfloat16": (1e-3, GRAD_TOL[torch.bfloat16], 2.0 ** -8)}
+# (a)'s eval step: PSNR in dB and SSIM of the sharded step against the
+# unsharded one.
+EVAL_ATOL = {"float32": {"psnr": 1e-3, "ssim": 1e-4},
+             "bfloat16": {"psnr": 1e-2, "ssim": 1e-3}}
+DRYRUN_DEVICES = 8
+DRYRUN_TIMEOUT_S = 300
+
+
+def joint_sharded_step(dev, dtype_name, mesh=None):
+    """The soft joint step (augmentation off, dropout on) of the seeded
+    default router on JOINT_ROWS images at SIZE^2 in `dtype_name`, then its
+    eval step on the same batch; through shard_train_step / shard_eval_step
+    when a mesh is given. Returns the step's metrics, gradients and BN
+    statistics (on the CPU), its launches and the eval step's psnr and ssim."""
+    cfg = load_config(overrides={"cuda": {"compute_dtype": dtype_name}})
+    cfg["classifier"]["checkpoint_dir"] = cfg["dehazing"]["checkpoint_dir"] = "absent"
+    dtype = getattr(torch, dtype_name)
+    router, state = tj.build_router_state(cfg, dev)
+    joint_loss = get_joint_loss(cfg)
+    nets = tj._loss_params(joint_loss, dev)
+    batch = dp_batch(dev)
+    step = tj.make_train_step(joint_loss, nets, augmentation=False, dtype=dtype)
+    eval_step = tj.make_eval_step(joint_loss, nets, dtype)
+    if mesh is not None:
+        replicate(mesh, state)
+        step = shard_train_step(step, mesh, batch)
+        eval_step = shard_eval_step(eval_step, mesh, batch)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 26)
+    reset_launch_counts()
+    metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    launches = counts()
+    out = {"metrics": {k: float(v) for k, v in metrics.items()},
+           "grads": {n: p.grad.detach().cpu() for n, p in router.named_parameters()
+                     if p.grad is not None},
+           "stats": {k: v.detach().cpu() for k, v in router.state_dict().items()
+                     if "running" in k}}
+    evaluated = eval_step(state, batch)
+    out["eval"] = {k: float(evaluated[k]) for k in ("psnr", "ssim")}
+    return out, launches
+
+
+def k6_on_shards(high, dev, mesh, dtype):
+    """K6 on the high branch's e2b segment at (c)'s shape (2 images of
+    TUNED_SIZE/4 rows, 4c channels, non-negative like the real
+    activations): this rank's rows through spatial_sharding against the
+    whole image, in units of max|whole| (K6's output is not clipped)."""
+    from adam_dehaze_tpu_torch.parallel.spatial import spatial_sharding
+    weights = fold_res_attn_chain(segment_blocks(high, "e2b"), dtype)
+    side = TUNED_SIZE // 4
+    x = torch.relu(torch.randn(2, side, side, weights.channels,
+                               generator=torch.Generator().manual_seed(SEED + 29))).to(dev)
+    rows = mesh.axis("spatial")
+    part = slice(rows.index * side // rows.size, (rows.index + 1) * side // rows.size)
+    with torch.inference_mode():
+        whole = res_attn_chain(x, weights)
+        with spatial_sharding(mesh):
+            got = res_attn_chain(x[:, part].contiguous(), weights)
+    return max_err(got.float(), whole[:, part].float()) / float(whole.float().abs().max())
+
+
+def tuned_cache(router, dev, dtype, path):
+    """A serving autotune cache at (16, TUNED_SIZE, TUNED_SIZE, 3) whose
+    winners are TUNED_FORCED, each timed there once (its table's only
+    entry): what the ranks of (c) serve from, the unsharded image's key."""
+    from adam_dehaze_tpu_torch import serving_autotune as sa
+    shape = (16, TUNED_SIZE, TUNED_SIZE, 3)
+    cache = {}
+    for level in INTENSITY_ORDER:
+        model = router.models[level]
+        name = TUNED_FORCED[level]
+        builders = sa.candidate_builders(model, dtype, shape)
+        check(name in builders, f"(c) {level}: {name} is not offered at {shape}")
+        best, table, _ = sa.autotune(model, dtype, shape, iters=2, warm=1,
+                                     candidates={name: builders[name]})
+        cache[sa._cache_key(model, dtype, shape)] = {"best": best, "table": table}
+    with open(path, "w") as f:
+        json.dump(cache, f)
+
+
+def tuned_dehazer(router, dev, dtype_name, cache_path):
+    cfg = load_config(overrides={"cuda": {"compute_dtype": dtype_name}})
+    cfg["dataset"]["img_size"] = TUNED_SIZE
+    d = AdaptiveDehazer(router, None, cfg, device=dev, autotune=True, autotune_cache=cache_path)
+    check({lvl: r["best"] for lvl, r in d.autotune_report.items()} == TUNED_FORCED
+          and all(r["cached"] for r in d.autotune_report.values()),
+          f"(c) the dehazer did not serve the tuned cache: {d.autotune_report}")
+    return d
+
+
+def joint_rank(part, rank, world, port, out_dir, dev=None):
+    """One rank of phase 22: `python3 chip_smoke.py --joint-rank PART RANK
+    WORLD PORT OUT_DIR`. PART "joint" runs (a), "tuned" (c), each on 2 ranks
+    over {"spatial": 2}; `dev` is cuda:0 (another only to rehearse)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dev or torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    # Every rank drives the one card: gloo over CUDA tensors (NCCL refuses
+    # two ranks on one device), a choice made for one card.
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                         world_size=world, rank=rank)
+    try:
+        mesh = make_mesh({"data": 1, "spatial": 2}, [dev] * 2)
+        out = {}
+        if part == "joint":
+            for name in ("float32", "bfloat16"):
+                out[name] = joint_sharded_step(dev, name, mesh)
+        else:
+            state = torch.load(os.path.join(out_dir, "tuned_state.pt"), weights_only=True)
+            router = make_router(load_config(), torch.Generator().manual_seed(SEED + 27))
+            router.load_state_dict(state["router"])
+            router.to(dev).eval()
+            x = state["x"].to(dev)
+            for name in ("bfloat16", "float32"):
+                d = tuned_dehazer(router, dev, name, os.path.join(out_dir, f"tuned_{name}.json"))
+                out[name] = route_call(d, x, mesh)
+                del d
+                out[f"k6_{name}"] = k6_on_shards(router.models["high"], dev, mesh,
+                                                 getattr(torch, name))
+        torch.save(out, os.path.join(out_dir, f"{part}{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def _run_all(procs, timeout):
+    """Wait for every process of {name: [Popen]}; their outputs by name."""
+    try:
+        return {name: [p.communicate(timeout=timeout)[0] for p in ps]
+                for name, ps in procs.items()}
+    finally:
+        for p in (p for ps in procs.values() for p in ps):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _joint_ranks(part, out_dir):
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--joint-rank", part, str(rank), "2",
+         str(port), out_dir],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+
+
+def spawn_joint(out_dir):
+    """(a)'s 2 ranks alone (the full-width train step takes some 20 GB a
+    rank), then (c)'s 2 ranks beside the dryrun's 8: what the ranks of (a)
+    and (c) saved, by part, and the dryrun's output."""
+    procs = {"joint": _joint_ranks("joint", out_dir)}
+    logs = _run_all(procs, DRYRUN_TIMEOUT_S)
+    procs2 = {"tuned": _joint_ranks("tuned", out_dir), "dryrun": [subprocess.Popen(
+        [sys.executable, "-m", "adam_dehaze_tpu_torch.parallel.dryrun", "--devices",
+         str(DRYRUN_DEVICES)], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]}
+    logs.update(_run_all(procs2, DRYRUN_TIMEOUT_S))
+    procs.update(procs2)
+    failed = [f"{name} process {i} failed:\n{text[-6000:]}"
+              for name, ps in procs.items()
+              for i, (p, text) in enumerate(zip(ps, logs[name])) if p.returncode != 0]
+    check(not failed, "\n".join(failed))
+    return ({part: [torch.load(os.path.join(out_dir, f"{part}{r}.pt"), weights_only=False)
+                    for r in range(2)] for part in ("joint", "tuned")}, logs["dryrun"][0])
+
+
+def dryrun_launches(log):
+    """Each rank's launches in the dryrun's step, from its OK lines."""
+    import ast
+    import re
+    return {int(rank): ast.literal_eval(launches) for rank, launches in re.findall(
+        r"dryrun_multichip OK on mesh .*?, rank (\d+): .*?launches in the step (\{[^}]*\})",
+        log)}
+
+
+def phase_joint_sharded(dev, smi, tmp):
+    """22. The joint steps, the dryrun and the tuned kernels on shards (see
+    the docstring). Returns the paths' launch counts and the readings."""
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(tmp, "joint_sharded")
+    os.makedirs(out_dir)
+    readings = {}
+    joint_path, tuned_path, dryrun_path = (collections.Counter() for _ in range(3))
+    # The one-process references first, alone on the card.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ref = {name: joint_sharded_step(dev, name) for name in ("float32", "bfloat16")}
+    torch.cuda.empty_cache()
+    gen = torch.Generator().manual_seed(SEED + 27)
+    router = make_router(load_config(), gen)
+    x = torch.from_numpy(np.random.default_rng(SEED + 28).random(
+        (len(TUNED_LABELS), TUNED_SIZE, TUNED_SIZE, 3), dtype=np.float32))
+    router.to(dev)
+    balance_head_(router.classifier, x.to(dev), TUNED_LABELS)
+    torch.save({"router": {k: v.cpu() for k, v in router.state_dict().items()}, "x": x},
+               os.path.join(out_dir, "tuned_state.pt"))
+    router.eval()
+    tuned_ref = {}
+    for name in ("bfloat16", "float32"):
+        path = os.path.join(out_dir, f"tuned_{name}.json")
+        tuned_cache(router, dev, getattr(torch, name), path)
+        d = tuned_dehazer(router, dev, name, path)
+        tuned_ref[name] = route_call(d, x.to(dev))
+        del d
+    del router
+    # The dehazers hold their serving copies in reference cycles: collect
+    # them before the ranks take the card.
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ranks, dryrun_log = spawn_joint(out_dir)
+
+    # (a) the soft joint step at full width over {"spatial": 2}.
+    for name in ("float32", "bfloat16"):
+        want, want_launches = ref[name]
+        errs = {}
+        for r, (got, launches) in enumerate(out[name] for out in ranks["joint"]):
+            joint_path.update(launches)
+            errs[f"rank{r}"] = dp_errors(
+                got, want, f"(a) soft joint step, {JOINT_ROWS} images at {SIZE}^2, {name}, "
+                f"spatial=2, rank {r}", smi, tag="joint sharded", bounds=JOINT_BOUNDS[name])
+            check({k: launches.get(k, 0) for k in JOINT_SHARDED_PATH_KERNELS}
+                  == {k: want_launches.get(k, 0) for k in JOINT_SHARDED_PATH_KERNELS},
+                  f"(a) {name} rank {r}: launches {nonzero(launches)}, unsharded "
+                  f"{nonzero(want_launches)}")
+            for k, bound in EVAL_ATOL[name].items():
+                err = abs(got["eval"][k] - want["eval"][k])
+                errs[f"rank{r}"][f"eval_{k}_err"] = err
+                check(err <= bound, f"(a) {name} rank {r}: eval {k} {got['eval'][k]} vs "
+                      f"{want['eval'][k]}")
+        readings[f"joint_{name}"] = dict(
+            errors=errs, launches_per_rank=[nonzero(out[name][1]) for out in ranks["joint"]],
+            unsharded_launches=nonzero(want_launches),
+            eval={"sharded": [out[name][0]["eval"] for out in ranks["joint"]],
+                  "unsharded": want["eval"]})
+        log(f"[joint sharded] (a) {name}: K2 and K5 launches a rank "
+            f"{[nonzero(out[name][1]) for out in ranks['joint']]}, unsharded "
+            f"{nonzero(want_launches)}; eval psnr/ssim a rank "
+            f"{[out[name][0]['eval'] for out in ranks['joint']]}, unsharded {want['eval']}; "
+            f"{smi}")
+
+    # (b) dryrun_multichip(8): data 2 x spatial 2 x model 2 on 8 ranks.
+    oks = [line for line in dryrun_log.splitlines() if line.startswith("dryrun_multichip")
+           and " OK" in line]
+    per_rank = dryrun_launches(dryrun_log)
+    check(len(oks) == 4 * DRYRUN_DEVICES and len(per_rank) == DRYRUN_DEVICES,
+          f"(b) dryrun_multichip({DRYRUN_DEVICES}): {len(oks)} OK lines\n{dryrun_log}")
+    for launches in per_rank.values():
+        dryrun_path.update(launches)
+        check(launches.get("cbam_gate", 0) > 0 and launches.get("blend3", 0) > 0,
+              f"(b) a rank's step launched {launches}")
+    readings["dryrun"] = dict(ok_lines=len(oks), launches_per_rank=per_rank)
+    for line in oks:
+        log(f"[dryrun] {line}")
+
+    # (c) route_hard under the tuned dispatch over {"spatial": 2} at 512^2,
+    # every reading logged before any check fails.
+    failed = []
+    for name in ("bfloat16", "float32"):
+        dtype = getattr(torch, name)
+        want, labels, launches, ms = tuned_ref[name]
+        check(labels == list(TUNED_LABELS), f"(c) the unsharded route's labels {labels}")
+        got = torch.cat([r[name][0] for r in ranks["tuned"]], 1)
+        err = max_err(got, want)
+        rank_launches = [nonzero(r[name][2]) for r in ranks["tuned"]]
+        for r in ranks["tuned"]:
+            tuned_path.update(r[name][2])
+            check(r[name][1] == labels, f"(c) {name}: a rank routed {r[name][1]}, unsharded "
+                  f"{labels}")
+        sharded_ms = [r[name][3] for r in ranks["tuned"]]
+        readings[f"tuned_{name}"] = dict(
+            max_abs_err=err, bound=TUNED_ATOL[dtype], launches_per_rank=rank_launches,
+            unsharded_launches=nonzero(launches), ms_per_image_per_rank=sharded_ms,
+            unsharded_ms_per_image=ms)
+        log(f"[tuned spatial] (c) route_hard, dispatch {TUNED_FORCED}, {name}, "
+            f"{len(TUNED_LABELS)} images at {TUNED_SIZE}^2 over spatial=2 (2 gloo ranks on "
+            f"cuda:0): labels {labels}; max abs err vs unsharded {err:.3e} (bound "
+            f"{TUNED_ATOL[dtype]:.3e}); launches a rank {rank_launches}, unsharded "
+            f"{nonzero(launches)}; warm ms/image a rank {sharded_ms[0]:.3f} / "
+            f"{sharded_ms[1]:.3f}, unsharded {ms:.3f}; {smi} (a reading: both ranks share the "
+            "card)")
+        failed += [f"(c) {name}: the sharded tuned route differs by {err}"] * (
+            err > TUNED_ATOL[dtype])
+        k6_errs = [r[f"k6_{name}"] for r in ranks["tuned"]]
+        readings[f"tuned_{name}"]["k6_e2b_err_of_max"] = k6_errs
+        log(f"[tuned spatial] (c) K6 on the high e2b segment, 2 x {TUNED_SIZE // 4}^2 x "
+            f"{4 * load_config()['dehazing']['high']['channels']}, {name}, a rank's rows "
+            f"against the whole image: {max(k6_errs):.3e} of max|whole| (bound "
+            f"{TUNED_ATOL[dtype]:.3e}); {smi}")
+        failed += [f"(c) {name}: K6 on shards differs by {k6_errs}"] * (
+            max(k6_errs) > TUNED_ATOL[dtype])
+        failed += [f"(c) {name}: a rank launched {got}, unsharded {nonzero(launches)}"
+                   for got in rank_launches
+                   if {k: got.get(k, 0) for k in TUNED_PATH_KERNELS}
+                   != {k: launches.get(k, 0) for k in TUNED_PATH_KERNELS}]
+    check(not failed, "; ".join(failed))
+    for k in TUNED_PATH_KERNELS:
+        check(tuned_path[k] > 0, f"the tuned spatial path launched no {k}")
+    for k in JOINT_SHARDED_PATH_KERNELS:
+        check(joint_path[k] > 0 and dryrun_path[k] > 0, f"phase 22 launched no {k}")
+    torch.cuda.empty_cache()
+    return dict(joint_path), dict(dryrun_path), dict(tuned_path), readings
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
@@ -4218,6 +4579,8 @@ def main():
                                                        exp)
         parallel_path, parallel_readings = timed("parallel", phase_parallel, dev, smi, tmp, x)
         spatial_path, tp_path, sharded_readings = timed("sharded", phase_sharded, dev, smi, tmp)
+        joint_sharded_path, dryrun_path, tuned_path, joint_sharded_readings = timed(
+            "joint sharded", phase_joint_sharded, dev, smi, tmp)
     for name in ("route_hard", "forced_labels", "soft"):
         log(f"[slices] {name}: default dispatch {default_ms[name]:.3f} ms/image, "
             f"tail-chain dispatch {tail_ms[name]:.3f} ms/image, res-chain dispatch "
@@ -4229,7 +4592,8 @@ def main():
              "joint_training": joint, "detection": detection, "cli": cli_path,
              "lowres": lowres_path, "alternate": alt_path, "precompiled": pre_path,
              "int8": int8_path, "parallel": parallel_path, "spatial": spatial_path,
-             "tp": tp_path}
+             "tp": tp_path, "joint_sharded": joint_sharded_path, "dryrun": dryrun_path,
+             "tuned_spatial": tuned_path}
     kernels["cbam_gate"].update(training_forward_ms_per_step=k2_train["forward_ms"],
                                 training_backward_ms_per_step=k2_train["backward_ms"])
     for name, rec in grad_fns.items():
@@ -4240,8 +4604,8 @@ def main():
     kernels.update(int8_kernels)
     line = {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
-         "launches": sum(path[name] for path in paths.values()),
-         "launches_by_path": {tag: path[name] for tag, path in paths.items()},
+         "launches": sum(path.get(name, 0) for path in paths.values()),
+         "launches_by_path": {tag: path.get(name, 0) for tag, path in paths.items()},
          **kernels[name]}
         for name, (route, source, replaces) in KERNELS.items()],
         "conv_layers": conv_layers, "autotune_ms_per_16_images": tables,
@@ -4254,7 +4618,8 @@ def main():
                      "joint": joint_readings},
         "detection": det_readings, "cli": cli_readings, "lowres": lowres_readings,
         "alternate": alt_readings, "precompiled": pre_readings, "int8": int8_readings,
-        "parallel": parallel_readings, "sharded": sharded_readings, "phase_seconds": seconds}
+        "parallel": parallel_readings, "sharded": sharded_readings,
+        "joint_sharded": joint_sharded_readings, "phase_seconds": seconds}
     check(all(k["launches"] > 0 for k in line["kernels"]),
           f"a kernel was launched no time on any path: {line['kernels']}")
     print(json.dumps(line), flush=True)
@@ -4268,5 +4633,7 @@ if __name__ == "__main__":
         parallel_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4])
     elif sys.argv[1:2] == ["--sharded-rank"]:
         sharded_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5], sys.argv[6])
+    elif sys.argv[1:2] == ["--joint-rank"]:
+        joint_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5], sys.argv[6])
     else:
         main()

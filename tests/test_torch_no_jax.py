@@ -39,8 +39,8 @@ def test_port_imports_no_jax_flax_or_triton():
     parallel, bad = rest.split("] ", 1)
     assert int(count) >= 24, proc.stdout
     assert parallel + "]" == str([f"adam_dehaze_tpu_torch.parallel.{m}" for m in (
-        "collectives", "data_parallel", "expert_parallel", "mesh", "multihost", "pipeline",
-        "sharded_ops", "sharding", "spatial")]), proc.stdout
+        "collectives", "data_parallel", "dryrun", "expert_parallel", "mesh", "multihost",
+        "pipeline", "sharded_ops", "sharding", "spatial")]), proc.stdout
     assert bad == "[]", bad
 
 

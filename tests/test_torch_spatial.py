@@ -21,9 +21,15 @@ The group also holds `route_hard` over the spatial mesh against the
 unsharded route (labels equal, outputs within 1e-5), the low branch's BN
 step (spatial) and the medium branch's step (model) in float64 against the
 single-process step within 1e-6, each exchange Function's gradient against
-autograd of the unsharded computation it stands for, and the refusals (the
-joint step under either axis, the tuned K6 dispatch and int8 serving on an
-H shard).
+autograd of the unsharded computation it stands for, the refusals that are
+left (int8 serving and the joint step under cuda.remat on an H shard), and,
+on 2 H shards against the
+unsharded calls: the tuned kernels' plain versions (K3, K6 on the medium
+and high segments with K4 and K2' after them, K2' alone) within 1e-6, the
+loss pieces (LPIPS, psnr, ssim_gray; fog_density_map in float64 within
+1e-10), the augmentation's flip and jitter, and AlexNet's strided layers,
+which raise rather than return rows the unsharded layer lacks. The joint
+steps on a sharded mesh: tests/test_torch_joint_sharded.py.
 """
 import os
 import socket
@@ -85,7 +91,19 @@ def spawned(tmp_path_factory):
               "conv_x": torch.from_numpy(images((8, 16, 16, 3), seed=3)),
               "conv_y": torch.from_numpy(images((8, 16, 16, 3), seed=4)),
               "step_x": torch.from_numpy(images((4, 16, 16, 3), seed=14).astype(np.float64)),
-              "step_y": torch.from_numpy(images((4, 16, 16, 3), seed=15).astype(np.float64))}
+              "step_y": torch.from_numpy(images((4, 16, 16, 3), seed=15).astype(np.float64)),
+              "tuned_x": torch.from_numpy(images((2, 32, 32, 3), seed=16)),
+              "gate_x": torch.from_numpy(images((2, 16, 8, 16), seed=17)),
+              "gate_w": torch.from_numpy(np.random.default_rng(18).normal(
+                  size=(7, 7, 2, 1)).astype(np.float32)),
+              "loss_a": torch.from_numpy(images((2, 32, 32, 3), seed=19)),
+              "loss_b": torch.from_numpy(images((2, 32, 32, 3), seed=20)),
+              "hazy64": torch.from_numpy(images((2, 64, 64, 3), seed=21).astype(np.float64)),
+              "aug_x": torch.from_numpy(images((4, 16, 8, 3), seed=22)),
+              "aug_params": (torch.tensor([True, False, True, False]),
+                             torch.tensor([True, True, False, False]),
+                             torch.tensor([0.9, 1.05, 1.1, 0.95]),
+                             torch.tensor([1.08, 0.92, 1.0, 1.1]))}
     torch.save(inputs, tmp / "inputs.pt")
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -268,7 +286,49 @@ def test_exchange_gradient_matches_autograd_of_the_unsharded_computation(ranks, 
 def test_refusals_under_a_sharded_mesh(ranks):
     for out in ranks:
         refused = out["refusals"]
-        for name in ("joint_spatial", "joint_model"):
-            assert refused[name] and "joint step" in refused[name], name
-        assert refused["res_chain"] and "K6" in refused["res_chain"]
         assert refused["int8"] and "Q1 and Q2" in refused["int8"]
+        assert refused["remat"] and "cuda.remat" in refused["remat"]
+
+
+# The plain versions on 2 H shards against the unsharded ones, fp32.
+TUNED_ATOL = 1e-6
+
+
+@pytest.mark.parametrize("name", ["k3", "k6_medium", "k6_k4_high", "k2_prime"])
+def test_tuned_kernels_on_h_shards_equal_the_unsharded_plain_versions(ranks, name):
+    whole = ranks[0]["tuned"][name]["whole"]
+    got = torch.cat([out["tuned"][name]["sharded"] for out in ranks], 1)
+    assert got.shape == whole.shape
+    err = float((got - whole).abs().max())
+    assert err <= TUNED_ATOL, f"{name}: {err:.3e}"
+
+
+@pytest.mark.parametrize("name,atol", [("lpips", 1e-6), ("psnr", 1e-5), ("ssim", 1e-6),
+                                       ("density", 1e-10)])
+def test_loss_pieces_on_h_shards_equal_the_unsharded_ones(ranks, name, atol):
+    """Per-image values (LPIPS, PSNR in dB, SSIM) on every rank as the
+    whole batch's; the fog-density maps (float64) joined along H."""
+    whole = ranks[0]["losses"][name]["whole"]
+    parts = [out["losses"][name]["sharded"] for out in ranks]
+    got = torch.cat(parts, 1) if name == "density" else parts
+    for g in (got,) if name == "density" else got:
+        assert g.shape == whole.shape
+        np.testing.assert_allclose(g.numpy(), whole.numpy(), rtol=0, atol=atol, err_msg=name)
+
+
+@pytest.mark.parametrize("name", ["flip", "jitter"])
+def test_augmentation_on_h_shards_equals_the_unsharded_one(ranks, name):
+    whole = ranks[0]["augment"][name]["whole"]
+    got = torch.cat([out["augment"][name]["sharded"] for out in ranks], 1)
+    np.testing.assert_allclose(got.numpy(), whole.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("layer", ["conv1", "pool"])
+def test_alexnet_layers_on_h_shards_never_return_rows_the_unsharded_layer_lacks(ranks, layer):
+    """AlexNet's 11x11/4 conv (15 rows of a 64^2 image) and its 3x3/2
+    max-pool (7 of 16) do not split over 2 shards: they raise, naming the
+    layer, rather than return 8 + 8 rows."""
+    for out in ranks:
+        want, got = out["alexnet"][layer]
+        assert want in (15, 7)
+        assert isinstance(got, str) and "does not split" in got and "stride" in got, got

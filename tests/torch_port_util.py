@@ -124,7 +124,7 @@ def _bn_counts(module, *inputs):
     return counts
 
 
-def assert_bn_stats_match_flax(model, before, after, *inputs, steps=1):
+def assert_bn_stats_match_flax(model, before, after, *inputs, steps=1, rtol=1e-5, atol=1e-6):
     """`model`'s BN running statistics after `steps` train-mode forwards on
     `inputs` against flax's: `before` and `after` are port modules holding
     flax's statistics before and after those forwards (momentum 0.9). Torch
@@ -139,9 +139,9 @@ def assert_bn_stats_match_flax(model, before, after, *inputs, steps=1):
         batch_var = (new.running_var.double() - 0.9 * old.running_var.double()) / 0.1
         want_var = 0.9 * old.running_var.double() + 0.1 * batch_var * n / (n - 1)
         np.testing.assert_allclose(m.running_mean.numpy(), new.running_mean.numpy(),
-                                   rtol=1e-5, atol=1e-6, err_msg=name)
+                                   rtol=rtol, atol=atol, err_msg=name)
         np.testing.assert_allclose(m.running_var.numpy(), want_var.numpy(),
-                                   rtol=1e-5, atol=1e-6, err_msg=name)
+                                   rtol=rtol, atol=atol, err_msg=name)
         assert int(m.num_batches_tracked) == int(old.num_batches_tracked) + steps, name
 
 

@@ -5,7 +5,10 @@
 Imports the port only (no JAX): the test computes the JAX references in its
 own process and compares them with what each rank writes to
 OUT_DIR/rank{RANK}.pt. Every case that needs the group runs in this one
-spawn, on a `{"spatial": 2}` mesh and a `{"model": 2}` mesh of the two ranks.
+spawn, on a `{"spatial": 2}` mesh and a `{"model": 2}` mesh of the two ranks:
+also the tuned kernels' plain versions (K3, K4, K2' alone and inside K4,
+K6), the loss pieces, the augmentation and AlexNet's layers on 2 H shards,
+each beside the unsharded call.
 """
 import os
 import sys
@@ -15,6 +18,9 @@ import torch
 import torch.nn.functional as F
 
 from adam_dehaze_tpu_torch.config import load_config
+from adam_dehaze_tpu_torch.data.augment import _color_jitter, _flip
+from adam_dehaze_tpu_torch.data.synthetic import fog_density_map
+from adam_dehaze_tpu_torch.losses.lpips import LPIPS
 from adam_dehaze_tpu_torch.models.branches import (
     HighIntensityDehazeModel,
     LightweightDehazeModel,
@@ -22,9 +28,17 @@ from adam_dehaze_tpu_torch.models.branches import (
 )
 from adam_dehaze_tpu_torch.models.classifier import create_classifier
 from adam_dehaze_tpu_torch.models.routing import create_router
+from adam_dehaze_tpu_torch.nn.alexnet import AlexNetFeatures
 from adam_dehaze_tpu_torch.nn.blocks import init_params_
+from adam_dehaze_tpu_torch.ops.image import psnr, ssim_gray
+from adam_dehaze_tpu_torch.ops.kernels.cbam import spatial_gate
 from adam_dehaze_tpu_torch.ops.quant import quantize_apply
-from adam_dehaze_tpu_torch.ops.serving_apply import make_medium_chain_apply, make_serving_apply
+from adam_dehaze_tpu_torch.ops.serving_apply import (
+    make_high_chain_apply,
+    make_medium_chain_apply,
+    make_medium_tail_apply,
+    make_serving_apply,
+)
 from adam_dehaze_tpu_torch.parallel import data_parallel, multihost
 from adam_dehaze_tpu_torch.parallel.collectives import (
     AllReduceMax,
@@ -37,7 +51,11 @@ from adam_dehaze_tpu_torch.parallel.collectives import (
 )
 from adam_dehaze_tpu_torch.parallel.mesh import make_mesh
 from adam_dehaze_tpu_torch.parallel.sharding import channel_sharding
-from adam_dehaze_tpu_torch.parallel.spatial import make_spatial_infer, shard_image_batch
+from adam_dehaze_tpu_torch.parallel.spatial import (
+    make_spatial_infer,
+    shard_image_batch,
+    spatial_sharding,
+)
 from adam_dehaze_tpu_torch.serving import AdaptiveDehazer
 from adam_dehaze_tpu_torch.training import train_joint as tj
 from adam_dehaze_tpu_torch.training.checkpoint import load_flax_variables
@@ -205,29 +223,124 @@ def exchange_gradients(mesh, rank):
     return out
 
 
-def refusals(inputs, spatial_mesh, model_mesh):
-    """What raises under the meshes: the joint step (spatial and model),
-    the tuned K6 dispatch and int8 serving on an H shard."""
+def refusals(inputs, spatial_mesh):
+    """What still raises under a spatial mesh: int8 serving (Q1's abs-max
+    is taken inside its launch) and the joint step under cuda.remat (its
+    recompute would run outside the sharding contexts)."""
     out = {}
-    state = sgd_state(torch.nn.Linear(1, 1))
-    batch = {"hazy": inputs["x"], "clear": inputs["x"], "intensity": torch.zeros(2)}
-    for name, mesh in (("joint_spatial", spatial_mesh), ("joint_model", model_mesh)):
-        step = data_parallel.shard_train_step(tj.make_train_step(None, None), mesh, batch)
-        try:
-            step(state, batch, None)
-            out[name] = None
-        except NotImplementedError as e:
-            out[name] = str(e)
     model = branch("medium", inputs)
     x = shard_image_batch(spatial_mesh, inputs["x"])
-    for name, apply in (("res_chain", make_medium_chain_apply(model, torch.float32)),
-                        ("int8", quantize_apply(model, torch.float32))):
+    batch = {"hazy": inputs["x"], "clear": inputs["x"], "intensity": torch.zeros(2)}
+    for name, call in (
+            ("int8", lambda: make_spatial_infer(quantize_apply(model, torch.float32),
+                                                spatial_mesh)(x)),
+            ("remat", lambda: data_parallel.shard_train_step(
+                tj.make_train_step(None, None, remat=True), spatial_mesh, batch)(
+                    sgd_state(torch.nn.Linear(1, 1)), batch, None))):
         try:
             with torch.no_grad():
-                make_spatial_infer(apply, spatial_mesh)(x)
+                call()
             out[name] = None
         except NotImplementedError as e:
             out[name] = str(e)
+    return out
+
+
+def perturbed_bn_(model, gen):
+    """BN statistics moved away from (0, 1), so that folding them matters."""
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.uniform_(-0.2, 0.2, generator=gen)
+                m.running_var.uniform_(0.8, 1.3, generator=gen)
+    return model
+
+
+def _whole_and_sharded(fn, mesh, *args, dims=None):
+    """fn on the whole tensors, and on this rank's H shards (dim 1, or
+    `dims[i]` for argument i, None for an argument every rank holds whole)
+    under spatial_sharding."""
+    rows = mesh.axis("spatial")
+    dims = dims or [1] * len(args)
+    parts = [a if d is None else a.chunk(rows.size, d)[rows.index]
+             for a, d in zip(args, dims)]
+    with torch.no_grad():
+        whole = fn(*args)
+        with spatial_sharding(mesh):
+            return whole, fn(*parts)
+
+
+def tuned_kernels(inputs, mesh):
+    """The tuned serving applies' plain versions, fp32, through
+    make_spatial_infer: K3 (the medium tail), K6 on the medium branch's
+    three segments, K6 on the high branch's three segments with K4 and K2'
+    after them; and K2' alone on a shard."""
+    x = inputs["tuned_x"]
+    gen = torch.Generator().manual_seed(16)
+    models = {lvl: perturbed_bn_(init_params_(cls(16), gen), gen).eval()
+              for lvl, cls in (("medium", MediumIntensityDehazeModel),
+                               ("high", HighIntensityDehazeModel))}
+    applies = {"k3": make_medium_tail_apply(models["medium"], torch.float32),
+               "k6_medium": make_medium_chain_apply(models["medium"], torch.float32),
+               "k6_k4_high": make_high_chain_apply(models["high"], torch.float32,
+                                                   res_chain=True, tail_chain=True)}
+    out = {}
+    for name, apply in applies.items():
+        with torch.no_grad():
+            out[name] = {"whole": apply(x),
+                         "sharded": make_spatial_infer(apply, mesh)(shard_image_batch(mesh, x))}
+    g = inputs["gate_x"]
+    w = inputs["gate_w"]
+    out["k2_prime"] = dict(zip(("whole", "sharded"),
+                               _whole_and_sharded(lambda t: spatial_gate(t, w), mesh, g)))
+    return out
+
+
+def loss_pieces(inputs, mesh):
+    """LPIPS, psnr, ssim_gray and fog_density_map (float64) on the whole
+    images and on this rank's H shards."""
+    torch.manual_seed(0)
+    lpips = LPIPS().eval()
+    a, b = inputs["loss_a"], inputs["loss_b"]
+    out = {}
+    for name, fn, args in (("lpips", lpips, (2 * a - 1, 2 * b - 1)), ("psnr", psnr, (a, b)),
+                           ("ssim", ssim_gray, (a, b)),
+                           ("density", fog_density_map, (inputs["hazy64"],))):
+        whole, sharded = _whole_and_sharded(fn, mesh, *args)
+        out[name] = {"whole": whole, "sharded": sharded}
+    return out
+
+
+def augmentation(inputs, mesh):
+    """_flip and _color_jitter at given flip bits and factors."""
+    x, (hflip, vflip, bf, cf) = inputs["aug_x"], inputs["aug_params"]
+    out = {}
+    for name, fn in (("flip", lambda t: _flip(t, hflip, vflip)),
+                     ("jitter", lambda t: _color_jitter(t, bf, cf))):
+        whole, sharded = _whole_and_sharded(fn, mesh, x)
+        out[name] = {"whole": whole, "sharded": sharded}
+    return out
+
+
+def alexnet_layers(mesh):
+    """AlexNet's 11x11/4 conv1 on 2 H shards of a 64^2 image and its 3x3/2
+    max-pool on 2 shards of 16 rows: the unsharded rows, and what each
+    sharded call returned (its rows) or raised (its message)."""
+    net = AlexNetFeatures().eval()
+    conv1, pool = net.features[0], net.features[2]
+    x = torch.rand(1, 3, 64, 64, generator=torch.Generator().manual_seed(7))
+    out = {}
+    pooled = torch.rand(1, 64, 16, 16, generator=torch.Generator().manual_seed(8))
+    for name, fn, arg in (("conv1", conv1, x), ("pool", pool, pooled)):
+        with torch.no_grad():
+            want = fn(arg).shape[2]
+            part = arg.chunk(2, 2)[mesh.axis("spatial").index]
+            try:
+                with spatial_sharding(mesh):
+                    got = fn(part).shape[2]
+            except ValueError as e:
+                got = str(e)
+        out[name] = (want, got)
     return out
 
 
@@ -244,7 +357,11 @@ def main():
            "route": route(inputs, spatial_mesh),
            "steps": steps(inputs, spatial_mesh, model_mesh, rank),
            "grads": exchange_gradients(spatial_mesh, rank),
-           "refusals": refusals(inputs, spatial_mesh, model_mesh)}
+           "refusals": refusals(inputs, spatial_mesh),
+           "tuned": tuned_kernels(inputs, spatial_mesh),
+           "losses": loss_pieces(inputs, spatial_mesh),
+           "augment": augmentation(inputs, spatial_mesh),
+           "alexnet": alexnet_layers(spatial_mesh)}
     torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     torch.distributed.destroy_process_group()
 
