@@ -29,6 +29,14 @@
 //   bytes first, so the last images read come from the 50 MB L2 and the
 //   rest from memory). In bf16 the abs-max, the product by 1 / scale and the
 //   clip take two values an instruction (bf16x2).
+//   Where a group of processes splits each image (its rows over a spatial
+//   axis, parallel/spatial.py), the abs-max must be reduced over the group
+//   between the two passes, so they are also two entry points: int8_absmax
+//   writes the abs-max of this process's part of each image (N,) f32, the
+//   caller reduces it over the group, and int8_quantize_at quantizes at the
+//   group's abs-max, its scale computed as above (the same image_scale), so
+//   a shard's q and scale are the one launch's on the whole image bit for
+//   bit. Each walks the batch as the one launch does, with no wait.
 //
 // Q2 (entry point int8_conv): a convolution on int8 tensor cores with int32
 //   sums, two bodies chosen by the layer's shape (ops/kernels/quant.py:
@@ -430,6 +438,50 @@ int launch_quantize(const void* x, void* scratch, void* q, void* scale, int N, i
   return cudaLaunchCooperativeKernel(reinterpret_cast<const void*>(quantize_kernel<T>),
                                      dim3(static_cast<unsigned>(blocks)), dim3(kQThreads),
                                      params, 0, s);
+}
+
+// Q1's two passes as launches of their own (int8_absmax, int8_quantize_at):
+// the same group walks, each group's shared values rewritten only after
+// every thread is done with the last group's.
+template <typename T>
+__global__ void __launch_bounds__(kQThreads)
+absmax_kernel(const QuantArgs a) {
+  __shared__ unsigned smax[kQMaxGroup];
+  for (int n0 = 0; n0 < a.N; n0 += kQMaxGroup) {
+    absmax_group<T>(a, n0, min(n0 + kQMaxGroup, a.N), smax);
+    __syncthreads();
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kQThreads)
+quantize_at_kernel(const QuantArgs a) {
+  __shared__ float sinv[kQMaxGroup];
+  for (int n0 = 0; n0 < a.N; n0 += kQMaxGroup) {
+    quantize_group<T>(a, n0, min(n0 + kQMaxGroup, a.N), sinv);
+    __syncthreads();
+  }
+}
+
+// A launch of one of the two passes: blocks as an image's items need, at
+// most as many as the SMs hold at once.
+template <typename Kernel>
+int launch_pass(Kernel kernel, const QuantArgs& args, cudaStream_t s) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err;
+  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
+  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+    return err;
+  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kQThreads, 0)) !=
+      cudaSuccess)
+    return err;
+  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+  const long long items =
+      static_cast<long long>(args.HW) * (args.C % 8 == 0 ? args.cin_pad / 8 : 1);
+  const long long need = (items + kQThreads - 1) / kQThreads;
+  const long long resident = static_cast<long long>(sms) * per_sm;
+  kernel<<<static_cast<unsigned>(need < resident ? need : resident), kQThreads, 0, s>>>(args);
+  return cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- Q2 epilogue
@@ -998,6 +1050,14 @@ int launch_gather(const GatherArgs& a, const Epilogue& e, int cout_pad, cudaStre
   return cudaGetLastError();
 }
 
+// Q1's shapes: cin_pad a multiple of 4, at least C, a multiple of 8 when C
+// is; the items counted in 32 bits.
+bool quantize_shape_ok(int N, int HW, int C, int cin_pad) {
+  return N >= 1 && HW >= 1 && C >= 1 && cin_pad >= C && cin_pad % 4 == 0 &&
+         (C % 8 != 0 || cin_pad % 8 == 0) &&
+         static_cast<long long>(N) * HW * (C > cin_pad ? C : cin_pad) < (1ll << 31);
+}
+
 // The chunks the tile body is built for: 96 at 3x3 only (two blocks an SM);
 // at 4x4 stride 2 a 96-wide chunk would run one.
 bool tile_chunk_ok(int n, int ks) {
@@ -1012,12 +1072,36 @@ bool tile_chunk_ok(int n, int ks) {
 extern "C" int int8_quantize(const void* x, void* scratch, void* q, void* scale, int N, int HW,
                              int C, int cin_pad, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N < 1 || HW < 1 || C < 1 || cin_pad < C || cin_pad % 4 != 0 ||
-      (C % 8 == 0 && cin_pad % 8 != 0) ||
-      static_cast<long long>(N) * HW * (C > cin_pad ? C : cin_pad) >= (1ll << 31))
-    return cudaErrorInvalidValue;   // items are counted in 32 bits
+  if (!quantize_shape_ok(N, HW, C, cin_pad)) return cudaErrorInvalidValue;
   return is_bf16 ? launch_quantize<__nv_bfloat16>(x, scratch, q, scale, N, HW, C, cin_pad, s)
                  : launch_quantize<float>(x, scratch, q, scale, N, HW, C, cin_pad, s);
+}
+
+// Q1's first pass alone. x (N, H*W, C) in T (is_bf16); writes amax (N,) f32,
+// the abs-max of each image's values in x (0 for an all-zero image).
+extern "C" int int8_absmax(const void* x, void* amax, int N, int HW, int C, int is_bf16,
+                           void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N < 1 || HW < 1 || C < 1 || static_cast<long long>(N) * HW * C >= (1ll << 31))
+    return cudaErrorInvalidValue;   // items are counted in 32 bits
+  cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(float) * N, s);
+  if (err != cudaSuccess) return err;
+  const QuantArgs args{x, static_cast<unsigned*>(amax), nullptr, nullptr, nullptr, N, HW, C, C};
+  return is_bf16 ? launch_pass(absmax_kernel<__nv_bfloat16>, args, s)
+                 : launch_pass(absmax_kernel<float>, args, s);
+}
+
+// Q1's second pass alone, at a given abs-max. x (N, H*W, C) in T, amax (N,)
+// f32 (the abs-max of each whole image); writes q (N, H*W, cin_pad) int8 and
+// scale (N,) f32, as int8_quantize would for images of that abs-max.
+extern "C" int int8_quantize_at(const void* x, const void* amax, void* q, void* scale, int N,
+                                int HW, int C, int cin_pad, int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!quantize_shape_ok(N, HW, C, cin_pad)) return cudaErrorInvalidValue;
+  const QuantArgs args{x, static_cast<unsigned*>(const_cast<void*>(amax)), nullptr,
+                       static_cast<int8_t*>(q), static_cast<float*>(scale), N, HW, C, cin_pad};
+  return is_bf16 ? launch_pass(quantize_at_kernel<__nv_bfloat16>, args, s)
+                 : launch_pass(quantize_at_kernel<float>, args, s);
 }
 
 // Q2. q (N, H, W, cin_pad) int8; sx (N,) and sw (cout,) f32; bias (cout,)

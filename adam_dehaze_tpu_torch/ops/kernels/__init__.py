@@ -14,8 +14,9 @@ def launch_counters() -> dict:
     """Every kernel wrapper that counts its launches, by kernel name: K1
     (low-branch chain), K2 and K2' (CBAM gates), K3 and K4 (tail chains),
     K5 (three-way blend), K6 (res/attention segment chain), the int8
-    serving path's Q1 (per-image quantize) and Q2 (int8 conv) and the
-    operation probes."""
+    serving path's Q1 (per-image quantize; on an H shard its two passes,
+    the abs-max and the quantizing at a given abs-max) and Q2 (int8 conv)
+    and the operation probes."""
     from adam_dehaze_tpu_torch.ops.kernels.blend import blend3
     from adam_dehaze_tpu_torch.ops.kernels.cbam import (
         channel_spatial_gate,
@@ -24,7 +25,12 @@ def launch_counters() -> dict:
     from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
         lightweight_chain,
     )
-    from adam_dehaze_tpu_torch.ops.kernels.quant import int8_conv, quantize_images
+    from adam_dehaze_tpu_torch.ops.kernels.quant import (
+        image_absmax,
+        int8_conv,
+        quantize_images,
+        quantize_images_at,
+    )
     from adam_dehaze_tpu_torch.ops.kernels.res_chain import res_attn_chain
     from adam_dehaze_tpu_torch.ops.kernels.tail_chain import (
         high_tail_chain,
@@ -36,6 +42,7 @@ def launch_counters() -> dict:
             "medium_tail_chain": medium_tail_chain,
             "high_tail_chain": high_tail_chain, "blend3": blend3,
             "res_attn_chain": res_attn_chain, "int8_quantize": quantize_images,
+            "int8_absmax": image_absmax, "int8_quantize_at": quantize_images_at,
             "int8_conv": int8_conv, "probe_ops": probe_op}
 
 

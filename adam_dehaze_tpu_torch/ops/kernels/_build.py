@@ -87,6 +87,10 @@ _SIGNATURES = {
     "probe_op": (I, P, P, P, P, I, P),
     # x, scratch, q, scale, N, HW, C, cin_pad, is_bf16, stream
     "int8_quantize": (P, P, P, P, I, I, I, I, I, P),
+    # x, amax, N, HW, C, is_bf16, stream
+    "int8_absmax": (P, P, I, I, I, I, P),
+    # x, amax, q, scale, N, HW, C, cin_pad, is_bf16, stream
+    "int8_quantize_at": (P, P, P, P, I, I, I, I, I, P),
     # q, w, sx, sw, bias, bn, relu, out, N, H, W, cin_pad, Ho, Wo, cout, cout_pad, k_pad,
     # kh, kw, stride, pad, body, n_chunk, is_bf16, stream
     "int8_conv": (P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, I, I, I, I, I, I, I, I, I, P),

@@ -9,7 +9,11 @@ writes q (N, H, W, cin_pad) int8, its channels zero-padded to the conv's
 K step, with one scale per image (N,) float32 (holding a value of x's
 dtype). On a CUDA tensor that is one cooperative launch: the abs-max of
 every image, a wait over the grid, then the quantizing pass in reverse,
-the bytes read last (still in L2) first.
+the bytes read last (still in L2) first. Where a group of processes holds
+each image's rows (an H shard, parallel/spatial.py), Q1 runs as its two
+passes: `image_absmax` (this process's abs-max of each image), a max over
+the group (the caller's), then `quantize_images_at` at the group's
+abs-max, which gives the one launch's scale and int8 values bit for bit.
 
 `int8_conv` (Q2) is a convolution on int8 tensor cores with int32 sums and
 an epilogue that dequantises in AQT's order (the sum cast to the compute
@@ -31,10 +35,12 @@ takes, by its shape alone:
   4-byte copy a tap), else to a multiple of 16; the weights OHWI as
   (cout_pad, k_pad), Cout padded to 64 and K to 32.
 
-On a CPU tensor each wrapper is its plain version; on a CUDA tensor it
-launches its kernel or raises (no body stands in for the other). Both count
-their calls on the card (`quantize_images.launches`, `int8_conv.launches`,
-and `int8_conv.body_launches` by body).
+On a CPU tensor each wrapper is its plain version (run under
+`sharded_ops.local_ops()`: the layer prepared its shard itself); on a CUDA
+tensor it launches its kernel or raises (no body stands in for the other).
+Each counts its launches on the card (`quantize_images.launches`,
+`image_absmax.launches`, `quantize_images_at.launches`,
+`int8_conv.launches`, and `int8_conv.body_launches` by body).
 """
 from __future__ import annotations
 
@@ -44,7 +50,13 @@ import torch
 import torch.nn.functional as F
 
 from adam_dehaze_tpu_torch.ops.kernels import _build
-from adam_dehaze_tpu_torch.ops.quant import int8_conv_reference, quantize_per_image
+from adam_dehaze_tpu_torch.ops.quant import (
+    _quantize,
+    absmax_scale,
+    int8_conv_reference,
+    quantize_per_image,
+)
+from adam_dehaze_tpu_torch.parallel.sharded_ops import local_ops
 
 # Mirror of csrc/int8_conv.cu. The gather body: the output-channel tile the
 # packed weights are padded to, and the K step.
@@ -178,22 +190,30 @@ def quantize_images_reference(x: torch.Tensor, cin_pad: int):
     return F.pad(q, (0, cin_pad - x.shape[-1])).contiguous(), scale.float()
 
 
-def quantize_images(x: torch.Tensor, cin_pad: int):
-    """Q1: x (N, H, W, C) NHWC float32 or bfloat16 -> (q (N, H, W, cin_pad)
-    int8, scale (N,) float32). A CPU tensor takes the plain version; a CUDA
-    tensor (contiguous, 16-byte aligned) launches the kernel."""
-    if x.device.type == "cpu":
-        return quantize_images_reference(x, cin_pad)
-    name = "quantize_images"
+def _require_images(name: str, x: torch.Tensor, cin_pad: Optional[int] = None) -> None:
+    """Q1's checks of x (N, H, W, C) on the card and of the padded width
+    (where there is one)."""
     _build.require_cuda_inputs(name, x)
     _build.require(x.dim() == 4, name, f"x must be (N, H, W, C), got {tuple(x.shape)}")
     _build.require(x.dtype in (torch.float32, torch.bfloat16), name,
                    f"x dtype {x.dtype} not float32/bfloat16")
     _build.require(x.is_contiguous(), name, "x must be contiguous NHWC")
     _build.require(x.data_ptr() % 16 == 0, name, "x must be 16-byte aligned")
-    n, h, w, c = x.shape
-    _build.require(cin_pad >= c and cin_pad % 4 == 0, name,
+    c = x.shape[3]
+    _build.require(cin_pad is None or (cin_pad >= c and cin_pad % 4 == 0), name,
                    f"cin_pad {cin_pad} must be a multiple of 4 and at least C={c}")
+
+
+def quantize_images(x: torch.Tensor, cin_pad: int):
+    """Q1: x (N, H, W, C) NHWC float32 or bfloat16 -> (q (N, H, W, cin_pad)
+    int8, scale (N,) float32). A CPU tensor takes the plain version; a CUDA
+    tensor (contiguous, 16-byte aligned) launches the kernel."""
+    if x.device.type == "cpu":
+        with local_ops():
+            return quantize_images_reference(x, cin_pad)
+    name = "quantize_images"
+    _require_images(name, x, cin_pad)
+    n, h, w, c = x.shape
     q = torch.empty((n, h, w, cin_pad), dtype=torch.int8, device=x.device)
     scale = torch.empty((n,), dtype=torch.float32, device=x.device)
     scratch = torch.empty((2 * n,), dtype=torch.int32, device=x.device)
@@ -206,6 +226,72 @@ def quantize_images(x: torch.Tensor, cin_pad: int):
 
 
 quantize_images.launches = 0
+
+
+def image_absmax_reference(x: torch.Tensor) -> torch.Tensor:
+    """Plain version of Q1's first pass: the abs-max of each image of x
+    (N, ...) over its other axes, (N,) float32."""
+    return x.abs().amax(dim=tuple(range(1, x.dim()))).float()
+
+
+def image_absmax(x: torch.Tensor) -> torch.Tensor:
+    """Q1's first pass alone: x (N, H, W, C) NHWC float32 or bfloat16 ->
+    the abs-max of each image's values in x, (N,) float32 (0 for an
+    all-zero image). A CPU tensor takes the plain version; a CUDA tensor
+    launches the kernel."""
+    if x.device.type == "cpu":
+        with local_ops():
+            return image_absmax_reference(x)
+    name = "image_absmax"
+    _require_images(name, x)
+    n, h, w, c = x.shape
+    amax = torch.empty((n,), dtype=torch.float32, device=x.device)
+    err = _build.library().int8_absmax(x.data_ptr(), amax.data_ptr(), n, h * w, c,
+                                       int(x.dtype == torch.bfloat16),
+                                       _build.stream_ptr(x.device))
+    _build.check(err, name)
+    image_absmax.launches += 1
+    return amax
+
+
+image_absmax.launches = 0
+
+
+def quantize_images_at_reference(x: torch.Tensor, amax: torch.Tensor, cin_pad: int):
+    """Plain version of Q1's second pass: `quantize_images_reference` of
+    images whose abs-max is `amax` (N,) float32."""
+    scale = absmax_scale(amax, x.dtype)
+    q = _quantize(x, scale.view((-1,) + (1,) * (x.dim() - 1)))
+    return F.pad(q, (0, cin_pad - x.shape[-1])).contiguous(), scale.float()
+
+
+def quantize_images_at(x: torch.Tensor, amax: torch.Tensor, cin_pad: int):
+    """Q1's second pass alone: x (N, H, W, C) NHWC float32 or bfloat16 and
+    the abs-max of each whole image `amax` (N,) float32 (`image_absmax`
+    reduced over the processes that hold the image) -> (q (N, H, W,
+    cin_pad) int8, scale (N,) float32), as `quantize_images` gives them for
+    images of that abs-max. A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernel."""
+    if x.device.type == "cpu":
+        with local_ops():
+            return quantize_images_at_reference(x, amax, cin_pad)
+    name = "quantize_images_at"
+    _require_images(name, x, cin_pad)
+    _build.require_cuda_inputs(name, amax)
+    n, h, w, c = x.shape
+    _build.require(tuple(amax.shape) == (n,) and amax.dtype == torch.float32
+                   and amax.is_contiguous(), name, f"amax must be contiguous ({n},) float32")
+    q = torch.empty((n, h, w, cin_pad), dtype=torch.int8, device=x.device)
+    scale = torch.empty((n,), dtype=torch.float32, device=x.device)
+    err = _build.library().int8_quantize_at(
+        x.data_ptr(), amax.data_ptr(), q.data_ptr(), scale.data_ptr(), n, h * w, c, cin_pad,
+        int(x.dtype == torch.bfloat16), _build.stream_ptr(x.device))
+    _build.check(err, name)
+    quantize_images_at.launches += 1
+    return q, scale
+
+
+quantize_images_at.launches = 0
 
 
 def int8_conv_packed_reference(q: torch.Tensor, sx: torch.Tensor, qweight: torch.Tensor,
@@ -252,7 +338,9 @@ def int8_conv(q: torch.Tensor, sx: torch.Tensor, qweight: torch.Tensor,
     `bn_stats`, which the kernel reads) and a ReLU where `relu`. A CPU
     tensor takes the plain version; a CUDA tensor launches `g.body`."""
     if q.device.type == "cpu":
-        return int8_conv_fused_reference(q, sx, qweight, wscale, bias, g, out_dtype, bn, relu)
+        with local_ops():
+            return int8_conv_fused_reference(q, sx, qweight, wscale, bias, g, out_dtype, bn,
+                                             relu)
     name = "int8_conv"
     extra = tuple(t for t in (bias, bn_stats) if t is not None)
     _build.require_cuda_inputs(name, q, sx, qweight, wscale, *extra)

@@ -37,10 +37,30 @@ ReLU ops the unfused block runs, for CPU tensors.
 The JAX package quantizes the weights on every trace; the port does it
 once, when the int8 serving copy is built (`quantize_apply`), from the same
 values. The float32 parameters of the model it is given are left untouched.
+
+On a mesh (parallel/spatial.py, parallel/sharding.py) an Int8Conv2d gives
+each process the unsharded layer's values bit for bit, as the JAX package's
+int8 apply under `make_spatial_infer` or `channel_sharding` does:
+
+- on an H shard, Q1's abs-max of this process's rows is reduced over the
+  spatial group before Q1 quantizes (`image_absmax`, a max over the group,
+  `quantize_images_at`); the int8 rows above and below that Q2's windows
+  read come from the neighbours (a quarter of the float rows' bytes, and
+  the same values: the scale is the image's); Q2 runs with its own padding
+  on that taller shard and the shard's rows are cropped out. The rows
+  above are the padding rounded up to the stride, so that the taller
+  shard's first row keeps the stride's grid (at 4x4 stride 2 padding 1 one
+  row above would shift every window by a row);
+- on split channels, the input's channels are gathered from the group (as
+  parallel/sharded_ops.py runs a float conv), so Q1 sees the whole tensor
+  and every process takes the same scales, and Q2 computes this process's
+  output channels from their slice of the weights, scales, bias and BN,
+  quantized and packed once per slice.
 """
 from __future__ import annotations
 
-from typing import Optional
+import copy
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -48,6 +68,11 @@ import torch.nn.functional as F
 from torch import nn
 
 from adam_dehaze_tpu_torch.parallel import sharding, spatial
+from adam_dehaze_tpu_torch.parallel.collectives import (
+    AllReduceMax,
+    GatherChannels,
+    channel_slice,
+)
 
 # AQT's int8 numerics (preserve_zero, no preserve_max_val): the scale maps
 # the abs-max onto 127.5, and values are clipped to 127 before rounding.
@@ -57,12 +82,17 @@ CLIP = 127.0
 RECIP_BOUND = float(np.float32(1.0 / QUANT_BOUND))
 
 
-def _abs_max_scale(a: torch.Tensor, dims) -> torch.Tensor:
-    """AbsMaxCalibration under jit: abs-max over `dims` (kept), 0 -> 1,
-    times float32(1 / 127.5) in float32, rounded to a's dtype."""
-    amax = a.abs().amax(dim=dims, keepdim=True)
+def absmax_scale(amax: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """AbsMaxCalibration under jit of an abs-max that holds values of
+    `dtype`: 0 -> 1, times float32(1 / 127.5) in float32, rounded to
+    `dtype`."""
     amax = torch.where(amax == 0, torch.ones_like(amax), amax)
-    return (amax.float() * RECIP_BOUND).to(a.dtype)
+    return (amax.float() * RECIP_BOUND).to(dtype)
+
+
+def _abs_max_scale(a: torch.Tensor, dims) -> torch.Tensor:
+    """`absmax_scale` of a's abs-max over `dims` (kept)."""
+    return absmax_scale(a.abs().amax(dim=dims, keepdim=True), a.dtype)
 
 
 def _quantize(a: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -110,6 +140,16 @@ def int8_conv_reference(qx: torch.Tensor, sx: torch.Tensor, qw: torch.Tensor,
     return y.contiguous()
 
 
+class _Operands(NamedTuple):
+    """Q2's operands for some output channels of an Int8Conv2d."""
+    geometry: "ConvGeometry"  # noqa: F821  (ops/kernels/quant.py)
+    qweight: torch.Tensor
+    wscale: torch.Tensor
+    bias: Optional[torch.Tensor]
+    bn: Optional[nn.BatchNorm2d]
+    bn_stats: Optional[torch.Tensor]
+
+
 class Int8Conv2d(nn.Module):
     """A ConvBlock's nn.Conv2d (weights in the compute dtype) served in int8,
     with the block's eval BatchNorm2d `bn` and its ReLU after it: the
@@ -118,7 +158,9 @@ class Int8Conv2d(nn.Module):
     Q2, whose epilogue dequantises, applies the BN (`bn_stats`, taken from
     `bn`'s parameters and running statistics) and the ReLU, and writes the
     input's dtype. NCHW in channels_last memory in and out, like the block
-    it stands for.
+    it stands for. On an H shard and on split channels it takes the shard
+    (see the module's docstring); a shard whose rows do not split as the
+    unsharded layer's output raises.
     `weight` keeps the compute-dtype weights: the branches read their
     compute dtype from it."""
 
@@ -149,17 +191,91 @@ class Int8Conv2d(nn.Module):
         self.bn = bn
         self.register_buffer("bn_stats", None if bn is None else eval_bn_stats(bn))
         self.relu = relu
+        # Q2's operands of this process's output channels on split
+        # channels, by (index, group size, device).
+        self._slices = {}
+
+    def _operands(self, channels) -> _Operands:
+        """Q2's operands: the whole layer's, or on split channels (the model
+        axis `channels`) this process's slice of them."""
+        if channels is None:
+            return _Operands(self.geometry, self.qweight, self.wscale, self.bias, self.bn,
+                             self.bn_stats)
+        key = (channels.index, channels.size, self.weight.device)
+        if key not in self._slices:
+            self._slices[key] = self._slice(channel_slice(self.geometry.cout, channels))
+        return self._slices[key]
+
+    def _slice(self, part: slice) -> _Operands:
+        """The operands of output channels `part`: their weights quantized
+        (the scales are per channel, so these are the whole layer's) and
+        packed for the body their shape takes, their bias and BN."""
+        from adam_dehaze_tpu_torch.ops.kernels.quant import (
+            ConvGeometry,
+            eval_bn_stats,
+            pack_int8_weights,
+        )
+        from adam_dehaze_tpu_torch.parallel.sharded_ops import local_ops
+        g = self.geometry
+        with local_ops(), torch.no_grad():
+            w = self.weight[part]
+            qw, sw = quantize_weight_per_channel(w)
+            geometry = ConvGeometry.of(g.cin, w.shape[0], g.kh, g.kw, g.stride, g.padding)
+            bn = None
+            if self.bn is not None:
+                bn = copy.deepcopy(self.bn)
+                bn.num_features = w.shape[0]
+                bn.weight = nn.Parameter(self.bn.weight[part].clone())
+                bn.bias = nn.Parameter(self.bn.bias[part].clone())
+                bn.running_mean = self.bn.running_mean[part].clone()
+                bn.running_var = self.bn.running_var[part].clone()
+            return _Operands(geometry, pack_int8_weights(qw, geometry), sw.float(),
+                             None if self.bias is None else self.bias[part].contiguous(), bn,
+                             None if bn is None else eval_bn_stats(bn))
+
+    def _halo(self, x: torch.Tensor):
+        """(rows above, rows below) the H shard `x` (NCHW) that Q2's windows
+        read: the rows above the padding rounded up to the stride, the rows
+        below what the last window reaches past the shard. Raises where the
+        layer's output rows do not split as the shards'."""
+        from adam_dehaze_tpu_torch.parallel.sharded_ops import _shard_height
+        g = self.geometry
+        total = x.shape[2] * spatial.axis().size
+        _shard_height(x, "int8 convolution", g.kh, g.stride, g.padding,
+                      (total + 2 * g.padding - g.kh) // g.stride + 1)
+        top = -(-g.padding // g.stride) * g.stride
+        bottom = max(g.kh - g.stride - g.padding, 0)
+        return top, bottom
 
     def forward(self, x):
-        from adam_dehaze_tpu_torch.ops.kernels.quant import int8_conv, quantize_images
-        # Q1's scale is per image: a shard of one (rows or channels) has another.
-        spatial.refuse("int8 serving (kernels Q1 and Q2)")
-        sharding.refuse("int8 serving (kernels Q1 and Q2)")
+        from adam_dehaze_tpu_torch.ops.kernels.quant import (
+            image_absmax,
+            int8_conv,
+            quantize_images,
+            quantize_images_at,
+        )
+        channels = sharding.channel_axis(x, self.geometry.cin)
+        if channels is not None:
+            x = GatherChannels.apply(x, channels)
+            if self.bn is not None:
+                sharding.used(self.bn.weight, self.bn.bias)
+        ops = self._operands(channels)
         # A no-op for the branches' channels_last activations: the NHWC view is free.
         xh = x.contiguous(memory_format=torch.channels_last).permute(0, 2, 3, 1)
-        q, sx = quantize_images(xh, self.geometry.cin_pad)
-        y = int8_conv(q, sx, self.qweight, self.wscale, self.bias, self.geometry, x.dtype,
-                      self.bn, self.bn_stats, self.relu)
+        rows = spatial.axis()
+        if rows is None:
+            q, sx = quantize_images(xh, self.geometry.cin_pad)
+        else:
+            top, bottom = self._halo(x)
+            # The image's abs-max: this shard's, then the max over the group.
+            amax = AllReduceMax.apply(image_absmax(xh), rows)
+            q, sx = quantize_images_at(xh, amax, self.geometry.cin_pad)
+            q = spatial.halo(q, 1, top, bottom).contiguous()
+        y = int8_conv(q, sx, ops.qweight, ops.wscale, ops.bias, ops.geometry, x.dtype, ops.bn,
+                      ops.bn_stats, self.relu)
+        if rows is not None:
+            first = top // self.geometry.stride
+            y = y[:, first:first + x.shape[2] // self.geometry.stride].contiguous()
         return y.permute(0, 3, 1, 2)
 
 

@@ -53,8 +53,8 @@ and these things make the result the same:
   batch's when every process holds as many valid rows.
 
 The joint steps (training/train_joint.py) run under all three axes with
-their loss nets and augmentation; `cuda.remat` is refused on a spatial or
-model mesh.
+their loss nets and augmentation, under `cuda.remat` too: its recompute
+re-enters the step's contexts (training/remat.py).
 """
 from __future__ import annotations
 

@@ -33,11 +33,18 @@ kernel, stride and padding: gather H around such a net (spatial.gather_h).
 
 Every other function passes through. Kernel wrappers run their own plain
 operations under `local_ops()`, which sees no sharding.
+
+`captured()` takes the sharding state open where it is called (the
+contexts' variables and this interception) and gives it back later, on any
+thread: a checkpointed forward recomputes in the backward (training/
+remat.py), which the card's autograd engine runs on a thread of its own.
+That thread inherits torch's function modes from the forward's thread but
+not its context variables, so the interception is entered there only where
+the thread lacks it.
 """
 from __future__ import annotations
 
 import contextlib
-import contextvars
 import math
 
 import torch
@@ -50,8 +57,6 @@ from adam_dehaze_tpu_torch.parallel.collectives import (
     SumToReplicated,
     channel_slice,
 )
-
-_ON: contextvars.ContextVar[bool] = contextvars.ContextVar("intercepting", default=False)
 
 
 def local_ops():
@@ -238,16 +243,49 @@ class ShardedOps(TorchFunctionMode):
         return (rule or func)(*args, **kwargs)
 
 
+def _intercepting_here() -> bool:
+    """Whether this thread's torch function modes hold a ShardedOps."""
+    return any(isinstance(m, ShardedOps)
+               for m in torch.overrides._get_current_function_mode_stack())
+
+
 @contextlib.contextmanager
 def intercepting():
     """ShardedOps around the context (once, however deeply the sharding
     contexts nest)."""
-    if _ON.get():
+    if _intercepting_here():
         yield
         return
-    token = _ON.set(True)
-    try:
-        with ShardedOps():
-            yield
-    finally:
-        _ON.reset(token)
+    with ShardedOps():
+        yield
+
+
+def captured():
+    """The sharding state open here: spatial.py's rows, sharding.py's
+    channel region, the data-parallel step's rows and groups
+    (data_parallel.py), and the interception. Returns a function that gives
+    a context manager re-entering that state as it is now, on whatever
+    thread it is entered."""
+    from adam_dehaze_tpu_torch.parallel import data_parallel
+    saved = [(var, var.get()) for var in (spatial._ROWS, data_parallel._ROWS,
+                                          data_parallel._GROUPS)]
+    tp = sharding._ACTIVE.get()
+    region = None if tp is None else tp.region
+    sharded = tp is not None or spatial.axis() is not None
+
+    @contextlib.contextmanager
+    def reenter():
+        # A region of its own, as it stood: the forward's may have moved on.
+        channels = None if tp is None else sharding._Channels(tp.axis)
+        if channels is not None:
+            channels.region = region
+        tokens = [(var, var.set(value)) for var, value in
+                  saved + [(sharding._ACTIVE, channels)]]
+        try:
+            with intercepting() if sharded else contextlib.nullcontext():
+                yield
+        finally:
+            for var, token in reversed(tokens):
+                var.reset(token)
+
+    return reenter

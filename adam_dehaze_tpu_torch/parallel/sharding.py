@@ -101,15 +101,6 @@ def channel_axis(x: torch.Tensor, channels: int) -> Optional[Axis]:
     return tp.axis
 
 
-def refuse(what: str) -> None:
-    """Raise when channels are split: `what` does not take a channel shard."""
-    tp = _ACTIVE.get()
-    if tp is not None:
-        raise NotImplementedError(
-            f"{what} under a model mesh ({tp.axis.name} = {tp.axis.size}) is not ported: "
-            "serve it without channel_sharding")
-
-
 def close_region() -> None:
     """The region's channels were joined into a whole tensor."""
     tp = _ACTIVE.get()

@@ -35,8 +35,10 @@ while it is open each process's tensors hold its rows of every image.
   (ops/kernels/lightweight_chain.py), K3, K4's convolution runs and K6's
   runs of residual blocks run on a shard made taller by their receptive
   radius and crop the result (ops/kernels/tail_chain.py, res_chain.py).
-- Resizes, pads of H, adaptive pools and int8's Q1 and Q2 raise under the
-  context.
+- Int8 serving's layers (ops/quant.py:Int8Conv2d) reduce Q1's per-image
+  abs-max over the group and run Q2 on a shard made taller by the int8
+  rows its windows read.
+- Resizes, pads of H and adaptive pools raise under the context.
 
 `make_spatial_infer` wraps an apply (a bound model, or a route such as
 `AdaptiveDehazer.route_hard`) so that it runs on this process's part of a
@@ -96,15 +98,6 @@ def whole_image():
         yield
     finally:
         _ROWS.reset(token)
-
-
-def refuse(what: str) -> None:
-    """Raise when H is split: `what` does not take an H shard."""
-    rows = _ROWS.get()
-    if rows is not None:
-        raise NotImplementedError(
-            f"{what} under a spatial mesh ({rows.name} = {rows.size}) is not ported: run it "
-            "without the spatial axis")
 
 
 def rows_total(n: int) -> int:

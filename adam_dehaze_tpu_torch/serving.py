@@ -55,8 +55,9 @@ kernels Q1 and Q2, everything else in the compute dtype, the low branch
 through its modules (never K1), the high one with K2 in its
 AttentionBlocks. The soft call and the classifier stay unquantized, the
 serving autotune is skipped for the branches, and `export_precompiled`
-refuses. Any other `serving_quant` value is served unquantized, with a
-warning.
+refuses. Under `make_spatial_infer` and `channel_sharding` (parallel/) the
+int8 copies take their shards (ops/quant.py). Any other `serving_quant`
+value is served unquantized, with a warning.
 
 Precompiled serving (serving_export.py), as in the JAX package:
 

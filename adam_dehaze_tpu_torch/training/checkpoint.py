@@ -14,6 +14,16 @@ Weights from the JAX package:
 detector from a torchvision `fcos_resnet50_fpn` state dict, as the JAX
 package's load_torch_fcos fills its tree.
 
+The upstream reference's checkpoints go into port modules through the JAX
+package's readers' counterparts (`load_torch_joint`, `load_torch_branch`
+with `branch_kind_for`, `load_torch_classifier` on every backbone,
+`load_torch_gate`, `load_torch_resnet`, `load_torch_mobilenet_v2`/`_v3`,
+`load_torch_efficientnet`, `load_torch_vgg16`, `load_torch_alexnet`,
+`load_torch_lpips`): each takes a `.pth` path or a state dict and fills
+the module in place, raising on a missing, surplus or mis-shaped key.
+`python -m adam_dehaze_tpu_torch.tools.convert_reference_checkpoint`
+writes them as the port's checkpoints.
+
 `load_flax_variables(module, variables)` fills a port module from the JAX
 package's `{"params", "batch_stats"}` tree (nested dicts of arrays): a
 block, a branch of any model type, the classifier on any backbone (ResNet;
@@ -579,3 +589,209 @@ def load_torch_fcos(pth_path_or_sd, detector: FCOSDetector) -> FCOSDetector:
         raise KeyError(f"not filled from the torchvision state dict: {missing[:8]}"
                        f"{' ...' if len(missing) > 8 else ''}")
     return detector
+
+
+# ---------------------------------------------------------------------------
+# The upstream reference's own checkpoints: its torch state dicts, read into
+# the port's modules (the JAX package's load_torch_* readers). The port's
+# modules carry the reference's key names, so a reader is a checked mapping:
+# the keys the JAX reader skips are dropped by name (torchvision's and
+# timm's classification heads, which the reference replaces by an identity;
+# VGG16's convolutions past the deepest tap), a few key forms are renamed
+# (`N.weight` for `features.N.weight`; the lpips package's heads), and every
+# other key must be the module's, with its shape.
+# ---------------------------------------------------------------------------
+
+_VGG16_TORCH_CONV_IDX = (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26, 28)
+_LPIPS_HEAD = re.compile(r"lins?\.?(\d)\.model\.1\.weight")
+
+
+def _reference_state_dict(pth_path_or_sd) -> Dict[str, torch.Tensor]:
+    """A state dict of tensors from a reference `.pth` (a `torch.save` dict,
+    its `model_state_dict` where it holds one; read with torch's
+    weights-only loader) or from a dict of tensors or arrays."""
+    sd = pth_path_or_sd
+    if isinstance(sd, (str, os.PathLike)):
+        sd = torch.load(sd, map_location="cpu", weights_only=True)
+    if "model_state_dict" in sd:
+        sd = sd["model_state_dict"]
+    return {k: v if isinstance(v, torch.Tensor) else torch.as_tensor(np.asarray(v))
+            for k, v in sd.items()}
+
+
+def _under(sd: Dict[str, torch.Tensor], prefix: str) -> Dict[str, torch.Tensor]:
+    """The entries of `sd` under `prefix`, the prefix taken off."""
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
+def _without(sd: Dict[str, torch.Tensor], prefixes) -> Dict[str, torch.Tensor]:
+    return {k: v for k, v in sd.items() if not k.startswith(tuple(prefixes))}
+
+
+@torch.no_grad()
+def _load_checked(module: nn.Module, sd: Dict[str, torch.Tensor], what: str,
+                  optional=("num_batches_tracked",), prefix: str = "") -> nn.Module:
+    """`module` filled in place from `sd`, whose keys must be the module's:
+    a key the module lacks, one of the module's that `sd` lacks (those
+    ending in `optional` aside, which keep the module's values) or a tensor
+    of another shape raises, naming the key as the reference's dict has it
+    (`prefix` + key). Returns `module`."""
+    own = module.state_dict()
+    surplus = sorted(prefix + k for k in set(sd) - set(own))
+    missing = sorted(prefix + k for k in set(own) - set(sd) if not k.endswith(tuple(optional)))
+    for keys, say in ((surplus, f"keys that the port's {type(module).__name__} lacks"),
+                      (missing, "lacks the keys")):
+        if keys:
+            raise ValueError(f"{what}: {say} {keys[:8]}{' ...' if len(keys) > 8 else ''}")
+    for k, v in sd.items():
+        if tuple(v.shape) != tuple(own[k].shape):
+            raise ValueError(f"{what}: {prefix}{k} has the shape {tuple(v.shape)}, the port's "
+                             f"{tuple(own[k].shape)}")
+    module.load_state_dict({**own, **sd})
+    return module
+
+
+def _features(sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """torchvision's `features.N.*` keys, also where they come as `N.*`."""
+    return {f"features.{k}" if k[:1].isdigit() else k: v for k, v in sd.items()}
+
+
+def load_torch_resnet(pth_path_or_sd, resnet: ResNet) -> ResNet:
+    """A torchvision ResNet's state dict (its `fc` head dropped) into the
+    port's ResNet (18, 34 or 50: the module's blocks say which), in place."""
+    return _load_checked(resnet, _without(_reference_state_dict(pth_path_or_sd), ("fc.",)),
+                         "resnet")
+
+
+def load_torch_vgg16(pth_path_or_sd, vgg: VGG16Features) -> VGG16Features:
+    """torchvision VGG16's `features` weights into VGG16Features, in place:
+    the convolutions it holds (up to its deepest tap); the deeper ones and
+    the `classifier` head are dropped."""
+    sd = _without(_features(_reference_state_dict(pth_path_or_sd)), ("classifier.",))
+    own = {int(k.split(".")[1]) for k in vgg.state_dict()}
+    deeper = tuple(f"features.{i}." for i in _VGG16_TORCH_CONV_IDX if i not in own)
+    return _load_checked(vgg, _without(sd, deeper), "vgg16")
+
+
+def load_torch_alexnet(pth_path_or_sd, net: nn.Module) -> nn.Module:
+    """torchvision AlexNet's `features` weights (its `classifier` head
+    dropped) into AlexNetFeatures, or into an LPIPS's trunk, in place: the
+    LPIPS trunk. Returns `net`."""
+    sd = _without(_features(_reference_state_dict(pth_path_or_sd)), ("classifier.",))
+    _load_checked(net.net if isinstance(net, LPIPS) else net, sd, "alexnet")
+    return net
+
+
+def load_torch_lpips(pth_path_or_sd, lpips: LPIPS) -> LPIPS:
+    """The lpips package's linear heads (`lin{i}.model.1.weight` or
+    `lins.{i}.model.1.weight`, (1, C, 1, 1)) into LPIPS's `lin{i}` (C,), in
+    place. The AlexNet trunk stays as it is (load_torch_alexnet fills it
+    from a torchvision alexnet)."""
+    heads = {}
+    for k, v in _reference_state_dict(pth_path_or_sd).items():
+        m = _LPIPS_HEAD.fullmatch(k)
+        if m is None:
+            raise ValueError(f"lpips: {k} is not a linear head (lin{{i}}.model.1.weight)")
+        heads[f"lin{m.group(1)}"] = v.reshape(-1)
+    trunk = {k: v for k, v in lpips.state_dict().items() if k.startswith("net.")}
+    return _load_checked(lpips, {**trunk, **heads}, "lpips")
+
+
+def load_torch_mobilenet_v2(pth_path_or_sd, backbone: nn.Module) -> nn.Module:
+    """torchvision mobilenet_v2's state dict (its `classifier` head dropped)
+    into the port's MobileNetV2, in place."""
+    return _load_checked(backbone, _without(_reference_state_dict(pth_path_or_sd),
+                                            ("classifier.",)), "mobilenet_v2")
+
+
+def load_torch_mobilenet_v3(pth_path_or_sd, backbone: nn.Module) -> nn.Module:
+    """torchvision mobilenet_v3_{small,large}'s state dict (its `classifier`
+    head dropped) into the port's MobileNetV3 of that variant, in place."""
+    return _load_checked(backbone, _without(_reference_state_dict(pth_path_or_sd),
+                                            ("classifier.",)), "mobilenet_v3")
+
+
+def load_torch_efficientnet(pth_path_or_sd, backbone: nn.Module) -> nn.Module:
+    """timm's EfficientNet-B0..B3 state dict (its `classifier` head dropped)
+    into the port's EfficientNet of that variant, in place. timm's BN eps
+    (1e-5) is not in the state dict; the port keeps the JAX package's
+    1e-3."""
+    return _load_checked(backbone, _without(_reference_state_dict(pth_path_or_sd),
+                                            ("classifier.",)), "efficientnet")
+
+
+def load_torch_classifier(pth_path_or_sd, classifier: FogIntensityClassifier
+                          ) -> FogIntensityClassifier:
+    """The reference's FogIntensityClassifier state dict (`backbone.*` on
+    any of the config's backbones, as the backbone readers take them; the
+    head `classifier.{1,4}.*`) into the port's classifier of the same
+    backbone, in place."""
+    sd = _reference_state_dict(pth_path_or_sd)
+    other = sorted(k for k in sd if not k.startswith(("backbone.", "classifier.")))
+    if other:
+        raise ValueError(f"classifier: keys neither backbone.* nor classifier.*: {other[:8]}")
+    backbone = _without(_under(sd, "backbone."), ("fc.", "classifier."))
+    _load_checked(classifier.backbone, backbone, "classifier", prefix="backbone.")
+    _load_checked(classifier.classifier, _under(sd, "classifier."), "classifier",
+                  prefix="classifier.")
+    return classifier
+
+
+BRANCH_KINDS = {"lightweight": LightweightDehazeModel, "low_unet": LowIntensityUNet,
+                "medium": MediumIntensityDehazeModel, "corun": COrunInspiredModel,
+                "high": HighIntensityDehazeModel, "dual_branch": DualBranchAttentionModel}
+
+
+def branch_kind_for(level: str, model_type: str) -> str:
+    """The reference branch kind of a config's (level, model_type), as the
+    reference's factories map them."""
+    if level == "low":
+        return "lightweight" if model_type == "lightweight" else "low_unet"
+    if level == "medium":
+        return "corun" if model_type == "corun" else "medium"
+    return "dual_branch" if model_type == "dual_branch" else "high"
+
+
+def load_torch_branch(pth_path_or_sd, kind: str, model: nn.Module) -> nn.Module:
+    """A reference branch model's state dict of `kind` (BRANCH_KINDS) into
+    the port's branch of that kind, in place. The lightweight branch's
+    `skip_alpha` may be absent (the JAX reader reads it where it is)."""
+    if not isinstance(model, BRANCH_KINDS[kind]):
+        raise ValueError(f"a {kind} branch's weights do not fill a {type(model).__name__}")
+    return _load_checked(model, _reference_state_dict(pth_path_or_sd), f"{kind} branch",
+                         optional=("num_batches_tracked", "skip_alpha"))
+
+
+def load_torch_gate(pth_path_or_sd, router: GatedRouter) -> GatedRouter:
+    """The reference GatedRouter's gate MLP (`gate_network.{0,3,5}` of its
+    router state dict; the rest of that dict holds the classifier and the
+    branches, which their own state dicts fill) into the port's gate, in
+    place."""
+    gate = _under(_reference_state_dict(pth_path_or_sd), "gate_network.")
+    _load_checked(router.gate_network, gate, "gate")
+    return router
+
+
+def load_torch_joint(pth_path_or_ckpt, router: nn.Module, config) -> nn.Module:
+    """The reference's joint checkpoint ({router, low_model, medium_model,
+    high_model, classifier}_state_dict) into the port's `create_router`
+    module of `config`, in place: the classifier, each branch of its
+    config's model type, and a gated router's gate. The optimizer state is
+    not read (the JAX reader ignores it too). Returns `router`."""
+    ckpt = pth_path_or_ckpt
+    if isinstance(ckpt, (str, os.PathLike)):
+        ckpt = torch.load(ckpt, map_location="cpu", weights_only=True)
+
+    def part(name):
+        if name not in ckpt:
+            raise ValueError(f"the joint checkpoint lacks {name} (it has {sorted(ckpt)})")
+        return ckpt[name]
+
+    load_torch_classifier(part("classifier_state_dict"), router.classifier)
+    for level in INTENSITY_ORDER:
+        load_torch_branch(part(f"{level}_model_state_dict"),
+                          branch_kind_for(level, config["dehazing"][level]["model_type"]),
+                          router.models[level])
+    if config["routing"]["type"] == "gated":
+        load_torch_gate(part("router_state_dict"), router)
+    return router

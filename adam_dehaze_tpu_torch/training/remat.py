@@ -26,6 +26,13 @@ Two things differ from `jax.checkpoint`, which recomputes a pure function:
   `torch.Generator`: its state at the region's start is saved and set
   again for the recompute (and restored after it), so the recompute draws
   the same masks.
+- The sharding contexts of parallel/ (an H shard, split channels, the
+  data-parallel step's rows) are context variables, which the thread that
+  the card's autograd engine recomputes on does not see. The region's
+  start captures them (parallel/sharded_ops.py:captured) and the recompute
+  re-enters them, so it runs the forward's exchanges again, in the same
+  order on every process. The data-parallel step's synchronized BNs take
+  the frozen momentum like any other.
 """
 from __future__ import annotations
 
@@ -37,6 +44,8 @@ import torch
 from torch import nn
 from torch.nn.modules.batchnorm import _BatchNorm
 from torch.utils.checkpoint import checkpoint
+
+from adam_dehaze_tpu_torch.parallel.sharded_ops import captured
 
 MODES = (False, True, "full", "fullres")
 
@@ -51,14 +60,16 @@ def remat_mode(config):
 
 
 def _contexts(module: nn.Module, generator: Optional[torch.Generator]):
-    """context_fn of `checkpoint`: the forward saves the generator's state;
-    the recompute replays it and freezes the region's BN statistics."""
+    """context_fn of `checkpoint`: the forward saves the generator's state
+    and the sharding state; the recompute replays both and freezes the
+    region's BN statistics."""
     saved = {}
 
     @contextlib.contextmanager
     def forward():
         if generator is not None:
             saved["state"] = generator.get_state()
+        saved["sharding"] = captured()
         yield
 
     @contextlib.contextmanager
@@ -72,7 +83,8 @@ def _contexts(module: nn.Module, generator: Optional[torch.Generator]):
         for m, _, _ in bns:
             m.momentum = 0.0
         try:
-            yield
+            with saved["sharding"]():
+                yield
         finally:
             for m, momentum, tracked in bns:
                 m.momentum = momentum

@@ -34,9 +34,8 @@ loss, a best-by-PSNR checkpoint of the whole router and one every 5 epochs;
   `spatial` (H split) and `model` (the branches' 4c stages split) axes, as
   the JAX package's jitted steps run over theirs: the augmentation's flip
   and gray mean, the loss nets and the metrics take the shards
-  (data/augment.py, losses/, ops/image.py). `cuda.remat` is refused there:
-  a checkpointed forward recomputes in the backward, outside the sharding
-  contexts on the card's autograd thread.
+  (data/augment.py, losses/, ops/image.py), under `cuda.remat` too: the
+  recompute re-enters the forward's sharding contexts (training/remat.py).
 
 Entry points run on the card unless the caller passes device="cpu".
 """
@@ -58,7 +57,6 @@ from adam_dehaze_tpu_torch.models.classifier import create_classifier
 from adam_dehaze_tpu_torch.models.routing import INTENSITY_ORDER, create_router
 from adam_dehaze_tpu_torch.nn.blocks import init_params_
 from adam_dehaze_tpu_torch.ops.image import psnr, ssim_gray
-from adam_dehaze_tpu_torch.parallel import sharding, spatial
 from adam_dehaze_tpu_torch.parallel.multihost import process_zero_value
 from adam_dehaze_tpu_torch.training import checkpoint as ckpt
 from adam_dehaze_tpu_torch.training.common import (
@@ -117,16 +115,6 @@ def _step_metrics(comps, dehazed, clear):
     return out
 
 
-def _refuse_remat_on_a_mesh(remat) -> None:
-    """A checkpointed forward recomputes in the backward, which the card's
-    autograd engine runs on a thread of its own, outside the sharding
-    contexts: refused on a spatial or model mesh."""
-    if remat:
-        what = f"the joint step with cuda.remat {remat!r}"
-        spatial.refuse(what)
-        sharding.refuse(what)
-
-
 def make_train_step(joint_loss, loss_params, augmentation: bool = True, remat=False,
                     dtype: torch.dtype = torch.float32):
     """step(state, batch, generator) -> {dehazing, classification,
@@ -135,7 +123,6 @@ def make_train_step(joint_loss, loss_params, augmentation: bool = True, remat=Fa
     autocast, backward, one Adam step. `generator` (on the batch's device)
     feeds the augmentation and the dropouts."""
     def step(state: TrainState, batch, generator=None):
-        _refuse_remat_on_a_mesh(remat)
         if augmentation:
             batch = augment_triplet(generator, batch)
         router = state.module

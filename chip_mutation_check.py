@@ -41,8 +41,16 @@ same ranks on the unchanged package: HALO_RANK computes K2 on their half of the 
 branch's tail_chain apply (K3) and the high branch's res_e2b_tail_chain apply (K6, K4 and K2') at
 the default widths, fp32, on 2 x 256^2 through make_spatial_infer against the same apply on the
 whole image, and K6 alone on the high e2b segment (2 x 64^2 x 384, in units of max|whole|), at
-TUNED_ATOL (chip_smoke.py phase 22 (c)'s fp32 bound, which holds the same two readings). `python3
-chip_mutation_check.py python` runs these alone.
+TUNED_ATOL (chip_smoke.py phase 22 (c)'s fp32 bound, which holds the same two readings). Int8
+serving on an H shard and on split channels (ops/quant.py:Int8Conv2d) reduces Q1's abs-max over the
+group, takes its int8 halo and slices Q2's packed weights in Python, and the remat recompute
+re-enters the sharding contexts (training/remat.py): INT8_RANK runs one Int8Conv2d of each body
+(tile 3x3/1 and 4x4/2, gather 7x7 on RGB, 2 x 128^2) on two H shards and the high branch's 4c 3x3
+layer on two channel shards against the layer on the whole input, bit for bit as chip_smoke.py
+phase 23 (a) and (b) hold them; REMAT_RANK takes a shard_train_step of the high branch at c=16 (2 x
+64^2, fp32, an MSE) on two H shards with its forward checkpointed, its backward on the card's
+autograd thread, against the same step without the checkpoint, at REMAT_RTOL of the largest
+gradient (phase 23 (c)'s fp32 bound). `python3 chip_mutation_check.py python` runs these alone.
 """
 import json
 import os
@@ -242,6 +250,23 @@ PY_MUTATIONS = {
     "K2's map halo left unfilled inside K6": (
         "tuned", "ops/kernels/res_chain.py",
         "            maps = fill_map_halo(maps, rows)\n", "            pass\n"),
+    "Q1's partial abs-max left unreduced over the group (int8 on an H shard)": (
+        "int8", "ops/quant.py", "amax = AllReduceMax.apply(image_absmax(xh), rows)",
+        "amax = image_absmax(xh)"),
+    "a halo row short before a Q2 on an H shard": (
+        "int8", "ops/quant.py", "bottom = max(g.kh - g.stride - g.padding, 0)",
+        "bottom = max(g.kh - g.stride - g.padding - 1, 0)"),
+    "the 4x4 stride-2 halo at an odd offset (one row above)": (
+        "int8", "ops/quant.py", "top = -(-g.padding // g.stride) * g.stride",
+        "top = g.padding"),
+    "a rank's Q2 given another rank's output-channel slice of the packed weights": (
+        "int8", "ops/quant.py",
+        "self._slices[key] = self._slice(channel_slice(self.geometry.cout, channels))",
+        "self._slices[key] = self._slice(channel_slice(\n                self.geometry.cout, "
+        "channels._replace(index=channels.size - 1 - channels.index)))"),
+    "the remat recompute run outside the sharding contexts": (
+        "remat", "training/remat.py",
+        '            with saved["sharding"]():\n                yield\n', "            yield\n"),
 }
 # K2 on two H shards against the kernel on the whole image: they compute the same
 # maps and gates per pixel, so one bf16 step of the largest output at most.
@@ -333,7 +358,125 @@ torch.cuda.synchronize()
 dist.destroy_process_group()
 print(json.dumps(err))
 """
-CASES = {"halo": (HALO_RANK, HALO_RTOL), "tuned": (TUNED_RANK, TUNED_ATOL)}
+# Int8 layers on two H shards and on two channel shards against the layer on
+# the whole input: bit for bit (chip_smoke.py phase 23 (a) and (b)).
+INT8_ATOL = 0.0
+# One rank of the int8 case: python3 -c INT8_RANK REPO RANK PORT, from the root of
+# the package to measure; prints its largest absolute error.
+INT8_RANK = """
+import json, sys
+from pathlib import Path
+import torch
+import torch.distributed as dist
+from adam_dehaze_tpu_torch.ops.kernels import _build
+repo, rank, port = Path(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+_build.CSRC, _build.BUILD_ROOT = repo / "adam_dehaze_tpu_torch" / "csrc", repo / "build" / "kernels"
+from adam_dehaze_tpu_torch.ops.quant import Int8Conv2d
+from adam_dehaze_tpu_torch.parallel.collectives import channel_slice
+from adam_dehaze_tpu_torch.parallel.mesh import make_mesh
+from adam_dehaze_tpu_torch.parallel.sharding import channel_sharding
+from adam_dehaze_tpu_torch.parallel.spatial import spatial_sharding
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank)
+rows_mesh = make_mesh({"spatial": 2}, [dev, dev])
+cols_mesh = make_mesh({"model": 2}, [dev, dev])
+gen = torch.Generator().manual_seed(0)
+
+
+def layer(cin, cout, k, s, p, h):
+    conv = torch.nn.Conv2d(cin, cout, k, s, p, bias=False)
+    bn = torch.nn.BatchNorm2d(cout).eval()
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen) * (k * k * cin) ** -0.5)
+        bn.running_mean.uniform_(-0.2, 0.2, generator=gen)
+        bn.running_var.uniform_(0.8, 1.3, generator=gen)
+    x = torch.randn(2, cin, h, h, generator=gen)
+    x = (x if cin == 3 else torch.relu(x)).to(dev).contiguous(memory_format=torch.channels_last)
+    return Int8Conv2d(conv.to(dev), bn.to(dev), relu=True), x
+
+
+err = 0.0
+with torch.inference_mode():
+    for spec in ((96, 96, 3, 1, 1, 128), (96, 192, 4, 2, 1, 128), (3, 96, 7, 1, 3, 128)):
+        m, x = layer(*spec)
+        whole = m(x)
+        h, s = x.shape[2] // 2, spec[3]
+        with spatial_sharding(rows_mesh):
+            part = m(x[:, :, h * rank:h * rank + h])
+        err = max(err, float((part - whole[:, :, h * rank // s:(h * rank + h) // s]).abs().max()))
+    m, x = layer(384, 384, 3, 1, 1, 32)
+    whole = m(x)
+    cols = channel_slice(384, cols_mesh.axis("model"))
+    with channel_sharding(cols_mesh):
+        part = m(x[:, cols].contiguous(memory_format=torch.channels_last))
+    err = max(err, float((part - whole[:, cols]).abs().max()))
+torch.cuda.synchronize()
+dist.destroy_process_group()
+print(json.dumps(err))
+"""
+# A checkpointed step on two H shards against the same step without the checkpoint:
+# chip_smoke.py phase 23 (c)'s fp32 gradient bound, of the largest gradient.
+REMAT_RTOL = 1e-3
+# One rank of the remat case: python3 -c REMAT_RANK REPO RANK PORT, from the root of
+# the package to measure; prints its largest gradient error in units of max|g|.
+REMAT_RANK = """
+import json, sys
+from pathlib import Path
+import torch
+import torch.distributed as dist
+from adam_dehaze_tpu_torch.ops.kernels import _build
+repo, rank, port = Path(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+_build.CSRC, _build.BUILD_ROOT = repo / "adam_dehaze_tpu_torch" / "csrc", repo / "build" / "kernels"
+from adam_dehaze_tpu_torch.models.branches import HighIntensityDehazeModel
+from adam_dehaze_tpu_torch.nn.blocks import init_params_
+from adam_dehaze_tpu_torch.parallel.data_parallel import shard_train_step
+from adam_dehaze_tpu_torch.parallel.mesh import make_mesh
+from adam_dehaze_tpu_torch.training.remat import checkpoint_call
+from adam_dehaze_tpu_torch.training.state import TrainState
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.deterministic = True
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank)
+mesh = make_mesh({"data": 1, "spatial": 2}, [dev, dev])
+gen = torch.Generator().manual_seed(0)
+batch = {"x": torch.rand(2, 64, 64, 3, generator=gen).to(dev),
+         "y": torch.rand(2, 64, 64, 3, generator=gen).to(dev)}
+grads = {}
+for remat in (False, True):
+    model = init_params_(HighIntensityDehazeModel(16), torch.Generator().manual_seed(1))
+    model = model.to(dev).train()
+
+    def step(state, batch, generator=None, remat=remat):
+        m = state.module
+        pred = checkpoint_call(m, batch["x"], module=m) if remat else m(batch["x"])
+        loss = ((pred - batch["y"]) ** 2).mean()
+        state.optimizer.zero_grad(set_to_none=True)
+        loss.backward()
+        state.optimizer.step()
+        return {"loss": loss.detach()}
+
+    state = TrainState(model, torch.optim.SGD(model.parameters(), lr=0.0))
+    shard_train_step(step, mesh, batch)(state, batch)
+    grads[remat] = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+torch.cuda.synchronize()
+dist.destroy_process_group()
+g_max = max(float(g.abs().max()) for g in grads[False].values())
+print(json.dumps(max(float((grads[True][n] - g).abs().max()) for n, g in grads[False].items())
+                 / g_max))
+"""
+CASES = {"halo": (HALO_RANK, HALO_RTOL), "tuned": (TUNED_RANK, TUNED_ATOL),
+         "int8": (INT8_RANK, INT8_ATOL), "remat": (REMAT_RANK, REMAT_RTOL)}
+CASE_READINGS = {
+    "halo": f"K2 on two H shards of {BATCH} x 64^2 x 384, bf16, in units of max|whole|",
+    "tuned": "the tuned applies on two H shards of 2 x 256^2, fp32, max abs err, and K6 alone "
+             "on 2 x 64^2 x 384 in units of max|whole|",
+    "int8": "Int8Conv2d of each body on two H shards of 2 x 128^2 and the 4c layer on two "
+            "channel shards, fp32, max abs err against the whole input",
+    "remat": "a checkpointed high-branch step (c=16, 2 x 64^2, fp32) on two H shards against "
+             "the step without the checkpoint, gradients in units of max|g|"}
 
 
 def perturb_bn_(module, gen):
@@ -448,9 +591,11 @@ def use_sources(csrc: Path):
     _build.library.cache_clear()
 
 
-def case_error(case: str, package_root: Path) -> float:
+def case_error(case: str, package_root: Path, mutated: bool = False) -> float:
     """The error of a two-rank case (the larger of its ranks') with the
-    package under `package_root`."""
+    package under `package_root`. A rank that fails fails the run on the
+    unchanged package; under a mutation it is caught (inf), its last line
+    printed."""
     with socket.socket() as s:
         s.bind(("localhost", 0))
         port = s.getsockname()[1]
@@ -469,6 +614,9 @@ def case_error(case: str, package_root: Path) -> float:
                 p.wait()
     for p, log in zip(procs, logs):
         if p.returncode != 0:
+            if mutated:
+                print(f"    a rank failed: {log.strip().splitlines()[-1][:300]}", flush=True)
+                return float("inf")
             raise SystemExit(f"the {case} case failed:\n{log}")
     return max(json.loads(log.strip().splitlines()[-1]) for log in logs)
 
@@ -479,10 +627,8 @@ def python_mutations(failed):
     repo = Path(__file__).resolve().parent
     for case, (_, bound) in CASES.items():
         unchanged = case_error(case, repo)
-        print(f"{case} case unchanged: {unchanged:.3e} (bound {bound:.3e}); K2 on two H shards "
-              f"of {BATCH} x 64^2 x 384, bf16, in units of max|whole| (halo); the tuned applies "
-              "on two H shards of 2 x 256^2, fp32, max abs err, and K6 alone on 2 x 64^2 x 384 "
-              "in units of max|whole| (tuned)", flush=True)
+        print(f"{case} case unchanged: {unchanged:.3e} (bound {bound:.3e}); "
+              f"{CASE_READINGS[case]}", flush=True)
         if unchanged > bound:
             failed.append(f"the unchanged {case} case exceeds its bound: {unchanged}")
     with tempfile.TemporaryDirectory() as tmp:
@@ -495,7 +641,7 @@ def python_mutations(failed):
             if text.count(old) != 1:
                 raise AssertionError(f"mutation {name!r}: its text is not once in {fname}")
             path.write_text(text.replace(old, new))
-            err = case_error(case, root)
+            err = case_error(case, root, mutated=True)
             print(f"  {name} ({case}): {err:.3e}", flush=True)
             if err <= CASES[case][1]:
                 failed.append(f"{name}: not caught ({err})")

@@ -321,16 +321,49 @@ Phases, in order; any failure raises and the script exits non-zero:
    unsharded. (a) runs alone, then (b) beside (c). Prints each error,
    launch count and warm ms/image beside the card's name and power limit;
    one card holds every rank, so nothing here shows scaling.
-23. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
+23. Int8 serving and `cuda.remat` on the spatial and model axes, and a
+   converted reference checkpoint (`[int8 shards]`, `[int8 spatial]`,
+   `[int8 tp]`, `[remat spatial]` and `[reference checkpoint]` lines), each
+   sharded part's ranks in a gloo group on cuda:0 (this script with
+   `--int8-shard-rank`), fp32 with TF32 off and bf16, held against the
+   one-process unsharded call on the same card. First Q1's two passes
+   (`image_absmax`, `quantize_images_at`, for an image split over a
+   spatial group) at the shapes of phase 19's int8 bucket on one of 2 H
+   shards, bit for bit against their plain versions, timed beside them.
+   (a) The default router's int8 dehazer on forced labels 0, 1, 2, 0 at
+   512^2 through `make_spatial_infer` over {"spatial": 2}, against the
+   unsharded int8 by the CPU tests' int8 rule (INT8_SHARD_TOL,
+   INT8_MATCH_SHARE); each rank launches Q2 and each of Q1's passes once an
+   int8 ConvBlock (8, 21 and 23 a low, medium and high bucket), the one
+   launch Q1 never, K2 6 times; one Int8Conv2d of each body (tile 3x3/1 and
+   4x4/2, gather 7x7 on RGB) at 512^2: Q1's split and Q2 on the taller
+   shard bit for bit the unsharded layer's rows. (b) The high branch's
+   int8 copy (c = 96), INT8_TP_ROWS images at 256^2, under
+   `channel_sharding` over {"model": 2} by the same rule, launching as
+   unsharded; its 4c 3x3 layer on each rank's output slice (the tile body,
+   chunk 96) bit for bit. (c) The soft joint step of the default router
+   (REMAT_ROWS images at 256^2, fp32) under `cuda.remat: true` over
+   {"spatial": 2} against the same sharded step without remat, at phase
+   22 (a)'s fp32 bounds; K2 launches twice as often (forward and
+   recompute), K5 no less often. (d) A seeded five-state joint `.pth` in
+   the reference's layout at the default widths through
+   `tools/convert_reference_checkpoint.py`, `_load_joint` and
+   `route_hard` (3 images at 128^2, one a class): fp32 on the card against
+   the CPU at SLICE_ATOL, bf16 launching K1 and K2. One card holds every
+   rank, so nothing here shows scaling.
+24. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
    with "training", "classifier_training", "joint_training", "detection",
    "cli", "lowres", "alternate", "precompiled", "int8", "parallel",
-   "spatial", "tp", "joint_sharded", "dryrun" and "tuned_spatial"; K5's
+   "spatial", "tp", "joint_sharded", "dryrun", "tuned_spatial",
+   "int8_spatial", "int8_tp", "remat_spatial" and "reference_checkpoint";
+   Q1's two passes as "int8_absmax" and "int8_quantize_at"; K5's
    and K2''s Function readings under "function"; each lowres kernel's
    readings at 128^2 under "lowres", K2's at the alternate branches'
    shapes under "alternate"; the CLI's, the dial's, the alternates',
-   precompiled serving's, parallel/'s and phase 22's readings under "cli",
-   "lowres", "alternate", "precompiled", "parallel", "sharded" and
-   "joint_sharded") and, last, {"ok": true, "device": ...}.
+   precompiled serving's, parallel/'s and phases 22's and 23's readings
+   under "cli", "lowres", "alternate", "precompiled", "parallel",
+   "sharded", "joint_sharded" and "int8_and_remat_on_shards") and, last,
+   {"ok": true, "device": ...}.
 """
 import collections
 import contextlib
@@ -526,6 +559,11 @@ KERNELS = {
                       "adam_dehaze_tpu/ops/quant.py:34"),
     "int8_conv": ("cuda", "adam_dehaze_tpu_torch/csrc/int8_conv.cu",
                   "adam_dehaze_tpu/ops/quant.py:34"),
+    # Q1's two passes apart, for an image split over a spatial group.
+    "int8_absmax": ("cuda", "adam_dehaze_tpu_torch/csrc/int8_conv.cu",
+                    "adam_dehaze_tpu/ops/quant.py:34"),
+    "int8_quantize_at": ("cuda", "adam_dehaze_tpu_torch/csrc/int8_conv.cu",
+                         "adam_dehaze_tpu/ops/quant.py:34"),
 }
 # The main-path segments of K6 at 256^2: name -> (channels, downscale, kinds).
 RES_SEGMENTS = {
@@ -4518,6 +4556,543 @@ def phase_joint_sharded(dev, smi, tmp):
     return dict(joint_path), dict(dryrun_path), dict(tuned_path), readings
 
 
+# Phase 23: int8 serving and cuda.remat on the spatial and model axes, and a
+# converted reference checkpoint. Each sharded part's ranks in a gloo group
+# on cuda:0 (this script with `--int8-shard-rank`), held against the
+# one-process unsharded call on the same card. One card holds every rank,
+# so nothing here shows scaling.
+INT8_SHARD_SIZE = 512
+INT8_SHARD_LABELS = (0, 1, 2, 0)
+INT8_TP_ROWS = 8
+REMAT_ROWS = 4
+INT8_SHARD_TIMEOUT_S = 300
+# Int8 on shards against the unsharded int8 on the card, end to end. An
+# element off the unsharded value by a float rounding upstream of a
+# quantizer (the shards' convolutions, the channel-split MLP and K2's
+# reduced maps, the row-parallel transposed conv sum in other orders) moves
+# an int8 level now and then, and the layers after it spread that over a
+# patch. Every element within INT8_FLIP_TOL, the CPU tests' bound
+# (tests/test_torch_quant.py: _assert_int8_close; in bf16 one bf16 step of
+# a [0, 1] value more), and the mean error within INT8_DRAWS times the mean
+# of the int8 noise (the unsharded int8 output against the unquantized
+# one), as phase 19 holds the card against the CPU. The CPU tests' other
+# rule, INT8_MATCH_SHARE of the elements within INT8_MATCH_ATOL, is a
+# reading here: at the default widths the flips reach most of the high
+# branch's output (68.4 % of its fp32 elements within 1e-5 on 2 channel
+# shards in this phase's first run, NVIDIA H100 80GB HBM3 at 700.00 W),
+# where the CPU tests' narrow branches keep them local.
+INT8_FLIP_TOL = 1e-2
+INT8_MATCH_SHARE = 0.75
+INT8_MATCH_ATOL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -8}
+INT8_SHARD_TOL = {torch.float32: INT8_FLIP_TOL, torch.bfloat16: INT8_FLIP_TOL + 2.0 ** -8}
+# Q2's launches for one bucket of each class (phase 19's counts).
+INT8_BUCKET_Q2 = {"low": 8, "medium": 21, "high": 23}
+# One Int8Conv2d of each body on 2 H shards, at the high branch's shapes at
+# 512^2 (2 images): name -> (cin, cout, kernel, stride, padding, H).
+INT8_SHARD_LAYERS = {"tile_3x3": (96, 96, 3, 1, 1, INT8_SHARD_SIZE),
+                     "tile_4x4_s2": (96, 192, 4, 2, 1, INT8_SHARD_SIZE),
+                     "gather_rgb_7x7": (3, 96, 7, 1, 3, INT8_SHARD_SIZE)}
+# The 4c layer of the high branch on 2 channel shards (2 images at 64^2).
+INT8_TP_LAYER = (384, 384, 3, 1, 1, SIZE // 4)
+REFERENCE_SIZE = 128
+REFERENCE_LABELS = (0, 1, 2)
+INT8_SHARD_PATHS = ("int8_spatial", "int8_tp", "remat_spatial", "reference_checkpoint")
+
+
+def int8_close(got, want, unquantized, dtype):
+    """Int8 on shards `got` against the unsharded int8 `want` (see
+    INT8_SHARD_TOL): {max abs error, mean abs error, the int8 noise's mean
+    (`want` against the unquantized output), the share of elements within
+    INT8_MATCH_ATOL (a reading), ok: max and mean within their bounds}."""
+    err = (got.float() - want.float()).abs()
+    noise = float((want.float() - unquantized.float()).abs().mean())
+    rec = dict(max=float(err.max()), mean=float(err.mean()), noise_mean=noise,
+               share_within=float((err <= INT8_MATCH_ATOL[dtype]).float().mean()))
+    rec["ok"] = rec["max"] <= INT8_SHARD_TOL[dtype] and rec["mean"] <= INT8_DRAWS * noise
+    return rec
+
+
+def int8_close_text(rec, dtype):
+    return (f"max abs err {rec['max']:.3e} (bound {INT8_SHARD_TOL[dtype]:.3e}), mean "
+            f"{rec['mean']:.3e} (bound {INT8_DRAWS} x the int8 noise's mean {rec['noise_mean']:.3e}), "
+            f"{100 * rec['share_within']:.2f} % within {INT8_MATCH_ATOL[dtype]:.1e} (a reading; "
+            f"the CPU tests ask {100 * INT8_MATCH_SHARE:.0f} %)")
+
+
+def int8_shard_layer(spec, dev, seed):
+    """An Int8Conv2d of `spec` (eval BN with seeded statistics, ReLU) and its
+    input (2 images, NCHW in channels_last), seeded alike on every rank."""
+    from adam_dehaze_tpu_torch.ops.quant import Int8Conv2d
+    cin, cout, k, stride, pad, h = spec
+    gen = torch.Generator().manual_seed(seed)
+    conv = torch.nn.Conv2d(cin, cout, k, stride, pad, bias=False)
+    with torch.no_grad():
+        conv.weight.copy_(torch.randn(conv.weight.shape, generator=gen) * (k * k * cin) ** -0.5)
+    layer = Int8Conv2d(conv.to(dev), random_eval_bn(cout, gen, dev), relu=True)
+    x = torch.randn(2, cin, h, h, generator=gen)
+    return layer, (x if cin == 3 else torch.relu(x)).to(dev).contiguous(
+        memory_format=torch.channels_last)
+
+
+def int8_layer_on_rows(name, mesh, dev):
+    """A layer of INT8_SHARD_LAYERS: Q1's split on this rank's rows (its
+    abs-max, the max over the group, the quantizing) against the one launch
+    on the whole image, and the layer on the rows (Q2 on the taller shard,
+    cropped) against the layer's rows of the whole image: bit for bit?"""
+    from adam_dehaze_tpu_torch.ops.kernels.quant import image_absmax, quantize_images_at
+    from adam_dehaze_tpu_torch.parallel.collectives import AllReduceMax
+    from adam_dehaze_tpu_torch.parallel.spatial import spatial_sharding
+    layer, x = int8_shard_layer(INT8_SHARD_LAYERS[name], dev, SEED + 40 + len(name))
+    rows = mesh.axis("spatial")
+    h = x.shape[2] // rows.size
+    part = slice(rows.index * h, (rows.index + 1) * h)
+    xh = x.permute(0, 2, 3, 1)
+    xr = xh[:, part].contiguous()
+    cin_pad = layer.geometry.cin_pad
+    with torch.inference_mode():
+        q, scale = quantize_images(xh, cin_pad)
+        amax = AllReduceMax.apply(image_absmax(xr), rows)
+        qr, scale_r = quantize_images_at(xr, amax, cin_pad)
+        whole = layer(x)
+        with spatial_sharding(mesh):
+            got = layer(xr.permute(0, 3, 1, 2))
+    torch.cuda.synchronize()
+    return {"q1_bitwise": bool(torch.equal(qr, q[:, part]) and torch.equal(scale_r, scale)),
+            "q2_bitwise": bool(torch.equal(got, whole[:, :, part.start // layer.geometry.stride:
+                                                      part.stop // layer.geometry.stride])),
+            "q2_max_abs_err": max_err(got.float(), whole[:, :, part.start // layer.geometry.stride:
+                                                          part.stop // layer.geometry.stride]
+                                      .float()),
+            "body": layer.geometry.body}
+
+
+def int8_layer_on_channels(mesh, dev):
+    """INT8_TP_LAYER on this rank's input channels under channel_sharding
+    against the whole layer's output channels of this rank: bit for bit?
+    And the body its slice takes."""
+    from adam_dehaze_tpu_torch.parallel.collectives import channel_slice
+    from adam_dehaze_tpu_torch.parallel.sharding import channel_sharding
+    layer, x = int8_shard_layer(INT8_TP_LAYER, dev, SEED + 45)
+    axis = mesh.axis("model")
+    with torch.inference_mode():
+        whole = layer(x)
+        with channel_sharding(mesh):
+            got = layer(x[:, channel_slice(x.shape[1], axis)].contiguous(
+                memory_format=torch.channels_last))
+    want = whole[:, channel_slice(whole.shape[1], axis)]
+    part = layer._operands(axis).geometry
+    return {"q2_bitwise": bool(torch.equal(got, want)), "q2_max_abs_err": max_err(got, want),
+            "slice_body": part.body, "slice_n_chunk": part.n_chunk, "slice_cout": part.cout}
+
+
+def int8_route_call(d, x, labels, mesh=None):
+    """The int8 dehazer's engine on forced labels (what route_hard runs
+    after its classifier), through make_spatial_infer on this rank's rows
+    when a mesh is given: (output on the CPU, launches, warm ms/image)."""
+    from adam_dehaze_tpu_torch.parallel.spatial import make_spatial_infer, shard_image_batch
+    serve = lambda t: d.engine(t, intensity=labels)[0]  # noqa: E731
+    fn, arg = ((serve, x) if mesh is None else
+               (make_spatial_infer(serve, mesh), shard_image_batch(mesh, x)))
+    with torch.inference_mode():
+        reset_launch_counts()
+        out = fn(arg)
+        torch.cuda.synchronize()
+        launches = counts()
+        ms = warm_ms(lambda: fn(arg), 2)[0] / x.shape[0]
+    return out.float().cpu(), launches, ms
+
+
+def int8_tp_call(model, x, dtype, mesh=None, quant=True):
+    """The high branch's int8 serving apply (its unquantized one where not
+    `quant`) on x, under channel_sharding when a mesh is given: (output on
+    the CPU, launches)."""
+    from adam_dehaze_tpu_torch.ops.quant import quantize_apply
+    from adam_dehaze_tpu_torch.parallel.sharding import channel_sharding
+    apply = quantize_apply(model, dtype) if quant else cast_for_serving(model, dtype)
+    with torch.inference_mode(), (channel_sharding(mesh) if mesh is not None
+                                  else contextlib.nullcontext()):
+        reset_launch_counts()
+        y = apply(x)
+        torch.cuda.synchronize()
+        launches = counts()
+    return y.float().cpu(), launches
+
+
+def remat_joint_step(dev, remat, mesh):
+    """The soft joint step (augmentation off, dropout on) of the seeded
+    default router on REMAT_ROWS images at SIZE^2, fp32, its forward under
+    `cuda.remat: remat`, through shard_train_step: the metrics, gradients
+    and BN statistics (on the CPU) and its launches."""
+    cfg = dp_config()
+    cfg["cuda"]["remat"] = remat
+    router, state = tj.build_router_state(cfg, dev)
+    joint_loss = get_joint_loss(cfg)
+    nets = tj._loss_params(joint_loss, dev)
+    batch = {k: v[:REMAT_ROWS] for k, v in dp_batch(dev).items()}
+    replicate(mesh, state)
+    step = shard_train_step(tj.make_train_step(joint_loss, nets, augmentation=False,
+                                               remat=remat), mesh, batch)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 46)
+    reset_launch_counts()
+    metrics = step(state, batch, gen)
+    torch.cuda.synchronize()
+    launches = counts()
+    return {"metrics": {k: float(v) for k, v in metrics.items()},
+            "grads": {n: p.grad.detach().cpu() for n, p in router.named_parameters()
+                      if p.grad is not None},
+            "stats": {k: v.detach().cpu() for k, v in router.state_dict().items()
+                      if "running" in k}}, launches
+
+
+def int8_shard_rank(part, rank, world, port, out_dir, dev=None):
+    """One rank of phase 23: `python3 chip_smoke.py --int8-shard-rank PART
+    RANK WORLD PORT OUT_DIR`. PART "rows" runs (a) and (c) over {"spatial":
+    2}, "channels" (b) over {"model": 2}; `dev` is cuda:0 (another only to
+    rehearse)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dev or torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    # Every rank drives the one card: gloo over CUDA tensors (NCCL refuses
+    # two ranks on one device), a choice made for one card.
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                         world_size=world, rank=rank)
+    try:
+        state = torch.load(os.path.join(out_dir, "state.pt"), weights_only=True)
+        router = make_router(load_config(), torch.Generator().manual_seed(SEED + 41))
+        router.load_state_dict(state["router"])
+        router.to(dev).eval()
+        out = {}
+        if part == "rows":
+            mesh = make_mesh({"data": 1, "spatial": 2}, [dev] * 2)
+            x = state["x"].to(dev)
+            for name, dtype in (("fp32", "float32"), ("bf16", "bfloat16")):
+                cfg = load_config(overrides={"cuda": {"compute_dtype": dtype,
+                                                      "serving_quant": "int8"}})
+                d = AdaptiveDehazer(router, None, cfg, device=dev)
+                out[f"route_{name}"] = int8_route_call(d, x, np.asarray(INT8_SHARD_LABELS),
+                                                       mesh)
+                del d
+            out["layers"] = {name: int8_layer_on_rows(name, mesh, dev)
+                             for name in INT8_SHARD_LAYERS}
+            del router
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["remat"] = {str(mode): remat_joint_step(dev, mode, mesh) for mode in (False, True)}
+        else:
+            mesh = make_mesh({"data": 1, "model": 2}, [dev] * 2)
+            x = state["tp_x"].to(dev)
+            for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+                out[f"tp_{name}"] = int8_tp_call(router.models["high"], x, dtype, mesh)
+            out["layer"] = int8_layer_on_channels(mesh, dev)
+        torch.save(out, os.path.join(out_dir, f"{part}{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def spawn_int8_shards(out_dir):
+    """Phase 23's parts, their 2 ranks each, side by side: what the ranks
+    saved, by part."""
+    procs = {}
+    for part in ("rows", "channels"):
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        procs[part] = [subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--int8-shard-rank", part, str(rank),
+             "2", str(port), out_dir],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for rank in range(2)]
+    logs = _run_all(procs, INT8_SHARD_TIMEOUT_S)
+    failed = [f"{part} rank {r} failed:\n{text[-6000:]}" for part, ps in procs.items()
+              for r, (p, text) in enumerate(zip(ps, logs[part])) if p.returncode != 0]
+    check(not failed, "\n".join(failed))
+    return {part: [torch.load(os.path.join(out_dir, f"{part}{r}.pt"), weights_only=False)
+                   for r in range(2)] for part in procs}
+
+
+def q1_split_kernels(d8, dev):
+    """Q1's two passes (`image_absmax`, `quantize_images_at`) at the shapes of
+    one bucket of each int8 branch (BATCH images at SIZE^2, phase 19's
+    layers) on one of 2 H shards: each against its plain version (bit for
+    bit), timed beside it, with its bound and, for the abs-max, one PyTorch
+    call of the same function (`torch.linalg.vector_norm`, ord inf)."""
+    from adam_dehaze_tpu_torch.ops.kernels.quant import (
+        image_absmax,
+        image_absmax_reference,
+        quantize_images_at,
+        quantize_images_at_reference,
+    )
+    layers, _, _ = int8_layers(d8, dev)
+    gen = torch.Generator().manual_seed(SEED + 42)
+    recs = {"int8_absmax": collections.Counter(), "int8_quantize_at": collections.Counter()}
+    errs = {"int8_absmax": 0.0, "int8_quantize_at": 0.0}
+    bitwise = True
+    for (geo, shape), calls in layers.items():
+        n, h, w, c = shape
+        xs = torch.relu(torch.randn((n, h // 2, w, c), generator=gen)) if c != 3 else \
+            torch.rand((n, h // 2, w, c), generator=gen)
+        xs = xs.to(torch.bfloat16).to(dev)
+        with torch.inference_mode():
+            amax = image_absmax(xs)
+            amax0 = image_absmax_reference(xs)
+            q, s = quantize_images_at(xs, amax, geo.cin_pad)
+            q0, s0 = quantize_images_at_reference(xs, amax, geo.cin_pad)
+            bitwise = bitwise and bool(torch.equal(amax, amax0) and torch.equal(q, q0)
+                                       and torch.equal(s, s0))
+            errs["int8_absmax"] = max(errs["int8_absmax"], max_err(amax, amax0))
+            errs["int8_quantize_at"] = max(errs["int8_quantize_at"], max_err(q, q0),
+                                           max_err(s, s0))
+            timings = {
+                "int8_absmax": (cuda_ms(lambda: image_absmax(xs), 10, 2),
+                                cuda_ms(lambda: image_absmax_reference(xs), 3, 1),
+                                cuda_ms(lambda: torch.linalg.vector_norm(
+                                    xs, float("inf"), dim=(1, 2, 3)), 10, 2),
+                                bound(xs.numel(), nbytes(xs, amax), PEAK_F32_FLOPS)),
+                "int8_quantize_at": (cuda_ms(lambda: quantize_images_at(xs, amax, geo.cin_pad),
+                                             10, 2),
+                                     cuda_ms(lambda: quantize_images_at_reference(
+                                         xs, amax, geo.cin_pad), 3, 1),
+                                     None,
+                                     bound(4 * xs.numel(), nbytes(xs, amax, q, s),
+                                           PEAK_F32_FLOPS))}
+        for name, (ms, plain, lib, b) in timings.items():
+            rec = recs[name]
+            rec["ms"] += calls * ms
+            rec["plain_ms"] += calls * plain
+            if lib is not None:
+                rec["library_ms"] += calls * lib
+            for key in ("bound_ms", "bytes", "flops"):
+                rec[key] += calls * b[key]
+    check(bitwise, "(a) Q1's two passes differ from their plain versions")
+    per = (f"one {BATCH}-image bucket of each int8 branch at {SIZE}^2 on one of 2 H shards "
+           f"({sum(layers.values())} convs, bf16)")
+    out = {}
+    for name, rec in recs.items():
+        out[name] = dict(rec, max_abs_err=errs[name], per=per,
+                         library_ms=rec.get("library_ms"),
+                         bound_by="bytes" if rec["bytes"] / PEAK_BYTES_S
+                         >= rec["flops"] / PEAK_F32_FLOPS else "operations")
+        log(f"[int8 shards] {name} per {per}: {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} "
+            f"ms, bound {rec['bound_ms']:.3f} ms ({out[name]['bound_by']}), library "
+            f"{out[name]['library_ms']} ms; bitwise against its plain version")
+    return out
+
+
+def phase_reference_checkpoint(dev, smi, tmp):
+    """(d) A seeded five-state joint checkpoint in the reference's layout at
+    the default widths, converted by the port's tool, served through
+    `_load_joint` and `route_hard`: fp32 on the card against the CPU at
+    SLICE_ATOL; bf16 on the card launches K1 and K2. Returns the bf16
+    path's launches and the readings."""
+    import yaml
+
+    from adam_dehaze_tpu_torch.config import update_checkpoint_paths
+    from adam_dehaze_tpu_torch.tools import convert_reference_checkpoint
+    cfg = load_config(overrides={"cuda": {"compute_dtype": "float32"}})
+    router = make_router(cfg, torch.Generator().manual_seed(SEED + 43))
+    x = np.random.default_rng(SEED + 44).random(
+        (len(REFERENCE_LABELS), REFERENCE_SIZE, REFERENCE_SIZE, 3), dtype=np.float32)
+    balance_head_(router.classifier, torch.from_numpy(x), REFERENCE_LABELS)
+    sd = router.state_dict()
+
+    def under(prefix):
+        return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+    pth = os.path.join(tmp, "reference_joint.pth")
+    torch.save({"router_state_dict": sd, "classifier_state_dict": under("classifier."),
+                **{f"{lvl}_model_state_dict": under(f"models.{lvl}.") for lvl in INTENSITY_ORDER},
+                "optimizer_state_dict": {"state": {}, "param_groups": []}, "epoch": 0}, pth)
+    exp = os.path.join(tmp, "reference_experiment")
+    os.makedirs(exp)
+    with open(os.path.join(exp, "config.yaml"), "w") as f:
+        yaml.safe_dump(cfg, f)
+    ecfg = update_checkpoint_paths(cfg, exp)
+    convert_reference_checkpoint.main(
+        ["--kind", "joint", "--pth", pth, "--config", os.path.join(exp, "config.yaml"),
+         "--out", os.path.join(ecfg["joint_training"]["checkpoint_dir"], "best_model")])
+    outs = {}
+    for tag, device in (("card", dev), ("cpu", "cpu")):
+        served = det_eval._load_joint(ecfg, device)
+        check(all(torch.equal(v.cpu(), sd[k]) for k, v in served.state_dict().items()),
+              f"(d) the converted joint checkpoint on {tag} is not the reference's")
+        outs[tag] = AdaptiveDehazer(served, None, ecfg, device=device).route_hard(x)
+        del served
+    err = float(np.abs(outs["card"][0] - outs["cpu"][0]).max())
+    labels = [outs[t][1].tolist() for t in ("card", "cpu")]
+    check(labels == [list(REFERENCE_LABELS)] * 2, f"(d) route_hard labels {labels}")
+    check(err <= SLICE_ATOL, f"(d) the converted checkpoint's fp32 route differs by {err}")
+    cfg16 = load_config(overrides={"cuda": {"compute_dtype": "bfloat16"}})
+    ecfg16 = update_checkpoint_paths(cfg16, exp)
+    d16 = AdaptiveDehazer(det_eval._load_joint(ecfg16, dev), None, ecfg16, device=dev)
+    reset_launch_counts()
+    y16, lab16 = d16.route_hard(x)
+    torch.cuda.synchronize()
+    path = counts()
+    err16 = float(np.abs(y16 - outs["cpu"][0]).max())
+    log(f"[reference checkpoint] (d) a seeded five-state joint .pth at the default widths, "
+        f"converted (tools/convert_reference_checkpoint.py) and served by _load_joint -> "
+        f"route_hard, {len(REFERENCE_LABELS)} images at {REFERENCE_SIZE}^2: labels {labels[0]}; "
+        f"fp32 card vs CPU max abs err {err:.3e} (bound {SLICE_ATOL:.0e}); bf16 on the card, "
+        f"labels {lab16.tolist()}, launches {nonzero(path)}, against the fp32 CPU route "
+        f"{err16:.3e} (a reading); {smi}")
+    check(path.get("lightweight_chain", 0) > 0 and path.get("cbam_gate", 0) > 0,
+          f"(d) bf16 route_hard launched {nonzero(path)}")
+    del d16
+    torch.cuda.empty_cache()
+    return path, dict(fp32_card_vs_cpu=err, bf16_card_vs_fp32_cpu=err16, labels=labels[0])
+
+
+def phase_int8_shards(dev, smi, tmp):
+    """23. Int8 serving and cuda.remat on the spatial and model axes, and a
+    converted reference checkpoint (see the docstring). Returns the paths'
+    launch counts, the records of Q1's two passes and the readings."""
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out_dir = os.path.join(tmp, "int8_shards")
+    os.makedirs(out_dir)
+    paths = {p: collections.Counter() for p in INT8_SHARD_PATHS}
+    readings = {}
+    gen = torch.Generator().manual_seed(SEED + 41)
+    router = make_router(load_config(), gen)
+    rng = np.random.default_rng(SEED + 47)
+    x = torch.from_numpy(rng.random((len(INT8_SHARD_LABELS), INT8_SHARD_SIZE, INT8_SHARD_SIZE, 3),
+                                    dtype=np.float32))
+    tp_x = torch.from_numpy(rng.random((INT8_TP_ROWS, SIZE, SIZE, 3), dtype=np.float32))
+    torch.save({"router": router.state_dict(), "x": x, "tp_x": tp_x},
+               os.path.join(out_dir, "state.pt"))
+    router.to(dev).eval()
+
+    # The one-process references first, alone on the card; Q1's two passes
+    # timed at the main path's shard shapes.
+    ref, unquantized = {}, {}
+    for name, dtype in (("fp32", "float32"), ("bf16", "bfloat16")):
+        for quant in ("int8", None):
+            cfg = load_config(overrides={"cuda": {"compute_dtype": dtype,
+                                                  "serving_quant": quant}})
+            d = AdaptiveDehazer(router, None, cfg, device=dev)
+            out = int8_route_call(d, x.to(dev), np.asarray(INT8_SHARD_LABELS))
+            if quant:
+                ref[f"route_{name}"] = out
+            else:
+                unquantized[f"route_{name}"] = out[0]
+            if quant and name == "bf16":
+                q1_recs = q1_split_kernels(d, dev)
+            del d
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        ref[f"tp_{name}"] = int8_tp_call(router.models["high"], tp_x.to(dev), dtype)
+        unquantized[f"tp_{name}"] = int8_tp_call(router.models["high"], tp_x.to(dev), dtype,
+                                                 quant=False)[0]
+    del router
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ranks = spawn_int8_shards(out_dir)
+    rows, cols = ranks["rows"], ranks["channels"]
+    failed = []
+
+    # (a) int8 route on 2 H shards, forced labels.
+    want_q2 = sum(INT8_BUCKET_Q2[INTENSITY_ORDER[c]] for c in set(INT8_SHARD_LABELS))
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        want, want_launches, ms = ref[f"route_{name}"]
+        got = torch.cat([r[f"route_{name}"][0] for r in rows], 1)
+        close = int8_close(got, want, unquantized[f"route_{name}"], dtype)
+        rank_launches = [nonzero(r[f"route_{name}"][1]) for r in rows]
+        for r in rows:
+            paths["int8_spatial"].update(r[f"route_{name}"][1])
+        readings[f"int8_spatial_{name}"] = dict(
+            close, launches_per_rank=rank_launches, unsharded_launches=nonzero(want_launches),
+            ms_per_image_per_rank=[r[f"route_{name}"][2] for r in rows], unsharded_ms_per_image=ms)
+        log(f"[int8 spatial] (a) int8 engine on labels {list(INT8_SHARD_LABELS)}, "
+            f"{len(INT8_SHARD_LABELS)} images at {INT8_SHARD_SIZE}^2, {name}, over spatial=2 (2 "
+            f"gloo ranks on cuda:0) vs unsharded: {int8_close_text(close, dtype)}; launches a "
+            f"rank {rank_launches}, unsharded {nonzero(want_launches)}; warm ms/image a rank "
+            f"{readings[f'int8_spatial_{name}']['ms_per_image_per_rank']}, unsharded {ms:.3f}; "
+            f"{smi} (a reading: both ranks share the card)")
+        failed += [f"(a) {name}: int8 on H shards off the unsharded int8 ({close})"] * (
+            not close["ok"])
+        for got_l in (r[f"route_{name}"][1] for r in rows):
+            expect = {"int8_conv": want_q2, "int8_absmax": want_q2, "int8_quantize_at": want_q2,
+                      "int8_quantize": 0, "cbam_gate": 6}
+            seen = {k: got_l.get(k, 0) for k in expect}
+            failed += [f"(a) {name}: a rank launched {seen}, expected {expect}"] * (seen != expect)
+        check(want_launches.get("int8_conv", 0) == want_q2
+              and want_launches.get("int8_quantize", 0) == want_q2,
+              f"(a) {name}: the unsharded route launched {nonzero(want_launches)}")
+    layer_recs = {name: [r["layers"][name] for r in rows] for name in INT8_SHARD_LAYERS}
+    readings["int8_spatial_layers"] = layer_recs
+    for name, recs in layer_recs.items():
+        log(f"[int8 spatial] (a) {name} {INT8_SHARD_LAYERS[name][:5]} at 2 x "
+            f"{INT8_SHARD_LAYERS[name][5]}^2, {recs[0]['body']} body: Q1's split bitwise "
+            f"{[r['q1_bitwise'] for r in recs]}, Q2 on the taller shard bitwise "
+            f"{[r['q2_bitwise'] for r in recs]} (max abs err "
+            f"{max(r['q2_max_abs_err'] for r in recs):.3e}); {smi}")
+        failed += [f"(a) {name}: not bit for bit: {recs}"] * (
+            not all(r["q1_bitwise"] and r["q2_bitwise"] for r in recs))
+
+    # (b) the high branch's int8 on 2 channel shards.
+    for name, dtype in (("fp32", torch.float32), ("bf16", torch.bfloat16)):
+        want, want_launches = ref[f"tp_{name}"]
+        errs = []
+        for r in cols:
+            paths["int8_tp"].update(r[f"tp_{name}"][1])
+            errs.append(int8_close(r[f"tp_{name}"][0], want, unquantized[f"tp_{name}"], dtype))
+        rank_launches = [nonzero(r[f"tp_{name}"][1]) for r in cols]
+        readings[f"int8_tp_{name}"] = dict(errors=errs, launches_per_rank=rank_launches,
+                                           unsharded_launches=nonzero(want_launches))
+        for rank, close in enumerate(errs):
+            log(f"[int8 tp] (b) high branch c={load_config()['dehazing']['high']['channels']} "
+                f"int8, {name}, {INT8_TP_ROWS} images at {SIZE}^2 under channel_sharding, "
+                f"model=2, rank {rank} vs unsharded: {int8_close_text(close, dtype)}; launches "
+                f"{rank_launches[rank]}, unsharded {nonzero(want_launches)}; {smi}")
+        failed += [f"(b) {name}: int8 on channel shards off the unsharded int8 {errs}"] * (
+            not all(e["ok"] for e in errs))
+        for got_l in rank_launches:
+            seen = {k: got_l.get(k, 0) for k in ("int8_conv", "int8_quantize", "cbam_gate")}
+            expect = {k: want_launches.get(k, 0) for k in seen}
+            failed += [f"(b) {name}: a rank launched {seen}, unsharded {expect}"] * (
+                seen != expect)
+    tp_layer = [r["layer"] for r in cols]
+    readings["int8_tp_layer"] = tp_layer
+    log(f"[int8 tp] (b) {INT8_TP_LAYER[:5]} at 2 x {INT8_TP_LAYER[5]}^2 on 2 channel shards: "
+        f"each rank's slice {[(r['slice_cout'], r['slice_body'], r['slice_n_chunk']) for r in tp_layer]}"
+        f" (cout, body, chunk), bitwise {[r['q2_bitwise'] for r in tp_layer]}; {smi}")
+    failed += [f"(b) the 4c layer on channel shards: {tp_layer}"] * (
+        not all(r["q2_bitwise"] and r["slice_body"] == "tile" for r in tp_layer))
+
+    # (c) the soft joint step under cuda.remat on 2 H shards.
+    for r, out in enumerate(rows):
+        (plain, plain_l), (remat, remat_l) = out["remat"]["False"], out["remat"]["True"]
+        paths["remat_spatial"].update(remat_l)
+        errs = dp_errors(remat, plain, f"(c) soft joint step under cuda.remat true, "
+                         f"{REMAT_ROWS} images at {SIZE}^2, fp32, spatial=2, rank {r}, against "
+                         "the same sharded step without remat", smi, tag="remat spatial",
+                         bounds=JOINT_BOUNDS["float32"])
+        readings[f"remat_spatial_rank{r}"] = dict(errors=errs, launches=nonzero(remat_l),
+                                                  launches_without=nonzero(plain_l))
+        log(f"[remat spatial] (c) rank {r}: K2 launches {remat_l.get('cbam_gate', 0)} under remat, "
+            f"{plain_l.get('cbam_gate', 0)} without; K5 {remat_l.get('blend3', 0)} and "
+            f"{plain_l.get('blend3', 0)}; {smi}")
+        failed += [f"(c) rank {r}: K2 {remat_l.get('cbam_gate')} under remat, "
+                   f"{plain_l.get('cbam_gate')} without"] * (
+            remat_l.get("cbam_gate", 0) != 2 * plain_l.get("cbam_gate", 0)
+            or plain_l.get("cbam_gate", 0) == 0)
+        failed += [f"(c) rank {r}: K5 {remat_l.get('blend3')} under remat, "
+                   f"{plain_l.get('blend3')} without"] * (
+            remat_l.get("blend3", 0) < plain_l.get("blend3", 0) or plain_l.get("blend3", 0) == 0)
+    check(not failed, "; ".join(failed))
+
+    # (d) the converted reference checkpoint.
+    ref_path, ref_readings = phase_reference_checkpoint(dev, smi, tmp)
+    paths["reference_checkpoint"].update(ref_path)
+    readings["reference_checkpoint"] = ref_readings
+    for name in ("int8_absmax", "int8_quantize_at", "int8_conv"):
+        check(paths["int8_spatial"][name] > 0, f"the int8 spatial path launched no {name}")
+    check(paths["int8_tp"]["int8_conv"] > 0, "the int8 tp path launched no int8_conv")
+    torch.cuda.empty_cache()
+    return {k: dict(v) for k, v in paths.items()}, q1_recs, readings
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
@@ -4581,6 +5156,8 @@ def main():
         spatial_path, tp_path, sharded_readings = timed("sharded", phase_sharded, dev, smi, tmp)
         joint_sharded_path, dryrun_path, tuned_path, joint_sharded_readings = timed(
             "joint sharded", phase_joint_sharded, dev, smi, tmp)
+        int8_shard_paths, q1_split_recs, int8_shard_readings = timed(
+            "int8 and remat on shards", phase_int8_shards, dev, smi, tmp)
     for name in ("route_hard", "forced_labels", "soft"):
         log(f"[slices] {name}: default dispatch {default_ms[name]:.3f} ms/image, "
             f"tail-chain dispatch {tail_ms[name]:.3f} ms/image, res-chain dispatch "
@@ -4593,7 +5170,7 @@ def main():
              "lowres": lowres_path, "alternate": alt_path, "precompiled": pre_path,
              "int8": int8_path, "parallel": parallel_path, "spatial": spatial_path,
              "tp": tp_path, "joint_sharded": joint_sharded_path, "dryrun": dryrun_path,
-             "tuned_spatial": tuned_path}
+             "tuned_spatial": tuned_path, **int8_shard_paths}
     kernels["cbam_gate"].update(training_forward_ms_per_step=k2_train["forward_ms"],
                                 training_backward_ms_per_step=k2_train["backward_ms"])
     for name, rec in grad_fns.items():
@@ -4602,6 +5179,7 @@ def main():
         kernels[name].update(lowres=rec)
     kernels["cbam_gate"].update(alternate=alt_k2)
     kernels.update(int8_kernels)
+    kernels.update(q1_split_recs)
     line = {"kernels": [
         {"name": name, "route": route, "source": source, "replaces": replaces,
          "launches": sum(path.get(name, 0) for path in paths.values()),
@@ -4619,7 +5197,8 @@ def main():
         "detection": det_readings, "cli": cli_readings, "lowres": lowres_readings,
         "alternate": alt_readings, "precompiled": pre_readings, "int8": int8_readings,
         "parallel": parallel_readings, "sharded": sharded_readings,
-        "joint_sharded": joint_sharded_readings, "phase_seconds": seconds}
+        "joint_sharded": joint_sharded_readings, "int8_and_remat_on_shards": int8_shard_readings,
+        "phase_seconds": seconds}
     check(all(k["launches"] > 0 for k in line["kernels"]),
           f"a kernel was launched no time on any path: {line['kernels']}")
     print(json.dumps(line), flush=True)
@@ -4635,5 +5214,8 @@ if __name__ == "__main__":
         sharded_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5], sys.argv[6])
     elif sys.argv[1:2] == ["--joint-rank"]:
         joint_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5], sys.argv[6])
+    elif sys.argv[1:2] == ["--int8-shard-rank"]:
+        int8_shard_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
+                        sys.argv[6])
     else:
         main()

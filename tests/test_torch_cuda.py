@@ -1469,6 +1469,35 @@ def test_int8_quantize_groups_of_images_match_plain(cuda_device, dtype, shape):
     assert torch.equal(q, q0) and torch.equal(s, s0)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("shape", [(4, 64, 64, 3), (2, 37, 30, 96), (3, 16, 16, 12),
+                                   (130, 6, 10, 3), (3, 128, 192, 96)])
+def test_int8_two_passes_on_row_shards_match_the_one_launch(cuda_device, dtype, shape):
+    """Q1's two passes on two row shards of each image (`image_absmax` of
+    each, their max, `quantize_images_at` on each at it) against the one
+    launch on the whole image and against their plain versions: bit for
+    bit, all-zero images included (batches of more than 64 images too)."""
+    from adam_dehaze_tpu_torch.ops.kernels.quant import (
+        ConvGeometry, image_absmax, image_absmax_reference, quantize_images,
+        quantize_images_at, quantize_images_at_reference)
+    g = torch.Generator().manual_seed(shape[0] + shape[-1])
+    x = (torch.randn(shape, generator=g) * torch.rand((shape[0], 1, 1, 1), generator=g) * 8)
+    x[[0, -1]] = 0.0
+    x = x.to(dtype).to(cuda_device)
+    pad = ConvGeometry.of(shape[-1], 16, 3, 3, 1, 1).cin_pad
+    q, s = quantize_images(x, pad)
+    parts = [p.contiguous() for p in x.chunk(2, 1)]
+    partial = [image_absmax(p) for p in parts]
+    for p, a in zip(parts, partial):
+        assert torch.equal(a, image_absmax_reference(p))
+    amax = torch.maximum(*partial)
+    for p, (lo, hi) in zip(parts, ((0, parts[0].shape[1]), (parts[0].shape[1], shape[1]))):
+        qp, sp = quantize_images_at(p, amax, pad)
+        q0, s0 = quantize_images_at_reference(p, amax, pad)
+        assert torch.equal(qp, q0) and torch.equal(sp, s0)
+        assert torch.equal(qp, q[:, lo:hi]) and torch.equal(sp, s)
+
+
 # (cin, cout, kernel, stride, padding, bias): K = 147 (7x7 on RGB), 27,
 # stride 2, 1x1 with a bias, the widest 3x3 and ragged M and Cout tiles; the
 # tile body at 3x3 and 4x4 stride 2 (chunks 96, 64, 48, 16 and channels

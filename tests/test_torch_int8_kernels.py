@@ -4,7 +4,10 @@ packing of each body against its inverse and against the tile body's slot
 layout written out index by index, and the int8 ConvBlock whose Int8Conv2d
 applies the block's BN and ReLU (the kernel's epilogue) against the unfused
 Int8Conv2d -> BatchNorm2d -> ReLU, bit for bit, on the CPU (where the
-wrapper is its plain version)."""
+wrapper is its plain version). Q1's two passes (the per-image abs-max of a
+part of each image, then the quantizing at a given abs-max), on the whole
+image and on row shards whose abs-max is the max of theirs, against the one
+launch, bit for bit, an all-zero image included."""
 import numpy as np
 import pytest
 import torch
@@ -13,7 +16,10 @@ from torch import nn
 from adam_dehaze_tpu_torch.nn.blocks import ConvBlock, ResidualBlock
 from adam_dehaze_tpu_torch.ops.kernels.quant import (
     ConvGeometry,
+    image_absmax,
     pack_int8_weights,
+    quantize_images,
+    quantize_images_at,
     unpack_int8_weights,
 )
 from adam_dehaze_tpu_torch.ops.quant import Int8Conv2d, quantized_inference
@@ -162,3 +168,25 @@ def test_residual_block_conv2_has_no_relu():
     assert block.conv1.block[0].relu and not block.conv2.block[0].relu
     assert block.conv2.block[0].bn is not None
     assert block.conv2.block[0].bn_stats.shape == (4, 32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
+@pytest.mark.parametrize("c,cin_pad", [(3, 4), (24, 32), (32, 32)])
+@pytest.mark.parametrize("shards", [1, 2, 4])
+def test_q1_two_passes_equal_the_one_launch_bit_for_bit(dtype, c, cin_pad, shards):
+    """Q1 as its two passes over `shards` row shards of each image (each
+    shard's abs-max, their max, each shard quantized at it) gives the one
+    launch's int8 rows and scales bit for bit; images of very different
+    ranges, one of them all zero (scale 1/127.5, q = 0)."""
+    gen = torch.Generator().manual_seed(c + shards)
+    x = torch.randn(3, 8, 6, c, generator=gen) * torch.tensor([3.0, 0.0, 1e-3]).view(3, 1, 1, 1)
+    x = x.to(dtype)
+    q, scale = quantize_images(x, cin_pad)
+    parts = [p.contiguous() for p in x.chunk(shards, 1)]
+    amax = torch.stack([image_absmax(p) for p in parts]).amax(0)
+    got = [quantize_images_at(p, amax, cin_pad) for p in parts]
+    assert torch.equal(torch.cat([g[0] for g in got], 1), q)
+    for _, s in got:
+        assert torch.equal(s, scale)
+    assert float(scale[1]) == float(torch.tensor(1 / 127.5, dtype=torch.float32).to(dtype))
+    assert not q[1].any()

@@ -32,6 +32,16 @@ classifier's 32-fold downsampling), batch 2:
   JAX's sharded joint step returned the same losses as its unsharded step
   but other gradients for the branches, where the port's equal its
   unsharded step's;
+- the train step under `cuda.remat` true and "fullres" (the recompute
+  re-enters the sharding contexts, the synchronized BNs frozen) against
+  the same sharded step without remat, float64, within 1e-10;
+- the medium and high branches' int8 serving on spatial 2 x model 2 against
+  the port's own unsharded int8 (`_assert_int8_close`). They are never held
+  against the JAX package's int8 on a mesh of two or more split axes: on
+  the virtual CPU mesh XLA's partitioned int8 program disagrees with JAX's
+  own unsharded int8 there (see `test_int8_on_spatial_and_model_equals_the_
+  unsharded_int8`), where on one split axis the two agree element for
+  element;
 - `dryrun_multichip(4, (1, 2, 2))` runs to its end on every rank.
 
 This process computes the JAX reference (about a minute to compile) while
@@ -66,6 +76,7 @@ from adam_dehaze_tpu_torch.models.classifier import create_classifier
 from adam_dehaze_tpu_torch.models.routing import create_router
 from adam_dehaze_tpu_torch.nn.blocks import init_params_
 from adam_dehaze_tpu_torch.parallel.dryrun import dryrun_config
+from test_torch_quant import _assert_int8_close
 from torch_joint_sharded_worker import LR, STEPS
 from torch_port_util import (
     ATOL,
@@ -277,6 +288,39 @@ def test_sharded_joint_step_matches_jax(ranks, jax_step, spawned, dtype):
         start.load_state_dict(before)
         assert_bn_stats_match_flax(model, start, jax_after, hazy, rtol=tol["bn"],
                                    atol=tol["bn"])
+
+
+@pytest.mark.parametrize("mode", ["True", "fullres"])
+def test_remat_joint_step_on_spatial_and_model_equals_no_remat(ranks, mode):
+    """The train step on spatial 2 x model 2 under cuda.remat `mode` against
+    the same sharded step without it: the metrics, every parameter and BN
+    statistic (the split ones gathered back) within 1e-10, float64."""
+    for rank, out in enumerate(ranks):
+        (metrics, state), (want_metrics, want_state) = out["remat"][mode], out["sharded"]["train"]
+        for got, want in ((metrics, want_metrics), (state, want_state)):
+            assert set(got) == set(want)
+            for k, v in want.items():
+                assert _err(got[k], v) <= STEP_ATOL, \
+                    f"{mode} rank {rank} {k}: {_err(got[k], v):.3e}"
+
+
+@pytest.mark.parametrize("level", ["MediumIntensityDehazeModel", "HighIntensityDehazeModel"])
+def test_int8_on_spatial_and_model_equals_the_unsharded_int8(ranks, level):
+    """Int8 serving on spatial 2 x model 2: each model rank's H shards
+    joined against the port's unsharded int8, by `_assert_int8_close`.
+
+    Not against the JAX package. Its int8 apply (quantize_apply, jitted)
+    through make_spatial_infer under channel_sharding, against its own
+    unsharded int8, on its 8 virtual CPU devices with tests/test_torch_
+    spatial.py's medium and high branches (c = 8, 64^2, 2 images): on data
+    2 x spatial 4 and on data 2 x model 4 every element equal; on data 1 x
+    spatial 2 x model 4 the medium branch off by up to 0.957 (9.5 % of the
+    elements within 1e-5), the high branch by up to 5.9e-3 (16.2 %)."""
+    whole = ranks[0]["int8"][level]["whole"]
+    for ranks_of_rows in ((0, 2), (1, 3)):      # rank = 2 * spatial + model
+        got = torch.cat([ranks[r]["int8"][level]["sharded"] for r in ranks_of_rows], 1)
+        assert got.shape == whole.shape
+        _assert_int8_close(got.numpy(), whole.numpy())
 
 
 def test_dryrun_multichip_runs_to_its_end(ranks):

@@ -44,6 +44,24 @@ def test_port_imports_no_jax_flax_or_triton():
     assert bad == "[]", bad
 
 
+_TOOLS = """
+import importlib, sys
+for name in ("convert_reference_checkpoint", "graft_classifier"):
+    importlib.import_module("adam_dehaze_tpu_torch.tools." + name)
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax", "adam_dehaze_tpu")))
+"""
+
+
+def test_reference_checkpoint_tools_import_no_jax():
+    """The tools that read the upstream reference's checkpoints stand
+    alone: neither the JAX package's tools nor JAX come with them."""
+    proc = subprocess.run([sys.executable, "-c", _TOOLS], cwd=REPO, capture_output=True,
+                          text=True, env=_clean_env(), timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
+
+
 def test_chip_smoke_fails_without_cuda():
     """On a machine without CUDA the smoke run exits non-zero before it
     builds or prints anything that looks like a result."""

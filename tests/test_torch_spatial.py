@@ -17,13 +17,29 @@ process computes the JAX references on its 8 virtual devices:
 - tests/test_parallel.py's two-conv DP x SP train step (data 4 x spatial 2,
   rtol 1e-5, atol 1e-6), against the port's step on the spatial mesh.
 
+Int8 serving (ops/quant.py) on the two meshes: the medium and high
+branches' int8 applies at c = 8, 64^2, fp32, against JAX's int8 apply
+(`quantize_apply`) through `make_spatial_infer` on a data 1 x spatial 8
+mesh and under `channel_sharding` on a data 1 x model 8 mesh, and against
+the port's unsharded int8 apply, by tests/test_torch_quant.py's
+`_assert_int8_close` (on one split axis JAX's partitioned int8 equals its
+unsharded int8 element for element; on two or more it does not, see
+tests/test_torch_joint_sharded.py); and one Int8Conv2d of each body and
+shape on 2 H shards and on 2 channel shards, bit for bit the unsharded
+layer's.
+
+The joint train step under `cuda.remat` true and "fullres" on the spatial
+mesh (the dryrun's router, float64) equals the same sharded step without
+remat within 1e-10; a checkpointed forward on an H shard whose backward
+runs on another thread, outside the sharding context, gives the gradients
+and BN statistics of the same backward without the checkpoint.
+
 The group also holds `route_hard` over the spatial mesh against the
 unsharded route (labels equal, outputs within 1e-5), the low branch's BN
 step (spatial) and the medium branch's step (model) in float64 against the
 single-process step within 1e-6, each exchange Function's gradient against
-autograd of the unsharded computation it stands for, the refusals that are
-left (int8 serving and the joint step under cuda.remat on an H shard), and,
-on 2 H shards against the
+autograd of the unsharded computation it stands for, and, on 2 H shards
+against the
 unsharded calls: the tuned kernels' plain versions (K3, K6 on the medium
 and high segments with K4 and K2' after them, K2' alone) within 1e-6, the
 loss pieces (LPIPS, psnr, ssim_gray; fog_density_map in float64 within
@@ -44,6 +60,7 @@ import torch
 from jax.sharding import NamedSharding, PartitionSpec as P
 
 from adam_dehaze_tpu.models import branches as jb
+from adam_dehaze_tpu.ops.quant import quantize_apply as jquantize_apply
 from adam_dehaze_tpu.parallel import data_parallel as jdp
 from adam_dehaze_tpu.parallel import mesh as jmesh
 from adam_dehaze_tpu.parallel import sharding as jsharding
@@ -52,6 +69,8 @@ from adam_dehaze_tpu_torch.parallel import mesh as pmesh
 from adam_dehaze_tpu_torch.parallel import sharding as psharding
 from adam_dehaze_tpu_torch.parallel import spatial as pspatial
 from test_torch_parallel import _conv_init, _conv_torch, _jax_sgd_step, _tensors
+from test_torch_quant import _assert_int8_close
+from torch_spatial_worker import INT8_LAYERS
 from torch_port_util import (
     ATOL,
     images,
@@ -103,7 +122,11 @@ def spawned(tmp_path_factory):
               "aug_params": (torch.tensor([True, False, True, False]),
                              torch.tensor([True, True, False, False]),
                              torch.tensor([0.9, 1.05, 1.1, 0.95]),
-                             torch.tensor([1.08, 0.92, 1.0, 1.1]))}
+                             torch.tensor([1.08, 0.92, 1.0, 1.1])),
+              "remat_batch": {
+                  "hazy": torch.from_numpy(images((2, 64, 64, 3), seed=23).astype(np.float64)),
+                  "clear": torch.from_numpy(images((2, 64, 64, 3), seed=24).astype(np.float64)),
+                  "intensity": torch.tensor([1, 2])}}
     torch.save(inputs, tmp / "inputs.pt")
     with socket.socket() as s:
         s.bind(("localhost", 0))
@@ -206,6 +229,31 @@ def jax_channels(spawned):
 
 
 @pytest.fixture(scope="module")
+def jax_int8(spawned):
+    """JAX's int8 apply (quantize_apply, jitted) of the medium and high
+    branches through make_spatial_infer on a data 1 x spatial 8 mesh, and
+    under channel_sharding on a data 1 x model 8 mesh: one split axis each,
+    where JAX's partitioned int8 equals its unsharded int8."""
+    variables = _branch_vars()
+    x = jnp.asarray(spawned[2]["x"].numpy())
+    spatial_mesh = jmesh.make_mesh({"data": 1, "spatial": 8, "model": 1})
+    model_mesh = jmesh.make_mesh({"data": 1, "spatial": 1, "model": 8})
+    out = {"spatial": {}, "channels": {}}
+    for level in ("medium", "high"):
+        model = JBRANCHES[level]()
+        apply = jquantize_apply(lambda img, m=model, v=variables[level]: m.apply(v, img))
+        infer = jspatial.make_spatial_infer(apply, spatial_mesh)
+        out["spatial"][level] = np.asarray(infer(jspatial.shard_image_batch(spatial_mesh, x)))
+        with jsharding.channel_sharding(model_mesh):
+            f = jax.jit(jquantize_apply(lambda v, img, m=model: m.apply(v, img)),
+                        in_shardings=(NamedSharding(model_mesh, P()),
+                                      NamedSharding(model_mesh, P("data", None, None, None))),
+                        out_shardings=NamedSharding(model_mesh, P()))
+            out["channels"][level] = np.asarray(f(variables[level], x))
+    return out
+
+
+@pytest.fixture(scope="module")
 def jax_dp_sp_conv_step(spawned):
     """tests/test_parallel.py's DP x SP step (data 4 x spatial 2)."""
     model, variables = _conv_init()
@@ -283,11 +331,88 @@ def test_exchange_gradient_matches_autograd_of_the_unsharded_computation(ranks, 
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=0, atol=1e-12)
 
 
-def test_refusals_under_a_sharded_mesh(ranks):
+def test_int8_hard_route_over_a_spatial_mesh(ranks):
+    """route_hard of the int8 dehazer through make_spatial_infer: the
+    unsharded int8 route's labels (every branch serves one image at least)
+    on every rank, and its output by `_assert_int8_close`."""
     for out in ranks:
-        refused = out["refusals"]
-        assert refused["int8"] and "Q1 and Q2" in refused["int8"]
-        assert refused["remat"] and "cuda.remat" in refused["remat"]
+        assert out["route_int8"]["labels"] == [0, 1, 2, 0]
+        assert out["route_int8"]["sharded_labels"] == out["route_int8"]["labels"]
+    got = torch.cat([out["route_int8"]["sharded"] for out in ranks], 1).numpy()
+    _assert_int8_close(got, ranks[0]["route_int8"]["whole"].numpy())
+    assert np.abs(got - ranks[0]["route"]["whole"].numpy()).max() > 0     # really int8
+
+
+@pytest.mark.parametrize("level", ["medium", "high"])
+@pytest.mark.parametrize("axis", ["spatial", "channels"])
+def test_int8_on_shards_matches_jax_and_the_unsharded_int8(jax_int8, ranks, axis, level):
+    """The int8 branch on 2 H shards (joined along H) and on 2 channel
+    shards (every rank's whole output) against JAX's int8 apply on a mesh of
+    that one axis and against the port's unsharded int8."""
+    outs = [out["int8"][level][axis] for out in ranks]
+    got = [torch.cat(outs, 1)] if axis == "spatial" else outs
+    for g in got:
+        assert g.shape == ranks[0]["int8"][level]["whole"].shape
+        _assert_int8_close(g.numpy(), jax_int8[axis][level])
+        _assert_int8_close(g.numpy(), ranks[0]["int8"][level]["whole"].numpy())
+
+
+@pytest.mark.parametrize("name", sorted(INT8_LAYERS))
+def test_int8_layer_on_h_shards_is_the_unsharded_layer_bit_for_bit(ranks, name):
+    """Q1's abs-max reduced over the group, the int8 halo (two rows above at
+    4x4 stride 2), Q2 on the taller shard and the crop: the shards' rows
+    joined along H are the unsharded layer's, bit for bit."""
+    whole = ranks[0]["int8_layers"][name]["whole"]
+    got = torch.cat([out["int8_layers"][name]["spatial"] for out in ranks], 2)
+    assert got.shape == whole.shape and torch.equal(got, whole), name
+
+
+@pytest.mark.parametrize("name", sorted(n for n, spec in INT8_LAYERS.items() if spec[0] > 3))
+def test_int8_layer_on_channel_shards_is_the_unsharded_layer_bit_for_bit(ranks, name):
+    """The input's channels gathered, Q1 on the whole, Q2 on this rank's
+    output channels (their packed slice, scales, bias and BN): the ranks'
+    channels side by side are the unsharded layer's, bit for bit."""
+    whole = ranks[0]["int8_layers"][name]["whole"]
+    got = torch.cat([out["int8_layers"][name]["channels"] for out in ranks], 1)
+    assert got.shape == whole.shape and torch.equal(got, whole), name
+
+
+# The sharded steps under remat against the same steps without it, float64.
+REMAT_ATOL = 1e-10
+
+
+def _assert_states_close(got, want, atol, what):
+    assert set(got) == set(want), what
+    for k, v in want.items():
+        if v.is_floating_point():
+            err = float((got[k].double() - v.double()).abs().max()) if v.numel() else 0.0
+            assert err <= atol, f"{what} {k}: {err:.3e}"
+        else:
+            assert torch.equal(got[k], v), f"{what} {k}"
+
+
+@pytest.mark.parametrize("mode", ["True", "fullres"])
+def test_remat_joint_step_on_h_shards_equals_no_remat(ranks, mode):
+    """The joint step on 2 H shards under cuda.remat `mode` (its recompute
+    re-enters the shard, the synchronized BNs frozen) against the same
+    sharded step without remat: the metrics, every parameter and BN
+    statistic within 1e-10."""
+    for rank, out in enumerate(ranks):
+        metrics, state = out["remat"][mode]
+        want_metrics, want_state = out["remat"]["False"]
+        _assert_states_close(metrics, want_metrics, REMAT_ATOL, f"rank {rank} {mode} metrics")
+        _assert_states_close(state, want_state, REMAT_ATOL, f"rank {rank} {mode}")
+
+
+@pytest.mark.parametrize("thread", ["bare_thread", "mode_thread"])
+def test_remat_recompute_on_another_thread_reenters_the_shard(ranks, thread):
+    """The backward of a checkpointed forward on an H shard, run on a thread
+    that has none of the sharding context, or only its function mode (as
+    the card's autograd thread), gives the gradients and BN statistics of
+    the same backward without the checkpoint."""
+    for rank, out in enumerate(ranks):
+        _assert_states_close(out["remat_thread"][thread], out["remat_thread"]["plain"],
+                             REMAT_ATOL, f"rank {rank} {thread}")
 
 
 # The plain versions on 2 H shards against the unsharded ones, fp32.

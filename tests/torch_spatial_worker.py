@@ -8,10 +8,14 @@ OUT_DIR/rank{RANK}.pt. Every case that needs the group runs in this one
 spawn, on a `{"spatial": 2}` mesh and a `{"model": 2}` mesh of the two ranks:
 also the tuned kernels' plain versions (K3, K4, K2' alone and inside K4,
 K6), the loss pieces, the augmentation and AlexNet's layers on 2 H shards,
-each beside the unsharded call.
+each beside the unsharded call; int8 serving (the medium and high
+branches, and one Int8Conv2d of each body and shape) on both meshes; and
+the joint step under `cuda.remat` on the spatial mesh, also with its
+backward run on another thread (as the card's autograd engine runs it).
 """
 import os
 import sys
+import threading
 
 import numpy as np
 import torch
@@ -32,7 +36,7 @@ from adam_dehaze_tpu_torch.nn.alexnet import AlexNetFeatures
 from adam_dehaze_tpu_torch.nn.blocks import init_params_
 from adam_dehaze_tpu_torch.ops.image import psnr, ssim_gray
 from adam_dehaze_tpu_torch.ops.kernels.cbam import spatial_gate
-from adam_dehaze_tpu_torch.ops.quant import quantize_apply
+from adam_dehaze_tpu_torch.ops.quant import Int8Conv2d, quantize_apply
 from adam_dehaze_tpu_torch.ops.serving_apply import (
     make_high_chain_apply,
     make_medium_chain_apply,
@@ -50,6 +54,7 @@ from adam_dehaze_tpu_torch.parallel.collectives import (
     channel_slice,
 )
 from adam_dehaze_tpu_torch.parallel.mesh import make_mesh
+from adam_dehaze_tpu_torch.parallel.sharded_ops import ShardedOps
 from adam_dehaze_tpu_torch.parallel.sharding import channel_sharding
 from adam_dehaze_tpu_torch.parallel.spatial import (
     make_spatial_infer,
@@ -57,8 +62,9 @@ from adam_dehaze_tpu_torch.parallel.spatial import (
     spatial_sharding,
 )
 from adam_dehaze_tpu_torch.serving import AdaptiveDehazer
-from adam_dehaze_tpu_torch.training import train_joint as tj
 from adam_dehaze_tpu_torch.training.checkpoint import load_flax_variables
+from adam_dehaze_tpu_torch.training.remat import checkpoint_call
+from torch_joint_sharded_worker import run_step
 from torch_parallel_worker import TinyConv, module_arrays, mse_step, numpy_tree, sgd_state
 
 BRANCHES = {"low": lambda: LightweightDehazeModel(8, 3),
@@ -115,10 +121,11 @@ def balance_head_(classifier, x, labels):
         fc1.bias.zero_()
 
 
-def route(inputs, mesh):
-    """route_hard of a seeded default router (small widths, fp32) on the
-    whole batch, and through make_spatial_infer on this rank's rows."""
-    cfg = load_config(overrides={"cuda": {"compute_dtype": "float32"}})
+def route(inputs, mesh, quant=None):
+    """route_hard of a seeded default router (small widths, fp32, served
+    under `cuda.serving_quant: quant`) on the whole batch, and through
+    make_spatial_infer on this rank's rows."""
+    cfg = load_config(overrides={"cuda": {"compute_dtype": "float32", "serving_quant": quant}})
     for level in BRANCHES:
         cfg["dehazing"][level]["channels"] = 8
     models = {level: BRANCHES[level]() for level in BRANCHES}
@@ -223,26 +230,110 @@ def exchange_gradients(mesh, rank):
     return out
 
 
-def refusals(inputs, spatial_mesh):
-    """What still raises under a spatial mesh: int8 serving (Q1's abs-max
-    is taken inside its launch) and the joint step under cuda.remat (its
-    recompute would run outside the sharding contexts)."""
+def int8_forwards(inputs, spatial_mesh, model_mesh):
+    """The medium and high branches' int8 serving applies (fp32) on the
+    whole batch, through make_spatial_infer on this rank's rows, and under
+    channel_sharding."""
+    x = inputs["x"]
     out = {}
-    model = branch("medium", inputs)
-    x = shard_image_batch(spatial_mesh, inputs["x"])
-    batch = {"hazy": inputs["x"], "clear": inputs["x"], "intensity": torch.zeros(2)}
-    for name, call in (
-            ("int8", lambda: make_spatial_infer(quantize_apply(model, torch.float32),
-                                                spatial_mesh)(x)),
-            ("remat", lambda: data_parallel.shard_train_step(
-                tj.make_train_step(None, None, remat=True), spatial_mesh, batch)(
-                    sgd_state(torch.nn.Linear(1, 1)), batch, None))):
-        try:
-            with torch.no_grad():
-                call()
-            out[name] = None
-        except NotImplementedError as e:
-            out[name] = str(e)
+    for level in ("medium", "high"):
+        apply = quantize_apply(branch(level, inputs), torch.float32)
+        with torch.inference_mode():
+            whole = apply(x)
+            rows = make_spatial_infer(apply, spatial_mesh)(shard_image_batch(spatial_mesh, x))
+            with channel_sharding(model_mesh):
+                channels = apply(x)
+        out[level] = {"whole": whole, "spatial": rows, "channels": channels}
+    return out
+
+
+# One Int8Conv2d of each body and shape that quantized_inference serves:
+# name -> (cin, cout, kernel, stride, padding, BN). Without a BN the conv
+# has its bias. The RGB inputs are never split by channel.
+INT8_LAYERS = {"tile_3x3": (32, 32, 3, 1, 1, True), "tile_4x4_s2": (16, 32, 4, 2, 1, True),
+               "gather_rgb_7x7": (3, 8, 7, 1, 3, True), "gather_rgb_3x3": (3, 16, 3, 1, 1, True),
+               "gather_3x3": (8, 8, 3, 1, 1, True), "gather_4x4_s2": (8, 16, 4, 2, 1, True),
+               "gather_1x1_bias": (56, 16, 1, 1, 0, False)}
+
+
+def int8_layer(name):
+    """The layer `name` of INT8_LAYERS (eval BN with moved statistics, ReLU),
+    seeded alike on every rank, and its input (2 images of 32 x 16)."""
+    cin, cout, k, stride, pad, use_bn = INT8_LAYERS[name]
+    gen = torch.Generator().manual_seed(sum(map(ord, name)))
+    conv = torch.nn.Conv2d(cin, cout, k, stride, pad, bias=not use_bn)
+    bn = None
+    with torch.no_grad():
+        for p in conv.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * 0.2)
+        if use_bn:
+            bn = perturbed_bn_(torch.nn.BatchNorm2d(cout), gen).eval()
+            bn.weight.uniform_(0.5, 1.5, generator=gen)
+            bn.bias.uniform_(-0.2, 0.2, generator=gen)
+    x = torch.randn(2, cin, 32, 16, generator=gen).contiguous(memory_format=torch.channels_last)
+    return Int8Conv2d(conv, bn, relu=True), x
+
+
+def int8_layers(spatial_mesh, model_mesh):
+    """Each layer of INT8_LAYERS on the whole input, on this rank's rows,
+    and (inputs of more than 3 channels) on this rank's channels."""
+    rows, cols = spatial_mesh.axis("spatial"), model_mesh.axis("model")
+    out = {}
+    for name in INT8_LAYERS:
+        layer, x = int8_layer(name)
+        with torch.inference_mode():
+            rec = {"whole": layer(x)}
+            with spatial_sharding(spatial_mesh):
+                rec["spatial"] = layer(x.chunk(rows.size, 2)[rows.index])
+            if x.shape[1] > 3:
+                with channel_sharding(model_mesh):
+                    rec["channels"] = layer(x.chunk(cols.size, 1)[cols.index])
+        out[name] = rec
+    return out
+
+
+REMAT_MODES = (False, True, "fullres")
+
+
+def remat_steps(inputs, mesh):
+    """The joint train step (the dryrun's router in float64, as
+    tests/test_torch_joint_sharded.py takes it) on the spatial mesh under
+    each cuda.remat mode."""
+    return {str(mode): run_step("train", inputs["remat_batch"], mesh, remat=mode)
+            for mode in REMAT_MODES}
+
+
+def remat_on_another_thread(inputs, mesh):
+    """A checkpointed forward of the low branch (train mode, float64) on this
+    rank's rows, its MSE's backward run on a fresh thread outside the
+    sharding context (no context variables, no function modes) and on one
+    that holds ShardedOps but not the context variables (what the card's
+    autograd thread inherits), against the same backward without the
+    checkpoint: the gradients and BN statistics."""
+    x = shard_image_batch(mesh, inputs["step_x"])
+    y = shard_image_batch(mesh, inputs["step_y"])
+    out = {}
+    for name in ("plain", "bare_thread", "mode_thread"):
+        model = branch("low", inputs, torch.float64).train()
+        with data_parallel._synchronized_batch_norms(model, (mesh.axis("spatial").group,)):
+            with spatial_sharding(mesh):
+                pred = (model(x) if name == "plain" else
+                        checkpoint_call(model, x, module=model))
+                loss = ((pred - y) ** 2).mean()
+            if name == "plain":
+                loss.backward()
+            else:
+                def backward(with_mode=name == "mode_thread"):
+                    if with_mode:
+                        with ShardedOps():
+                            loss.backward()
+                    else:
+                        loss.backward()
+                t = threading.Thread(target=backward)
+                t.start()
+                t.join()
+        out[name] = {**module_arrays(model),
+                     **{f"{n}.grad": p.grad.detach().clone() for n, p in model.named_parameters()}}
     return out
 
 
@@ -355,9 +446,13 @@ def main():
     out = {"spatial": spatial_forwards(inputs, spatial_mesh),
            "channels": channel_forwards(inputs, model_mesh),
            "route": route(inputs, spatial_mesh),
+           "route_int8": route(inputs, spatial_mesh, "int8"),
            "steps": steps(inputs, spatial_mesh, model_mesh, rank),
            "grads": exchange_gradients(spatial_mesh, rank),
-           "refusals": refusals(inputs, spatial_mesh),
+           "int8": int8_forwards(inputs, spatial_mesh, model_mesh),
+           "int8_layers": int8_layers(spatial_mesh, model_mesh),
+           "remat": remat_steps(inputs, spatial_mesh),
+           "remat_thread": remat_on_another_thread(inputs, spatial_mesh),
            "tuned": tuned_kernels(inputs, spatial_mesh),
            "losses": loss_pieces(inputs, spatial_mesh),
            "augment": augmentation(inputs, spatial_mesh),
