@@ -22,8 +22,27 @@ F.max_pool2d call into this module through torch's function dispatch):
 - batch_norm: on a channel split, the local slice of its parameters and
   running statistics (updated in place); train mode on an H shard is the
   data-parallel step's synchronized BN, so it is refused here;
-- interpolate, a pad of H, the adaptive pools and other average pools:
-  refused on an H shard (their rows mix across shards in ways not ported).
+- interpolate (bilinear, with or without antialias, with half-pixel
+  centres or align-corners, and nearest-exact): a `size` gives the shard's
+  output rows (the models read their sizes off their shards) and a
+  `scale_factor` scales the whole image's. Where the output has as many
+  rows as the input and the op is the identity along H, the shard resizes
+  W alone. Otherwise the H pass is the unsharded op's own (H_out x H_in)
+  matrix, read off F.interpolate of an identity image with the same
+  arguments (so its weights are torch's, whatever the formula), cut to
+  this shard's output rows and the band of source rows they read; the band
+  comes through `spatial.halo` (gathered when it is taller than a shard),
+  is contracted over H in float32 at least, and W is resized after it by
+  F.interpolate, the identity along H. Other modes, and outputs whose rows
+  do not split evenly over the shards, raise;
+- adaptive average and max pools: to 1 x 1 the whole image's mean or max
+  (`spatial.mean_hw`, `image_amax`); to the whole image's H, along W on the
+  shard; other sizes raise;
+- a pad of H and average pools other than a VALID stride-1 window: refused
+  on an H shard. No model forward of the package pads H or takes a strided
+  average pool (the one pad of H, the integral image of
+  data/synthetic.py:_box_filter, runs on a taller shard under
+  `local_ops()`), so these have no rule.
 
 A strided conv, transposed conv or max-pool on an H shard must give the
 unsharded layer's rows laid end to end, the shard's rows over the stride
@@ -55,6 +74,7 @@ from adam_dehaze_tpu_torch.parallel import sharding, spatial
 from adam_dehaze_tpu_torch.parallel.collectives import (
     GatherChannels,
     SumToReplicated,
+    _memory_format,
     channel_slice,
 )
 
@@ -66,7 +86,7 @@ def local_ops():
 
 
 def _pair(v):
-    return (v, v) if isinstance(v, int) else tuple(v)
+    return (v, v) if isinstance(v, (int, float)) else tuple(v)
 
 
 def _shard_height(x: torch.Tensor, what: str, kernel: int, stride: int, padding: int,
@@ -211,11 +231,121 @@ def _batch_norm(input, running_mean, running_var, weight=None, bias=None, traini
                         eps)
 
 
-def _refused(name):
-    def rule(*args, **kwargs):
-        raise NotImplementedError(f"{name} on an H shard is not ported (its rows mix across "
-                                  "the shards)")
-    return rule
+# The modes of F.interpolate that run on an H shard: those the package's
+# models and the half-resolution dial use (nn/blocks.py, models/detection.py).
+RESIZE_MODES = ("bilinear", "nearest-exact")
+# (rows in, H arguments, mode, align_corners, antialias, dtype, device, shards)
+# -> (the op's matrix along H, whether it is the identity, the halo a shard
+# takes above and below, each shard's band of source rows).
+_RESIZE_PLANS = {}
+
+
+def _resize_plan(rows_in, h_args, mode, align_corners, antialias, dtype, device, shards):
+    """F.interpolate's weights along H for an image of `rows_in` rows: the
+    op applied to an identity image (column j one-hot at row j) whose W it
+    leaves as it is; row o of the result holds output row o's weights over
+    the source rows. With the halo every shard takes so that each shard's
+    output rows find the source rows they read, and those bands."""
+    key = (rows_in, tuple(sorted(h_args.items())), mode, align_corners, antialias, dtype,
+           device, shards)
+    plan = _RESIZE_PLANS.get(key)
+    if plan is not None:
+        return plan
+    with torch.inference_mode(False), torch.no_grad():
+        eye = torch.eye(rows_in, dtype=dtype, device=device)
+        m = F.interpolate(eye[None, None], mode=mode, align_corners=align_corners,
+                          antialias=antialias, **h_args)[0, 0].contiguous()
+        identity = m.shape == eye.shape and torch.equal(m, eye)
+    rows_out = m.shape[0]
+    if rows_out % shards:
+        raise ValueError(f"an interpolate to {rows_out} rows of an image of {rows_in} does not "
+                         f"split into {shards} equal H shards")
+    n_in, n_out = rows_in // shards, rows_out // shards
+    bands, top, bottom = [], 0, 0
+    reads = (m != 0).cpu()
+    for r in range(shards):
+        cols = reads[r * n_out:(r + 1) * n_out].any(0).nonzero()
+        lo, hi = int(cols.min()), int(cols.max()) + 1
+        bands.append((lo, hi))
+        top, bottom = max(top, r * n_in - lo), max(bottom, hi - (r + 1) * n_in)
+    plan = _RESIZE_PLANS[key] = (m, identity, top, bottom, bands)
+    return plan
+
+
+def _interpolate(input, size=None, scale_factor=None, mode="nearest", align_corners=None,
+                 recompute_scale_factor=None, antialias=False):
+    rows = spatial.axis()
+    if rows is None:
+        return F.interpolate(input, size, scale_factor, mode, align_corners,
+                             recompute_scale_factor, antialias)
+    if input.dim() != 4 or mode not in RESIZE_MODES:
+        raise NotImplementedError(f"an interpolate of mode {mode!r} on a {input.dim()}-d H "
+                                  f"shard: only 4-d {' and '.join(RESIZE_MODES)} are ported")
+    h, total = input.shape[2], input.shape[2] * rows.size
+    same = dict(mode=mode, align_corners=align_corners, antialias=antialias)
+    if size is not None:
+        out_h, out_w = _pair(size)
+        h_args = {"size": (out_h * rows.size, total)}
+
+        def w_args(local):
+            return {"size": (local, out_w)}
+    else:
+        sh, sw = _pair(scale_factor)
+        if math.floor(float(total) * sh) % rows.size:
+            raise ValueError(
+                f"an interpolate by {sh} along H gives {math.floor(float(total) * sh)} rows of "
+                f"an image of {total}: they do not split into {rows.size} equal H shards")
+        h_args = {"scale_factor": (sh, 1.0), "recompute_scale_factor": recompute_scale_factor}
+
+        def w_args(local):
+            return {"scale_factor": (1.0, sw), "recompute_scale_factor": recompute_scale_factor}
+    wide = torch.promote_types(input.dtype, torch.float32)
+    m, identity, top, bottom, bands = _resize_plan(total, h_args, mode, align_corners,
+                                                   antialias, wide, input.device, rows.size)
+    if identity:
+        return F.interpolate(input, **w_args(h), **same)
+    out_h = m.shape[0] // rows.size
+    lo, hi = bands[rows.index]
+    src = spatial.halo(input, 2, top, bottom, fill=None)
+    band = src.narrow(2, lo - max(rows.index * h - top, 0), hi - lo).to(wide)
+    part = m[rows.index * out_h:(rows.index + 1) * out_h, lo:hi]
+    y = torch.matmul(part, band)
+    y = F.interpolate(y, **w_args(out_h), **same)
+    return y.to(input.dtype).contiguous(memory_format=_memory_format(input))
+
+
+def _adaptive_rows(input, output_size, what):
+    """The adaptive pool's output (rows, columns) with None read as the
+    whole image's size, after checking it is 1 x 1 or the whole image's
+    H."""
+    total, w = spatial.rows_total(input.shape[2]), input.shape[3]
+    oh, ow = _pair(output_size)
+    oh, ow = total if oh is None else oh, w if ow is None else ow
+    if (oh, ow) != (1, 1) and oh != total:
+        raise NotImplementedError(
+            f"an adaptive {what} pool to {oh} x {ow} of an image of {total} rows on an H "
+            "shard: only 1 x 1 and the whole image's H are ported")
+    return oh, ow
+
+
+def _adaptive_avg_pool2d(input, output_size):
+    if spatial.axis() is None:
+        return F.adaptive_avg_pool2d(input, output_size)
+    oh, ow = _adaptive_rows(input, output_size, "average")
+    if (oh, ow) == (1, 1):
+        return spatial.mean_hw(input, keepdim=True)
+    return F.adaptive_avg_pool2d(input, (input.shape[2], ow))
+
+
+def _adaptive_max_pool2d(input, output_size, return_indices=False):
+    if spatial.axis() is None:
+        return F.adaptive_max_pool2d(input, output_size, return_indices)
+    if return_indices:
+        raise NotImplementedError("an adaptive max pool with indices on an H shard")
+    oh, ow = _adaptive_rows(input, output_size, "max")
+    if (oh, ow) == (1, 1):
+        return spatial.image_amax(input, (2, 3), keepdim=True)
+    return F.adaptive_max_pool2d(input, (input.shape[2], ow))
 
 
 def _pad(input, pad, mode="constant", value=None):
@@ -226,21 +356,16 @@ def _pad(input, pad, mode="constant", value=None):
 
 _RULES = {F.conv2d: _conv2d, F.conv_transpose2d: _conv_transpose2d,
           F.max_pool2d: _max_pool2d, F.avg_pool2d: _avg_pool2d, F.batch_norm: _batch_norm,
-          F.pad: _pad}
-_SPATIAL_REFUSED = {f: _refused(f.__name__) for f in (
-    F.interpolate, F.adaptive_avg_pool2d, F.adaptive_max_pool2d)}
+          F.pad: _pad, F.interpolate: _interpolate, F.adaptive_avg_pool2d: _adaptive_avg_pool2d,
+          F.adaptive_max_pool2d: _adaptive_max_pool2d}
 
 
 class ShardedOps(TorchFunctionMode):
-    """Routes the functions in `_RULES` (and, on an H shard, the refused
-    ones) to their sharded versions; everything else passes through."""
+    """Routes the functions in `_RULES` to their sharded versions;
+    everything else passes through."""
 
     def __torch_function__(self, func, types, args=(), kwargs=None):
-        kwargs = kwargs or {}
-        rule = _RULES.get(func)
-        if rule is None and spatial.axis() is not None:
-            rule = _SPATIAL_REFUSED.get(func)
-        return (rule or func)(*args, **kwargs)
+        return _RULES.get(func, func)(*args, **(kwargs or {}))
 
 
 def _intercepting_here() -> bool:

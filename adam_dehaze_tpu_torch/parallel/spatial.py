@@ -38,7 +38,20 @@ while it is open each process's tensors hold its rows of every image.
 - Int8 serving's layers (ops/quant.py:Int8Conv2d) reduce Q1's per-image
   abs-max over the group and run Q2 on a shard made taller by the int8
   rows its windows read.
-- Resizes, pads of H and adaptive pools raise under the context.
+- Resizes (F.interpolate: bilinear with half-pixel centres or
+  align-corners, with or without antialias, and nearest-exact) take their
+  H pass from the unsharded op's own weights over the band of source rows
+  that the shard's output rows read (`halo` fetches it), then resize W on
+  the shard; a `size` is the shard's (the models read it off their
+  shards), a `scale_factor` the whole image's. Adaptive pools to 1 x 1 are
+  `mean_hw` and `image_amax`; to the whole image's H they pool W on the
+  shard (parallel/sharded_ops.py).
+- What raises under the context: other resize modes, resizes and layers
+  whose output rows do not split evenly over the shards, other adaptive
+  pool sizes, pads of H and average pools other than a VALID stride-1
+  window. No model forward of the package pads H or takes a strided
+  average pool (the one pad of H, data/synthetic.py's integral image, runs
+  on a taller shard under `local_ops()`), so those have no rule.
 
 `make_spatial_infer` wraps an apply (a bound model, or a route such as
 `AdaptiveDehazer.route_hard`) so that it runs on this process's part of a

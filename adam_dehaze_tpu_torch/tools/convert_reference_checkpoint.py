@@ -83,7 +83,8 @@ def convert(kind: str, pth: str, config=None, level=None):
     return {"model": ckpt.load_torch_joint(pth, router, config).state_dict()}
 
 
-def main(argv=None) -> str:
+def parser() -> argparse.ArgumentParser:
+    """The command line: the JAX tool's flags (tools/convert_reference_checkpoint.py)."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--kind", required=True, choices=KINDS)
@@ -93,6 +94,14 @@ def main(argv=None) -> str:
                    help="config YAML of the classifier, branch and joint kinds")
     p.add_argument("--level", default=None, choices=["low", "medium", "high"],
                    help="the branch's level, for --kind branch")
+    p.add_argument("--image_size", type=int, default=64,
+                   help="accepted and ignored: the JAX tool's resolution for a dummy init, "
+                        "which a PyTorch module does not need")
+    return p
+
+
+def main(argv=None) -> str:
+    p = parser()
     args = p.parse_args(argv)
     if args.kind == "branch" and not args.level:
         p.error("--kind branch requires --level")

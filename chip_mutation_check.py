@@ -50,7 +50,12 @@ layer on two channel shards against the layer on the whole input, bit for bit as
 phase 23 (a) and (b) hold them; REMAT_RANK takes a shard_train_step of the high branch at c=16 (2 x
 64^2, fp32, an MSE) on two H shards with its forward checkpointed, its backward on the card's
 autograd thread, against the same step without the checkpoint, at REMAT_RTOL of the largest
-gradient (phase 23 (c)'s fp32 bound). `python3 chip_mutation_check.py python` runs these alone.
+gradient (phase 23 (c)'s fp32 bound). Resizes on an H shard (parallel/sharded_ops.py:_interpolate)
+take their H pass from the unsharded op's matrix over a band of source rows: RESIZE_RANK runs the corun
+branch (c=64, align-corners upsamples, 2 x 256^2, fp32) through make_spatial_infer and the dial's
+antialiased shrink and its lift alone on two H shards against the whole image, at RESIZE_ATOL (chip_smoke.py
+phase 24's fp32 bound). `python3 chip_mutation_check.py python [CASE ...]` runs these alone (the
+cases named, or all).
 """
 import json
 import os
@@ -267,6 +272,12 @@ PY_MUTATIONS = {
     "the remat recompute run outside the sharding contexts": (
         "remat", "training/remat.py",
         '            with saved["sharding"]():\n                yield\n', "            yield\n"),
+    "a resize's band of source rows one row short (an H shard)": (
+        "resize", "parallel/sharded_ops.py", "lo, hi = int(cols.min()), int(cols.max()) + 1",
+        "lo, hi = int(cols.min()), int(cols.max())"),
+    "a resize's H pass by F.interpolate on the halo'd shard, in the shard's coordinates": (
+        "resize", "parallel/sharded_ops.py", "y = torch.matmul(part, band)",
+        "y = F.interpolate(band, size=(out_h, band.shape[3]), **same)"),
 }
 # K2 on two H shards against the kernel on the whole image: they compute the same
 # maps and gates per pixel, so one bf16 step of the largest output at most.
@@ -467,8 +478,52 @@ g_max = max(float(g.abs().max()) for g in grads[False].values())
 print(json.dumps(max(float((grads[True][n] - g).abs().max()) for n, g in grads[False].items())
                  / g_max))
 """
+# Resizes on two H shards against the whole image, fp32: chip_smoke.py phase 24's
+# fp32 bound.
+RESIZE_ATOL = 1e-5
+# One rank of the resize case: python3 -c RESIZE_RANK REPO RANK PORT, from the root of
+# the package to measure; prints its largest absolute error.
+RESIZE_RANK = """
+import json, sys
+from pathlib import Path
+import torch
+import torch.distributed as dist
+from adam_dehaze_tpu_torch.ops.kernels import _build
+repo, rank, port = Path(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+_build.CSRC, _build.BUILD_ROOT = repo / "adam_dehaze_tpu_torch" / "csrc", repo / "build" / "kernels"
+from adam_dehaze_tpu_torch.models.branches import COrunInspiredModel
+from adam_dehaze_tpu_torch.nn.blocks import init_params_, resize_bilinear
+from adam_dehaze_tpu_torch.parallel.mesh import make_mesh
+from adam_dehaze_tpu_torch.parallel.spatial import make_spatial_infer, shard_image_batch, spatial_sharding
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+dev = torch.device("cuda", 0)
+torch.cuda.set_device(dev)
+dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2, rank=rank)
+mesh = make_mesh({"spatial": 2}, [dev, dev])
+gen = torch.Generator().manual_seed(0)
+corun = init_params_(COrunInspiredModel(64, 6), gen).to(dev).eval()
+x = torch.rand(2, 256, 256, 3, generator=gen).to(dev)
+maps = torch.rand(2, 3, 256, 256, generator=gen).to(dev)
+with torch.inference_mode():
+    whole = corun(x)
+    part = make_spatial_infer(corun, mesh)(shard_image_batch(mesh, x))
+    err = float((part - whole[:, 128 * rank:128 * rank + 128]).abs().max())
+    # The dial's antialiased shrink and its lift.
+    for size in ((128, 128), (512, 512)):
+        whole = resize_bilinear(maps, size)
+        n = size[0] // 2
+        with spatial_sharding(mesh):
+            part = resize_bilinear(maps[:, :, 128 * rank:128 * rank + 128].contiguous(),
+                                   (n, size[1]))
+        err = max(err, float((part - whole[:, :, n * rank:n * rank + n]).abs().max()))
+torch.cuda.synchronize()
+dist.destroy_process_group()
+print(json.dumps(err))
+"""
 CASES = {"halo": (HALO_RANK, HALO_RTOL), "tuned": (TUNED_RANK, TUNED_ATOL),
-         "int8": (INT8_RANK, INT8_ATOL), "remat": (REMAT_RANK, REMAT_RTOL)}
+         "int8": (INT8_RANK, INT8_ATOL), "remat": (REMAT_RANK, REMAT_RTOL),
+         "resize": (RESIZE_RANK, RESIZE_ATOL)}
 CASE_READINGS = {
     "halo": f"K2 on two H shards of {BATCH} x 64^2 x 384, bf16, in units of max|whole|",
     "tuned": "the tuned applies on two H shards of 2 x 256^2, fp32, max abs err, and K6 alone "
@@ -476,7 +531,9 @@ CASE_READINGS = {
     "int8": "Int8Conv2d of each body on two H shards of 2 x 128^2 and the 4c layer on two "
             "channel shards, fp32, max abs err against the whole input",
     "remat": "a checkpointed high-branch step (c=16, 2 x 64^2, fp32) on two H shards against "
-             "the step without the checkpoint, gradients in units of max|g|"}
+             "the step without the checkpoint, gradients in units of max|g|",
+    "resize": "the corun branch (c=64, 2 x 256^2, fp32) and the dial's shrink and lift (2 x 3 x "
+              "256^2 maps) on two H shards, max abs err against the whole image"}
 
 
 def perturb_bn_(module, gen):
@@ -621,11 +678,12 @@ def case_error(case: str, package_root: Path, mutated: bool = False) -> float:
     return max(json.loads(log.strip().splitlines()[-1]) for log in logs)
 
 
-def python_mutations(failed):
-    """Each of PY_MUTATIONS in a copy of the package, measured by its case
-    beside the unchanged package."""
+def python_mutations(failed, cases=None):
+    """Each of PY_MUTATIONS of `cases` (by default every case) in a copy of
+    the package, measured by its case beside the unchanged package."""
     repo = Path(__file__).resolve().parent
-    for case, (_, bound) in CASES.items():
+    cases = cases or list(CASES)
+    for case, (_, bound) in ((c, CASES[c]) for c in cases):
         unchanged = case_error(case, repo)
         print(f"{case} case unchanged: {unchanged:.3e} (bound {bound:.3e}); "
               f"{CASE_READINGS[case]}", flush=True)
@@ -633,6 +691,8 @@ def python_mutations(failed):
             failed.append(f"the unchanged {case} case exceeds its bound: {unchanged}")
     with tempfile.TemporaryDirectory() as tmp:
         for i, (name, (case, fname, old, new)) in enumerate(PY_MUTATIONS.items()):
+            if case not in cases:
+                continue
             root = Path(tmp) / f"p{i}"
             shutil.copytree(repo / "adam_dehaze_tpu_torch", root / "adam_dehaze_tpu_torch",
                             ignore=shutil.ignore_patterns("__pycache__"))
@@ -656,10 +716,10 @@ def main():
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0], flush=True)
-    if sys.argv[1:] == ["python"]:
+    if sys.argv[1:2] == ["python"]:
         _build.library()
         py_failed = []
-        python_mutations(py_failed)
+        python_mutations(py_failed, sys.argv[2:])
         if py_failed:
             raise SystemExit("mutation check failed: " + "; ".join(py_failed))
         print("every Python mutation is caught by its case's bound", flush=True)

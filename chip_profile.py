@@ -2,7 +2,7 @@
 """Where the device time goes, on one GPU: torch.profiler over warm calls.
 
     python3 chip_profile.py [kernels] [routes] [train] [gate] [grads] [joint] [detect]
-                                          (kernels, routes and train by default)
+                            [shards]      (kernels, routes and train by default)
 
 Profiles, each over 3 warm calls at the sizes of chip_smoke.py (16 images at
 256^2, bf16, the same seeded weights and inputs). `kernels`:
@@ -78,12 +78,23 @@ on the card, with cuDNN and without, on the float64 step's own tensors: the
 layers whose forward, input gradient or weight gradient is furthest from
 float64.
 
+`shards`: the default high branch's serving copy (c = 96) on 2 images at
+512 x 490 (its decoder resizes W alone), fp32 with TF32 off and bf16,
+unsharded and on each of 2 H shards (two gloo ranks on cuda:0, this script
+with `--shard-rank`, chip_smoke.py's phase 24 (c)): each block's and each
+encoder and decoder layer's time on a rank beside the unsharded call's
+(host clock, synchronized), and what is left between them (the resizes,
+concats and the output's own ops).
+
 For the profiled sections it prints the device-busy time per call (kernels
 and memcpys, summed once each), the host wall time per call, and the
 largest device entries by name. It fails without a CUDA card, and if the
 profiler saw no device time.
 """
 import copy
+import os
+import socket
+import subprocess
 import sys
 import tempfile
 import time
@@ -101,7 +112,11 @@ TOP = 12
 GATE_REPEATS = 10
 GATE_HOST_CALLS = 2000
 GRAD_RUNS = 3
-SECTIONS = ("kernels", "routes", "train", "gate", "grads", "joint", "detect")
+SECTIONS = ("kernels", "routes", "train", "gate", "grads", "joint", "detect", "shards")
+SHARD_SHAPE = (2, 512, 490, 3)
+# The high branch's blocks timed by `shards`, besides each layer of its
+# encoder and decoder stages.
+SHARD_BLOCKS = ("detail_branch", "init_conv", "bottleneck", "output_conv")
 
 
 def profiled(tag, fn, host_top=0):
@@ -155,6 +170,90 @@ def profile_routes(router, dev):
     torch.cuda.empty_cache()
 
 
+def shard_profiles(dev, mesh=None):
+    """The high branch of phase 24 (c), fp32 and bf16, on the whole batch or
+    through make_spatial_infer on this rank's rows: each top-level block's
+    ms (host clock around a synchronize on each side, the median of
+    CALLS warm calls). No profiler: two processes tracing one card with
+    CUPTI at once stalled."""
+    from adam_dehaze_tpu_torch.ops.serving_apply import cast_for_serving
+    from adam_dehaze_tpu_torch.parallel.spatial import make_spatial_infer, shard_image_batch
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    high = cs.make_router(load_config(), torch.Generator().manual_seed(cs.SEED)).models["high"]
+    high = high.to(dev).eval()
+    x = torch.rand(SHARD_SHAPE, generator=torch.Generator().manual_seed(cs.SEED)).to(dev)
+    where = "unsharded" if mesh is None else f"rank {mesh.axis('spatial').index} of 2"
+    for dtype in (torch.float32, torch.bfloat16):
+        copy_ = cast_for_serving(high, dtype)
+        fn, arg = ((copy_, x) if mesh is None else
+                   (make_spatial_infer(copy_, mesh), shard_image_batch(mesh, x)))
+        times, starts = {}, {}
+
+        def pre(module, args, name=None):
+            torch.cuda.synchronize()
+            starts[name] = time.perf_counter()
+
+        def post(module, args, out, name=None):
+            torch.cuda.synchronize()
+            times.setdefault(name, []).append((time.perf_counter() - starts[name]) * 1e3)
+
+        blocks = [(name, m) for name, m in copy_.named_modules()
+                  if name in SHARD_BLOCKS or (name.count(".") == 2 and name[:9] in
+                                              ("encoder.0", "encoder.1", "decoder.0",
+                                               "decoder.1"))]
+        hooks = [h for name, child in blocks
+                 for h in (child.register_forward_pre_hook(lambda m, a, n=name: pre(m, a, n)),
+                           child.register_forward_hook(lambda m, a, o, n=name: post(m, a, o, n)))]
+        with torch.inference_mode():
+            fn(arg)
+            times.clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(CALLS):
+                fn(arg)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / CALLS
+        for h in hooks:
+            h.remove()
+        rest = wall - sum(np.median(ms) * len(ms) / CALLS for ms in times.values())
+        parts = ", ".join(f"{name} {np.median(ms) * len(ms) / CALLS:.2f}"
+                          for name, ms in times.items()) + f"; between the blocks {rest:.2f}"
+        cs.log(f"[shards high {str(dtype)[6:]} {SHARD_SHAPE[1]}x{SHARD_SHAPE[2]} {where}] "
+               f"{wall:.2f} ms a call of {SHARD_SHAPE[0]} images (synchronized at every "
+               f"block); ms a call by block: {parts}")
+
+
+def shard_rank(rank, port):
+    """One of the two ranks of `shards`: gloo on cuda:0."""
+    from adam_dehaze_tpu_torch.parallel.mesh import make_mesh
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                         world_size=2, rank=rank)
+    try:
+        shard_profiles(dev, make_mesh({"data": 1, "spatial": 2}, [dev] * 2))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def profile_shards(dev):
+    """`shards` (see the docstring): unsharded here, then the two ranks."""
+    shard_profiles(dev)
+    torch.cuda.empty_cache()
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--shard-rank",
+                               str(rank), str(port)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for rank in range(2)]
+    logs = cs._run_all({"shards": procs}, cs.RESIZE_TIMEOUT_S)["shards"]
+    for p, text in zip(procs, logs):
+        print(text, flush=True)
+        cs.check(p.returncode == 0, "a shard rank failed")
+
+
 def main():
     sections = sys.argv[1:] or ["kernels", "routes", "train"]
     unknown = set(sections) - set(SECTIONS)
@@ -178,6 +277,8 @@ def main():
         profile_joint(dev)
     if "detect" in sections:
         profile_detect(dev)
+    if "shards" in sections:
+        profile_shards(dev)
 
 
 def time_gate(dev):
@@ -584,4 +685,7 @@ def profile_kernels(dev):
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--shard-rank"]:
+        shard_rank(int(sys.argv[2]), sys.argv[3])
+    else:
+        main()

@@ -351,18 +351,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    `route_hard` (3 images at 128^2, one a class): fp32 on the card against
    the CPU at SLICE_ATOL, bf16 launching K1 and K2. One card holds every
    rank, so nothing here shows scaling.
-24. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
+24. Resizes and adaptive pools on an H shard (`[resize spatial]` lines):
+   the ranks in a gloo group on cuda:0 (this script with `--resize-rank`),
+   fp32 with TF32 off and bf16, held against the one-process unsharded call
+   on the same card. (a) COrunInspiredModel (c = 64: max-pools, align-corners
+   upsamples) and DualBranchAttentionModel (c = 96, K2 twice a call), 2
+   images at 512^2 over {"spatial": 2}; (c) the default medium and high
+   branches at 512 x 490, whose decoders resize W alone: fp32 within
+   RESIZE_ATOL, bf16 within phase 21's bound or the unsharded bf16 call's
+   own distance from fp32, K2 as often as unsharded. (b) `route_hard` with
+   the half-resolution dial on every branch (4 images at 512^2, one a
+   branch and low twice) under the default dispatch and the tuned one
+   (TUNED_FORCED, phase 22's caches): the labels equal, the output within
+   LIFT_K times the guided lift's own float32 error against float64 at
+   these images, K1, K2, K2', K3, K4 and K6 a rank as often as unsharded.
+   (d) The dial's shrink and lift, corun's upsample and the decoders' W-only
+   resizes alone on random maps: fp32 within RESIZE_OP_ATOL, bf16 one bf16
+   step, the W-only ones bit for bit. Prints each error, launch count and
+   warm ms/image beside the card's name and power limit; one card holds
+   every rank, so nothing here shows scaling.
+25. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
    with "training", "classifier_training", "joint_training", "detection",
    "cli", "lowres", "alternate", "precompiled", "int8", "parallel",
    "spatial", "tp", "joint_sharded", "dryrun", "tuned_spatial",
-   "int8_spatial", "int8_tp", "remat_spatial" and "reference_checkpoint";
+   "int8_spatial", "int8_tp", "remat_spatial", "reference_checkpoint",
+   "resize_alternates", "resize_dial_default", "resize_dial_tuned" and
+   "resize_decoders";
    Q1's two passes as "int8_absmax" and "int8_quantize_at"; K5's
    and K2''s Function readings under "function"; each lowres kernel's
    readings at 128^2 under "lowres", K2's at the alternate branches'
    shapes under "alternate"; the CLI's, the dial's, the alternates',
-   precompiled serving's, parallel/'s and phases 22's and 23's readings
-   under "cli", "lowres", "alternate", "precompiled", "parallel",
-   "sharded", "joint_sharded" and "int8_and_remat_on_shards") and, last,
+   precompiled serving's, parallel/'s and phases 22's, 23's and 24's
+   readings under "cli", "lowres", "alternate", "precompiled", "parallel",
+   "sharded", "joint_sharded", "int8_and_remat_on_shards" and
+   "resize_on_shards") and, last,
    {"ok": true, "device": ...}.
 """
 import collections
@@ -370,6 +392,7 @@ import contextlib
 import copy
 import gc
 import json
+import math
 import os
 import shutil
 import socket
@@ -389,6 +412,8 @@ from adam_dehaze_tpu_torch.evaluation import coco_eval
 from adam_dehaze_tpu_torch.evaluation import evaluate as det_eval
 from adam_dehaze_tpu_torch.losses.dehazing import get_dehazing_loss, get_joint_loss
 from adam_dehaze_tpu_torch.models.branches import (
+    COrunInspiredModel,
+    DualBranchAttentionModel,
     HighIntensityDehazeModel,
     LightweightDehazeModel,
     MediumIntensityDehazeModel,
@@ -4007,12 +4032,17 @@ def tp_forward(model, x, dev, dtype, mesh=None, runs=3):
     return y.cpu(), launches, widths, ms
 
 
-def route_call(d, x, mesh=None):
-    """route_hard of x, through make_spatial_infer on this rank's rows when
-    a mesh is given: (output, labels, launches, warm ms/image)."""
+def route_call(d, x, mesh=None, lowres=None):
+    """route_hard of x (with the half-resolution dial on the branches in
+    `lowres`), through make_spatial_infer on this rank's rows when a mesh is
+    given: (output, labels, launches, warm ms/image)."""
     from adam_dehaze_tpu_torch.parallel.spatial import make_spatial_infer, shard_image_batch
-    fn, arg = ((d.route_hard, x) if mesh is None else
-               (make_spatial_infer(d.route_hard, mesh), shard_image_batch(mesh, x)))
+
+    def route(images):
+        return d.route_hard(images, lowres=lowres)
+
+    fn, arg = ((route, x) if mesh is None else
+               (make_spatial_infer(route, mesh), shard_image_batch(mesh, x)))
     reset_launch_counts()
     out, labels = fn(arg)
     torch.cuda.synchronize()
@@ -5093,6 +5123,351 @@ def phase_int8_shards(dev, smi, tmp):
     return {k: dict(v) for k, v in paths.items()}, q1_recs, readings
 
 
+# Phase 24: resizes and adaptive pools on an H shard (parallel/sharded_ops.py):
+# the branches and the dial whose paths resize, each part's ranks in a gloo
+# group on cuda:0 (this script with `--resize-rank`), held against the
+# one-process unsharded call on the same card. One card holds every rank, so
+# nothing here shows scaling.
+RESIZE_SIZE = 512
+RESIZE_WIDTH = 490
+RESIZE_ROWS = 2
+RESIZE_LABELS = (0, 1, 2, 0)
+RESIZE_TIMEOUT_S = 240
+RESIZE_DTYPES = (("fp32", torch.float32), ("bf16", torch.bfloat16))
+# Sharded against unsharded: fp32 where only the resizes' sums move (their
+# weights are the unsharded op's, contracted in another order); bf16 at
+# phase 21's bound, or within the unsharded bf16 call's own distance from the
+# fp32 call where that is larger: a bf16 rounding that the shards' other
+# summation orders flip (cuDNN's algorithms by shape, the H pass's fp32
+# contraction) grows through a deep full-resolution net as bf16's own
+# roundings do (corun read 5 bf16 steps: PERF.md).
+RESIZE_ATOL = {torch.float32: 1e-5, torch.bfloat16: SHARD_ATOL[torch.bfloat16]}
+# (d): one resize on shards against the unsharded op: fp32 RESIZE_OP_ATOL;
+# bf16 one bf16 step of the largest value (the H pass rounds once, after its
+# fp32 contraction, as the unsharded op rounds once).
+RESIZE_OP_ATOL = 1e-6
+# The dial's guided lift divides differences of box means of float32
+# integral images, and a taller shard sums their rows in another order: the
+# dial's route is held within LIFT_K times the lift's own float32 error on
+# these images against float64 (phase 16's rule), and at RESIZE_ATOL at least.
+DIAL_LEVELS = ("low", "medium", "high")
+DIAL_PATH_KERNELS = {"default": SHARDED_PATH_KERNELS, "tuned": TUNED_PATH_KERNELS}
+# K2's launches in one call of each branch of (a) and (c): one an
+# AttentionBlock.
+RESIZE_K2 = {"corun": 0, "dual_branch": 2, "medium": 0, "high": 6}
+
+
+def resize_models(state, dev):
+    """The phase's modules from the saved state on `dev`: the corun and
+    dual_branch alternates at the default widths and the default router."""
+    cfg = load_config()
+    alts = {"corun": COrunInspiredModel(cfg["dehazing"]["medium"]["channels"],
+                                        cfg["dehazing"]["medium"]["blocks"]),
+            "dual_branch": DualBranchAttentionModel(cfg["dehazing"]["high"]["channels"],
+                                                    cfg["dehazing"]["high"]["blocks"])}
+    for name, model in alts.items():
+        model.load_state_dict(state[name])
+        model.to(dev).eval()
+    router = make_router(cfg, torch.Generator().manual_seed(SEED + 51))
+    router.load_state_dict(state["router"])
+    return alts, router.to(dev).eval()
+
+
+def resize_forward(model, x, dtype, mesh=None):
+    """A branch's serving copy in `dtype` on x, through make_spatial_infer on
+    this rank's rows when a mesh is given: (output, its launches, warm
+    ms/image)."""
+    from adam_dehaze_tpu_torch.parallel.spatial import make_spatial_infer, shard_image_batch
+    copy_ = cast_for_serving(model, dtype)
+    fn, arg = ((copy_, x) if mesh is None else
+               (make_spatial_infer(copy_, mesh), shard_image_batch(mesh, x)))
+
+    def run():
+        with torch.inference_mode():
+            return fn(arg)
+
+    reset_launch_counts()
+    y = run()
+    torch.cuda.synchronize()
+    launches = counts()
+    ms = warm_ms(run, 1)[0] / x.shape[0]
+    return y.float().cpu(), launches, ms
+
+
+def resize_dehazer(router, dev, dtype_name, dispatch, out_dir):
+    cfg = load_config(overrides={"cuda": {"compute_dtype": dtype_name}})
+    if dispatch == "default":
+        return AdaptiveDehazer(router, None, cfg, device=dev)
+    return tuned_dehazer(router, dev, dtype_name, os.path.join(out_dir, f"tuned_{dtype_name}.json"))
+
+
+def dial_resizes(dev, mesh):
+    """The dial's two resizes (the antialiased shrink 512^2 -> 256^2, the
+    lift 256^2 -> 512^2), corun's align-corners upsample (256^2 -> 512^2)
+    and the W-only resizes of the decoders (bilinear with antialias and with
+    align-corners, 512 x 512 -> 512 x 490) on random maps, fp32 and bf16, on
+    this rank's rows and on the whole map: name -> (max abs err of the rows,
+    max|whole|, bit for bit)."""
+    from adam_dehaze_tpu_torch.nn.blocks import resize_bilinear, resize_bilinear_align_corners
+    from adam_dehaze_tpu_torch.parallel.spatial import spatial_sharding
+    rows = mesh.axis("spatial")
+    gen = torch.Generator().manual_seed(SEED + 53)
+    x = torch.rand(RESIZE_ROWS, 3, RESIZE_SIZE, RESIZE_SIZE, generator=gen).to(dev)
+    lo = torch.rand(RESIZE_ROWS, 3, RESIZE_SIZE // 2, RESIZE_SIZE // 2, generator=gen).to(dev)
+    half, w = RESIZE_SIZE // 2, RESIZE_WIDTH
+    cases = {"shrink": (resize_bilinear, x, (half, half)),
+             "lift": (resize_bilinear, lo, (RESIZE_SIZE, RESIZE_SIZE)),
+             "align_corners_upsample": (resize_bilinear_align_corners, lo,
+                                        (RESIZE_SIZE, RESIZE_SIZE)),
+             "w_only_antialiased": (resize_bilinear, x, (RESIZE_SIZE, w)),
+             "w_only_align_corners": (resize_bilinear_align_corners, x, (RESIZE_SIZE, w))}
+    out = {}
+    with torch.inference_mode():
+        for tag, dtype in RESIZE_DTYPES:
+            for name, (fn, t, size) in cases.items():
+                t = t.to(dtype)
+                whole = fn(t, size)
+                n = t.shape[2] // rows.size
+                with spatial_sharding(mesh):
+                    part = fn(t[:, :, rows.index * n:(rows.index + 1) * n].contiguous(),
+                              (size[0] // rows.size, size[1]))
+                want = whole.narrow(2, rows.index * part.shape[2], part.shape[2])
+                out[f"{name}_{tag}"] = (max_err(part, want), float(whole.float().abs().max()),
+                                        bool(torch.equal(part, want)))
+    torch.cuda.synchronize()
+    return out
+
+
+def resize_rank(rank, world, port, out_dir, dev=None):
+    """One rank of phase 24: `python3 chip_smoke.py --resize-rank RANK WORLD
+    PORT OUT_DIR`, over {"spatial": 2}; `dev` is cuda:0 (another only to
+    rehearse)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = dev or torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    # Every rank drives the one card: gloo over CUDA tensors (NCCL refuses
+    # two ranks on one device), a choice made for one card.
+    torch.distributed.init_process_group("gloo", init_method=f"tcp://localhost:{port}",
+                                         world_size=world, rank=rank)
+    try:
+        state = torch.load(os.path.join(out_dir, "state.pt"), weights_only=True)
+        alts, router = resize_models(state, dev)
+        mesh = make_mesh({"data": 1, "spatial": 2}, [dev] * 2)
+        out = resize_calls(state, alts, router, dev, out_dir, mesh)
+        out["resizes"] = dial_resizes(dev, mesh)
+        torch.save(out, os.path.join(out_dir, f"resize{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def resize_calls(state, alts, router, dev, out_dir, mesh=None):
+    """(a), (b) and (c) on the whole images, or through make_spatial_infer on
+    this rank's rows when a mesh is given."""
+    x, x490 = state["x"].to(dev), state["x490"].to(dev)
+    out = {}
+    for name, dtype in RESIZE_DTYPES:
+        for alt, model in alts.items():
+            out[f"{alt}_{name}"] = resize_forward(model, x, dtype, mesh)
+        for lvl in ("medium", "high"):
+            out[f"{lvl}_{RESIZE_WIDTH}_{name}"] = resize_forward(router.models[lvl], x490, dtype,
+                                                                  mesh)
+    for dispatch in ("default", "tuned"):
+        for name, dtype in RESIZE_DTYPES:
+            d = resize_dehazer(router, dev, str(dtype).replace("torch.", ""), dispatch, out_dir)
+            out[f"dial_{dispatch}_{name}"] = route_call(d, state["route_x"].to(dev), mesh,
+                                                        lowres=DIAL_LEVELS)
+            del d
+    gc.collect()
+    return out
+
+
+def spawn_resize(out_dir):
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = {"resize": [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--resize-rank", str(rank), "2", str(port),
+         out_dir], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(2)]}
+    logs = _run_all(procs, RESIZE_TIMEOUT_S)
+    failed = [f"resize rank {r} failed:\n{text[-6000:]}"
+              for r, (p, text) in enumerate(zip(procs["resize"], logs["resize"]))
+              if p.returncode != 0]
+    check(not failed, "\n".join(failed))
+    return [torch.load(os.path.join(out_dir, f"resize{r}.pt"), weights_only=False)
+            for r in range(2)]
+
+
+def dial_lift_error(router, dev, x, labels):
+    """The guided lift's own float32 error at (b)'s shapes: the fp32 default
+    dehazer's branches at half resolution on x's shrink (labels forced),
+    lifted in float32 and in float64 on the card."""
+    from adam_dehaze_tpu_torch.ops import resolution
+    d = AdaptiveDehazer(router, None, load_config(overrides={"cuda": {"compute_dtype":
+                                                                      "float32"}}), device=dev)
+    half = RESIZE_SIZE // 2
+    x_lo = resolution._resize_nhwc(x, (half, half))
+    with torch.inference_mode():
+        y_lo = d.engine.dispatch(x_lo, np.asarray(labels))
+
+    def lift(xx, xx_lo, yy_lo):
+        corr = resolution.guided_upsample(resolution._gray(xx), resolution._gray(xx_lo),
+                                          yy_lo - xx_lo)
+        return torch.clamp(xx + corr, 0.0, 1.0)
+
+    with torch.inference_mode():
+        err = max_err(lift(x, x_lo, y_lo.float()), lift(x.double(), x_lo.double(), y_lo.double()))
+    del d
+    return err
+
+
+def phase_resize(dev, smi, tmp):
+    """24. Resizes and adaptive pools on an H shard (see the docstring).
+    Returns the paths' launch counts and the phase's readings."""
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out_dir = os.path.join(tmp, "resize")
+    os.makedirs(out_dir)
+    cfg = load_config()
+    gen = torch.Generator().manual_seed(SEED + 51)
+    router = make_router(cfg, gen)
+    corun = perturb_bn_(init_params_(COrunInspiredModel(cfg["dehazing"]["medium"]["channels"],
+                                                        cfg["dehazing"]["medium"]["blocks"]),
+                                     gen), gen)
+    dual = perturb_bn_(init_params_(DualBranchAttentionModel(cfg["dehazing"]["high"]["channels"],
+                                                             cfg["dehazing"]["high"]["blocks"]),
+                                    gen), gen)
+    rng = np.random.default_rng(SEED + 52)
+    x = torch.from_numpy(rng.random((RESIZE_ROWS, RESIZE_SIZE, RESIZE_SIZE, 3), dtype=np.float32))
+    x490 = torch.from_numpy(rng.random((RESIZE_ROWS, RESIZE_SIZE, RESIZE_WIDTH, 3),
+                                       dtype=np.float32))
+    route_x = torch.from_numpy(rng.random((len(RESIZE_LABELS), RESIZE_SIZE, RESIZE_SIZE, 3),
+                                          dtype=np.float32))
+    router.to(dev)
+    balance_head_(router.classifier, route_x.to(dev), RESIZE_LABELS)
+    state = {"router": {k: v.cpu() for k, v in router.state_dict().items()},
+             "corun": corun.state_dict(), "dual_branch": dual.state_dict(), "x": x,
+             "x490": x490, "route_x": route_x}
+    torch.save(state, os.path.join(out_dir, "state.pt"))
+    alts, router = resize_models(state, dev)
+    # The tuned caches of phase 22 where it ran (their keys hold no weights),
+    # else each winner timed once here.
+    for name in ("bfloat16", "float32"):
+        path = os.path.join(out_dir, f"tuned_{name}.json")
+        done = os.path.join(tmp, "joint_sharded", f"tuned_{name}.json")
+        if os.path.exists(done):
+            shutil.copy(done, path)
+        else:
+            tuned_cache(router, dev, getattr(torch, name), path)
+    # The one-process references first, alone on the card.
+    ref = resize_calls(state, alts, router, dev, out_dir)
+    lift_err = dial_lift_error(router, dev, route_x.to(dev), RESIZE_LABELS)
+    del alts, router
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ranks = spawn_resize(out_dir)
+    paths = {p: collections.Counter() for p in ("resize_alternates", "resize_dial_default",
+                                                   "resize_dial_tuned", "resize_decoders")}
+    readings, failed = {"lift_fp32_err": lift_err}, []
+
+    # (a) corun and dual_branch at 512^2, (c) the medium and high branches at
+    # 512 x 490, each on 2 H shards.
+    for name, dtype in RESIZE_DTYPES:
+        for branch, key, what, path in (
+                [(alt, f"{alt}_{name}", f"(a) {alt}", "resize_alternates")
+                 for alt in ("corun", "dual_branch")]
+                + [(lvl, f"{lvl}_{RESIZE_WIDTH}_{name}", f"(c) {lvl} branch", "resize_decoders")
+                   for lvl in ("medium", "high")]):
+            want, want_launches, ms = ref[key]
+            # The unsharded bf16 call's own distance from the fp32 call.
+            own = (max_err(want, ref[key.replace(name, "fp32")][0])
+                   if dtype == torch.bfloat16 else 0.0)
+            bound = max(RESIZE_ATOL[dtype], own)
+            got = torch.cat([r[key][0] for r in ranks], 1)
+            err = max_err(got, want)
+            rank_launches = [nonzero(r[key][1]) for r in ranks]
+            for r in ranks:
+                paths[path].update(r[key][1])
+            readings[key] = dict(max_abs_err=err, bound=bound, unsharded_bf16_vs_fp32=own,
+                                 launches_per_rank=rank_launches,
+                                 unsharded_launches=nonzero(want_launches),
+                                 ms_per_image_per_rank=[r[key][2] for r in ranks],
+                                 unsharded_ms_per_image=ms)
+            log(f"[resize spatial] {what}, {name}, {RESIZE_ROWS} images at "
+                f"{RESIZE_SIZE}x{tuple(got.shape)[2]} over spatial=2 (2 gloo ranks on cuda:0): "
+                f"max abs err vs unsharded {err:.3e} (bound {bound:.3e}; unsharded bf16 vs "
+                f"fp32 {own:.3e}); K2 "
+                f"launches a rank {[r.get('cbam_gate', 0) for r in rank_launches]}, unsharded "
+                f"{want_launches.get('cbam_gate', 0)}; warm ms/image a rank "
+                f"{[round(r[key][2], 3) for r in ranks]}, unsharded {ms:.3f}; {smi} (a reading: "
+                "both ranks share the card)")
+            failed += [f"{what} {name}: sharded differs by {err}"] * (err > bound)
+            failed += [f"{what} {name}: K2 launches a rank {rank_launches}, expected "
+                       f"{RESIZE_K2[branch]}"] * (
+                any(r.get("cbam_gate", 0) != RESIZE_K2[branch] for r in rank_launches))
+
+    # (b) route_hard with the dial on every branch, default and tuned dispatch.
+    for dispatch in ("default", "tuned"):
+        for name, dtype in RESIZE_DTYPES:
+            key = f"dial_{dispatch}_{name}"
+            want, labels, want_launches, ms = ref[key]
+            bound = max(RESIZE_ATOL[dtype], LIFT_K * lift_err)
+            check(labels == list(RESIZE_LABELS), f"(b) the unsharded route's labels {labels}")
+            got = torch.cat([r[key][0] for r in ranks], 1)
+            err = max_err(got, want)
+            rank_launches = [nonzero(r[key][2]) for r in ranks]
+            for r in ranks:
+                paths[f"resize_dial_{dispatch}"].update(r[key][2])
+                failed += [f"(b) {key}: a rank routed {r[key][1]}, unsharded {labels}"] * (
+                    r[key][1] != labels)
+            readings[key] = dict(max_abs_err=err, bound=bound, launches_per_rank=rank_launches,
+                                 unsharded_launches=nonzero(want_launches),
+                                 ms_per_image_per_rank=[r[key][3] for r in ranks],
+                                 unsharded_ms_per_image=ms)
+            log(f"[resize spatial] (b) route_hard, lowres={list(DIAL_LEVELS)}, {dispatch} "
+                f"dispatch, {name}, {len(RESIZE_LABELS)} images at {RESIZE_SIZE}^2 over "
+                f"spatial=2: labels {labels} on every rank; max abs err vs unsharded {err:.3e} "
+                f"(bound {bound:.3e}: {LIFT_K:g}x the lift's own fp32 error {lift_err:.3e}, or "
+                f"{RESIZE_ATOL[dtype]:.0e}); launches a rank {rank_launches}, unsharded "
+                f"{nonzero(want_launches)}; warm ms/image a rank "
+                f"{[round(r[key][3], 3) for r in ranks]}, unsharded {ms:.3f}; {smi}")
+            failed += [f"(b) {key}: sharded differs by {err}"] * (err > bound)
+            kernels = DIAL_PATH_KERNELS[dispatch]
+            failed += [f"(b) {key}: a rank launched {got_l}, unsharded {nonzero(want_launches)}"
+                       for got_l in rank_launches
+                       if {k: got_l.get(k, 0) for k in kernels}
+                       != {k: want_launches.get(k, 0) for k in kernels}]
+
+    # (d) the dial's resizes, corun's upsample and the decoders' W-only
+    # resizes alone.
+    for name in ranks[0]["resizes"]:
+        errs = [r["resizes"][name][0] for r in ranks]
+        top = max(r["resizes"][name][1] for r in ranks)
+        bitwise = [r["resizes"][name][2] for r in ranks]
+        w_only = name.startswith("w_only")
+        # bf16: one bf16 step (ulp) of the largest value.
+        bound = (0.0 if w_only else RESIZE_OP_ATOL if name.endswith("fp32")
+                 else 2.0 ** (math.floor(math.log2(top)) - 7))
+        readings[f"resize_{name}"] = dict(max_abs_err=max(errs), bound=bound, bitwise=bitwise)
+        log(f"[resize spatial] (d) {name}, {RESIZE_ROWS} x 3 maps on 2 H shards: max abs err vs "
+            f"unsharded {max(errs):.3e} (bound {bound:.3e}{', bit for bit' if w_only else ''}); "
+            f"bit for bit {bitwise}; {smi}")
+        failed += [f"(d) {name}: {errs} {bitwise}"] * (
+            (w_only and not all(bitwise)) or max(errs) > bound)
+    check(not failed, "; ".join(failed))
+    for dispatch in ("default", "tuned"):
+        for k in DIAL_PATH_KERNELS[dispatch]:
+            check(paths[f"resize_dial_{dispatch}"][k] > 0,
+                  f"the {dispatch} dial on shards launched no {k}")
+    for p in ("resize_alternates", "resize_decoders"):
+        check(paths[p]["cbam_gate"] > 0, f"{p} launched no cbam_gate")
+    torch.cuda.empty_cache()
+    return {k: dict(v) for k, v in paths.items()}, readings
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
@@ -5158,6 +5533,7 @@ def main():
             "joint sharded", phase_joint_sharded, dev, smi, tmp)
         int8_shard_paths, q1_split_recs, int8_shard_readings = timed(
             "int8 and remat on shards", phase_int8_shards, dev, smi, tmp)
+        resize_paths, resize_readings = timed("resize on shards", phase_resize, dev, smi, tmp)
     for name in ("route_hard", "forced_labels", "soft"):
         log(f"[slices] {name}: default dispatch {default_ms[name]:.3f} ms/image, "
             f"tail-chain dispatch {tail_ms[name]:.3f} ms/image, res-chain dispatch "
@@ -5170,7 +5546,7 @@ def main():
              "lowres": lowres_path, "alternate": alt_path, "precompiled": pre_path,
              "int8": int8_path, "parallel": parallel_path, "spatial": spatial_path,
              "tp": tp_path, "joint_sharded": joint_sharded_path, "dryrun": dryrun_path,
-             "tuned_spatial": tuned_path, **int8_shard_paths}
+             "tuned_spatial": tuned_path, **int8_shard_paths, **resize_paths}
     kernels["cbam_gate"].update(training_forward_ms_per_step=k2_train["forward_ms"],
                                 training_backward_ms_per_step=k2_train["backward_ms"])
     for name, rec in grad_fns.items():
@@ -5198,6 +5574,7 @@ def main():
         "alternate": alt_readings, "precompiled": pre_readings, "int8": int8_readings,
         "parallel": parallel_readings, "sharded": sharded_readings,
         "joint_sharded": joint_sharded_readings, "int8_and_remat_on_shards": int8_shard_readings,
+        "resize_on_shards": resize_readings,
         "phase_seconds": seconds}
     check(all(k["launches"] > 0 for k in line["kernels"]),
           f"a kernel was launched no time on any path: {line['kernels']}")
@@ -5214,6 +5591,8 @@ if __name__ == "__main__":
         sharded_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5], sys.argv[6])
     elif sys.argv[1:2] == ["--joint-rank"]:
         joint_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5], sys.argv[6])
+    elif sys.argv[1:2] == ["--resize-rank"]:
+        resize_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
     elif sys.argv[1:2] == ["--int8-shard-rank"]:
         int8_shard_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
                         sys.argv[6])

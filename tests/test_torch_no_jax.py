@@ -62,6 +62,21 @@ def test_reference_checkpoint_tools_import_no_jax():
     assert proc.stdout.strip() == "[]", proc.stdout
 
 
+def test_root_tools_and_configs_import_no_jax():
+    """The port's counterparts of the JAX package's root tools stand alone,
+    and its full-system config loads without the JAX package's."""
+    probe = _TOOLS.replace('("convert_reference_checkpoint", "graft_classifier")',
+                           '("calibrate_lpips", "justify_lpips_calibration", '
+                           '"eval_dtype_delta", "run_ablations")')
+    probe = probe.replace("print(sorted(", "from adam_dehaze_tpu_torch.config import load_config\n"
+                          "load_config('adam_dehaze_tpu_torch/configs/full_system_cuda.yaml')\n"
+                          "print(sorted(", 1)
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True,
+                          text=True, env=_clean_env(), timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
+
+
 def test_chip_smoke_fails_without_cuda():
     """On a machine without CUDA the smoke run exits non-zero before it
     builds or prints anything that looks like a result."""
