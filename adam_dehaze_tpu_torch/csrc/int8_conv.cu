@@ -32,11 +32,14 @@
 //   Where a group of processes splits each image (its rows over a spatial
 //   axis, parallel/spatial.py), the abs-max must be reduced over the group
 //   between the two passes, so they are also two entry points: int8_absmax
-//   writes the abs-max of this process's part of each image (N,) f32, the
-//   caller reduces it over the group, and int8_quantize_at quantizes at the
-//   group's abs-max, its scale computed as above (the same image_scale), so
-//   a shard's q and scale are the one launch's on the whole image bit for
-//   bit. Each walks the batch as the one launch does, with no wait.
+//   (Q1a) writes the abs-max of this process's part of each image (N,) f32,
+//   the caller reduces it over the group, and int8_quantize_at (Q1b)
+//   quantizes at the group's abs-max, its scale computed as above (the same
+//   image_scale and quantize8), so a shard's q and scale are the one
+//   launch's on the whole image bit for bit. Between the two passes the
+//   group's all-reduce runs, so nothing keeps x in L2 for the second: each
+//   is its own design, a grid of images x slices of an image's contiguous
+//   values sized from the whole batch (see "Q1's two passes" below).
 //
 // Q2 (entry point int8_conv): a convolution on int8 tensor cores with int32
 //   sums, two bodies chosen by the layer's shape (ops/kernels/quant.py:
@@ -440,48 +443,292 @@ int launch_quantize(const void* x, void* scratch, void* q, void* scale, int N, i
                                      params, 0, s);
 }
 
-// Q1's two passes as launches of their own (int8_absmax, int8_quantize_at):
-// the same group walks, each group's shared values rewritten only after
-// every thread is done with the last group's.
+// ---------------------------------------------------------------- Q1's two passes
+
+// Q1a (int8_absmax) and Q1b (int8_quantize_at), for an image whose rows a
+// group of processes splits. Each is one launch on a 2-D grid: blockIdx.y
+// is the image, blockIdx.x a slice of `per_block` units of that image's
+// contiguous values (PassArgs). The slices are sized from the whole batch so
+// that the grid is about kAbsmaxWaves or kQuantWaves waves of resident
+// blocks where the data allows, and at least kPassThreads units a block; the
+// resident blocks are read once a device (launch_slices). No query, memset
+// or second launch on a call. Bound: memory (Q1a reads x once; Q1b reads x
+// once and writes q). The waves, by device time on an H100 (700 W) over the
+// 52 layer shapes of one 16-image bucket of each branch on one of 2 H
+// shards, bf16: Q1a's blocks end in a block reduction and two atomics, and
+// one wave of fuller blocks took 0.70-0.75 ms where four took 0.84; Q1b,
+// with no reduction, took 1.04 ms at four waves and 1.08 at one.
+constexpr int kPassThreads = 256;
+constexpr int kAbsmaxUnroll = 4;    // Q1a: 16-byte loads in flight a thread
+constexpr int kQuantUnroll = 2;     // Q1b: units in flight a thread
+constexpr int kAbsmaxWaves = 1;
+constexpr int kQuantWaves = 4;
+constexpr int kMaxPassImages = 65535;   // gridDim.y
+
+struct PassArgs {
+  const void* x;
+  unsigned* partial;   // Q1a: (N, 2) an image's maximum bits and blocks done, 0 between calls
+  float* amax;         // Q1a: written; Q1b: read
+  int8_t* q;
+  float* scale;
+  int HW, C, cin_pad;
+  int per_block;       // units a block: a multiple of kPassThreads
+};
+
+// Q1a: the abs-max of the 16 bytes u (8 bf16 values by absmax8's bf16x2
+// mask and max, or 4 floats).
+template <typename T> __device__ __forceinline__ float absmax16(const uint4& u);
+template <> __device__ __forceinline__ float absmax16<__nv_bfloat16>(const uint4& u) {
+  Raw8<__nv_bfloat16> r;
+  r.u = u;
+  return absmax8(r);
+}
+template <> __device__ __forceinline__ float absmax16<float>(const uint4& u) {
+  return fmaxf(fmaxf(fabsf(__uint_as_float(u.x)), fabsf(__uint_as_float(u.y))),
+               fmaxf(fabsf(__uint_as_float(u.z)), fabsf(__uint_as_float(u.w))));
+}
+
+// The block's maximum of the non-negative floats v, as bits (non-negative
+// floats order as their bits): a warp's by __reduce_max_sync, then the
+// warps'. Valid in warp 0.
+__device__ __forceinline__ unsigned block_max_bits(float v, unsigned* swarp) {
+  unsigned m = __reduce_max_sync(0xffffffffu, __float_as_uint(v));
+  if ((threadIdx.x & 31) == 0) swarp[threadIdx.x >> 5] = m;
+  __syncthreads();
+  if (threadIdx.x < 32) {
+    m = threadIdx.x < kPassThreads / 32 ? swarp[threadIdx.x] : 0u;
+    m = __reduce_max_sync(0xffffffffu, m);
+  }
+  return m;
+}
+
+// Q1a. An image's H*W*C values are read flat, whatever C is: the values
+// before its first 16-byte boundary (x is 16-byte aligned; an image's start
+// need not be) and after its last whole 16 bytes one a thread by the
+// image's first slice, the rest as 16-byte loads (units), kAbsmaxUnroll in
+// flight a thread. Each block adds its maximum to the image's in `partial`
+// and counts itself done; the image's last block writes amax[n] and zeroes
+// both, so no memset precedes the launch.
 template <typename T>
-__global__ void __launch_bounds__(kQThreads)
-absmax_kernel(const QuantArgs a) {
-  __shared__ unsigned smax[kQMaxGroup];
-  for (int n0 = 0; n0 < a.N; n0 += kQMaxGroup) {
-    absmax_group<T>(a, n0, min(n0 + kQMaxGroup, a.N), smax);
-    __syncthreads();
+__global__ void __launch_bounds__(kPassThreads)
+absmax_slices_kernel(const PassArgs a) {
+  __shared__ unsigned swarp[kPassThreads / 32];
+  constexpr int kPer = 16 / sizeof(T);
+  const int n = blockIdx.y;   // Q1a's image
+  const int L = a.HW * a.C;
+  const T* img = static_cast<const T*>(a.x) + static_cast<long long>(n) * L;
+  const int head = min(L, static_cast<int>((16 - (reinterpret_cast<uintptr_t>(img) & 15)) & 15) /
+                              static_cast<int>(sizeof(T)));
+  const int vecs = (L - head) / kPer;
+  const int tail = L - head - vecs * kPer;
+  const uint4* v = reinterpret_cast<const uint4*>(img + head);
+  const int begin = blockIdx.x * a.per_block;
+  const int end = min(vecs, begin + a.per_block);
+  float m = 0.f;
+  for (int i = begin + threadIdx.x; i < end; i += kPassThreads * kAbsmaxUnroll) {
+    uint4 r[kAbsmaxUnroll];
+#pragma unroll
+    for (int u = 0; u < kAbsmaxUnroll; ++u) {
+      const int j = i + u * kPassThreads;
+      r[u] = j < end ? __ldg(v + j) : make_uint4(0u, 0u, 0u, 0u);
+    }
+#pragma unroll
+    for (int u = 0; u < kAbsmaxUnroll; ++u) m = fmaxf(m, absmax16<T>(r[u]));
+  }
+  if (blockIdx.x == 0) {
+    const int t = threadIdx.x;
+    if (t < head) m = fmaxf(m, fabsf(to_float(img[t])));
+    if (t < tail) m = fmaxf(m, fabsf(to_float(img[L - tail + t])));
+  }
+  const unsigned bits = block_max_bits(m, swarp);
+  if (threadIdx.x == 0) {
+    unsigned* slot = a.partial + 2 * n;
+    if (bits != 0u) atomicMax(slot, bits);
+    __threadfence();
+    if (atomicAdd(slot + 1, 1u) == gridDim.x - 1) {
+      // The image's last block: every block's maximum is in.
+      a.amax[n] = __uint_as_float(atomicExch(slot, 0u));
+      atomicExch(slot + 1, 0u);
+    }
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kQThreads)
-quantize_at_kernel(const QuantArgs a) {
-  __shared__ float sinv[kQMaxGroup];
-  for (int n0 = 0; n0 < a.N; n0 += kQMaxGroup) {
-    quantize_group<T>(a, n0, min(n0 + kQMaxGroup, a.N), sinv);
-    __syncthreads();
+// Q1b's units, by the shape of the layer.
+enum QuantPath {
+  kFlat,     // cin_pad == C, H*W*C a multiple of 16: 16 values a unit
+  kRgb,      // C == 3, cin_pad == 4, H*W a multiple of 8: 8 pixels a unit
+  kOctets,   // C a multiple of 8: 8 padded channels of a pixel a unit
+  kPixels,   // otherwise: a pixel a unit
+};
+
+// 8 values of x by streaming loads (x is not read again).
+template <typename T> __device__ __forceinline__ Raw8<T> load8_cs(const T* p);
+template <> __device__ __forceinline__ Raw8<__nv_bfloat16> load8_cs(const __nv_bfloat16* p) {
+  Raw8<__nv_bfloat16> r;
+  r.u = __ldcs(reinterpret_cast<const uint4*>(p));
+  return r;
+}
+template <> __device__ __forceinline__ Raw8<float> load8_cs(const float* p) {
+  const float4 lo = __ldcs(reinterpret_cast<const float4*>(p));
+  const float4 hi = __ldcs(reinterpret_cast<const float4*>(p) + 1);
+  Raw8<float> r;
+  r.v[0] = lo.x; r.v[1] = lo.y; r.v[2] = lo.z; r.v[3] = lo.w;
+  r.v[4] = hi.x; r.v[5] = hi.y; r.v[6] = hi.z; r.v[7] = hi.w;
+  return r;
+}
+
+// A unit of each path: its values loaded, then quantized and stored.
+template <typename T, int kPath> struct QuantUnit;
+
+template <typename T> struct QuantUnit<T, kFlat> {
+  Raw8<T> r[2];
+  __device__ __forceinline__ void load(const T* x, int i, const PassArgs&) {
+    r[0] = load8_cs(x + 16ll * i);
+    r[1] = load8_cs(x + 16ll * i + 8);
+  }
+  __device__ __forceinline__ void store(const T*, int8_t* q, int i, float inv, const PassArgs&) {
+    const uint2 lo = quantize8(r[0], inv), hi = quantize8(r[1], inv);
+    *reinterpret_cast<uint4*>(q + 16ll * i) = make_uint4(lo.x, lo.y, hi.x, hi.y);
+  }
+};
+
+template <typename T> struct QuantUnit<T, kRgb> {
+  Raw8<T> r[3];   // pixels 8i..8i+7, their 24 values in order
+  __device__ __forceinline__ void load(const T* x, int i, const PassArgs&) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) r[k] = load8_cs(x + 24ll * i + 8 * k);
+  }
+  __device__ __forceinline__ void store(const T*, int8_t* q, int i, float inv, const PassArgs&) {
+    unsigned w[6];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const uint2 b = quantize8(r[k], inv);
+      w[2 * k] = b.x;
+      w[2 * k + 1] = b.y;
+    }
+    // Pixel p's three bytes start at byte 3p of w; its fourth is the pad.
+    unsigned o[8];
+#pragma unroll
+    for (int p = 0; p < 8; ++p)
+      o[p] = __funnelshift_r(w[3 * p / 4], w[min(3 * p / 4 + 1, 5)], 3 * p % 4 * 8) & 0xffffffu;
+    uint4* dst = reinterpret_cast<uint4*>(q + 32ll * i);
+    dst[0] = make_uint4(o[0], o[1], o[2], o[3]);
+    dst[1] = make_uint4(o[4], o[5], o[6], o[7]);
+  }
+};
+
+template <typename T> struct QuantUnit<T, kOctets> {
+  Raw8<T> r;
+  __device__ __forceinline__ void load(const T* x, int i, const PassArgs& a) {
+    const int chunks = a.cin_pad / 8;
+    const int p = i / chunks, c0 = (i - p * chunks) * 8;
+    if (c0 < a.C) r = load8_cs(x + static_cast<long long>(p) * a.C + c0);
+  }
+  __device__ __forceinline__ void store(const T*, int8_t* q, int i, float inv, const PassArgs& a) {
+    const int chunks = a.cin_pad / 8;
+    const int p = i / chunks, c0 = (i - p * chunks) * 8;
+    *reinterpret_cast<uint2*>(q + static_cast<long long>(p) * a.cin_pad + c0) =
+        c0 < a.C ? quantize8(r, inv) : make_uint2(0u, 0u);
+  }
+};
+
+template <typename T> struct QuantUnit<T, kPixels> {
+  __device__ __forceinline__ void load(const T*, int, const PassArgs&) {}
+  __device__ __forceinline__ void store(const T* x, int8_t* q, int i, float inv,
+                                        const PassArgs& a) {
+    const T* px = x + static_cast<long long>(i) * a.C;
+    if (a.cin_pad == 4) {
+      unsigned w = 0u;
+      for (int c = 0; c < a.C; ++c)
+        w |= (static_cast<unsigned>(quantize_one<T>(to_float(px[c]), inv)) & 0xffu) << (8 * c);
+      *reinterpret_cast<unsigned*>(q + 4ll * i) = w;
+    } else {
+      for (int c = 0; c < a.cin_pad; ++c)
+        q[static_cast<long long>(i) * a.cin_pad + c] =
+            c < a.C ? static_cast<int8_t>(quantize_one<T>(to_float(px[c]), inv)) : 0;
+    }
+  }
+};
+
+// Q1b's units of an image.
+__host__ __device__ __forceinline__ int quant_units(int path, int HW, int C, int cin_pad) {
+  return path == kFlat ? HW * C / 16 : path == kRgb ? HW / 8 : path == kOctets ? HW * (cin_pad / 8)
+                                                                               : HW;
+}
+
+// Q1b. Each thread takes its block's image's scale and 1 / scale once
+// (image_scale, as the one launch does) and quantizes its units of the
+// block's slice in order, kQuantUnroll in flight, by quantize8
+// (quantize_one on the pixels path).
+template <typename T, int kPath>
+__global__ void __launch_bounds__(kPassThreads)
+quantize_slices_kernel(const PassArgs a) {
+  const int n = blockIdx.y;   // Q1b's image
+  float scale, inv;
+  image_scale<T>(__float_as_uint(a.amax[n]), scale, inv);   // Q1b's scale
+  if (blockIdx.x == 0 && threadIdx.x == 0) a.scale[n] = scale;
+  const T* x = static_cast<const T*>(a.x) + static_cast<long long>(n) * a.HW * a.C;
+  int8_t* q = a.q + static_cast<long long>(n) * a.HW * a.cin_pad;
+  const int begin = blockIdx.x * a.per_block;
+  const int end = min(quant_units(kPath, a.HW, a.C, a.cin_pad), begin + a.per_block);
+  for (int i = begin + threadIdx.x; i < end; i += kPassThreads * kQuantUnroll) {
+    QuantUnit<T, kPath> u[kQuantUnroll];
+#pragma unroll
+    for (int k = 0; k < kQuantUnroll; ++k)
+      if (i + k * kPassThreads < end) u[k].load(x, i + k * kPassThreads, a);
+#pragma unroll
+    for (int k = 0; k < kQuantUnroll; ++k)
+      if (i + k * kPassThreads < end) u[k].store(x, q, i + k * kPassThreads, inv, a);
   }
 }
 
-// A launch of one of the two passes: blocks as an image's items need, at
-// most as many as the SMs hold at once.
-template <typename Kernel>
-int launch_pass(Kernel kernel, const QuantArgs& args, cudaStream_t s) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err;
-  if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-  if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-    return err;
-  if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kQThreads, 0)) !=
-      cudaSuccess)
-    return err;
-  if (per_sm < 1) return cudaErrorLaunchOutOfResources;
-  const long long items =
-      static_cast<long long>(args.HW) * (args.C % 8 == 0 ? args.cin_pad / 8 : 1);
-  const long long need = (items + kQThreads - 1) / kQThreads;
-  const long long resident = static_cast<long long>(sms) * per_sm;
-  kernel<<<static_cast<unsigned>(need < resident ? need : resident), kQThreads, 0, s>>>(args);
+// A launch of a pass over N images of `units` units each: units a block
+// such that the grid is about kWaves waves of resident blocks, at least
+// kPassThreads (a multiple of it). The resident blocks of the kernel are read
+// once a device (a host thread's cache, one a kernel).
+template <void (*kKernel)(PassArgs), int kWaves>
+int launch_slices(PassArgs args, int N, int units, cudaStream_t s) {
+  thread_local int known_dev = -1;
+  thread_local long long resident = 0;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev != known_dev) {
+    int sms = 0, per_sm = 0;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
+      return err;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kKernel, kPassThreads, 0);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorLaunchOutOfResources;
+    known_dev = dev;
+    resident = static_cast<long long>(sms) * per_sm;
+  }
+  const long long total = static_cast<long long>(N) * units;
+  const long long want = (total + kWaves * resident - 1) / (kWaves * resident);
+  const long long per = (want + kPassThreads - 1) / kPassThreads * kPassThreads;
+  args.per_block = static_cast<int>(per < kPassThreads ? kPassThreads : per);
+  const int slices = units < 1 ? 1 : (units + args.per_block - 1) / args.per_block;
+  kKernel<<<dim3(slices, N), kPassThreads, 0, s>>>(args);
   return cudaGetLastError();
+}
+
+template <typename T>
+int launch_quantize_at(const PassArgs& a, int N, cudaStream_t s) {
+  const int path = a.cin_pad == a.C && (static_cast<long long>(a.HW) * a.C) % 16 == 0 ? kFlat
+                   : a.C == 3 && a.cin_pad == 4 && a.HW % 8 == 0                   ? kRgb
+                   : a.C % 8 == 0                                                 ? kOctets
+                                                                                  : kPixels;
+  const int units = quant_units(path, a.HW, a.C, a.cin_pad);
+  switch (path) {
+    case kFlat:
+      return launch_slices<quantize_slices_kernel<T, kFlat>, kQuantWaves>(a, N, units, s);
+    case kRgb:
+      return launch_slices<quantize_slices_kernel<T, kRgb>, kQuantWaves>(a, N, units, s);
+    case kOctets:
+      return launch_slices<quantize_slices_kernel<T, kOctets>, kQuantWaves>(a, N, units, s);
+    default:
+      return launch_slices<quantize_slices_kernel<T, kPixels>, kQuantWaves>(a, N, units, s);
+  }
 }
 
 // ---------------------------------------------------------------- Q2 epilogue
@@ -1077,31 +1324,37 @@ extern "C" int int8_quantize(const void* x, void* scratch, void* q, void* scale,
                  : launch_quantize<float>(x, scratch, q, scale, N, HW, C, cin_pad, s);
 }
 
-// Q1's first pass alone. x (N, H*W, C) in T (is_bf16); writes amax (N,) f32,
-// the abs-max of each image's values in x (0 for an all-zero image).
-extern "C" int int8_absmax(const void* x, void* amax, int N, int HW, int C, int is_bf16,
-                           void* stream) {
+// Q1's first pass alone. x (N, H*W, C) in T (is_bf16), 16-byte aligned;
+// partial (2N,) int32, zero (as the launch leaves it: keep one per stream);
+// writes amax (N,) f32, the abs-max of each image's values in x (0 for an
+// all-zero image). N at most 65535.
+extern "C" int int8_absmax(const void* x, void* partial, void* amax, int N, int HW, int C,
+                           int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (N < 1 || HW < 1 || C < 1 || static_cast<long long>(N) * HW * C >= (1ll << 31))
-    return cudaErrorInvalidValue;   // items are counted in 32 bits
-  cudaError_t err = cudaMemsetAsync(amax, 0, sizeof(float) * N, s);
-  if (err != cudaSuccess) return err;
-  const QuantArgs args{x, static_cast<unsigned*>(amax), nullptr, nullptr, nullptr, N, HW, C, C};
-  return is_bf16 ? launch_pass(absmax_kernel<__nv_bfloat16>, args, s)
-                 : launch_pass(absmax_kernel<float>, args, s);
+  if (N < 1 || N > kMaxPassImages || HW < 1 || C < 1 ||
+      static_cast<long long>(N) * HW * C >= (1ll << 31))
+    return cudaErrorInvalidValue;   // values are counted in 32 bits
+  const PassArgs args{x, static_cast<unsigned*>(partial), static_cast<float*>(amax), nullptr,
+                      nullptr, HW, C, C, 0};
+  const int per = 16 / (is_bf16 ? 2 : 4);
+  const int units = (HW * C + per - 1) / per;
+  return is_bf16
+             ? launch_slices<absmax_slices_kernel<__nv_bfloat16>, kAbsmaxWaves>(args, N, units, s)
+             : launch_slices<absmax_slices_kernel<float>, kAbsmaxWaves>(args, N, units, s);
 }
 
-// Q1's second pass alone, at a given abs-max. x (N, H*W, C) in T, amax (N,)
-// f32 (the abs-max of each whole image); writes q (N, H*W, cin_pad) int8 and
-// scale (N,) f32, as int8_quantize would for images of that abs-max.
+// Q1's second pass alone, at a given abs-max. x (N, H*W, C) in T, 16-byte
+// aligned; amax (N,) f32 (the abs-max of each whole image); writes q (N,
+// H*W, cin_pad) int8 (16-byte aligned) and scale (N,) f32, as int8_quantize
+// would for images of that abs-max. N at most 65535.
 extern "C" int int8_quantize_at(const void* x, const void* amax, void* q, void* scale, int N,
                                 int HW, int C, int cin_pad, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!quantize_shape_ok(N, HW, C, cin_pad)) return cudaErrorInvalidValue;
-  const QuantArgs args{x, static_cast<unsigned*>(const_cast<void*>(amax)), nullptr,
-                       static_cast<int8_t*>(q), static_cast<float*>(scale), N, HW, C, cin_pad};
-  return is_bf16 ? launch_pass(quantize_at_kernel<__nv_bfloat16>, args, s)
-                 : launch_pass(quantize_at_kernel<float>, args, s);
+  if (!quantize_shape_ok(N, HW, C, cin_pad) || N > kMaxPassImages) return cudaErrorInvalidValue;
+  const PassArgs args{x, nullptr, static_cast<float*>(const_cast<void*>(amax)),
+                      static_cast<int8_t*>(q), static_cast<float*>(scale), HW, C, cin_pad, 0};
+  return is_bf16 ? launch_quantize_at<__nv_bfloat16>(args, N, s)
+                 : launch_quantize_at<float>(args, N, s);
 }
 
 // Q2. q (N, H, W, cin_pad) int8; sx (N,) and sw (cout,) f32; bias (cout,)

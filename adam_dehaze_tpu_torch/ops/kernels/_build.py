@@ -87,8 +87,8 @@ _SIGNATURES = {
     "probe_op": (I, P, P, P, P, I, P),
     # x, scratch, q, scale, N, HW, C, cin_pad, is_bf16, stream
     "int8_quantize": (P, P, P, P, I, I, I, I, I, P),
-    # x, amax, N, HW, C, is_bf16, stream
-    "int8_absmax": (P, P, I, I, I, I, P),
+    # x, partial, amax, N, HW, C, is_bf16, stream
+    "int8_absmax": (P, P, P, I, I, I, I, P),
     # x, amax, q, scale, N, HW, C, cin_pad, is_bf16, stream
     "int8_quantize_at": (P, P, P, P, I, I, I, I, I, P),
     # q, w, sx, sw, bias, bn, relu, out, N, H, W, cin_pad, Ho, Wo, cout, cout_pad, k_pad,
@@ -214,9 +214,11 @@ def check(err: int, name: str) -> None:
 
 
 def stream_ptr(device) -> int:
-    """The raw handle of PyTorch's current CUDA stream on `device`."""
+    """The raw handle of PyTorch's current CUDA stream on `device`, read
+    without building a Stream object (a few µs a launch otherwise)."""
     import torch
-    return torch.cuda.current_stream(device).cuda_stream
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def require(cond: bool, name: str, what: str) -> None:
@@ -234,8 +236,10 @@ def require_cuda_inputs(name: str, *tensors) -> None:
     import torch
     dev = tensors[0].device
     for t in tensors:
-        require(t.device == dev, name, f"tensors on {dev} and {t.device}")
-    require(dev.type == "cuda", name, f"expects CUDA or CPU tensors, got {dev}")
+        if t.device != dev:     # messages built only on a refusal: wrappers check every launch
+            raise ValueError(f"{name}: tensors on {dev} and {t.device}")
+    if dev.type != "cuda":
+        raise ValueError(f"{name}: expects CUDA or CPU tensors, got {dev}")
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name} is a forward-only kernel (no autograd Function); "
                            "call it under torch.no_grad() or torch.inference_mode()")

@@ -14,6 +14,9 @@ each image's rows (an H shard, parallel/spatial.py), Q1 runs as its two
 passes: `image_absmax` (this process's abs-max of each image), a max over
 the group (the caller's), then `quantize_images_at` at the group's
 abs-max, which gives the one launch's scale and int8 values bit for bit.
+Each pass is one launch on a grid of images x slices of an image's
+contiguous values; `image_absmax` keeps a zeroed int32 scratch per device
+and stream (the kernel leaves it zeroed), so no memset precedes it.
 
 `int8_conv` (Q2) is a convolution on int8 tensor cores with int32 sums and
 an epilogue that dequantises in AQT's order (the sum cast to the compute
@@ -70,6 +73,8 @@ TILE_CHUNKS = (96, 64, 48, 32, 16)
 STAGE_C = 32
 TILE_MIN_CIN = 16
 BODIES = ("tile", "gather")
+# Q1's two passes: the most images a launch takes (the grid's y extent).
+MAX_PASS_IMAGES = 65535
 
 
 def _up(v: int, m: int) -> int:
@@ -190,13 +195,19 @@ def quantize_images_reference(x: torch.Tensor, cin_pad: int):
     return F.pad(q, (0, cin_pad - x.shape[-1])).contiguous(), scale.float()
 
 
+_Q1_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _require_images(name: str, x: torch.Tensor, cin_pad: Optional[int] = None) -> None:
     """Q1's checks of x (N, H, W, C) on the card and of the padded width
-    (where there is one)."""
+    (where there is one). The messages are built only on a refusal: the
+    two passes run once a layer, and their host time is most of theirs."""
     _build.require_cuda_inputs(name, x)
+    if (x.dim() == 4 and x.dtype in _Q1_DTYPES and x.is_contiguous() and x.data_ptr() % 16 == 0
+            and (cin_pad is None or (cin_pad >= x.shape[3] and cin_pad % 4 == 0))):
+        return
     _build.require(x.dim() == 4, name, f"x must be (N, H, W, C), got {tuple(x.shape)}")
-    _build.require(x.dtype in (torch.float32, torch.bfloat16), name,
-                   f"x dtype {x.dtype} not float32/bfloat16")
+    _build.require(x.dtype in _Q1_DTYPES, name, f"x dtype {x.dtype} not float32/bfloat16")
     _build.require(x.is_contiguous(), name, "x must be contiguous NHWC")
     _build.require(x.data_ptr() % 16 == 0, name, "x must be 16-byte aligned")
     c = x.shape[3]
@@ -239,22 +250,42 @@ def image_absmax(x: torch.Tensor) -> torch.Tensor:
     the abs-max of each image's values in x, (N,) float32 (0 for an
     all-zero image). A CPU tensor takes the plain version; a CUDA tensor
     launches the kernel."""
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         with local_ops():
             return image_absmax_reference(x)
     name = "image_absmax"
     _require_images(name, x)
     n, h, w, c = x.shape
-    amax = torch.empty((n,), dtype=torch.float32, device=x.device)
-    err = _build.library().int8_absmax(x.data_ptr(), amax.data_ptr(), n, h * w, c,
-                                       int(x.dtype == torch.bfloat16),
-                                       _build.stream_ptr(x.device))
+    if n > MAX_PASS_IMAGES:
+        raise ValueError(f"{name}: {n} images, at most {MAX_PASS_IMAGES}")
+    stream = _build.stream_ptr(dev)
+    amax = torch.empty((n,), dtype=torch.float32, device=dev)
+    err = _build.library().int8_absmax(x.data_ptr(), _absmax_partial(dev, stream, n),
+                                       amax.data_ptr(), n, h * w, c,
+                                       int(x.dtype == torch.bfloat16), stream)
     _build.check(err, name)
     image_absmax.launches += 1
     return amax
 
 
 image_absmax.launches = 0
+
+# (device index, stream) -> int32 scratch of `int8_absmax`: two words an
+# image (its maximum so far, its blocks done), zero between launches. One a
+# stream, so that launches on two streams never share it.
+_ABSMAX_PARTIAL = {}
+
+
+def _absmax_partial(device: torch.device, stream: int, n: int) -> int:
+    """The address of a zeroed scratch of at least 2n int32 for
+    `int8_absmax` on `stream` (allocated once, grown as batches grow)."""
+    key = (device.index, stream)
+    buf = _ABSMAX_PARTIAL.get(key)
+    if buf is None or buf.numel() < 2 * n:
+        buf = torch.zeros((max(2 * n, 256),), dtype=torch.int32, device=device)
+        _ABSMAX_PARTIAL[key] = buf
+    return buf.data_ptr()
 
 
 def quantize_images_at_reference(x: torch.Tensor, amax: torch.Tensor, cin_pad: int):
@@ -272,20 +303,23 @@ def quantize_images_at(x: torch.Tensor, amax: torch.Tensor, cin_pad: int):
     cin_pad) int8, scale (N,) float32), as `quantize_images` gives them for
     images of that abs-max. A CPU tensor takes the plain version; a CUDA
     tensor launches the kernel."""
-    if x.device.type == "cpu":
+    dev = x.device
+    if dev.type == "cpu":
         with local_ops():
             return quantize_images_at_reference(x, amax, cin_pad)
     name = "quantize_images_at"
     _require_images(name, x, cin_pad)
-    _build.require_cuda_inputs(name, amax)
+    _build.require_cuda_inputs(name, x, amax)
     n, h, w, c = x.shape
-    _build.require(tuple(amax.shape) == (n,) and amax.dtype == torch.float32
-                   and amax.is_contiguous(), name, f"amax must be contiguous ({n},) float32")
-    q = torch.empty((n, h, w, cin_pad), dtype=torch.int8, device=x.device)
-    scale = torch.empty((n,), dtype=torch.float32, device=x.device)
+    if not (amax.shape == (n,) and amax.dtype == torch.float32 and amax.is_contiguous()):
+        raise ValueError(f"{name}: amax must be contiguous ({n},) float32")
+    if n > MAX_PASS_IMAGES:
+        raise ValueError(f"{name}: {n} images, at most {MAX_PASS_IMAGES}")
+    q = torch.empty((n, h, w, cin_pad), dtype=torch.int8, device=dev)
+    scale = torch.empty((n,), dtype=torch.float32, device=dev)
     err = _build.library().int8_quantize_at(
         x.data_ptr(), amax.data_ptr(), q.data_ptr(), scale.data_ptr(), n, h * w, c, cin_pad,
-        int(x.dtype == torch.bfloat16), _build.stream_ptr(x.device))
+        int(x.dtype == torch.bfloat16), _build.stream_ptr(dev))
     _build.check(err, name)
     quantize_images_at.launches += 1
     return q, scale

@@ -9,7 +9,8 @@ body at K1_BF16_ATOL with alpha 1, K2's statistics pass against `padded_stats` a
 and the int8 conv Q2 against its plain version on the same int8 operands at Q2_RTOL, one bf16
 step of the largest output (chip_smoke.py, tests/test_torch_cuda.py): its tile body without BN,
 with a ResidualBlock conv2's BN and no ReLU, and at a 4x4 stride-2 layer with BN and ReLU (the
-parity planes). This script shows that
+parity planes), and Q1's two passes on an H shard (`image_absmax`, `quantize_images_at`) bit for
+bit against their plain versions (bound 0). This script shows that
 the bounds see a broken kernel: for each mutation it copies csrc/ to a temporary directory, breaks
 the copy by a text substitution, builds it, and measures the broken kernels
 against the same plain versions, beside the unchanged kernels and beside
@@ -29,7 +30,9 @@ the folded alpha against the fp32 plain version); the statistics pass at
 ("Q2 bn"), and at its 192 -> 384 4x4 stride-2 layer, 4 x 128^2, with BN and
 ReLU ("Q2 4x4"), errors in units of the plain result's largest magnitude;
 seeded weights with perturbed BN, inputs drawn non-negative like the real
-activations.
+activations. Q1's passes at the high branch's 4c layer on one of 2 H shards (4 x 32 x 64 x 384,
+bf16), each image's range drawn between 2^-10 and 2^10 ("Q1a": the abs-maxima; "Q1b": the int8
+values and the scales at them, one error in int8 levels).
 
 K2 on an H shard (parallel/spatial.py) fills its maps' halo rows between its two launches, in
 Python (ops/kernels/cbam.py:channel_spatial_gate_sharded); K3, K4 and K6 on an H shard take their
@@ -83,10 +86,14 @@ from adam_dehaze_tpu_torch.ops.kernels.cbam import gated_maps, padded_stats
 from adam_dehaze_tpu_torch.ops.kernels.quant import (
     ConvGeometry,
     eval_bn_stats,
+    image_absmax,
+    image_absmax_reference,
     int8_conv,
     int8_conv_fused_reference,
     pack_int8_weights,
     quantize_images,
+    quantize_images_at,
+    quantize_images_at_reference,
 )
 from adam_dehaze_tpu_torch.ops.quant import quantize_weight_per_channel
 from adam_dehaze_tpu_torch.ops.kernels.lightweight_chain import (
@@ -118,7 +125,7 @@ MAPS_ATOL = 1e-5          # K2's statistics pass vs padded_stats
 Q2_RTOL = 2.0 ** -7       # Q2 vs its plain version: one bf16 step, in units of max|plain|
 TIGHT = {"K1": K1_BF16_ATOL, "K3": TAIL_BF16_ATOL, "K4": TAIL_BF16_ATOL,
          "K6": RES_BF16_RTOL, "K2 maps": MAPS_ATOL, "Q2": Q2_RTOL, "Q2 bn": Q2_RTOL,
-         "Q2 4x4": Q2_RTOL}
+         "Q2 4x4": Q2_RTOL, "Q1a": 0.0, "Q1b": 0.0}
 RELATIVE = ("K6", "Q2", "Q2 bn", "Q2 4x4")
 K6_KINDS = ("res", "res", "attn", "res", "attn")
 
@@ -219,6 +226,17 @@ MUTATIONS = {
         "int8_conv.cu", "      ch[k].b = e.bn[e.cout + co];", "      ch[k].b = 0.f;"),
     "ReLU after every BN, a ResidualBlock's conv2 included (Q2's epilogue)": (
         "int8_conv.cu", "  return relu && !(y > 0.f) ? 0.f : y;", "  return !(y > 0.f) ? 0.f : y;"),
+    "every block reads the next image (Q1a's image index off by one)": (
+        "int8_conv.cu",
+        "  const T* img = static_cast<const T*>(a.x) + static_cast<long long>(n) * L;",
+        "  const T* img =\n"
+        "      static_cast<const T*>(a.x) + static_cast<long long>((n + 1) % gridDim.y) * L;"),
+    "the next image's inverse scale (Q1b)": (
+        "int8_conv.cu",
+        "  image_scale<T>(__float_as_uint(a.amax[n]), scale, inv);   // Q1b's scale",
+        "  image_scale<T>(__float_as_uint(a.amax[n]), scale, inv);   // Q1b's scale\n"
+        "  {\n    float other;\n"
+        "    image_scale<T>(__float_as_uint(a.amax[(n + 1) % gridDim.y]), other, inv);\n  }"),
 }
 # Mutations a tight bound is not expected to see: they are measured and
 # reported, and fail the run only if they move nothing at all.
@@ -620,6 +638,22 @@ def make_cases(dev, gen):
         cases.append(("K1", lightweight_chain, (x, tight),
                       lightweight_chain_reference(x, tight), (x, chain),
                       lightweight_chain_reference(x, fold_lightweight(low, torch.float32))))
+    # Q1's two passes, from a generator of their own (the cases above stay as they were).
+    g1 = torch.Generator().manual_seed(SEED + 1)
+    xq = torch.relu(torch.randn(BATCH, 32, 64, 384, generator=g1))
+    xq = (xq * torch.exp2(torch.linspace(-10.0, 10.0, BATCH)[torch.randperm(BATCH, generator=g1)]
+                          + torch.rand(BATCH, generator=g1)).view(BATCH, 1, 1, 1))
+    xq = xq.bfloat16().to(dev)
+
+    def q1b(x, amax):
+        q, scale = quantize_images_at(x, amax, x.shape[3])
+        return torch.cat([q.flatten().float(), scale])
+    with torch.inference_mode():
+        amax = image_absmax_reference(xq)
+        cases.append(("Q1a", image_absmax, (xq,), amax, None, amax))
+        q0, s0 = quantize_images_at_reference(xq, amax, xq.shape[3])
+        want = torch.cat([q0.flatten().float(), s0])
+        cases.append(("Q1b", q1b, (xq, amax), want, None, want))
     return cases
 
 
@@ -750,7 +784,8 @@ def main():
           f"against the bf16 plain version | against the fp32 plain version (bound {BF16_ATOL}; "
           f"K1 with its folded alpha); Q2 at {BATCH} x 64^2 x 384, 3x3, without BN and with BN "
           f"(no ReLU), and at {BATCH} x {SIZE // 2}^2 x 192 -> 384, 4x4 stride 2, BN + ReLU, in "
-          f"units of max|plain|, bound {Q2_RTOL:.3e}")
+          f"units of max|plain|, bound {Q2_RTOL:.3e}; Q1a and Q1b at {BATCH} x 32 x 64 x 384, "
+          f"bound 0 (bit for bit)")
     unchanged = rows[0][1]
     failed = []
     for name, errs in rows:

@@ -2,7 +2,7 @@
 """Where the device time goes, on one GPU: torch.profiler over warm calls.
 
     python3 chip_profile.py [kernels] [routes] [train] [gate] [grads] [joint] [detect]
-                            [shards]      (kernels, routes and train by default)
+                            [shards] [q1]      (kernels, routes and train by default)
 
 Profiles, each over 3 warm calls at the sizes of chip_smoke.py (16 images at
 256^2, bf16, the same seeded weights and inputs). `kernels`:
@@ -86,6 +86,18 @@ encoder and decoder layer's time on a rank beside the unsharded call's
 (host clock, synchronized), and what is left between them (the resizes,
 concats and the output's own ops).
 
+`q1`: Q1's two passes on an H shard (`image_absmax`, `quantize_images_at`)
+at chip_smoke.py phase 23's inputs (the 52 Int8Conv2d calls of one 16-image
+bucket of each int8 branch at 256^2 on one of 2 H shards, bf16, per-image
+ranges spread over 2^-10 to 2^10), and `torch.linalg.vector_norm(ord=inf)`
+on the same inputs: for each distinct layer shape, each call's device time
+under the profiler, its CUDA-events time over back-to-back calls, the
+wrapper's host time (the host clock around Q1_HOST_CALLS calls that it only
+enqueues) and the bound; then the bucket's totals (each shape times its
+calls) and the layers where each pass stays furthest from its bound, on the
+card and on the host. It needs only the wrappers' names, so it runs on an
+older tree too, with this script and chip_smoke.py copied in.
+
 For the profiled sections it prints the device-busy time per call (kernels
 and memcpys, summed once each), the host wall time per call, and the
 largest device entries by name. It fails without a CUDA card, and if the
@@ -112,7 +124,8 @@ TOP = 12
 GATE_REPEATS = 10
 GATE_HOST_CALLS = 2000
 GRAD_RUNS = 3
-SECTIONS = ("kernels", "routes", "train", "gate", "grads", "joint", "detect", "shards")
+SECTIONS = ("kernels", "routes", "train", "gate", "grads", "joint", "detect", "shards", "q1")
+Q1_HOST_CALLS = 50
 SHARD_SHAPE = (2, 512, 490, 3)
 # The high branch's blocks timed by `shards`, besides each layer of its
 # encoder and decoder stages.
@@ -279,6 +292,121 @@ def main():
         profile_detect(dev)
     if "shards" in sections:
         profile_shards(dev)
+    if "q1" in sections:
+        profile_q1(dev)
+
+
+def host_ms(fn, calls=Q1_HOST_CALLS):
+    """The host's ms per call of fn(), enqueued back to back (a warm call and
+    a synchronize first; the card drains after the clock stops)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / calls
+    torch.cuda.synchronize()
+    return ms
+
+
+def q1_pass_of(kernel: str) -> str:
+    """The pass of `q1` that a device entry belongs to, by its name: the
+    abs-max kernels (and a memset before one, where a tree has it), the
+    quantizing kernels, else vector_norm's reduction."""
+    if "absmax" in kernel or "Memset" in kernel:
+        return "Q1a"
+    return "Q1b" if "quantize" in kernel else "vector_norm"
+
+
+def q1_device_us(fns, iters=10, tries=3):
+    """{pass: device µs a call} of the passes `fns` ({pass: fn}), each run
+    `iters` times under ONE profiler window (a process that opened some
+    fifty windows has seen one come back empty), its device entries split by
+    `q1_pass_of`. A window in which a pass has no entry is taken again."""
+    for fn in fns.values():
+        fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for fn in fns.values():
+                for _ in range(iters):
+                    fn()
+            torch.cuda.synchronize()
+        us = dict.fromkeys(fns, 0.0)
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+                us[q1_pass_of(e.key)] += e.self_device_time_total / iters
+        if all(us.values()):
+            return us
+    raise AssertionError(f"the profiler saw no device entry of a pass: {us}")
+
+
+def profile_q1(dev):
+    """`q1` (see the docstring)."""
+    from adam_dehaze_tpu_torch.ops.kernels import _build
+    from adam_dehaze_tpu_torch.ops.kernels import quant
+    cfg8 = load_config(overrides={"cuda": {"serving_quant": "int8"}})
+    router = cs.make_router(load_config(), torch.Generator().manual_seed(cs.SEED))
+    d8 = AdaptiveDehazer(router, None, cfg8, device=dev)
+    inputs = cs.q1_split_inputs(d8, dev)
+    del d8, router
+    torch.cuda.empty_cache()
+    passes = {"Q1a": lambda g, x, a: quant.image_absmax(x),
+              "Q1b": lambda g, x, a: quant.quantize_images_at(x, a, g.cin_pad),
+              "vector_norm": lambda g, x, a: torch.linalg.vector_norm(x, float("inf"),
+                                                                     dim=(1, 2, 3))}
+    rows = []
+    with torch.inference_mode():
+        for geo, calls, xs, amax in inputs:
+            row = dict(shape=tuple(xs.shape), cin_pad=geo.cin_pad, calls=calls)
+            fns = {name: (lambda fn=fn: fn(geo, xs, amax)) for name, fn in passes.items()}
+            device = q1_device_us(fns)
+            for name, call in fns.items():
+                # Bytes moved once: x and amax read; Q1b also writes q and the scales.
+                q_bytes = xs.numel() // xs.shape[3] * geo.cin_pad + 4 * xs.shape[0]
+                moved = cs.nbytes(xs, amax) + (q_bytes if name == "Q1b" else 0)
+                row[name] = dict(device=device[name], events=cs.cuda_ms(call, 20, 3) * 1e3,
+                                 host=host_ms(call) * 1e3, bound=moved / cs.PEAK_BYTES_S * 1e6)
+            rows.append(row)
+            cs.log(f"[q1 layer] {row['shape']} cin_pad {row['cin_pad']} x{calls}: " + "; ".join(
+                f"{name} bound {r['bound']:.1f} us, device {r['device']:.1f} us "
+                f"({r['device'] / r['bound']:.2f}x), events {r['events']:.1f} us, host "
+                f"{r['host']:.1f} us" for name, r in ((n, row[n]) for n in passes)))
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    for name in passes:
+        tot = {k: sum(r["calls"] * r[name][k] for r in rows) / 1e3
+               for k in ("device", "events", "host", "bound")}
+        cs.log(f"[q1 bucket] {name}: {sum(r['calls'] for r in rows)} calls, bound "
+               f"{tot['bound']:.3f} ms, device {tot['device']:.3f} ms "
+               f"({tot['device'] / tot['bound']:.2f}x), CUDA events {tot['events']:.3f} ms "
+               f"({tot['events'] / tot['bound']:.2f}x), host {tot['host']:.3f} ms; {smi}")
+        if name == "vector_norm":
+            continue
+        card = sorted(rows, key=lambda r: -r["calls"] * (r[name]["device"] - r[name]["bound"]))
+        host = sorted(rows, key=lambda r: -r["calls"] * (r[name]["events"] - r[name]["device"]))
+        cs.log(f"[q1 furthest] {name} on the card (calls x (device - bound)): " + ", ".join(
+            f"{r['shape']} {r['calls'] * (r[name]['device'] - r[name]['bound']):.1f} us"
+            for r in card[:3]) + "; by the host (calls x (events - device)): " + ", ".join(
+            f"{r['shape']} {r['calls'] * (r[name]['events'] - r[name]['device']):.1f} us"
+            for r in host[:3]))
+    # The host path of a call, on a tensor too small for the card to matter.
+    x = torch.zeros((16, 2, 2, 8), dtype=torch.bfloat16, device=dev)
+    amax = torch.ones(16, device=dev)
+    steps = {"image_absmax": lambda: quant.image_absmax(x),
+             "quantize_images_at": lambda: quant.quantize_images_at(x, amax, 8),
+             "vector_norm": lambda: torch.linalg.vector_norm(x, float("inf"), dim=(1, 2, 3)),
+             "its torch.empty": lambda: torch.empty((16,), dtype=torch.float32, device=dev),
+             "its stream handle": lambda: _build.stream_ptr(x.device)}
+    if hasattr(quant, "_absmax_partial"):
+        lib, out = _build.library(), torch.empty(16, device=dev)
+        stream = _build.stream_ptr(x.device)
+        partial = quant._absmax_partial(x.device, stream, 16)
+        steps["its C entry (ctypes, launch)"] = lambda: lib.int8_absmax(
+            x.data_ptr(), partial, out.data_ptr(), 16, 4, 8, 1, stream)
+    with torch.inference_mode():
+        cs.log("[q1 host] us a call, enqueued back to back at (16, 2, 2, 8) bf16: " + ", ".join(
+            f"{name} {host_ms(fn, 20 * Q1_HOST_CALLS) * 1e3:.2f}" for name, fn in steps.items()))
 
 
 def time_gate(dev):

@@ -329,7 +329,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    one-process unsharded call on the same card. First Q1's two passes
    (`image_absmax`, `quantize_images_at`, for an image split over a
    spatial group) at the shapes of phase 19's int8 bucket on one of 2 H
-   shards, bit for bit against their plain versions, timed beside them.
+   shards, per-image ranges spread over 2^-10 to 2^10, bit for bit against
+   their plain versions, timed beside them by CUDA events and under the
+   profiler (device time), the abs-max beside `torch.linalg.vector_norm`.
    (a) The default router's int8 dehazer on forced labels 0, 1, 2, 0 at
    512^2 through `make_spatial_infer` over {"spatial": 2}, against the
    unsharded int8 by the CPU tests' int8 rule (INT8_SHARD_TOL,
@@ -4840,31 +4842,82 @@ def spawn_int8_shards(out_dir):
                    for r in range(2)] for part in procs}
 
 
+# Q1's two passes as the previous design ran them in this phase (groups of 64
+# images walked by a grid sized from one image; NVIDIA H100 80GB HBM3 at
+# 700.00 W, CUDA events, one bucket of each int8 branch): printed beside this
+# run's readings.
+Q1_SPLIT_GROUP_WALK_MS = {"int8_absmax": 1.775, "int8_quantize_at": 2.128}
+
+
+def spread_images(shape, gen):
+    """Images (N, H, W, C) whose ranges spread over 2^-10 to 2^10 in a seeded
+    order (RGB inputs in [0, 1) scaled, the rest ReLU'd normals): a block
+    that reads another image's values or scale changes a scale or an int8
+    value, where images of one range round to the same bf16 maximum."""
+    n = shape[0]
+    x = torch.rand(shape, generator=gen) if shape[-1] == 3 else torch.relu(
+        torch.randn(shape, generator=gen))
+    exps = torch.linspace(-10.0, 10.0, n)[torch.randperm(n, generator=gen)] if n > 1 else \
+        torch.zeros(1)
+    return x * torch.exp2(exps + torch.rand(n, generator=gen)).view(n, 1, 1, 1)
+
+
+def device_ms(fn, iters=10, events=1, tries=3):
+    """Device time of fn() in ms per call under torch.profiler: every kernel
+    and memset it puts on the card, summed, over `iters` calls after a warm
+    one. A trace that holds fewer than `events` device entries a call (the
+    profiler has been seen to return none for a window) is taken again, at
+    most `tries` times in all."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        if sum(e.count for e in rows) >= events * iters:
+            return sum(e.self_device_time_total for e in rows) / 1e3 / iters
+    raise AssertionError(f"the profiler saw {sum(e.count for e in rows)} device entries in "
+                         f"{iters} calls, {tries} times")
+
+
+def q1_split_inputs(d8, dev):
+    """Q1's two passes' inputs at the shapes of one bucket of each int8 branch
+    (BATCH images at SIZE^2, phase 19's layers) on one of 2 H shards, bf16,
+    with `spread_images` ranges: [(geometry, calls, x, amax)], amax the plain
+    abs-max of x."""
+    from adam_dehaze_tpu_torch.ops.kernels.quant import image_absmax_reference
+    layers, _, _ = int8_layers(d8, dev)
+    gen = torch.Generator().manual_seed(SEED + 42)
+    out = []
+    for (geo, shape), calls in layers.items():
+        n, h, w, c = shape
+        xs = spread_images((n, h // 2, w, c), gen).to(torch.bfloat16).to(dev)
+        out.append((geo, calls, xs, image_absmax_reference(xs)))
+    return out
+
+
 def q1_split_kernels(d8, dev):
     """Q1's two passes (`image_absmax`, `quantize_images_at`) at the shapes of
-    one bucket of each int8 branch (BATCH images at SIZE^2, phase 19's
-    layers) on one of 2 H shards: each against its plain version (bit for
-    bit), timed beside it, with its bound and, for the abs-max, one PyTorch
-    call of the same function (`torch.linalg.vector_norm`, ord inf)."""
+    `q1_split_inputs`: each against its plain version (bit for bit), timed
+    beside it by CUDA events, its device time under the profiler over the
+    bucket's calls, its bound and, for the abs-max, one PyTorch call of the
+    same function (`torch.linalg.vector_norm`, ord inf) timed both ways."""
     from adam_dehaze_tpu_torch.ops.kernels.quant import (
         image_absmax,
         image_absmax_reference,
         quantize_images_at,
         quantize_images_at_reference,
     )
-    layers, _, _ = int8_layers(d8, dev)
-    gen = torch.Generator().manual_seed(SEED + 42)
+    inputs = q1_split_inputs(d8, dev)
     recs = {"int8_absmax": collections.Counter(), "int8_quantize_at": collections.Counter()}
     errs = {"int8_absmax": 0.0, "int8_quantize_at": 0.0}
     bitwise = True
-    for (geo, shape), calls in layers.items():
-        n, h, w, c = shape
-        xs = torch.relu(torch.randn((n, h // 2, w, c), generator=gen)) if c != 3 else \
-            torch.rand((n, h // 2, w, c), generator=gen)
-        xs = xs.to(torch.bfloat16).to(dev)
+    for geo, calls, xs, amax0 in inputs:
         with torch.inference_mode():
             amax = image_absmax(xs)
-            amax0 = image_absmax_reference(xs)
             q, s = quantize_images_at(xs, amax, geo.cin_pad)
             q0, s0 = quantize_images_at_reference(xs, amax, geo.cin_pad)
             bitwise = bitwise and bool(torch.equal(amax, amax0) and torch.equal(q, q0)
@@ -4894,17 +4947,35 @@ def q1_split_kernels(d8, dev):
             for key in ("bound_ms", "bytes", "flops"):
                 rec[key] += calls * b[key]
     check(bitwise, "(a) Q1's two passes differ from their plain versions")
+
+    # Device time of the bucket's calls, each shape as often as the bucket calls it.
+    def bucket(fn):
+        return lambda: [fn(geo, xs, amax) for geo, calls, xs, amax in inputs
+                        for _ in range(calls)]
+    launches = sum(calls for _, calls, _, _ in inputs)
+    with torch.inference_mode():
+        recs["int8_absmax"]["device_ms"] = device_ms(bucket(lambda g, x, a: image_absmax(x)), 3,
+                                                     launches)
+        recs["int8_absmax"]["library_device_ms"] = device_ms(bucket(
+            lambda g, x, a: torch.linalg.vector_norm(x, float("inf"), dim=(1, 2, 3))), 3, launches)
+        recs["int8_quantize_at"]["device_ms"] = device_ms(bucket(
+            lambda g, x, a: quantize_images_at(x, a, g.cin_pad)), 3, launches)
     per = (f"one {BATCH}-image bucket of each int8 branch at {SIZE}^2 on one of 2 H shards "
-           f"({sum(layers.values())} convs, bf16)")
+           f"({launches} convs, bf16, per-image ranges 2^-10 to 2^10)")
     out = {}
     for name, rec in recs.items():
         out[name] = dict(rec, max_abs_err=errs[name], per=per,
                          library_ms=rec.get("library_ms"),
                          bound_by="bytes" if rec["bytes"] / PEAK_BYTES_S
                          >= rec["flops"] / PEAK_F32_FLOPS else "operations")
-        log(f"[int8 shards] {name} per {per}: {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} "
-            f"ms, bound {rec['bound_ms']:.3f} ms ({out[name]['bound_by']}), library "
-            f"{out[name]['library_ms']} ms; bitwise against its plain version")
+        lib = ("" if name != "int8_absmax" else
+               f"; vector_norm(ord=inf) {rec['library_ms']:.3f} ms, device "
+               f"{rec['library_device_ms']:.3f} ms")
+        log(f"[int8 shards] {name} per {per}: {rec['ms']:.3f} ms by CUDA events (the group-walk "
+            f"design {Q1_SPLIT_GROUP_WALK_MS[name]:.3f}), device {rec['device_ms']:.3f} ms under "
+            f"the profiler, bound {rec['bound_ms']:.3f} ms ({out[name]['bound_by']}, "
+            f"{rec['bytes'] / 1e9:.2f} GB), {rec['ms'] / rec['bound_ms']:.2f}x it; plain "
+            f"{rec['plain_ms']:.3f} ms{lib}; bitwise against its plain version")
     return out
 
 

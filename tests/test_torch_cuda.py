@@ -1498,6 +1498,94 @@ def test_int8_two_passes_on_row_shards_match_the_one_launch(cuda_device, dtype, 
         assert torch.equal(qp, q[:, lo:hi]) and torch.equal(sp, s)
 
 
+# The distinct input shapes (H, W, C, cin_pad) of the 52 Int8Conv2d calls of
+# one 16-image bucket of each int8 branch at 256^2 and the default widths
+# (chip_smoke.py phase 19's `int8_layers`), as one of 2 H shards sees them.
+Q1_SHARD_LAYERS = [(128, 256, 3, 4), (128, 256, 16, 32), (128, 256, 32, 32), (128, 256, 64, 64),
+                   (128, 256, 96, 96), (128, 256, 128, 128), (128, 256, 192, 192),
+                   (64, 128, 128, 128), (64, 128, 192, 192), (32, 64, 256, 256),
+                   (32, 64, 384, 384)]
+# Whole images (N, H, W, C, cin_pad) split over 2 and 4 row shards: each
+# layer shape above at 16 images (2 shards of it), then an image whose bytes
+# are not a multiple of 16 on 2 shards ((3, 5, 7, 3)), one image, more images
+# than the one launch's group of 64, C = 12 and 24 (the pixels and octets
+# paths of the quantizing pass), and a batch of all-zero images.
+Q1_PASS_CASES = ([(16, 2 * h, w, c, pad) for h, w, c, pad in Q1_SHARD_LAYERS]
+                 + [(3, 10, 7, 3, 4), (1, 16, 24, 32, 32), (130, 16, 8, 32, 32),
+                    (130, 12, 10, 3, 4), (3, 16, 16, 12, 16), (5, 6, 10, 24, 32), "zeros"])
+
+
+def _spread_images(shape, gen):
+    """Images whose ranges spread over 2^-10 to 2^10 in a seeded order (RGB
+    inputs in [0, 1) scaled, the rest ReLU'd normals), one all-zero image
+    where there are more than two: a block that reads another image's values
+    or scale, or misses part of its own, changes a scale or an int8 value."""
+    n = shape[0]
+    x = torch.rand(shape, generator=gen) if shape[-1] == 3 else torch.relu(
+        torch.randn(shape, generator=gen))
+    exps = torch.linspace(-10.0, 10.0, n)[torch.randperm(n, generator=gen)] if n > 1 else \
+        torch.zeros(1)
+    x = x * torch.exp2(exps + torch.rand(n, generator=gen)).view(n, 1, 1, 1)
+    if n > 2:
+        x[n // 2] = 0.0
+    return x
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("case", Q1_PASS_CASES, ids=lambda c: c if isinstance(c, str)
+                         else "x".join(map(str, c[:4])))
+def test_int8_two_passes_at_the_layer_shapes_bit_for_bit(cuda_device, dtype, case):
+    """Q1's two passes on 2 and 4 row shards of each image, with per-image
+    ranges spread over 2^-10 to 2^10: each shard's `image_absmax` and
+    `quantize_images_at` (at the max over the shards) against their plain
+    versions, and the shards' int8 rows and scales joined against the one
+    launch (`quantize_images`) on the whole image, bit for bit. All-zero
+    images: amax 0, scale T(1/127.5), q 0."""
+    from adam_dehaze_tpu_torch.ops.kernels.quant import (
+        image_absmax, image_absmax_reference, quantize_images, quantize_images_at,
+        quantize_images_at_reference)
+    gen = torch.Generator().manual_seed(len(Q1_PASS_CASES) + Q1_PASS_CASES.index(case))
+    n, h, w, c, pad = (4, 8, 8, 16, 32) if case == "zeros" else case
+    x = torch.zeros((n, h, w, c)) if case == "zeros" else _spread_images((n, h, w, c), gen)
+    x = x.to(dtype).to(cuda_device)
+    q, s = quantize_images(x, pad)
+    for shards in (2, 4):
+        parts = [p.contiguous() for p in x.chunk(shards, 1)]
+        partial = [image_absmax(p) for p in parts]
+        for p, a in zip(parts, partial):
+            assert torch.equal(a, image_absmax_reference(p)), (shards, tuple(p.shape))
+        amax = torch.stack(partial).amax(0)
+        row = 0
+        for p in parts:
+            qp, sp = quantize_images_at(p, amax, pad)
+            q0, s0 = quantize_images_at_reference(p, amax, pad)
+            assert torch.equal(qp, q0) and torch.equal(sp, s0), (shards, tuple(p.shape))
+            assert torch.equal(qp, q[:, row:row + p.shape[1]]) and torch.equal(sp, s)
+            row += p.shape[1]
+    if case == "zeros":
+        assert not amax.any() and not q.any()
+        assert torch.equal(s, torch.full_like(s, float(torch.tensor(1 / 127.5).to(dtype))))
+
+
+def test_int8_two_passes_refuse_what_they_do_not_take(cuda_device):
+    """The two passes on the card raise, naming what they refuse: more
+    images than their grid takes, a misaligned x, a cin_pad under C."""
+    from adam_dehaze_tpu_torch.ops.kernels.quant import (
+        MAX_PASS_IMAGES, image_absmax, quantize_images_at)
+    many = torch.zeros((MAX_PASS_IMAGES + 1, 1, 1, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="at most 65535"):
+        image_absmax(many)
+    with pytest.raises(ValueError, match="at most 65535"):
+        quantize_images_at(many, torch.zeros(MAX_PASS_IMAGES + 1, device=cuda_device), 8)
+    flat = torch.zeros(2 * 4 * 4 * 3 + 1, device=cuda_device)
+    odd = flat[1:].view(2, 4, 4, 3)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        image_absmax(odd)
+    x = torch.zeros((2, 4, 4, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="cin_pad 4"):
+        quantize_images_at(x, torch.zeros(2, device=cuda_device), 4)
+
+
 # (cin, cout, kernel, stride, padding, bias): K = 147 (7x7 on RGB), 27,
 # stride 2, 1x1 with a bias, the widest 3x3 and ragged M and Cout tiles; the
 # tile body at 3x3 and 4x4 stride 2 (chunks 96, 64, 48, 16 and channels

@@ -7,7 +7,13 @@ Int8Conv2d -> BatchNorm2d -> ReLU, bit for bit, on the CPU (where the
 wrapper is its plain version). Q1's two passes (the per-image abs-max of a
 part of each image, then the quantizing at a given abs-max), on the whole
 image and on row shards whose abs-max is the max of theirs, against the one
-launch, bit for bit, an all-zero image included."""
+launch and against AQT's per-image activation quantizer (the JAX package's
+int8 path, jitted as it serves), bit for bit: images whose bytes are not a
+multiple of 16, ranges spread over 2^-10 to 2^10, an all-zero image."""
+import functools
+
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -170,17 +176,38 @@ def test_residual_block_conv2_has_no_relu():
     assert block.conv2.block[0].bn_stats.shape == (4, 32)
 
 
+@functools.lru_cache(maxsize=None)
+def _q1_images(c: int, dtype: torch.dtype):
+    """4 images of 10 x 7 x c (their bytes a multiple of 16 only at c = 24
+    and 32), ranges 2^e for e spread over [-10, 10] in a seeded order, the
+    third all zero; and AQT's per-image quantization of them (jitted: XLA's
+    product by float32(1 / 127.5), as the JAX package serves it): int8
+    values as int32 and scales as float32."""
+    from aqt.jax.v2 import aqt_conv_general as aqt_conv
+    rng = np.random.default_rng(c)
+    x = rng.standard_normal((4, 10, 7, c)) * np.exp2(rng.permutation(np.linspace(-10, 10, 4))
+                                                    + rng.random(4)).reshape(4, 1, 1, 1)
+    x[2] = 0.0
+    xt = torch.from_numpy(x.astype(np.float32)).to(dtype)
+    jdt = jnp.float32 if dtype == torch.float32 else jnp.bfloat16
+    lhs = aqt_conv.conv_general_dilated_make(2, lhs_bits=8, rhs_bits=8).dg_quantizer.lhs
+    qt, _ = jax.jit(lambda a: lhs.quant(a, calibration_axes=None))(
+        jnp.asarray(xt.float().numpy()).astype(jdt))
+    return (xt, np.asarray(qt.qvalue).astype(np.int32),
+            np.asarray(qt.scale[0].astype(jnp.float32)).reshape(-1))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=str)
 @pytest.mark.parametrize("c,cin_pad", [(3, 4), (24, 32), (32, 32)])
 @pytest.mark.parametrize("shards", [1, 2, 4])
 def test_q1_two_passes_equal_the_one_launch_bit_for_bit(dtype, c, cin_pad, shards):
     """Q1 as its two passes over `shards` row shards of each image (each
     shard's abs-max, their max, each shard quantized at it) gives the one
-    launch's int8 rows and scales bit for bit; images of very different
-    ranges, one of them all zero (scale 1/127.5, q = 0)."""
-    gen = torch.Generator().manual_seed(c + shards)
-    x = torch.randn(3, 8, 6, c, generator=gen) * torch.tensor([3.0, 0.0, 1e-3]).view(3, 1, 1, 1)
-    x = x.to(dtype)
+    launch's int8 rows and scales, and AQT's, bit for bit; images of 10 x 7
+    pixels (at c = 3, 210 values: their bytes not a multiple of 16; a shard
+    of 5 rows is (5, 7, 3)), ranges spread over 2^-10 to 2^10, one all zero
+    (scale 1/127.5, q = 0)."""
+    x, want_q, want_s = _q1_images(c, dtype)
     q, scale = quantize_images(x, cin_pad)
     parts = [p.contiguous() for p in x.chunk(shards, 1)]
     amax = torch.stack([image_absmax(p) for p in parts]).amax(0)
@@ -188,5 +215,8 @@ def test_q1_two_passes_equal_the_one_launch_bit_for_bit(dtype, c, cin_pad, shard
     assert torch.equal(torch.cat([g[0] for g in got], 1), q)
     for _, s in got:
         assert torch.equal(s, scale)
-    assert float(scale[1]) == float(torch.tensor(1 / 127.5, dtype=torch.float32).to(dtype))
-    assert not q[1].any()
+    np.testing.assert_array_equal(q[..., :c].numpy().astype(np.int32), want_q)
+    assert not q[..., c:].any()
+    np.testing.assert_array_equal(scale.numpy(), want_s)
+    assert float(scale[2]) == float(torch.tensor(1 / 127.5, dtype=torch.float32).to(dtype))
+    assert not q[2].any()
