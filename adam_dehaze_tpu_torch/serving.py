@@ -10,7 +10,7 @@ Counterpart of adam_dehaze_tpu/serving.py:
 
     dehazer = AdaptiveDehazer(router, variables, config, device="cuda",
                               autotune=True, autotune_cache="exp/tune.json")
-    dehazer.autotune_report    # per branch: the winner, the ms table, cached
+    dehazer.autotune_report    # per branch: the winner, the ms table, dispatch_ms, cached
 
 `from_experiment` reads an experiment directory of the port's own
 checkpoints (`config.yaml`, `checkpoints/joint/best_model.pth`, as
@@ -125,13 +125,14 @@ class AdaptiveDehazer:
 
     # What one more bucket of each branch costs, in ms: the part of a branch
     # call that does not grow with its rows (mostly the host's enqueue of
-    # its launches). `_chunk_costs` subtracts it from the tuned winner's
-    # time, so it is read on the winners: chip_smoke.py's [dispatch tuned
-    # bf16] lines (the intercept of the winner's warm time over 1-32 rows),
-    # on an NVIDIA H100 80GB HBM3 at 700 W, bf16, 256^2, where the winners
-    # are chain, tail_chain (K3 and the canonical prefix) and
-    # res_e2b_tail_chain (K6 and K4, 32 launches); the median of three runs.
-    # Hosts spread about 2x (PERF.md).
+    # its launches). Under autotune `_chunk_costs` feeds the report's
+    # measured `dispatch_ms` (serving_autotune.dispatch_ms) to the chunk
+    # planner. These constants stand in where the report has none: a cache
+    # entry written before the tuner measured it, or a winner whose time at
+    # 2 rows did not fall below its time at 16. They are chip_smoke.py's
+    # [dispatch tuned bf16] intercepts over 1-32 rows on an NVIDIA H100 80GB
+    # HBM3 at 700 W, bf16, 256^2, the winners chain, tail_chain and
+    # res_e2b_tail_chain; the median of three runs (PERF.md).
     DISPATCH_MS = {"low": 0.19, "medium": 2.79, "high": 2.78}
 
     def __init__(self, router, variables, config, device="cuda",
@@ -251,7 +252,8 @@ class AdaptiveDehazer:
         return applies
 
     def _chunk_costs(self) -> Optional[Tuple[list, list]]:
-        """(ms per bucket, ms per row) of each branch: DISPATCH_MS, and the
+        """(ms per bucket, ms per row) of each branch: the report's measured
+        `dispatch_ms` (DISPATCH_MS where the report has none), and the
         winner's time per 16 images in the autotune table less one
         dispatch; None without the tables."""
         dispatch_ms, row_ms = [], []
@@ -260,8 +262,9 @@ class AdaptiveDehazer:
             ms16 = (report.get("table") or {}).get(report.get("best"))
             if not ms16:
                 return None
-            dispatch_ms.append(self.DISPATCH_MS[level])
-            row_ms.append(max(float(ms16) - self.DISPATCH_MS[level], 1e-6) / 16.0)
+            fixed = float(report.get("dispatch_ms", self.DISPATCH_MS[level]))
+            dispatch_ms.append(fixed)
+            row_ms.append(max(float(ms16) - fixed, 1e-6) / 16.0)
         return dispatch_ms, row_ms
 
     def _to_device(self, images) -> torch.Tensor:

@@ -37,9 +37,14 @@ width, dtype and sample size the kernels take: that is decided up front,
 by `chain_supported` and `chain_apply_supported` (`tail_supported`,
 `res_chain_supported`). A kernel candidate that is offered and then fails
 to build, to launch or to run raises out of the tuner: the port never gives
-way to `canonical` behind a broken kernel. The cache key holds the device,
-the torch version, the model class, the width, the dtype, the sample shape
-and, on a CUDA device, the hash of the kernels' sources
+way to `canonical` behind a broken kernel. `load_or_tune` times the winner
+again at 2 rows and at the sample's: the intercept of the line through the
+two times (`dispatch_ms`, what a call of the branch costs whatever its
+rows) goes into the report and the cache entry, unless the line does not
+rise, and the chunk planner reads it (serving.py:AdaptiveDehazer._chunk_costs).
+The cache key holds the device, the torch version, the model class, the
+width, the dtype, the sample shape and, on a CUDA device, the hash of the
+kernels' sources
 (`_build._source_hash`), since their speed moves with the sources as a
 compiler's does with its version; a cache hit skips all timing.
 
@@ -168,6 +173,51 @@ def _time_ms(fn: Callable, x: torch.Tensor, iters: int, warm: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _sample(model, sample_shape, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """The timing sample: uniform noise from `generator` (seed 0 when None),
+    on the model's device."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    return torch.rand(tuple(sample_shape), generator=generator).to(_device_of(model))
+
+
+# The rows the winner is timed at again for its intercept (`dispatch_ms`).
+DISPATCH_ROWS = 2
+# Each point of that line is the least of this many runs of `_time_ms`:
+# one mean of a few host-bound calls moves by a host hiccup.
+DISPATCH_REPEATS = 3
+# The least intercept kept, in ms: two noisy times can put the line through
+# zero or under it.
+MIN_DISPATCH_MS = 1e-3
+
+
+@torch.inference_mode()
+def dispatch_ms(fn: Callable, model, sample_shape, ms_full: float, iters: int = 5,
+                warm: int = 2) -> Optional[float]:
+    """What one call of `fn` costs whatever its rows, in ms: the intercept
+    at 0 rows of the line through its time at DISPATCH_ROWS rows and at
+    `sample_shape`, each the least of DISPATCH_REPEATS runs of the tuner's
+    `_time_ms` with its warm-up (the full-size time no more than `ms_full`,
+    the tuner's own); at least MIN_DISPATCH_MS. None where the sample has
+    no more rows than DISPATCH_ROWS, or where the few rows take no less
+    time than the whole sample: a line that does not rise would put the
+    whole call into the intercept, and the caller keeps its constant."""
+    rows = int(sample_shape[0])
+    if rows <= DISPATCH_ROWS:
+        return None
+
+    def least(shape) -> float:
+        x = _sample(model, shape, None)
+        return min(_time_ms(fn, x, iters, warm) for _ in range(DISPATCH_REPEATS))
+
+    ms_few = least((DISPATCH_ROWS, *sample_shape[1:]))
+    ms_full = min(float(ms_full), least(tuple(sample_shape)))
+    if ms_few >= ms_full:
+        return None
+    slope = (ms_full - ms_few) / (rows - DISPATCH_ROWS)
+    return max(ms_few - DISPATCH_ROWS * slope, MIN_DISPATCH_MS)
+
+
 @torch.inference_mode()
 def autotune(model, dtype: torch.dtype, sample_shape, iters: int = 5,
              warm: int = 2, candidates: Optional[Dict[str, Callable]] = None,
@@ -183,9 +233,7 @@ def autotune(model, dtype: torch.dtype, sample_shape, iters: int = 5,
     timings worthless, and a broken kernel must not pass as a slow one.
     The sample is uniform noise drawn from `generator` (seed 0 when None)."""
     cands = candidates or candidate_builders(model, dtype, sample_shape)
-    if generator is None:
-        generator = torch.Generator().manual_seed(0)
-    x = torch.rand(tuple(sample_shape), generator=generator).to(_device_of(model))
+    x = _sample(model, sample_shape, generator)
     table: Dict[str, Optional[float]] = {}
     best: Tuple[Optional[str], float, Optional[Callable]] = (None, float("inf"), None)
     for name, build in cands.items():
@@ -209,18 +257,25 @@ def load_or_tune(model, dtype: torch.dtype, sample_shape,
                  warm: int = 2):
     """Returns (apply, report). A cache hit on a candidate that is still
     offered skips the timing and builds that candidate (load_cached). On a
-    miss every candidate is timed, the winner is returned and the table is
-    written to `cache_path`."""
+    miss every candidate is timed, the winner is returned, its
+    `dispatch_ms` is measured, and the table with the winner and its
+    `dispatch_ms` is written to `cache_path`. A report holds `dispatch_ms`
+    where it was measured (see `dispatch_ms`): not on a cache entry written
+    before it was."""
     fn, hit = load_cached(model, dtype, sample_shape, cache_path)
     if fn is not None:
         return fn, hit
 
     best_name, table, best_fn = autotune(model, dtype, sample_shape, iters=iters,
                                          warm=warm)
-    report = {"best": best_name, "table": table, "cached": False}
+    entry = {"best": best_name, "table": table}
+    fixed = dispatch_ms(best_fn, model, sample_shape, table[best_name], iters, warm)
+    if fixed is not None:
+        entry["dispatch_ms"] = round(fixed, 4)
+    report = {**entry, "cached": False}
     if cache_path:
         cache = _read_cache(cache_path)
-        cache[_cache_key(model, dtype, sample_shape)] = {"best": best_name, "table": table}
+        cache[_cache_key(model, dtype, sample_shape)] = entry
         tmp = cache_path + ".tmp"
         with open(tmp, "w") as f:
             json.dump(cache, f, indent=2, sort_keys=True)

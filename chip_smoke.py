@@ -63,11 +63,16 @@ Phases, in order; any failure raises and the script exits non-zero:
    as it comes, and the two numpy stream routes again with all 8 kept).
 5. Tune: a dehazer with autotune=True and a fresh cache file times every
    candidate of the three branches at (16, 256, 256, 3) and prints the
-   tables (no candidate may fail; the low `canonical` must launch no K1).
-   The cost of one more bucket is read again on the tuned winners: the
-   chunk planner subtracts AdaptiveDehazer.DISPATCH_MS from the winners'
-   times, so those intercepts are the ones it stands for, and they are
-   printed beside it. The two forced paths below share this one tuning run.
+   tables (no candidate may fail; the low `canonical` must launch no K1)
+   with each winner's `dispatch_ms` (its intercept at 2 and 16 rows, each
+   the least of 3 runs, which the tuner measures and the chunk planner is
+   fed; where there, at least 1e-3 ms and below the winner's time). The
+   cost of one more bucket is read again on the tuned winners over every
+   bucket size and printed beside the tuner's intercept, the constant
+   AdaptiveDehazer.DISPATCH_MS that stands in for a report without one,
+   the planner's overhead rows under each, and DISPATCH_AGAIN more
+   measurements of `dispatch_ms` on the same winner (its spread). The two
+   forced paths below share this one tuning run.
 6. Slice, tail-chain dispatch: a dehazer whose cache names chain /
    tail_chain / tail_chain runs the same three calls. The counters, set to
    0 just before, must show K3 and K4 launched once per medium and high
@@ -220,8 +225,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    the card against the CPU at 1e-3 (2 images).
 18. Precompiled serving (serving_export.py) on phase 15's experiment: the
    CLI's `--mode export` at batch 48 (the default dispatch; the bundle must
-   hold the kernel library) and `export_precompiled` of the tuned dehazer
-   (phase 5's winners from the experiment's cache). Cold start in a fresh
+   hold the kernel library) and `export_precompiled` of the tuned dehazer,
+   the winners of the experiment's cache (phase 5's) set for this phase to
+   PRECOMPILED_FORCED (chain / tail_chain / res_e2b_tail_chain), so that
+   its kernels do not hang on a timing; the tuned winners are put back
+   after the phase. Cold start in a fresh
    process each, from_experiment and one route_hard of 48 images, without
    the bundle (the library built on disk) and with it (an empty kernel
    build directory: the process must load the bundle's library), beside
@@ -372,21 +380,44 @@ Phases, in order; any failure raises and the script exits non-zero:
    step, the W-only ones bit for bit. Prints each error, launch count and
    warm ms/image beside the card's name and power limit; one card holds
    every rank, so nothing here shows scaling.
-25. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
+25. The day-one tools (`[tools]` lines), counters at 0 before each tool's
+   run. (a) `python -m adam_dehaze_tpu_torch.tools.validate_real_weights
+   --selftest` for classifier, branch (high), joint and fcos, four
+   processes at once (each runs the converter and then a fresh process that
+   restores on the card, fp32, TF32 off): each prints `ok: true` with every
+   fp32 diff within FP32_ATOL (fcos: finite levels) and its restore on the
+   card; the branch's restore launches K2, the joint's K1, K2 and K5 (its
+   tiny evaluation through the soft router). (b) Meanwhile, on phase 15's
+   experiment: `rerun_hard_routing_eval` (on the tuned dispatch, K1 where
+   the classifier routes a test image low and K2 where it routes one high;
+   the labels are printed) and `rerun_detection_eval` (K1, K2, K5) patch
+   their keys of comprehensive_results.json and leave the others, the
+   detection rerun writes detection_results.json, and `collect_round_results`
+   (K1, K2, K5)
+   reads the patched rows and writes the routing weights (each true class's
+   mean weights summing to 1) and the classifier's accuracy. (c) Then alone
+   on the card: `measure_train_throughput` at batch THROUGHPUT_BATCH, 256^2,
+   THROUGHPUT_STEPS steps, soft under each `cuda.remat` (K2 and K5), hard
+   (K2), and soft without remat again: its JSON line with the card's name
+   and power limit. Prints each
+   tool's JSON line and seconds.
+26. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
    with "training", "classifier_training", "joint_training", "detection",
    "cli", "lowres", "alternate", "precompiled", "int8", "parallel",
    "spatial", "tp", "joint_sharded", "dryrun", "tuned_spatial",
    "int8_spatial", "int8_tp", "remat_spatial", "reference_checkpoint",
-   "resize_alternates", "resize_dial_default", "resize_dial_tuned" and
-   "resize_decoders";
+   "resize_alternates", "resize_dial_default", "resize_dial_tuned",
+   "resize_decoders", "tools_validate", "tools_rerun_hard_routing",
+   "tools_rerun_detection", "tools_collect", "tools_throughput_soft" and
+   "tools_throughput_hard";
    Q1's two passes as "int8_absmax" and "int8_quantize_at"; K5's
    and K2''s Function readings under "function"; each lowres kernel's
    readings at 128^2 under "lowres", K2's at the alternate branches'
    shapes under "alternate"; the CLI's, the dial's, the alternates',
    precompiled serving's, parallel/'s and phases 22's, 23's and 24's
    readings under "cli", "lowres", "alternate", "precompiled", "parallel",
-   "sharded", "joint_sharded", "int8_and_remat_on_shards" and
-   "resize_on_shards") and, last,
+   "sharded", "joint_sharded", "int8_and_remat_on_shards",
+   "resize_on_shards" and "tools") and, last,
    {"ok": true, "device": ...}.
 """
 import collections
@@ -508,7 +539,7 @@ from adam_dehaze_tpu_torch.parallel.expert_parallel import ExpertParallelRouter
 from adam_dehaze_tpu_torch.parallel.mesh import make_mesh, replicate
 from adam_dehaze_tpu_torch.parallel.pipeline import TwoStagePipeline
 from adam_dehaze_tpu_torch.serving import AdaptiveDehazer
-from adam_dehaze_tpu_torch.serving_autotune import candidate_builders
+from adam_dehaze_tpu_torch.serving_autotune import candidate_builders, dispatch_ms
 from adam_dehaze_tpu_torch.tools import probe_ops
 from adam_dehaze_tpu_torch.tools.make_synthetic_corpus import make_corpus
 from adam_dehaze_tpu_torch.training import checkpoint as ckpt
@@ -1320,13 +1351,27 @@ def time_slice(d, x, labels, tag):
     return means
 
 
+# How many times phase 5 measures each winner's `dispatch_ms` again, for
+# its spread on one card.
+DISPATCH_AGAIN = 5
+
+
+def planner_rows(fixed, ms16):
+    """The chunk planner's overhead of a branch, in rows: its dispatch cost
+    over the winner's ms per row (AdaptiveDehazer._chunk_costs)."""
+    return fixed / (max(ms16 - fixed, 1e-6) / 16.0)
+
+
 def dispatch_cost_ms(d, dev, gen, tag):
     """What one more bucket costs the engine: the part of a branch call
     that does not grow with its rows. Every branch apply of dehazer `d` is
     timed warm at every bucket size (host clock around a synchronize, the
     least of 5 runs); the intercept of the least-squares line through (rows,
-    ms) is that branch's fixed cost, printed beside the constant the chunk
-    planner is fed for it under autotune. Returns {level: intercept}."""
+    ms) is that branch's fixed cost, printed beside what the chunk planner
+    is fed for it under autotune (the tuner's `dispatch_ms`, else the
+    constant), the planner's overhead rows under each, and DISPATCH_AGAIN
+    more runs of the tuner's own `dispatch_ms` on the same apply. Returns
+    {level: intercept}."""
     eng = d.engine
     x = torch.rand(max(eng.buckets), SIZE, SIZE, 3, generator=gen).to(dev)
     fixed = {}
@@ -1343,11 +1388,24 @@ def dispatch_cost_ms(d, dev, gen, tag):
                 times.append((time.perf_counter() - t0) * 1e3)
             ms.append(min(times[1:]))
         slope, fixed[level] = np.polyfit(np.asarray(eng.buckets, float), ms, 1)
-        log(f"[dispatch {tag}] {level}: ms at {list(eng.buckets)} rows "
-            f"{[round(v, 3) for v in ms]}: {slope:.4f} ms/row, fixed {fixed[level]:.4f} ms "
-            f"({fixed[level] / slope:.2f} rows; bf16, {SIZE}^2); the "
-            f"chunk planner is fed AdaptiveDehazer.DISPATCH_MS = "
-            f"{AdaptiveDehazer.DISPATCH_MS[level]}")
+        line = (f"[dispatch {tag}] {level}: ms at {list(eng.buckets)} rows "
+                f"{[round(v, 3) for v in ms]}: {slope:.4f} ms/row, fixed {fixed[level]:.4f} ms "
+                f"({fixed[level] / slope:.2f} rows; bf16, {SIZE}^2)")
+        report = d.autotune_report.get(level)
+        if report:
+            ms16 = report["table"][report["best"]]
+            measured = report.get("dispatch_ms")
+            constant = AdaptiveDehazer.DISPATCH_MS[level]
+            fed = (f"the tuner's dispatch_ms = {measured}" if measured is not None else
+                   f"AdaptiveDehazer.DISPATCH_MS = {constant} (the tuner's line did not rise)")
+            again = [dispatch_ms(apply, d.router.models[level], (16, SIZE, SIZE, 3), ms16)
+                     for _ in range(DISPATCH_AGAIN)]
+            line += (f"; under autotune the chunk planner is fed {fed}: "
+                     f"{planner_rows(measured or constant, ms16):.2f} overhead rows (the "
+                     f"constant {constant}: {planner_rows(constant, ms16):.2f}); dispatch_ms "
+                     f"measured {DISPATCH_AGAIN} times more: "
+                     f"{[None if v is None else round(v, 4) for v in again]}")
+        log(line)
     return {k: float(v) for k, v in fixed.items()}
 
 
@@ -1593,6 +1651,20 @@ def phase_engines(d, dev, x, labels, forced_ref, smi):
     return main, errs, {k: v[0] for k, v in times.items()}
 
 
+def force_winners(cache, forced):
+    """A copy of autotune cache `cache` whose winners are `forced` (level ->
+    candidate); an entry whose winner changes loses the old winner's
+    `dispatch_ms`, so the planner takes the constant for it."""
+    cache = copy.deepcopy(cache)
+    for key, entry in cache.items():
+        best = forced[CLASS_OF[key.split(":")[3]]]
+        check(best in entry["table"], f"{key}: {best} was not offered")
+        if best != entry["best"]:
+            entry.pop("dispatch_ms", None)
+        entry["best"] = best
+    return cache
+
+
 def tune_then_force(router, cfg, dev, tmp, tag, dispatches, gen=None):
     """A dehazer with autotune on and a fresh cache times every candidate
     and prints the tables; returns, for each forced dispatch (level ->
@@ -1605,14 +1677,21 @@ def tune_then_force(router, cfg, dev, tmp, tag, dispatches, gen=None):
     tables = {}
     for level, report in d.autotune_report.items():
         log(f"[autotune {tag}] {level}: best {report['best']}, ms per 16 images "
-            f"{json.dumps(report['table'])}")
+            f"{json.dumps(report['table'])}, dispatch_ms {report.get('dispatch_ms')} (the "
+            f"winner's intercept at 2 and 16 rows; DISPATCH_MS "
+            f"{AdaptiveDehazer.DISPATCH_MS[level]})")
         check(report["cached"] is False, f"{level}: a fresh cache gave a hit")
+        # dispatch_ms, where the tuner's line rose: within (1e-3, the winner's time].
+        check(report.get("dispatch_ms") is None
+              or 1e-3 <= report["dispatch_ms"] < report["table"][report["best"]],
+              f"{level}: the tuner's dispatch_ms is out of its range: {report}")
         check(all(v is not None for v in report["table"].values()),
               f"{level}: a candidate failed: {report['table']}")
         offered = {name for lvl, name in BUCKET_LAUNCHES if lvl == level}
         check(set(report["table"]) == offered,
               f"{level}: candidates {sorted(report['table'])}, expected {sorted(offered)}")
-        tables[level] = dict(best=report["best"], **report["table"])
+        tables[level] = dict(best=report["best"], dispatch_ms=report.get("dispatch_ms"),
+                             **report["table"])
     # The low `canonical` is the branch's module path: no kernel launch.
     reset_launch_counts()
     with torch.inference_mode():
@@ -1626,12 +1705,9 @@ def tune_then_force(router, cfg, dev, tmp, tag, dispatches, gen=None):
     check(len(cache) == 3, f"the cache holds {len(cache)} entries, not 3")
     paths = []
     for i, forced in enumerate(dispatches):
-        for key, entry in cache.items():
-            entry["best"] = forced[CLASS_OF[key.split(":")[3]]]
-            check(entry["best"] in entry["table"], f"{key}: {entry['best']} was not offered")
         paths.append(os.path.join(tmp, f"autotune_{tag}_forced{i}.json"))
         with open(paths[-1], "w") as f:
-            json.dump(cache, f)
+            json.dump(force_winners(cache, forced), f)
     del d
     torch.cuda.empty_cache()
     return paths, tables, dispatch
@@ -3046,9 +3122,11 @@ def phase_alternate(dev, smi, x, labels):
 PRE_BATCH = 48
 PRE_SMALL = 3
 # The kernels its graphs must replay: K1 and K2 under the default dispatch,
-# K3, K4, K2' and K6 under the tuned one (phase 5's winners).
+# K3, K4, K2' and K6 under the tuned one, which is forced to
+# PRECOMPILED_FORCED so that a slow timing cannot drop one of them.
 PRECOMPILED_PATH_KERNELS = ("lightweight_chain", "cbam_gate", "medium_tail_chain",
                             "high_tail_chain", "spatial_gate", "res_attn_chain")
+PRECOMPILED_FORCED = {"low": "chain", "medium": "tail_chain", "high": "res_e2b_tail_chain"}
 # Graph against eager on the same inputs: the same kernels on the same data.
 GRAPH_FP32_ATOL = 1e-6
 # Cold start in a fresh process: from_experiment, then one route_hard of the
@@ -3085,10 +3163,26 @@ def dispatches(d):
 
 
 def phase_precompiled(dev, smi, exp, nvcc_s):
-    """18. Precompiled serving (see the docstring): export through the CLI
-    and the API, cold start with and without the bundle in fresh processes,
-    graphs against eager at 48 images under both dispatches, a bundle of
-    another device refused. Returns the path's launch counts and readings."""
+    """18. Precompiled serving (see the docstring), the winners of the
+    experiment's autotune cache set to PRECOMPILED_FORCED for the phase and
+    put back after it. Returns the path's launch counts and readings."""
+    cache = os.path.join(exp, "serving_autotune.json")
+    tuned = cache + ".tuned"
+    os.replace(cache, tuned)
+    with open(tuned) as f:
+        forced = force_winners(json.load(f), PRECOMPILED_FORCED)
+    with open(cache, "w") as f:
+        json.dump(forced, f)
+    try:
+        return _precompiled(dev, smi, exp, nvcc_s)
+    finally:
+        os.replace(tuned, cache)
+
+
+def _precompiled(dev, smi, exp, nvcc_s):
+    """Phase 18's body: export through the CLI and the API, cold start with
+    and without the bundle in fresh processes, graphs against eager at 48
+    images under both dispatches, a bundle of another device refused."""
     import subprocess as sp
     import sys
     import warnings
@@ -3108,9 +3202,12 @@ def phase_precompiled(dev, smi, exp, nvcc_s):
     eager["tuned"].export_precompiled(tuned_dir, batch_sizes=(PRE_BATCH, PRE_SMALL),
                                       device_buckets=(16, PRE_BATCH))
     manifest = read_manifest(default_dir)
+    tuned_dispatch = {k: r["best"] for k, r in eager["tuned"].autotune_report.items()}
     log(f"[precompiled] export: CLI {export_s:.1f} s, {len(manifest['programs'])} programs + "
         f"{manifest.get('library')}; tuned {len(read_manifest(tuned_dir)['programs'])} programs; "
-        f"tuned dispatch {({k: r['best'] for k, r in eager['tuned'].autotune_report.items()})}")
+        f"tuned dispatch {tuned_dispatch}")
+    check(tuned_dispatch == PRECOMPILED_FORCED,
+          f"precompiled: the tuned dehazer serves {tuned_dispatch}, not {PRECOMPILED_FORCED}")
     check(manifest.get("library") and os.path.exists(os.path.join(default_dir,
                                                                     manifest["library"])),
           "precompiled: the bundle holds no kernel library")
@@ -5539,6 +5636,172 @@ def phase_resize(dev, smi, tmp):
     return {k: dict(v) for k, v in paths.items()}, readings
 
 
+# Phase 25: the day-one tools on the card. Which kernels each tool's path
+# must launch: K1 and K2 where a tool serves or evaluates, K5 where the soft
+# router runs; K2 (and K5 in soft mode) in the throughput tool's steps. The
+# hard-routing rerun serves each test image on its classifier's branch
+# only, so it must launch K1 where the classifier routes an image low and K2
+# where it routes one high (HARD_ROUTED_KERNELS).
+TOOL_PATH_KERNELS = {
+    "tools_validate": ("lightweight_chain", "cbam_gate", "blend3"),
+    "tools_rerun_detection": ("lightweight_chain", "cbam_gate", "blend3"),
+    "tools_collect": ("lightweight_chain", "cbam_gate", "blend3"),
+    "tools_throughput_soft": ("cbam_gate", "blend3"),
+    "tools_throughput_hard": ("cbam_gate",),
+}
+# The validation tool's kinds, each with its arguments; the branch at the
+# high level, whose AttentionBlocks run K2.
+HARD_ROUTED_KERNELS = {0: "lightweight_chain", 2: "cbam_gate"}
+VALIDATE_KINDS = {"classifier": [], "branch": ["--level", "high"], "joint": [], "fcos": []}
+VALIDATE_TIMEOUT_S = 600
+# The throughput tool at its own default batch, the default widths and
+# 256^2, over 10 timed steps (its default is 20): the soft step under each
+# cuda.remat, the hard round without, and the first run again last: its
+# two readings bound the drift within the call that a remat's cost is read
+# against.
+THROUGHPUT_BATCH = 16
+THROUGHPUT_STEPS = 10
+THROUGHPUT_RUNS = (("soft", "none"), ("soft", "full"), ("soft", "fullres"), ("hard", "none"),
+                   ("soft", "none"))
+
+
+def phase_tools(dev, smi, tmp, exp):
+    """25. The day-one tools (see the docstring). Returns the launches of
+    each tool's path and the readings."""
+    from adam_dehaze_tpu_torch.tools import (
+        collect_round_results,
+        measure_train_throughput,
+        rerun_detection_eval,
+        rerun_hard_routing_eval,
+    )
+    paths, readings, failed = {}, {}, []
+
+    def tool_run(fn, argv):
+        """(fn(argv), its seconds, the launches it made)."""
+        reset_launch_counts()
+        t = time.perf_counter()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, counts()
+
+    # (a) the four kinds at once, each in its own process (it starts the
+    # converter and a fresh process for the restore), while (b) runs here.
+    procs = {kind: [subprocess.Popen(
+        [sys.executable, "-m", "adam_dehaze_tpu_torch.tools.validate_real_weights", "--kind",
+         kind, "--selftest", "--workdir", os.path.join(tmp, "validate", kind), "--device",
+         dev.type, *extra], cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)]
+        for kind, extra in VALIDATE_KINDS.items()}
+    t0 = time.perf_counter()
+    try:
+        # (b) the reruns and the collector on phase 15's experiment.
+        results = os.path.join(exp, "results", "metrics", "comprehensive_results.json")
+        with open(results) as f:
+            before = json.load(f)
+        served = AdaptiveDehazer.from_experiment(exp, device=dev)
+        routed = np.bincount(np.concatenate([
+            served.classify(batch["hazy"][batch["mask"]])
+            for batch in get_dataloader(served.config, "test")]), minlength=3)
+        del served
+        hard, hard_s, paths["tools_rerun_hard_routing"] = tool_run(
+            rerun_hard_routing_eval.main, ["--experiment_dir", exp, "--device", dev.type])
+        det, det_s, paths["tools_rerun_detection"] = tool_run(
+            rerun_detection_eval.main, ["--experiment_dir", exp, "--device", dev.type])
+        with open(results) as f:
+            after = json.load(f)
+        check(after["hard_routing"] == json.loads(json.dumps(hard)),
+              "tools: rerun_hard_routing_eval did not patch its rows")
+        check(set(after["detection"]) == {"hazy", "dehazed", "improvement_percent"}
+              and after["detection"]["dehazed"] == json.loads(json.dumps(
+                  det["dehazed"]["overall"])),
+              f"tools: rerun_detection_eval patched {after.get('detection')}")
+        check({k: v for k, v in after.items() if k not in ("hard_routing", "detection")}
+              == {k: v for k, v in before.items() if k not in ("hard_routing", "detection")},
+              "tools: the reruns changed other rows of comprehensive_results.json")
+        check(os.path.exists(os.path.join(exp, "results", "metrics", "detection_results.json")),
+              "tools: rerun_detection_eval wrote no detection_results.json")
+        full = os.path.join(tmp, "full_system.json")
+        collected, collect_s, paths["tools_collect"] = tool_run(
+            collect_round_results.main,
+            ["--experiment_dir", exp, "--out", full, "--device", dev.type])
+        dist = collected["routing_weight_distribution"]
+        check(isinstance(dist, dict) and all(abs(sum(dist[f"true_{lvl}"]) - 1) <= 1e-3
+                                             for lvl in INTENSITY_ORDER),
+              f"tools: collect_round_results' routing weights {dist}")
+        check(collected["summary"]["hard_routing"] == after["hard_routing"]
+              and "router_classifier_test_acc" in collected,
+              "tools: collect_round_results did not read the patched results")
+        readings.update(
+            rerun_hard_routing=dict(seconds=hard_s, routed=routed.tolist(),
+                                    routing_acc=hard["routing_acc"],
+                                    spilled_frac=hard["spilled_frac"],
+                                    fidelity_psnr=hard["fidelity"].get("psnr")),
+            rerun_detection=dict(seconds=det_s, improvement_percent=after["detection"][
+                "improvement_percent"], mAP={side: det[side]["overall"].get("mAP")
+                                             for side in ("hazy", "dehazed")}),
+            collect=dict(seconds=collect_s, routing_weight_distribution=dist,
+                         router_classifier_test_acc=collected["router_classifier_test_acc"]))
+        log(f"[tools] rerun_hard_routing_eval {hard_s:.1f} s (the classifier routes the test "
+            f"split {routed.tolist()} low / medium / high): routing_acc "
+            f"{hard['routing_acc']:.4f}, spilled {hard['spilled_frac']:.4f}, fidelity PSNR "
+            f"{hard['fidelity'].get('psnr', float('nan')):.3f}; rerun_detection_eval "
+            f"{det_s:.1f} s: mAP {readings['rerun_detection']['mAP']}; collect_round_results "
+            f"{collect_s:.1f} s: weights {json.dumps(dist)}, classifier acc "
+            f"{collected['router_classifier_test_acc']}; launches "
+            f"{ {t: nonzero(launched) for t, launched in paths.items()} }; {smi}")
+        logs = _run_all(procs, VALIDATE_TIMEOUT_S)
+    finally:
+        for p in (p for ps in procs.values() for p in ps):
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    validate_s = time.perf_counter() - t0
+    paths["tools_validate"] = collections.Counter()
+    readings["validate"] = {}
+    for kind, (text,) in logs.items():
+        lines = [ln for ln in text.splitlines() if ln.startswith("{")]
+        line = json.loads(lines[-1]) if lines else {"ok": False, "error": text[-3000:]}
+        log(f"[tools] validate_real_weights --kind {kind} --selftest: {json.dumps(line)}")
+        readings["validate"][kind] = line
+        if not line.get("ok") or procs[kind][0].returncode != 0:
+            failed.append(f"validate {kind}: {line}")
+            continue
+        diffs = line["forward_max_abs_diff"]
+        if kind != "fcos" and not (diffs and max(diffs.values()) <= FP32_ATOL):
+            failed.append(f"validate {kind}: fp32 diffs {diffs}")
+        if line["device"] != torch.cuda.get_device_name(dev):
+            failed.append(f"validate {kind}: restored on {line['device']}")
+        paths["tools_validate"].update(line["launches"])
+    if readings["validate"]["branch"].get("launches", {}).get("cbam_gate", 0) == 0:
+        failed.append("validate branch (high): no K2 launch")
+    log(f"[tools] validate_real_weights, four kinds in four processes: {validate_s:.1f} s "
+        f"(overlapping the reruns); restores launched {dict(paths['tools_validate'])}; {smi}")
+
+    # (c) the throughput tool, alone on the card.
+    readings["throughput"] = {}
+    for mode, remat in THROUGHPUT_RUNS:
+        line, _, launched = tool_run(
+            measure_train_throughput.main,
+            ["--batch", str(THROUGHPUT_BATCH), "--steps", str(THROUGHPUT_STEPS), "--mode", mode,
+             "--remat", remat, "--device", dev.type])
+        paths.setdefault(f"tools_throughput_{mode}", collections.Counter()).update(launched)
+        sec = line["sec_per_step" if mode == "soft" else "sec_per_round"]
+        key = f"{mode}_{remat}"
+        readings["throughput"][key + "_again" if key in readings["throughput"] else key] = line
+        log(f"[tools] measure_train_throughput --mode {mode} --remat {remat} --batch "
+            f"{THROUGHPUT_BATCH} --steps {THROUGHPUT_STEPS}: {json.dumps(line)} "
+            f"({sec * 1e3:.2f} ms a {'step' if mode == 'soft' else 'round of 3 steps'}; TF32 "
+            f"off, as this script sets it); {smi}")
+        if not (line["value"] > 0 and line["nvidia_smi"]):
+            failed.append(f"throughput {mode} {remat}: {line}")
+    check(not failed, "; ".join(failed))
+    hard_kernels = tuple(k for c, k in HARD_ROUTED_KERNELS.items() if routed[c])
+    for tag, kernels in {**TOOL_PATH_KERNELS, "tools_rerun_hard_routing": hard_kernels}.items():
+        for k in kernels:
+            check(paths[tag].get(k, 0) > 0, f"tools: {tag} launched no {k}: {nonzero(paths[tag])}")
+    return {k: dict(v) for k, v in paths.items()}, readings
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
@@ -5605,6 +5868,7 @@ def main():
         int8_shard_paths, q1_split_recs, int8_shard_readings = timed(
             "int8 and remat on shards", phase_int8_shards, dev, smi, tmp)
         resize_paths, resize_readings = timed("resize on shards", phase_resize, dev, smi, tmp)
+        tool_paths, tool_readings = timed("tools", phase_tools, dev, smi, tmp, exp)
     for name in ("route_hard", "forced_labels", "soft"):
         log(f"[slices] {name}: default dispatch {default_ms[name]:.3f} ms/image, "
             f"tail-chain dispatch {tail_ms[name]:.3f} ms/image, res-chain dispatch "
@@ -5617,7 +5881,7 @@ def main():
              "lowres": lowres_path, "alternate": alt_path, "precompiled": pre_path,
              "int8": int8_path, "parallel": parallel_path, "spatial": spatial_path,
              "tp": tp_path, "joint_sharded": joint_sharded_path, "dryrun": dryrun_path,
-             "tuned_spatial": tuned_path, **int8_shard_paths, **resize_paths}
+             "tuned_spatial": tuned_path, **int8_shard_paths, **resize_paths, **tool_paths}
     kernels["cbam_gate"].update(training_forward_ms_per_step=k2_train["forward_ms"],
                                 training_backward_ms_per_step=k2_train["backward_ms"])
     for name, rec in grad_fns.items():
@@ -5645,7 +5909,7 @@ def main():
         "alternate": alt_readings, "precompiled": pre_readings, "int8": int8_readings,
         "parallel": parallel_readings, "sharded": sharded_readings,
         "joint_sharded": joint_sharded_readings, "int8_and_remat_on_shards": int8_shard_readings,
-        "resize_on_shards": resize_readings,
+        "resize_on_shards": resize_readings, "tools": tool_readings,
         "phase_seconds": seconds}
     check(all(k["launches"] > 0 for k in line["kernels"]),
           f"a kernel was launched no time on any path: {line['kernels']}")

@@ -77,6 +77,19 @@ def test_root_tools_and_configs_import_no_jax():
     assert proc.stdout.strip() == "[]", proc.stdout
 
 
+def test_day_one_tools_import_no_jax():
+    """The port's counterparts of the JAX package's validation, rerun,
+    collection and throughput tools stand alone."""
+    probe = _TOOLS.replace('("convert_reference_checkpoint", "graft_classifier")',
+                           '("validate_real_weights", "rerun_hard_routing_eval", '
+                           '"rerun_detection_eval", "collect_round_results", '
+                           '"measure_train_throughput")')
+    proc = subprocess.run([sys.executable, "-c", probe], cwd=REPO, capture_output=True,
+                          text=True, env=_clean_env(), timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
+
+
 def test_chip_smoke_fails_without_cuda():
     """On a machine without CUDA the smoke run exits non-zero before it
     builds or prints anything that looks like a result."""
