@@ -5,7 +5,7 @@ defaults and choices:
 
   python3 main_torch.py --mode {preprocess, train_classifier, train_dehazing,
                                 train_joint, train_all, train_detection,
-                                evaluate, demo, serve, export}
+                                evaluate, demo, serve, export, bench}
        [--config PATH] [--exp_name NAME] [--data_dir DIR] [--device DEV]
        [--resume] [--seed N] [--batch_size N] [--experiment_dir DIR]
        [--serve_mode soft|hard|spill|spill_up|stream|queued|device]
@@ -16,8 +16,11 @@ Everything runs on the card (the config's `device`, "cuda" by default);
 `--device cpu` runs on the CPU. Without a card and without `--device cpu`
 the command stops at once. `--mode export` writes a precompiled serving
 bundle (serving_export.py) and `serve --precompiled` serves through one.
-`--mode bench` is parsed, for the JAX package's surface, and stops with a
-message that names what the port lacks.
+`--mode bench` runs the port's benchmark (adam_dehaze_tpu_torch/bench.py)
+and nothing else: `--device` and `--batch_size` go to it as its `--device`
+and `--batch`, and the options that this parser does not know (`--full`,
+`--size`, `--iters`, `--warmup`) as they are; its JSON line is the last
+line printed.
 """
 from __future__ import annotations
 
@@ -46,14 +49,8 @@ MODES = ("preprocess", "train_classifier", "train_dehazing", "train_joint",
 SERVE_MODES = ("soft", "hard", "spill", "spill_up", "stream", "queued",
                "device")
 
-# What the port does not have yet, by the option that asks for it.
-NOT_PORTED = {
-    "bench": "--mode bench is not ported yet: the PyTorch port has no benchmark script "
-             "(bench.py times the JAX package only)",
-}
 
-
-def parse_args(argv=None):
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Adaptive Fog Intensity Dehazing Framework (PyTorch/CUDA port)")
     p.add_argument("--config", type=str, default=None,
@@ -91,13 +88,22 @@ def parse_args(argv=None):
                         "with a guided-filter lift of the correction "
                         "(ops/resolution.py), or 'auto' for the experiment's "
                         "tuned policy (tools/autotune_resolution.py)")
-    return p.parse_args(argv)
+    return p
+
+
+def parse_args(argv=None):
+    return _parser().parse_args(argv)
 
 
 def main(argv=None):
-    args = parse_args(argv)
+    parser = _parser()
+    args, rest = parser.parse_known_args(argv)
     if args.mode == "bench":
-        raise SystemExit(NOT_PORTED["bench"])
+        from adam_dehaze_tpu_torch import bench
+        return bench.main(rest + (["--device", args.device] if args.device else [])
+                          + (["--batch", str(args.batch_size)] if args.batch_size else []))
+    if rest:
+        parser.error(f"unrecognized arguments: {' '.join(rest)}")
     cfg_path = args.config
     if cfg_path is None and args.experiment_dir:
         # An existing experiment without --config: its own config, whose

@@ -8,8 +8,8 @@ state-dict names (`conv_stem`, `bn1`, `blocks.{stage}.{i}`, `conv_head`,
 `conv_dw`, `bn2`, `se.*`, `conv_pwl`, `bn3`), as the JAX package's
 load_torch_efficientnet reads them. MBConv blocks with squeeze-excite and
 SiLU; B1-B3 by the paper's compound scaling (round_filters,
-round_repeats). BN eps is the paper's 1e-3 (momentum 0.1, flax 0.9), not
-torch's default. Convs pad k // 2 on every side, as flax's explicit padding
+round_repeats); `EfficientNetB0()` is B0. BN eps is the paper's 1e-3
+(momentum 0.1, flax 0.9), not torch's default. Convs pad k // 2 on every side, as flax's explicit padding
 does. forward returns the globally pooled features (B, feature_dim) in
 float32.
 """
@@ -147,3 +147,9 @@ class EfficientNet(nn.Module):
         x = F.silu(self.bn1(self.conv_stem(x)))
         x = F.silu(self.bn2(self.conv_head(self.blocks(x))))
         return mean_hw(x).float()
+
+
+def EfficientNetB0() -> EfficientNet:
+    """EfficientNet-B0 (the JAX package's factory; a serving copy, not the
+    module, takes the compute dtype: ops/serving_apply.py)."""
+    return EfficientNet(variant="b0")

@@ -401,15 +401,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    (K2), and soft without remat again: its JSON line with the card's name
    and power limit. Prints each
    tool's JSON line and seconds.
-26. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
+26. The port's benchmark (`[bench]` lines): `python3 main_torch.py --mode
+   bench --full` in a subprocess, on phase 15's experiment
+   (BENCH_EXPERIMENT: its test split and trained classifier for the
+   trained rows, its resolution policy from phase 16) and phase 5's tuned
+   cache with its winners set to BENCH_FORCED (BENCH_AUTOTUNE_CACHE), so
+   that every row runs and K3, K4, K2' and K6 serve. It must exit 0; its
+   last line names the primary metric with a positive value, mode binned or
+   device_binned (never the soft fallback), every row of the full tier
+   (BENCH_ROWS), the tuned dispatch and the card's name and power limit; no
+   row may be skipped for an exception (a skip for the budget, the tier or
+   an absent artifact is a skip; none is expected here). Its `[bench
+   launches]` line: K1 and K2 in the balanced primary row, K3, K4, K2' and
+   K6 there and in the device-binned row, Q1 and Q2 in the int8 row. Then in
+   this process the bench's primary engine in bf16 on the bench's own x and
+   balanced labels (the same seeded draw, the same cache), held per image
+   against the fp32 modules of each image's branch at BF16_ATOL (TF32 off).
+   Prints the line, the launches by row and the phase's seconds.
+27. Prints each phase's seconds, the kernels' JSON line (`launches_by_path`
    with "training", "classifier_training", "joint_training", "detection",
    "cli", "lowres", "alternate", "precompiled", "int8", "parallel",
    "spatial", "tp", "joint_sharded", "dryrun", "tuned_spatial",
    "int8_spatial", "int8_tp", "remat_spatial", "reference_checkpoint",
    "resize_alternates", "resize_dial_default", "resize_dial_tuned",
    "resize_decoders", "tools_validate", "tools_rerun_hard_routing",
-   "tools_rerun_detection", "tools_collect", "tools_throughput_soft" and
-   "tools_throughput_hard";
+   "tools_rerun_detection", "tools_collect", "tools_throughput_soft",
+   "tools_throughput_hard" and "bench" (every row of the bench's run);
    Q1's two passes as "int8_absmax" and "int8_quantize_at"; K5's
    and K2''s Function readings under "function"; each lowres kernel's
    readings at 128^2 under "lowres", K2's at the alternate branches'
@@ -417,7 +434,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    precompiled serving's, parallel/'s and phases 22's, 23's and 24's
    readings under "cli", "lowres", "alternate", "precompiled", "parallel",
    "sharded", "joint_sharded", "int8_and_remat_on_shards",
-   "resize_on_shards" and "tools") and, last,
+   "resize_on_shards", "tools" and "bench") and, last,
    {"ok": true, "device": ...}.
 """
 import collections
@@ -5802,6 +5819,114 @@ def phase_tools(dev, smi, tmp, exp):
     return {k: dict(v) for k, v in paths.items()}, readings
 
 
+# The bench's dispatch: phase 5's tuned cache with these winners, so that
+# the tuned rows run K3 (medium), K4, K2' and K6 (high) whatever won.
+BENCH_FORCED = {"low": "chain", "medium": "tail_chain", "high": "res_e2b_tail_chain"}
+BENCH_TIMEOUT_S = 600
+# Every row of the full tier on an experiment with a resolution policy:
+# each key must be in the line (`host_binned_ms_per_image` only when the
+# device-binned engine took the value).
+BENCH_ROWS = (
+    "device_binned_ms_per_image", "single_image_p50_ms", "single_image_streamed_ms",
+    "single_image_guarded_p50_ms", "single_image_guarded_streamed_ms",
+    "with_detection_ms_per_image", "detection_overhead_ms_per_image",
+    "predicted_routing_trained_ms_per_image", "trained_routing_acc",
+    "predicted_trained_minus_oracle_ms", "spill_routing_trained_ms_per_image",
+    "spill_up_routing_trained_ms_per_image", "device_spill_trained_ms_per_image",
+    "queued_routing_trained_ms_per_image", "queued_routing_trained_ms_median",
+    "queued_routing_trained_ms_samples", "stream_ms_per_image", "stream_imgs_per_sec_per_chip",
+    "device_binned_stream_ms_per_image", "device_binned_stream_imgs_per_sec",
+    "device_binned_stream_depth", "skewed_all_high_ms_per_image", "lowres_medhigh_ms_per_image",
+    "resolution_policy", "guarded_lowres_ms_per_image", "guarded_lowres_gflops_per_image",
+    "guarded_lowres_mfu_pct", "predicted_routing_ms_per_image", "flops_source",
+    "measured_gflops_per_image", "mfu_pct", "assumed_peak_tflops", "int8_ms_per_image",
+    "int8_lowering", "best_serving_ms_per_image", "imgs_per_sec_per_chip", "vs_baseline",
+    "bench_wall_s", "autotuned_dispatch", "device")
+# Launches each row must show: K1 and K2 in the balanced primary row; the
+# tuned dispatch's K3, K4, K2' and K6 in both engines' rows; Q1 and Q2 in
+# the int8 row.
+BENCH_ROW_KERNELS = {
+    "binned": ("lightweight_chain", "cbam_gate", "medium_tail_chain", "high_tail_chain",
+               "spatial_gate", "res_attn_chain"),
+    "device_binned": ("lightweight_chain", "cbam_gate", "medium_tail_chain",
+                      "high_tail_chain", "spatial_gate", "res_attn_chain"),
+    "int8": ("int8_quantize", "int8_conv"),
+}
+# A skip message of the bench that is not a fault: the budget or the tier.
+BENCH_BENIGN_SKIPS = ("(RuntimeError: budget)", "(RuntimeError: full tier only)")
+
+
+def phase_bench(dev, smi, tmp, exp):
+    """26. The port's benchmark (see the docstring). Returns the launches of
+    its rows, summed, and the readings."""
+    from adam_dehaze_tpu_torch import bench
+    torch.cuda.empty_cache()      # the bench's process needs the card's memory
+    with open(os.path.join(tmp, "autotune_bf16.json")) as f:
+        forced = force_winners(json.load(f), BENCH_FORCED)
+    cache = os.path.join(tmp, "bench_autotune.json")
+    with open(cache, "w") as f:
+        json.dump(forced, f)
+    env = {k: v for k, v in os.environ.items() if not k.startswith("BENCH_")}
+    env.update(BENCH_EXPERIMENT=exp, BENCH_AUTOTUNE_CACHE=cache)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "main_torch.py", "--mode", "bench", "--full"],
+                          cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    run_s = time.perf_counter() - t0
+    with open(os.path.join(tmp, "bench.log"), "w") as f:
+        f.write(proc.stdout + proc.stderr)
+    check(proc.returncode == 0, f"bench: exit {proc.returncode}: {proc.stderr[-3000:]}")
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    tagged = [ln for ln in proc.stderr.splitlines() if ln.startswith("[bench launches] ")]
+    check(len(tagged) == 1, f"bench: {len(tagged)} launch lines")
+    rows = json.loads(tagged[0][len("[bench launches] "):])
+    log(f"[bench] python3 main_torch.py --mode bench --full: {run_s:.1f} s; {json.dumps(line)}")
+    log(f"[bench] launches by row: {json.dumps(rows)}")
+    faults = [ln for ln in proc.stderr.splitlines()
+              if ("skipped (" in ln or "failed (" in ln or "binned engine failed" in ln)
+              and not ln.endswith(BENCH_BENIGN_SKIPS)]
+    check(not faults, f"bench: rows skipped for an exception: {faults}")
+    check(line.get("metric") == "adaptive_dehaze_ms_per_image_256" and line["value"] > 0
+          and line["mode"] in ("binned", "device_binned"),
+          f"bench: metric {line.get('metric')}, value {line.get('value')}, mode "
+          f"{line.get('mode')}")
+    missing = [k for k in BENCH_ROWS if k not in line]
+    check(not missing, f"bench: rows missing from the line: {missing}")
+    check(line["autotuned_dispatch"] == BENCH_FORCED and line["device"] == smi,
+          f"bench: dispatch {line['autotuned_dispatch']}, device {line['device']!r}")
+    for row, kernels in BENCH_ROW_KERNELS.items():
+        for k in kernels:
+            check(rows.get(row, {}).get(k, 0) > 0, f"bench: the {row} row launched no {k}: "
+                  f"{rows.get(row)}")
+    path = collections.Counter()
+    for launched in rows.values():
+        path.update(launched)
+
+    # The primary engine in bf16 against the fp32 modules, per image.
+    cfg = load_config()
+    bucket = bench.BATCH // 3
+    classifier, branches, x = bench.seeded(cfg, dev, bench.BATCH, bench.SIZE)
+    calls = bench.build_callables(classifier, branches, torch.bfloat16, bucket, bench.SIZE,
+                                  cache)
+    check(calls.dispatch_used == BENCH_FORCED, f"bench: in process {calls.dispatch_used}")
+    labels = np.repeat(np.arange(3), bucket)
+    with torch.inference_mode():      # TF32 is off since phase 1
+        got = calls.engine(x, intensity=labels)[0].float()
+        want = torch.cat([branches[INTENSITY_ORDER[c]](x[i:i + 1]).float()
+                          for i, c in enumerate(labels)])
+    per_image = (got - want).abs().flatten(1).amax(dim=1).cpu().numpy()
+    err = float(per_image.max())
+    log(f"[bench] the primary engine in bf16 (tuned: {json.dumps(calls.dispatch_used)}) "
+        f"against the fp32 modules on the bench's {bench.BATCH} images: max abs err {err:.3e} "
+        f"(by class {[float(per_image[labels == c].max()) for c in range(3)]}; bound "
+        f"{BF16_ATOL}); {smi}")
+    check(err <= BF16_ATOL, "bench: the bf16 primary engine disagrees with the fp32 modules")
+    del calls, classifier, branches, x
+    torch.cuda.empty_cache()
+    return dict(path), {"line": line, "launches_by_row": rows, "seconds": run_s,
+                        "bf16_vs_fp32_max_abs_err": err}
+
+
 def main():
     smi = phase_device()
     dev = torch.device("cuda")
@@ -5869,6 +5994,7 @@ def main():
             "int8 and remat on shards", phase_int8_shards, dev, smi, tmp)
         resize_paths, resize_readings = timed("resize on shards", phase_resize, dev, smi, tmp)
         tool_paths, tool_readings = timed("tools", phase_tools, dev, smi, tmp, exp)
+        bench_path, bench_readings = timed("bench", phase_bench, dev, smi, tmp, exp)
     for name in ("route_hard", "forced_labels", "soft"):
         log(f"[slices] {name}: default dispatch {default_ms[name]:.3f} ms/image, "
             f"tail-chain dispatch {tail_ms[name]:.3f} ms/image, res-chain dispatch "
@@ -5881,7 +6007,8 @@ def main():
              "lowres": lowres_path, "alternate": alt_path, "precompiled": pre_path,
              "int8": int8_path, "parallel": parallel_path, "spatial": spatial_path,
              "tp": tp_path, "joint_sharded": joint_sharded_path, "dryrun": dryrun_path,
-             "tuned_spatial": tuned_path, **int8_shard_paths, **resize_paths, **tool_paths}
+             "tuned_spatial": tuned_path, **int8_shard_paths, **resize_paths, **tool_paths,
+             "bench": bench_path}
     kernels["cbam_gate"].update(training_forward_ms_per_step=k2_train["forward_ms"],
                                 training_backward_ms_per_step=k2_train["backward_ms"])
     for name, rec in grad_fns.items():
@@ -5909,7 +6036,7 @@ def main():
         "alternate": alt_readings, "precompiled": pre_readings, "int8": int8_readings,
         "parallel": parallel_readings, "sharded": sharded_readings,
         "joint_sharded": joint_sharded_readings, "int8_and_remat_on_shards": int8_shard_readings,
-        "resize_on_shards": resize_readings, "tools": tool_readings,
+        "resize_on_shards": resize_readings, "tools": tool_readings, "bench": bench_readings,
         "phase_seconds": seconds}
     check(all(k["launches"] > 0 for k in line["kernels"]),
           f"a kernel was launched no time on any path: {line['kernels']}")

@@ -3,7 +3,7 @@
 
     python3 main_torch.py --mode {preprocess, train_classifier, train_dehazing,
                                   train_joint, train_all, train_detection,
-                                  evaluate, demo, serve, export} [--device cpu] ...
+                                  evaluate, demo, serve, export, bench} [--device cpu] ...
 
 The options are those of main.py; see adam_dehaze_tpu_torch/cli.py.
 """

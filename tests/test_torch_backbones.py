@@ -13,6 +13,8 @@ package's, on the CPU, fp32:
   load_torch_mobilenet_v2, load_torch_mobilenet_v3 and
   load_torch_efficientnet gives the JAX backbone the port's features;
 - DenseFeatureExtractor on resnet18 and resnet50;
+- the factory EfficientNetB0 against the JAX package's, seeded flax
+  variables carried over, at 1e-4;
 - the classifier's compute dtype on a bf16 serving copy of a non-ResNet
   backbone.
 """
@@ -151,6 +153,27 @@ def test_dense_feature_extractor_matches_flax(name):
     np.testing.assert_allclose(got, want, atol=ATOL)
     with pytest.raises(ValueError, match="feature extraction"):
         DenseFeatureExtractor("mobilenet_v2")
+
+
+def test_efficientnet_b0_factory_matches_flax():
+    """The factory's module carries a seeded JAX classifier's backbone
+    (loaded as that classifier's backbone) and computes what the JAX
+    factory's module does on the same subtree."""
+    from adam_dehaze_tpu.nn.efficientnet import EfficientNetB0 as JEfficientNetB0
+    jc = JC.FogIntensityClassifier(model_name="efficientnet_b0", num_classes=3)
+    vs = seeded_variables(_classifier_init(jc), seed=8)
+    port = FogIntensityClassifier("efficientnet_b0", 3)
+    port.backbone = PE.EfficientNetB0()
+    backbone = port_of(port, vs).backbone
+    jm = JEfficientNetB0()
+    sub = {c: vs[c]["EfficientNet_0"] for c in ("params", "batch_stats")}
+    x = images((2, 64, 64, 3), seed=9)
+    want = np.asarray(jax.jit(lambda v, x: jm.apply(v, x))(sub, jnp.asarray(x)))
+    with torch.no_grad():
+        got = backbone(torch.from_numpy(x).permute(0, 3, 1, 2)).numpy()
+    assert backbone.variant == jm.variant == "b0"
+    assert got.shape == want.shape == (2, backbone.feature_dim)
+    np.testing.assert_allclose(got, want, atol=ATOL)
 
 
 @pytest.mark.parametrize("name", ["mobilenet_v3_small", "efficientnet_b0"])

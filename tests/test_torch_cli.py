@@ -15,9 +15,9 @@ against the JAX package's, on the CPU:
 - `train_detection` takes the JAX signature: the JAX CLI's keywords,
   positional (cfg, 1, False, 32), and --resume continuing from the
   checkpoint;
-- export, bench and --precompiled stop with their message, and so does
-  the default device without a card (--lowres is held against the JAX CLI
-  in test_torch_serve_experiment.py).
+- `--mode bench` runs the port's benchmark and prints its JSON line last;
+  the default device without a card stops at once (--lowres is held
+  against the JAX CLI in test_torch_serve_experiment.py).
 """
 import argparse
 import json
@@ -292,15 +292,34 @@ def test_train_detection_takes_the_jax_positional_order(experiment, monkeypatch,
     assert sizes == [32, 32] and state.step == 3
 
 
-@pytest.mark.parametrize("argv, needle", [
-    (["--mode", "bench"], "--mode bench is not ported yet"),
-])
-def test_unported_surfaces_stop_with_their_message(argv, needle, tmp_path, monkeypatch):
+def test_unported_surfaces_stop_with_their_message(tmp_path, monkeypatch, capsys):
+    """Nothing is refused any more: `--mode bench --device cpu` runs the
+    port's benchmark (at narrow widths and 32^2 here; the options this
+    parser does not know go to it) and nothing else, and its JSON line is
+    the last line printed."""
+    import adam_dehaze_tpu_torch.config as config_module
+    default = config_module.load_config
+
+    def narrow(*args, **kwargs):
+        cfg = default(*args, **kwargs)
+        for lvl, (ch, blocks) in {"low": (8, 2), "medium": (8, 6), "high": (16, 9)}.items():
+            cfg["dehazing"][lvl].update(channels=ch, blocks=blocks)
+        return cfg
+
+    monkeypatch.setattr(config_module, "load_config", narrow)
+    for name in ("BENCH_EXPERIMENT", "BENCH_AUTOTUNE_CACHE", "BENCH_RESOLUTION_POLICY",
+                 "BENCH_BUDGET_S", "BENCH_FULL"):
+        monkeypatch.delenv(name, raising=False)
     monkeypatch.chdir(tmp_path)
-    with pytest.raises(SystemExit) as e:
-        PCLI.main(argv + ["--device", "cpu"])
-    assert needle in str(e.value) and e.value.code not in (0, None)
+    got = PCLI.main(["--mode", "bench", "--device", "cpu", "--batch_size", "12", "--size",
+                     "32", "--iters", "1", "--warmup", "1"])
+    line = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert line == json.loads(json.dumps(got))
+    assert line["metric"] == "adaptive_dehaze_ms_per_image_256" and line["value"] > 0
+    assert line["device"] == "cpu" and "skewed_all_high_ms_per_image" in line
     assert not os.path.exists(tmp_path / "experiments")
+    with pytest.raises(SystemExit):
+        PCLI.main(["--mode", "evaluate", "--device", "cpu", "--iters", "1"])
 
 
 def test_default_device_without_a_card_stops_at_once(tmp_path, monkeypatch):
@@ -312,18 +331,20 @@ def test_default_device_without_a_card_stops_at_once(tmp_path, monkeypatch):
 
 
 def test_main_torch_runs_the_port_cli(tmp_path):
-    """The root entry point: `--mode bench` stops with the port's message
-    (exit 1), and the JAX package is not imported."""
+    """The root entry point runs the port's CLI (here a mode that stops at
+    once without a card: exit 1 with the CLI's message), and the JAX
+    package is not imported."""
     import subprocess
     import sys
     repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    probe = ("import runpy, sys; sys.argv = ['main_torch.py', '--mode', 'bench'];\n"
+    probe = ("import runpy, sys; sys.argv = ['main_torch.py', '--mode', 'evaluate'];\n"
              "try:\n    runpy.run_path('main_torch.py', run_name='__main__')\n"
              "finally:\n    print(sorted(m for m in sys.modules if m.split('.')[0] in "
              "('jax', 'adam_dehaze_tpu')))")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
     proc = subprocess.run([sys.executable, "-c", probe], cwd=repo, capture_output=True,
                           text=True, env=env, timeout=300)
     assert proc.returncode == 1
-    assert "--mode bench is not ported yet" in proc.stderr
+    assert "no CUDA card is visible" in proc.stderr
     assert proc.stdout.strip().endswith("[]")

@@ -90,6 +90,25 @@ def test_day_one_tools_import_no_jax():
     assert proc.stdout.strip() == "[]", proc.stdout
 
 
+_BENCH = """
+import sys
+import adam_dehaze_tpu_torch.bench
+import adam_dehaze_tpu_torch.cli
+print(sorted(m for m in sys.modules
+             if m == "bench" or m.split(".")[0] in ("jax", "jaxlib", "flax", "orbax",
+                                                    "adam_dehaze_tpu")))
+"""
+
+
+def test_bench_and_cli_import_no_jax():
+    """The port's benchmark and the command line that runs it (`--mode
+    bench`) stand alone: neither the root bench.py nor JAX comes with them."""
+    proc = subprocess.run([sys.executable, "-c", _BENCH], cwd=REPO, capture_output=True,
+                          text=True, env=_clean_env(), timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "[]", proc.stdout
+
+
 def test_chip_smoke_fails_without_cuda():
     """On a machine without CUDA the smoke run exits non-zero before it
     builds or prints anything that looks like a result."""

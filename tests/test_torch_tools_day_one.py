@@ -42,7 +42,7 @@ from adam_dehaze_tpu.models import classifier as JC
 from adam_dehaze_tpu.models import routing as JR
 from adam_dehaze_tpu.training import checkpoint as JCK
 from adam_dehaze_tpu_torch import serving_autotune
-from adam_dehaze_tpu_torch.config import load_config, update_checkpoint_paths
+from adam_dehaze_tpu_torch.config import load_config
 from adam_dehaze_tpu_torch.evaluation.evaluate import (
     evaluate_hard_routing,
     evaluate_object_detection,
@@ -57,10 +57,8 @@ from adam_dehaze_tpu_torch.tools import measure_train_throughput as throughput
 from adam_dehaze_tpu_torch.tools import rerun_detection_eval as rerun_det
 from adam_dehaze_tpu_torch.tools import rerun_hard_routing_eval as rerun_hard
 from adam_dehaze_tpu_torch.tools import validate_real_weights as validate
-from adam_dehaze_tpu_torch.tools.make_synthetic_corpus import make_corpus
-from adam_dehaze_tpu_torch.training import checkpoint as ckpt
 from test_torch_tools_round import _jax_tool, _options, _parser_of
-from torch_port_util import ATOL, images, zeros_like_variables
+from torch_port_util import ATOL, TINY, images, tiny_experiment, zeros_like_variables
 from torch_port_util import one_torch_thread  # noqa: F401  (the module's fixture)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
@@ -215,54 +213,11 @@ def test_validate_fails_on_a_surplus_key(tmp_path, capsys):
 
 # ------------------------------------------------- the experiment's tools ---
 
-TINY = {"dataset": {"img_size": 32, "batch_size": 4, "num_workers": 1},
-        "dehazing": {"low": {"channels": 8, "blocks": 1}, "medium": {"channels": 4},
-                     "high": {"channels": 8}},
-        "evaluation": {"nima_steps": 2}, "cuda": {"compute_dtype": "float32"}}
-
-
 @pytest.fixture(scope="module")
 def experiment(tmp_path_factory):
-    """A tiny experiment directory: config.yaml (32^2, fp32, a 3-class
-    detector, the corpus's GT boxes), a seeded joint best, a seeded
-    detector best, and metric files as the evaluation and the trainers
-    write them. Returns (dir, config pointed at it)."""
-    tmp = tmp_path_factory.mktemp("day_one")
-    root = str(tmp / "corpus")
-    make_corpus(root, size=32, train=0, val=0, test=2, seed=6)
-    exp = str(tmp / "exp")
-    cfg = load_config(overrides=TINY)
-    cfg["dataset"].update(train_path=root, val_path=root, test_path=root)
-    cfg["detection"].update(num_classes=3, score_threshold=0.0)
-    cfg["evaluation"]["annotation_paths"] = {
-        lvl: os.path.join(root, "annotations", f"coco_{lvl}.json") for lvl in INTENSITY_ORDER}
-    os.makedirs(exp)
-    with open(os.path.join(exp, "config.yaml"), "w") as f:
-        yaml.safe_dump(cfg, f)
-    cfg = update_checkpoint_paths(cfg, exp)
-    router = create_router(create_branch_models(cfg), create_classifier(cfg), cfg)
-    init_params_(router, torch.Generator().manual_seed(3))
-    with torch.no_grad():           # a classifier that routes to more than one class
-        router.classifier.classifier[-1].bias.copy_(torch.tensor([0.02, 0.0, -0.02]))
-    ckpt.save_checkpoint(cfg["joint_training"]["checkpoint_dir"], "best_model",
-                         {"model": router.state_dict()}, {"val_psnr": 20.0})
-    from adam_dehaze_tpu_torch.models.detection import create_detection_model
-    det = create_detection_model(cfg, device="cpu")
-    det.init(torch.Generator().manual_seed(4), image_size=32)
-    ckpt.save_checkpoint(cfg["detection"]["checkpoint_dir"], "best_model",
-                         {"model": det.module.state_dict()}, {"val_loss": 1.5})
-    for name, metrics in (("classifier", {"val_acc": 0.5}),
-                          (os.path.join("dehazing", "low"), {"val_psnr": 21.0}),
-                          (os.path.join("dehazing", "high"), {"val_psnr": 19.0})):
-        ckpt.save_checkpoint(os.path.join(exp, "checkpoints", name), "best_model", {},
-                             metrics)
-    results = cfg["evaluation"]["results_dir"]
-    os.makedirs(results)
-    for name, doc in (("baseline_results.json", {"overall": {"psnr": 20.5}}),
-                      ("comprehensive_results.json", {"joint": {"psnr": 21.5}})):
-        with open(os.path.join(results, name), "w") as f:
-            json.dump(doc, f)
-    return exp, cfg
+    """A tiny experiment directory (torch_port_util.tiny_experiment, two
+    test images a level). Returns (dir, config pointed at it)."""
+    return tiny_experiment(tmp_path_factory.mktemp("day_one"), test=2)
 
 
 def _results(cfg, name):

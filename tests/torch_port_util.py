@@ -12,6 +12,12 @@ import torch
 # fp32 port vs fp32 JAX (matmul precision "highest", tests/conftest.py).
 ATOL = 1e-4
 
+# The config of `tiny_experiment`: 32^2, fp32, narrow branches.
+TINY = {"dataset": {"img_size": 32, "batch_size": 4, "num_workers": 1},
+        "dehazing": {"low": {"channels": 8, "blocks": 1}, "medium": {"channels": 4},
+                     "high": {"channels": 8}},
+        "evaluation": {"nima_steps": 2}, "cuda": {"compute_dtype": "float32"}}
+
 
 def init_flax(module, x, seed=0, perturb_bn=True):
     """Seeded flax variables as nested numpy dicts, with BN running stats
@@ -287,3 +293,58 @@ def zeros_like_variables(init):
     template)."""
     return jax.tree_util.tree_map(lambda a: np.zeros(a.shape, a.dtype),
                                   dict(jax.eval_shape(init)))
+
+
+def tiny_experiment(tmp, test=2):
+    """A tiny experiment directory under `tmp`: config.yaml (TINY: 32^2,
+    fp32, a 3-class detector, the corpus's GT boxes), a make_corpus corpus
+    with `test` test images a level, a seeded joint best, a seeded detector
+    best, and metric files as the evaluation and the trainers write them.
+    Returns (dir, config pointed at it)."""
+    import json
+    import os
+
+    import yaml
+
+    from adam_dehaze_tpu_torch.config import load_config, update_checkpoint_paths
+    from adam_dehaze_tpu_torch.models.branches import create_branch_models
+    from adam_dehaze_tpu_torch.models.classifier import create_classifier
+    from adam_dehaze_tpu_torch.models.detection import create_detection_model
+    from adam_dehaze_tpu_torch.models.routing import INTENSITY_ORDER, create_router
+    from adam_dehaze_tpu_torch.nn.blocks import init_params_
+    from adam_dehaze_tpu_torch.tools.make_synthetic_corpus import make_corpus
+    from adam_dehaze_tpu_torch.training import checkpoint as ckpt
+    root = str(tmp / "corpus")
+    make_corpus(root, size=32, train=0, val=0, test=test, seed=6)
+    exp = str(tmp / "exp")
+    cfg = load_config(overrides=TINY)
+    cfg["dataset"].update(train_path=root, val_path=root, test_path=root)
+    cfg["detection"].update(num_classes=3, score_threshold=0.0)
+    cfg["evaluation"]["annotation_paths"] = {
+        lvl: os.path.join(root, "annotations", f"coco_{lvl}.json") for lvl in INTENSITY_ORDER}
+    os.makedirs(exp)
+    with open(os.path.join(exp, "config.yaml"), "w") as f:
+        yaml.safe_dump(cfg, f)
+    cfg = update_checkpoint_paths(cfg, exp)
+    router = create_router(create_branch_models(cfg), create_classifier(cfg), cfg)
+    init_params_(router, torch.Generator().manual_seed(3))
+    with torch.no_grad():           # a classifier that routes to more than one class
+        router.classifier.classifier[-1].bias.copy_(torch.tensor([0.02, 0.0, -0.02]))
+    ckpt.save_checkpoint(cfg["joint_training"]["checkpoint_dir"], "best_model",
+                         {"model": router.state_dict()}, {"val_psnr": 20.0})
+    det = create_detection_model(cfg, device="cpu")
+    det.init(torch.Generator().manual_seed(4), image_size=32)
+    ckpt.save_checkpoint(cfg["detection"]["checkpoint_dir"], "best_model",
+                         {"model": det.module.state_dict()}, {"val_loss": 1.5})
+    for name, metrics in (("classifier", {"val_acc": 0.5}),
+                          (os.path.join("dehazing", "low"), {"val_psnr": 21.0}),
+                          (os.path.join("dehazing", "high"), {"val_psnr": 19.0})):
+        ckpt.save_checkpoint(os.path.join(exp, "checkpoints", name), "best_model", {},
+                             metrics)
+    results = cfg["evaluation"]["results_dir"]
+    os.makedirs(results)
+    for name, doc in (("baseline_results.json", {"overall": {"psnr": 20.5}}),
+                      ("comprehensive_results.json", {"joint": {"psnr": 21.5}})):
+        with open(os.path.join(results, name), "w") as f:
+            json.dump(doc, f)
+    return exp, cfg
