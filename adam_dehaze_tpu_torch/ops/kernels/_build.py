@@ -83,8 +83,12 @@ _SIGNATURES = {
     "tail_gated_stats": (P, P, P, P, P, I, I, I, I, I, P),
     # x, g (or null), mean_p, max_p, B, H, W, C, is_bf16, stream
     "cbam_gated_maps": (P, P, P, P, I, I, I, I, I, P),
-    # which, x, w, wrep, out, flat, stream
-    "probe_op": (I, P, P, P, P, I, P),
+    # which, x, w, wrep, out, work, flat, stream
+    "probe_op": (I, P, P, P, P, P, I, P),
+    # returns the bytes of probe_op's workspace
+    "probe_workspace_bytes": (),
+    # stream: one launch of an empty kernel
+    "probe_empty": (P,),
     # x, scratch, q, scale, N, HW, C, cin_pad, is_bf16, stream
     "int8_quantize": (P, P, P, P, I, I, I, I, I, P),
     # x, partial, amax, N, HW, C, is_bf16, stream
@@ -219,6 +223,26 @@ def stream_ptr(device) -> int:
     import torch
     index = device.index if device.index is not None else torch.cuda.current_device()
     return torch._C._cuda_getCurrentRawStream(index)
+
+
+# (kernel name, device index, stream) -> a zeroed uint8 scratch that its
+# kernel leaves zero at the end of a launch (a last block's partials and
+# ticket counters). One a stream, so that launches on two streams never
+# share one; dropping an entry (a kernel killed midway) gives a fresh one.
+_SCRATCH = {}
+
+
+def stream_scratch(name: str, device, stream: int, nbytes: int) -> int:
+    """The address of kernel `name`'s zeroed scratch of at least `nbytes`
+    on `stream`: allocated at its first launch there, again only when a
+    launch needs more, never cleared between launches."""
+    import torch
+    key = (name, device.index, stream)
+    buf = _SCRATCH.get(key)
+    if buf is None or buf.numel() < nbytes:
+        buf = torch.zeros((nbytes,), dtype=torch.uint8, device=device)
+        _SCRATCH[key] = buf
+    return buf.data_ptr()
 
 
 def require(cond: bool, name: str, what: str) -> None:

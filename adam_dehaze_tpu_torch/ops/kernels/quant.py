@@ -271,21 +271,11 @@ def image_absmax(x: torch.Tensor) -> torch.Tensor:
 
 image_absmax.launches = 0
 
-# (device index, stream) -> int32 scratch of `int8_absmax`: two words an
-# image (its maximum so far, its blocks done), zero between launches. One a
-# stream, so that launches on two streams never share it.
-_ABSMAX_PARTIAL = {}
-
-
 def _absmax_partial(device: torch.device, stream: int, n: int) -> int:
-    """The address of a zeroed scratch of at least 2n int32 for
-    `int8_absmax` on `stream` (allocated once, grown as batches grow)."""
-    key = (device.index, stream)
-    buf = _ABSMAX_PARTIAL.get(key)
-    if buf is None or buf.numel() < 2 * n:
-        buf = torch.zeros((max(2 * n, 256),), dtype=torch.int32, device=device)
-        _ABSMAX_PARTIAL[key] = buf
-    return buf.data_ptr()
+    """The address of `int8_absmax`'s zeroed int32 scratch on `stream`: two
+    words an image (its maximum so far, its blocks done), at least 256
+    words (`_build.stream_scratch`)."""
+    return _build.stream_scratch("int8_absmax", device, stream, 4 * max(2 * n, 256))
 
 
 def quantize_images_at_reference(x: torch.Tensor, amax: torch.Tensor, cin_pad: int):

@@ -15,9 +15,13 @@ pattern, as the original does, and returns the failures.
 
 `probe_op(name, x, w, wrep)` runs one pattern: a CPU tensor takes the plain
 expression, a CUDA tensor launches the kernel (csrc/probe_ops.cu) or raises.
+Nine patterns reduce x's columns on a grid of row bands whose last block
+runs the pattern's epilogue; their partials and the ticket that names the
+last block live in a workspace allocated once per stream (`_workspace`).
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, List, Tuple
 
 import torch
@@ -104,36 +108,59 @@ def probe_reference(name: str, x, w, wrep) -> torch.Tensor:
     return PROBES[name][1](x, w, wrep)
 
 
-def probe_op(name: str, x: torch.Tensor, w: torch.Tensor,
-             wrep: torch.Tensor) -> torch.Tensor:
+def probe_op(name: str, x: torch.Tensor, w: torch.Tensor, wrep: torch.Tensor,
+             out: torch.Tensor = None) -> torch.Tensor:
     """Pattern `name` on x (rows, 384) bf16, w (384, 128) f32 and wrep
-    (128, 384) f32 -> (8, columns) f32. A CPU tensor takes the plain
-    expression; a CUDA tensor launches the pattern's kernel or raises."""
+    (128, 384) f32 -> (8, columns) f32, written into `out` where given. A
+    CPU tensor takes the plain expression; a CUDA tensor launches the
+    pattern's kernel or raises."""
     if name not in PROBES:
         raise ValueError(f"unknown probe {name!r}: one of {sorted(PROBES)}")
-    if x.device.type == "cpu":
-        return probe_reference(name, x, w, wrep)
-    what = "probe_op"
-    _build.require_cuda_inputs(what, x, w, wrep)
-    _build.require(x.dim() == 2 and x.shape[1] == C4 and x.shape[0] >= ROWS
-                   and x.dtype == torch.bfloat16 and x.is_contiguous(), what,
-                   f"x must be contiguous (rows >= {ROWS}, {C4}) bfloat16, got "
-                   f"{tuple(x.shape)} {x.dtype}")
-    for t, shape in ((w, (C4, 128)), (wrep, (128, C4))):
-        _build.require(tuple(t.shape) == shape and t.dtype == torch.float32
-                       and t.is_contiguous(), what,
-                       f"weights must be contiguous float32 {shape}, got {tuple(t.shape)}")
     index, _, cols = PROBES[name]
-    out = torch.empty((ROWS, cols), dtype=torch.float32, device=x.device)
+    if x.device.type == "cpu":
+        got = probe_reference(name, x, w, wrep)
+        return got if out is None else out.copy_(got)
+    if out is None:
+        out = torch.empty((ROWS, cols), dtype=torch.float32, device=x.device)
+    # Messages are built only on a refusal: the checks run every launch.
+    _build.require_cuda_inputs("probe_op", x, w, wrep, out)
+    if not (x.dim() == 2 and x.shape[1] == C4 and x.shape[0] >= ROWS
+            and x.dtype == torch.bfloat16 and x.is_contiguous() and x.data_ptr() % 16 == 0):
+        raise ValueError(f"probe_op: x must be contiguous 16-byte aligned (rows >= {ROWS}, "
+                         f"{C4}) bfloat16, got {tuple(x.shape)} {x.dtype}")
+    for t, shape in ((w, (C4, 128)), (wrep, (128, C4)), (out, (ROWS, cols))):
+        if not (t.shape == shape and t.dtype == torch.float32 and t.is_contiguous()):
+            raise ValueError(f"probe_op: weights and out must be contiguous float32 {shape}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+    stream = _build.stream_ptr(x.device)
     err = _build.library().probe_op(index, x.data_ptr(), w.data_ptr(), wrep.data_ptr(),
-                                    out.data_ptr(), x.shape[0],
-                                    _build.stream_ptr(x.device))
-    _build.check(err, f"probe_op[{name}]")
+                                    out.data_ptr(), _workspace(x.device, stream), x.shape[0],
+                                    stream)
+    if err:
+        _build.check(err, f"probe_op[{name}]")
     probe_op.launches += 1
     return out
 
 
 probe_op.launches = 0
+
+@functools.lru_cache(maxsize=1)
+def _workspace_bytes() -> int:
+    return _build.library().probe_workspace_bytes()
+
+
+def _workspace(device: torch.device, stream: int) -> int:
+    """The address of `probe_op`'s zeroed workspace on `stream` (its bands'
+    partials and the ticket counter, zero between launches;
+    `_build.stream_scratch`)."""
+    return _build.stream_scratch("probe_op", device, stream, _workspace_bytes())
+
+
+def empty_launch(device) -> None:
+    """One launch of an empty kernel on `device`'s current stream: the
+    card's launch floor, to read beside the probes' times (not counted)."""
+    _build.check(_build.library().probe_empty(_build.stream_ptr(torch.device(device))),
+                 "probe_empty")
 
 
 def probe_inputs(device, seed: int = 0):

@@ -10,7 +10,9 @@ and the int8 conv Q2 against its plain version on the same int8 operands at Q2_R
 step of the largest output (chip_smoke.py, tests/test_torch_cuda.py): its tile body without BN,
 with a ResidualBlock conv2's BN and no ReLU, and at a 4x4 stride-2 layer with BN and ReLU (the
 parity planes), and Q1's two passes on an H shard (`image_absmax`, `quantize_images_at`) bit for
-bit against their plain versions (bound 0). This script shows that
+bit against their plain versions (bound 0), and the ten operation probes against their plain
+expressions at PROBE_RTOL of each pattern's largest magnitude, each pattern called twice into
+NaN-filled buffers (tools/probe_ops.py, chip_smoke.py's probes). This script shows that
 the bounds see a broken kernel: for each mutation it copies csrc/ to a temporary directory, breaks
 the copy by a text substitution, builds it, and measures the broken kernels
 against the same plain versions, beside the unchanged kernels and beside
@@ -32,7 +34,8 @@ ReLU ("Q2 4x4"), errors in units of the plain result's largest magnitude;
 seeded weights with perturbed BN, inputs drawn non-negative like the real
 activations. Q1's passes at the high branch's 4c layer on one of 2 H shards (4 x 32 x 64 x 384,
 bf16), each image's range drawn between 2^-10 and 2^10 ("Q1a": the abs-maxima; "Q1b": the int8
-values and the scales at them, one error in int8 levels).
+values and the scales at them, one error in int8 levels). The probes at their tool's inputs (x 1088
+x 384 bf16, 17 row bands), in units of max(1, max|plain|) of each pattern ("probes").
 
 K2 on an H shard (parallel/spatial.py) fills its maps' halo rows between its two launches, in
 Python (ops/kernels/cbam.py:channel_spatial_gate_sharded); K3, K4 and K6 on an H shard take their
@@ -114,6 +117,7 @@ from adam_dehaze_tpu_torch.ops.kernels.tail_chain import (
     medium_tail_chain,
     medium_tail_chain_reference,
 )
+from adam_dehaze_tpu_torch.tools import probe_ops
 
 SEED = 0
 BATCH, SIZE = 4, 256
@@ -125,7 +129,7 @@ MAPS_ATOL = 1e-5          # K2's statistics pass vs padded_stats
 Q2_RTOL = 2.0 ** -7       # Q2 vs its plain version: one bf16 step, in units of max|plain|
 TIGHT = {"K1": K1_BF16_ATOL, "K3": TAIL_BF16_ATOL, "K4": TAIL_BF16_ATOL,
          "K6": RES_BF16_RTOL, "K2 maps": MAPS_ATOL, "Q2": Q2_RTOL, "Q2 bn": Q2_RTOL,
-         "Q2 4x4": Q2_RTOL, "Q1a": 0.0, "Q1b": 0.0}
+         "Q2 4x4": Q2_RTOL, "Q1a": 0.0, "Q1b": 0.0, "probes": probe_ops.PROBE_RTOL}
 RELATIVE = ("K6", "Q2", "Q2 bn", "Q2 4x4")
 K6_KINDS = ("res", "res", "attn", "res", "attn")
 
@@ -237,6 +241,17 @@ MUTATIONS = {
         "  image_scale<T>(__float_as_uint(a.amax[n]), scale, inv);   // Q1b's scale\n"
         "  {\n    float other;\n"
         "    image_scale<T>(__float_as_uint(a.amax[(n + 1) % gridDim.y]), other, inv);\n  }"),
+    "a band's partials left out of the combine (the probes' last block)": (
+        "probe_ops.cu", "  for (int b = 0; b < static_cast<int>(gridDim.x); ++b) {",
+        "  for (int b = 0; b < static_cast<int>(gridDim.x) - 1; ++b) {"),
+    "sum and max partials swapped in the combine (the probes' last block)": (
+        "probe_ops.cu",
+        "    cs += __ldcg(p + static_cast<size_t>(b) * 2 * kC4);\n"
+        "    cm = fmaxf(cm, __ldcg(p + static_cast<size_t>(b) * 2 * kC4 + kC4));\n",
+        "    cs += __ldcg(p + static_cast<size_t>(b) * 2 * kC4 + kC4);\n"
+        "    cm = fmaxf(cm, __ldcg(p + static_cast<size_t>(b) * 2 * kC4));\n"),
+    "the ticket not reset, so the next launch finds no last block (the probes)": (
+        "probe_ops.cu", "  if (t == 0) *a.ticket = 0u;\n", ""),
 }
 # Mutations a tight bound is not expected to see: they are measured and
 # reported, and fail the run only if they move nothing at all.
@@ -654,6 +669,19 @@ def make_cases(dev, gen):
         q0, s0 = quantize_images_at_reference(xq, amax, xq.shape[3])
         want = torch.cat([q0.flatten().float(), s0])
         cases.append(("Q1b", q1b, (xq, amax), want, None, want))
+    # The probes: each pattern twice into NaN-filled buffers (the second call
+    # finds the ticket the first left), in units of max(1, max|plain|).
+    px, pw, pwrep = probe_ops.probe_inputs(dev, SEED)
+    wants = {name: probe_ops.probe_reference(name, px, pw, pwrep) for name in probe_ops.PROBES}
+    scales = {name: max(1.0, float(v.abs().max())) for name, v in wants.items()}
+
+    def probes(x, w, wrep):
+        return torch.cat([probe_ops.probe_op(name, x, w, wrep, torch.full_like(
+            wants[name], float("nan"))).flatten() / scales[name]
+            for _ in range(2) for name in probe_ops.PROBES])
+    want = torch.cat([wants[name].flatten() / scales[name]
+                      for _ in range(2) for name in probe_ops.PROBES])
+    cases.append(("probes", probes, (px, pw, pwrep), want, None, want))
     return cases
 
 
@@ -680,6 +708,7 @@ def measure(cases):
 def use_sources(csrc: Path):
     _build.CSRC = csrc
     _build.library.cache_clear()
+    _build._SCRATCH.clear()   # a broken library may leave a ticket or a partial set
 
 
 def case_error(case: str, package_root: Path, mutated: bool = False) -> float:
@@ -785,7 +814,8 @@ def main():
           f"K1 with its folded alpha); Q2 at {BATCH} x 64^2 x 384, 3x3, without BN and with BN "
           f"(no ReLU), and at {BATCH} x {SIZE // 2}^2 x 192 -> 384, 4x4 stride 2, BN + ReLU, in "
           f"units of max|plain|, bound {Q2_RTOL:.3e}; Q1a and Q1b at {BATCH} x 32 x 64 x 384, "
-          f"bound 0 (bit for bit)")
+          f"bound 0 (bit for bit); the probes at {probe_ops.FLAT} x {probe_ops.C4}, twice each, "
+          f"in units of each pattern's max|plain|, bound {probe_ops.PROBE_RTOL}")
     unchanged = rows[0][1]
     failed = []
     for name, errs in rows:

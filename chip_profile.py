@@ -2,7 +2,8 @@
 """Where the device time goes, on one GPU: torch.profiler over warm calls.
 
     python3 chip_profile.py [kernels] [routes] [train] [gate] [grads] [joint] [detect]
-                            [shards] [q1]      (kernels, routes and train by default)
+                            [shards] [q1] [probes] [--earlier-probes FILE]
+                            (kernels, routes and train by default)
 
 Profiles, each over 3 warm calls at the sizes of chip_smoke.py (16 images at
 256^2, bf16, the same seeded weights and inputs). `kernels`:
@@ -98,6 +99,20 @@ calls) and the layers where each pass stays furthest from its bound, on the
 card and on the host. It needs only the wrappers' names, so it runs on an
 older tree too, with this script and chip_smoke.py copied in.
 
+`probes`: the ten operation probes (`tools/probe_ops.py`) on their tool's
+inputs (x 1088 x 384 bf16): each pattern's device time per call under the
+profiler, its CUDA-events time over back-to-back calls, the wrapper's host
+time and its bound (bytes moved once over 3.35 TB/s); then the ten summed,
+and the launch floor: an empty kernel's device, events and host time a
+launch. `--earlier-probes FILE` also builds FILE, an earlier
+`csrc/probe_ops.cu` whose `probe_op` takes no workspace (`git show
+REV:adam_dehaze_tpu_torch/csrc/probe_ops.cu` into a git-ignored directory),
+by nvcc beside this tree's `common.cuh`, holds each of its patterns against
+the plain expression and reads it the same ways in the same windows: a
+change to `csrc/probe_ops.cu` is read against its parent's design so, in one
+call on one card. Every window must hold each design's `iters` entries,
+one a call, or it is taken again.
+
 For the profiled sections it prints the device-busy time per call (kernels
 and memcpys, summed once each), the host wall time per call, and the
 largest device entries by name. It fails without a CUDA card, and if the
@@ -124,7 +139,8 @@ TOP = 12
 GATE_REPEATS = 10
 GATE_HOST_CALLS = 2000
 GRAD_RUNS = 3
-SECTIONS = ("kernels", "routes", "train", "gate", "grads", "joint", "detect", "shards", "q1")
+SECTIONS = ("kernels", "routes", "train", "gate", "grads", "joint", "detect", "shards", "q1",
+            "probes")
 Q1_HOST_CALLS = 50
 SHARD_SHAPE = (2, 512, 490, 3)
 # The high branch's blocks timed by `shards`, besides each layer of its
@@ -268,7 +284,13 @@ def profile_shards(dev):
 
 
 def main():
-    sections = sys.argv[1:] or ["kernels", "routes", "train"]
+    args = sys.argv[1:]
+    earlier = None
+    if "--earlier-probes" in args:
+        at = args.index("--earlier-probes")
+        earlier = args[at + 1]
+        del args[at:at + 2]
+    sections = args or ["kernels", "routes", "train"]
     unknown = set(sections) - set(SECTIONS)
     if unknown:
         raise SystemExit(f"chip_profile: unknown sections {sorted(unknown)}")
@@ -294,6 +316,8 @@ def main():
         profile_shards(dev)
     if "q1" in sections:
         profile_q1(dev)
+    if "probes" in sections:
+        profile_probes(dev, earlier)
 
 
 def host_ms(fn, calls=Q1_HOST_CALLS):
@@ -318,11 +342,14 @@ def q1_pass_of(kernel: str) -> str:
     return "Q1b" if "quantize" in kernel else "vector_norm"
 
 
-def q1_device_us(fns, iters=10, tries=3):
+def q1_device_us(fns, iters=10, tries=3, pass_of=q1_pass_of, launches=None):
     """{pass: device µs a call} of the passes `fns` ({pass: fn}), each run
     `iters` times under ONE profiler window (a process that opened some
     fifty windows has seen one come back empty), its device entries split by
-    `q1_pass_of`. A window in which a pass has no entry is taken again."""
+    `pass_of`. A window in which a pass has no entry is taken again, and so
+    is one in which a pass's entries are not `iters` x `launches` (kernels
+    a call, where given): a process's later windows have been seen to lose
+    some of them."""
     for fn in fns.values():
         fn()
     torch.cuda.synchronize()
@@ -332,13 +359,16 @@ def q1_device_us(fns, iters=10, tries=3):
                 for _ in range(iters):
                     fn()
             torch.cuda.synchronize()
-        us = dict.fromkeys(fns, 0.0)
+        us, seen = dict.fromkeys(fns, 0.0), dict.fromkeys(fns, 0)
         for e in prof.key_averages():
             if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
-                us[q1_pass_of(e.key)] += e.self_device_time_total / iters
-        if all(us.values()):
+                us[pass_of(e.key)] += e.self_device_time_total / iters
+                seen[pass_of(e.key)] += e.count
+        if all(us.values()) and (launches is None
+                                 or all(n == iters * launches for n in seen.values())):
             return us
-    raise AssertionError(f"the profiler saw no device entry of a pass: {us}")
+    raise AssertionError(f"the profiler saw {seen} device entries of the passes in {iters} "
+                         f"calls each: {us}")
 
 
 def profile_q1(dev):
@@ -407,6 +437,83 @@ def profile_q1(dev):
     with torch.inference_mode():
         cs.log("[q1 host] us a call, enqueued back to back at (16, 2, 2, 8) bf16: " + ", ".join(
             f"{name} {host_ms(fn, 20 * Q1_HOST_CALLS) * 1e3:.2f}" for name, fn in steps.items()))
+
+
+def probe_design_of(kernel: str) -> str:
+    """Whose a device entry of `probes` is, by its kernel's name: the empty
+    kernel's, this tree's probes' (`probe_kernel<Ep>`, `probe_select_kernel`)
+    or the earlier design's (`probe_a` to `probe_i`)."""
+    if "probe_empty" in kernel:
+        return "empty"
+    return "now" if "probe_kernel" in kernel or "probe_select" in kernel else "earlier"
+
+
+def earlier_probe_library(source):
+    """The probes of an earlier `csrc/probe_ops.cu` (`probe_op(which, x, w,
+    wrep, out, flat, stream)`), built alone by nvcc with this tree's flags
+    and headers, loaded by ctypes."""
+    import ctypes
+    from adam_dehaze_tpu_torch.ops.kernels import _build
+    with tempfile.TemporaryDirectory() as tmp:
+        lib_path = os.path.join(tmp, "libprobe_earlier.so")
+        t0 = time.perf_counter()
+        subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-I", str(_build.CSRC),
+                        "-o", lib_path, os.path.abspath(source)], check=True,
+                       capture_output=True, text=True)
+        cs.log(f"[probes] built the earlier design {source} in {time.perf_counter() - t0:.1f} s")
+        lib = ctypes.CDLL(lib_path)
+    lib.probe_op.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int,
+                                                                       ctypes.c_void_p]
+    lib.probe_op.restype = ctypes.c_int
+    return lib
+
+
+def profile_probes(dev, earlier=None):
+    """`probes` (see the docstring)."""
+    from adam_dehaze_tpu_torch.ops.kernels import _build
+    from adam_dehaze_tpu_torch.tools import probe_ops
+    x, w, wrep = probe_ops.probe_inputs(dev, cs.SEED)
+    lib = earlier_probe_library(earlier) if earlier else None
+    stream = _build.stream_ptr(x.device)
+    rows = {}
+    for name, (index, _, cols) in probe_ops.PROBES.items():
+        out = torch.empty((probe_ops.ROWS, cols), device=dev)
+        fns = {"now": lambda name=name, out=out: probe_ops.probe_op(name, x, w, wrep, out)}
+        if lib is not None:
+            def old(index=index, out=out):
+                cs.check(lib.probe_op(index, x.data_ptr(), w.data_ptr(), wrep.data_ptr(),
+                                      out.data_ptr(), x.shape[0], stream) == 0,
+                         f"the earlier design's {name} failed to launch")
+            fns["earlier"] = old
+        want = probe_ops.probe_reference(name, x, w, wrep)
+        for design, fn in fns.items():
+            out.fill_(float("nan"))
+            fn()
+            err = cs.scaled_err(out, want)
+            cs.check(err <= probe_ops.PROBE_RTOL, f"{design} {name} disagrees: {err:.3e}")
+        device = q1_device_us(fns, pass_of=probe_design_of, launches=1)
+        moved = cs.probe_work(name, x, w, wrep, out)[0]
+        rows[name] = {design: dict(device=device[design], events=cs.cuda_ms(fn, 20, 3) * 1e3,
+                                   host=host_ms(fn) * 1e3) for design, fn in fns.items()}
+        rows[name]["bound"] = moved / cs.PEAK_BYTES_S * 1e6
+        cs.log(f"[probe] {name}: bound {rows[name]['bound']:.2f} us; " + "; ".join(
+            f"{design} device {r['device']:.2f} us, events {r['events']:.2f} us, host "
+            f"{r['host']:.2f} us" for design, r in rows[name].items() if design != "bound"))
+    empty = {"empty": lambda: probe_ops.empty_launch(dev)}
+    floor = dict(device=q1_device_us(empty, pass_of=probe_design_of, launches=1)["empty"],
+                 events=cs.cuda_ms(empty["empty"], 20, 3) * 1e3,
+                 host=host_ms(empty["empty"]) * 1e3)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True).stdout.strip()
+    for design in ("now", "earlier") if lib is not None else ("now",):
+        tot = {k: sum(r[design][k] for r in rows.values()) / 1e3
+               for k in ("device", "events", "host")}
+        cs.log(f"[probes {design}] the ten: device {tot['device']:.4f} ms under the profiler, "
+               f"CUDA events {tot['events']:.4f} ms, host {tot['host']:.4f} ms; bound "
+               f"{sum(r['bound'] for r in rows.values()) / 1e3:.4f} ms; {smi}")
+    cs.log(f"[probes floor] an empty kernel a launch: device {floor['device']:.2f} us, events "
+           f"{floor['events']:.2f} us, host {floor['host']:.2f} us; ten: device "
+           f"{10 * floor['device'] / 1e3:.4f} ms, events {10 * floor['events'] / 1e3:.4f} ms")
 
 
 def time_gate(dev):

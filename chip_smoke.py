@@ -18,7 +18,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    and one cuDNN call on the same tensors as the yardstick), K3 and K4 (the
    medium and high tail chains), K6 (the res/attention segment chain, at
    the six segments of the medium and the high branch) and the ten
-   operation probes. fp32 against the fp32 plain version at 1e-4 with TF32
+   operation probes (each twice, the same bits; their device time under
+   the profiler, in a process of its own, beside CUDA events, and the
+   launch floor of ten empty kernels back to back). fp32 against the fp32 plain version at 1e-4 with TF32
    off; bf16 against the fp32 plain version at 3e-2. The bf16 tensor-core
    bodies are also held against the bf16 plain versions, which round at the
    same points: K1 with alpha 1 at c=32 and c=48 (K1_BF16_ATOL), K3 and K4
@@ -1292,28 +1294,101 @@ def phase_res_chain_kernels(dev, gen, size=SIZE, tag=""):
                 segments=segments, **total)
 
 
+PROBE_TIMES_TIMEOUT_S = 120
+
+
+def probe_work(name, x, w, wrep, out):
+    """(bytes, operations) that pattern `name`'s function needs at least:
+    the columns of x its result depends on read once (D the first 96, E and
+    I the first 128, G only x[:8, :4], the others all 384), w (B, B8) or
+    wrep (E) read once, out written once; one operation a read value of x
+    (two for A's sum and max), 2 K N for the one-row product, one a value
+    of F's result."""
+    key = name.split("_")[0]
+    if key == "G":
+        return nbytes(x[:probe_ops.ROWS, :4], out), 0
+    cols = {"D": probe_ops.C, "E": 128, "I": 128}.get(key, probe_ops.C4)
+    mat = (w.numel() if "K384" in name else 0) + (wrep.numel() if "N384" in name else 0)
+    moved = x.shape[0] * cols * x.element_size() + nbytes(out) + 4 * mat
+    flops = x.shape[0] * cols * (2 if key == "A" else 1) + 2 * mat + (
+        out.numel() if key == "F" else 0)
+    return moved, flops
+
+
+def probe_times(iters=10):
+    """`--probe-times`: the ten probes' device time, and that of ten launches
+    of an empty kernel, in ms, under ONE profiler window of this process,
+    split by kernel name; prints them as a JSON list. Phase 3 runs it in a
+    process of its own: once a process has opened a profiler window, its
+    later windows have been seen to lose device entries, and `device_ms`
+    (phase 23) then refuses them."""
+    from torch.profiler import ProfilerActivity, profile
+    dev = torch.device("cuda")
+    x, w, wrep = probe_ops.probe_inputs(dev, SEED)
+    ten = len(probe_ops.PROBES)
+
+    def both():
+        for name in probe_ops.PROBES:
+            probe_ops.probe_op(name, x, w, wrep)
+        for _ in range(ten):
+            probe_ops.empty_launch(dev)
+    both()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            both()
+        torch.cuda.synchronize()
+    us, seen = [0.0, 0.0], [0, 0]
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = int("probe_empty" in e.key)
+            us[k] += e.self_device_time_total
+            seen[k] += e.count
+    check(seen == [ten * iters] * 2, f"the profiler saw {seen} device entries of the probes and "
+          f"the empty kernel in {iters} calls of ten each")
+    print(json.dumps([t / 1e3 / iters for t in us]), flush=True)
+
+
 def phase_probe_kernels(dev):
-    """Each probe's wrapper on the card against its plain expression, and
-    their times; sums over the ten patterns."""
+    """Each probe's wrapper on the card against its plain expression, twice
+    into NaN-filled buffers (the second call the same bits), and their
+    times: CUDA events and the profiler's device time (`probe_times`, in a
+    process of its own), summed over the ten patterns, beside the card's
+    launch floor (ten back-to-back launches of an empty kernel, both ways)."""
     x, w, wrep = probe_ops.probe_inputs(dev, SEED)
     worst, ms, plain, moved, flops = 0.0, 0.0, 0.0, 0, 0
     for name in probe_ops.PROBES:
-        got = probe_ops.probe_op(name, x, w, wrep)
+        got, again = (probe_ops.probe_op(name, x, w, wrep, torch.full(
+            (probe_ops.ROWS, probe_ops.PROBES[name][2]), float("nan"), device=dev))
+            for _ in range(2))
         want = probe_ops.probe_reference(name, x, w, wrep)
         err = scaled_err(got, want)
         check(got.shape == want.shape and err <= probe_ops.PROBE_RTOL,
               f"probe {name} disagrees with its plain expression: {err:.3e}")
+        check(torch.equal(got, again), f"probe {name}: a second call gave other bits")
         worst = max(worst, err)
         ms += cuda_ms(lambda: probe_ops.probe_op(name, x, w, wrep))
         plain += cuda_ms(lambda: probe_ops.probe_reference(name, x, w, wrep))
-        moved += nbytes(x, got) + (nbytes(w) if "K384" in name else 0) + (
-            nbytes(wrep) if "N384" in name else 0)
-        flops += 2 * x.numel() + 2 * got.numel() * (384 if "dot" in name else 1)
+        work = probe_work(name, x, w, wrep, got)
+        moved, flops = moved + work[0], flops + work[1]
     bd = bound(flops, moved, PEAK_F32_FLOPS)
+
+    def empties():
+        for _ in probe_ops.PROBES:
+            probe_ops.empty_launch(dev)
+    floor_ms = cuda_ms(empties)
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--probe-times"],
+                          capture_output=True, text=True, timeout=PROBE_TIMES_TIMEOUT_S)
+    check(proc.returncode == 0, f"the probes' device times failed:\n{proc.stdout}{proc.stderr}")
+    device, floor_device = json.loads(proc.stdout.strip().splitlines()[-1])
     log(f"[probes] ten patterns on x {tuple(x.shape)} bf16: worst err {worst:.3e} of the "
-        f"result's largest magnitude (bound {probe_ops.PROBE_RTOL}); kernels {ms:.3f} ms, "
-        f"plain {plain:.3f} ms; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}")
+        f"result's largest magnitude (bound {probe_ops.PROBE_RTOL}), each twice bit for bit; "
+        f"kernels {ms:.4f} ms by CUDA events, device {device:.4f} ms under the profiler; "
+        f"plain {plain:.3f} ms; bound {bd['bound_ms']:.4f} ms by {bd['bound_by']}; launch "
+        f"floor (ten empty kernels back to back) {floor_ms:.4f} ms by events, device "
+        f"{floor_device:.4f} ms")
     return dict(max_abs_err=worst, err_unit="max|plain| of each pattern", ms=ms,
+                device_ms=device, launch_floor_ms=floor_ms, launch_floor_device_ms=floor_device,
                 plain_ms=plain, library_ms=None, per="the ten patterns, one launch each",
                 shape=list(x.shape), **bd)
 
@@ -6055,6 +6130,8 @@ if __name__ == "__main__":
         joint_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5], sys.argv[6])
     elif sys.argv[1:2] == ["--resize-rank"]:
         resize_rank(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5])
+    elif sys.argv[1:2] == ["--probe-times"]:
+        probe_times()
     elif sys.argv[1:2] == ["--int8-shard-rank"]:
         int8_shard_rank(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]), sys.argv[5],
                         sys.argv[6])

@@ -754,6 +754,66 @@ def test_probes_on_card(cuda_device):
         probe_ops.probe_op("B_dot_1row_K384", x, wrep, w)             # weights swapped
 
 
+def _probe_inputs(flat, device, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(flat, 384, generator=gen).bfloat16().to(device)
+    return x, torch.randn(384, 128, generator=gen).to(device), \
+        torch.randn(128, 384, generator=gen).to(device)
+
+
+def _probe_out(name, device):
+    """A NaN-filled result buffer: a pattern that writes nothing shows."""
+    from adam_dehaze_tpu_torch.tools import probe_ops
+    return torch.full((probe_ops.ROWS, probe_ops.PROBES[name][2]), float("nan"), device=device)
+
+
+# 8 and 9: one band, most row lanes empty; 1088 the tool's height and 1089 one
+# row over; 65536 more bands (64 rows or more each) than the card has SMs.
+@pytest.mark.parametrize("flat", [8, 9, 1088, 1089, 65536])
+def test_probe_kernels_match_plain_at_any_height(cuda_device, flat):
+    from adam_dehaze_tpu_torch.tools import probe_ops
+    if flat == 65536:
+        assert flat // 64 > torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    x, w, wrep = _probe_inputs(flat, cuda_device, flat)
+    before = probe_ops.probe_op.launches
+    for name in probe_ops.PROBES:
+        got = probe_ops.probe_op(name, x, w, wrep, _probe_out(name, cuda_device))
+        want = probe_ops.probe_reference(name, x, w, wrep)
+        scale = max(1.0, float(want.abs().max()))
+        torch.testing.assert_close(got, want, rtol=0, atol=probe_ops.PROBE_RTOL * scale,
+                                   msg=lambda m, name=name: f"{name} at flat {flat}: {m}")
+    assert probe_ops.probe_op.launches - before == len(probe_ops.PROBES)
+
+
+@pytest.mark.parametrize("flat", [1088, 65536])
+def test_probe_kernels_repeat_bit_for_bit(cuda_device, flat):
+    """The ticket is ready again after each launch and the bands are summed
+    in a fixed order: two rounds of the ten give the same bits."""
+    from adam_dehaze_tpu_torch.tools import probe_ops
+    x, w, wrep = _probe_inputs(flat, cuda_device, 1)
+    rounds = [{name: probe_ops.probe_op(name, x, w, wrep, _probe_out(name, cuda_device))
+               for name in probe_ops.PROBES} for _ in range(2)]
+    for name in probe_ops.PROBES:
+        assert torch.isfinite(rounds[0][name]).all(), name
+        assert torch.equal(rounds[0][name], rounds[1][name]), name
+
+
+def test_probe_kernels_on_a_side_stream(cuda_device):
+    from adam_dehaze_tpu_torch.tools import probe_ops
+    x, w, wrep = _probe_inputs(1088, cuda_device, 2)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.cuda.stream(side):
+        got = {name: probe_ops.probe_op(name, x, w, wrep, _probe_out(name, cuda_device))
+               for name in probe_ops.PROBES}
+    torch.cuda.current_stream(cuda_device).wait_stream(side)
+    assert ("probe_op", x.device.index, side.cuda_stream) in _build._SCRATCH
+    for name, out in got.items():
+        want = probe_ops.probe_reference(name, x, w, wrep)
+        torch.testing.assert_close(out, want, rtol=0, atol=probe_ops.PROBE_RTOL * max(
+            1.0, float(want.abs().max())), msg=lambda m, name=name: f"{name}: {m}")
+
+
 def test_autotune_on_card_offers_and_times_the_kernels(cuda_device, tmp_path):
     from adam_dehaze_tpu_torch.serving_autotune import candidate_builders, load_or_tune
     cache = str(tmp_path / "tune.json")
